@@ -1,0 +1,217 @@
+"""Paged device state: page-table translation + paged scatter updates.
+
+Counterpart of `tempo_tpu/ops/pages.py`. State lives in a few
+process-wide arenas carved into fixed-size pages (pow-2 rows each), and
+every update gathers the physical page of each row through a small
+indirection table before it scatters:
+
+    logical slot s  →  page_table[s >> page_shift]          (gather)
+                    →  phys_page * page_rows + (s & mask)   (arena row)
+
+Discards keep the dense -1 semantics: a negative slot or an unbacked
+page (table entry -1) translates to `arena_rows`, one past the last row,
+and every update drops such rows.
+
+The reference builds memoized jitted steps that take and return
+(donated) arenas. PyTorch runs eagerly and has no donation, so each
+`*_step` here is a plain function that updates its arena tensor in
+place; callers hold the pool lock across the call, as the reference's
+callers hold it across dispatch and rebind.
+
+`fused_step` is the slice's hot path: it hands the whole span-metrics
+plane family to `ops.cuda_kernels.paged_fused_update`, which launches
+the hand-written CUDA kernel for tensors on the card and runs the plain
+composed scatters of `_fused_body` for tensors on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+
+def translate(page_table: torch.Tensor, slots: torch.Tensor, page_shift: int,
+              arena_rows: int) -> torch.Tensor:
+    """Logical slots → physical arena rows (int64); discards and unbacked
+    pages → `arena_rows`."""
+    s = slots.to(torch.int64)
+    n_lp = page_table.shape[0]
+    lp = s >> page_shift
+    phys = page_table[lp.clamp(0, n_lp - 1)].to(torch.int64)
+    row = (phys << page_shift) | (s & ((1 << page_shift) - 1))
+    bad = (s < 0) | (phys < 0) | (lp >= n_lp)
+    return torch.where(bad, arena_rows, row)
+
+
+def _kept(arena: torch.Tensor, table, slots, page_shift):
+    """(rows, keep) for an add: rows of the kept spans and their mask."""
+    r = translate(table, slots, page_shift, arena.shape[0])
+    keep = r < arena.shape[0]
+    return r[keep], keep
+
+
+def _add1(arena, table, slots, vals, page_shift) -> None:
+    r, keep = _kept(arena, table, slots, page_shift)
+    arena.index_put_((r,), vals[keep], accumulate=True)
+
+
+def _hist_scatter(arena2d, table, slots, buckets, w, page_shift) -> None:
+    """Add weights into a wide arena at (row(slot), bucket) — a 2-D
+    scatter, since `rows * width` overflows int32 at large arenas."""
+    r, keep = _kept(arena2d, table, slots, page_shift)
+    arena2d.index_put_((r, buckets[keep]), w[keep], accumulate=True)
+
+
+# ---------------------------------------------------------------------------
+# per-family updates (the non-fused registry paths)
+# ---------------------------------------------------------------------------
+
+def counter_add_step(arena, table, slots, vals, *, page_shift: int) -> None:
+    """Paged counter add, in place."""
+    _add1(arena, table, slots,
+          torch.as_tensor(vals, dtype=arena.dtype, device=arena.device),
+          page_shift)
+
+
+def gauge_set_step(arena, table, slots, vals, *, page_shift: int) -> None:
+    """Paged gauge set, in place (the host already resolved last-wins
+    per slot)."""
+    r, keep = _kept(arena, table, slots, page_shift)
+    v = torch.as_tensor(vals, dtype=torch.float32, device=arena.device)
+    arena[r] = v[keep]
+
+
+def hist_bucket(v: torch.Tensor, edges: tuple) -> torch.Tensor:
+    """Latency histogram bucket Σ(v > e) over the f32 edges —
+    `searchsorted(side="left")`: a value equal to an edge falls in that
+    edge's bucket."""
+    e = torch.tensor(edges, dtype=torch.float32, device=v.device)
+    return (v[:, None] > e[None, :]).sum(dim=1)
+
+
+def histogram_observe_step(a_sums, a_counts, ab, t_bucket, t_sums, t_counts,
+                           slots, values, weights, *, edges: tuple,
+                           page_shift: int) -> None:
+    """Classic histogram, in place: bucket increments in the wide arena,
+    sums and counts each in their own width-1 role arena."""
+    dev = ab.device
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    _hist_scatter(ab, t_bucket, slots, hist_bucket(v, tuple(edges)), w,
+                  page_shift)
+    _add1(a_sums, t_sums, slots, v * w, page_shift)
+    _add1(a_counts, t_counts, slots, w, page_shift)
+
+
+# ---------------------------------------------------------------------------
+# reads: gather / zero through the table
+# ---------------------------------------------------------------------------
+
+def gather_step(arena, table, slots, *, page_shift: int) -> torch.Tensor:
+    """Rows [n] or [n, width] of the slots; unbacked or negative slots
+    read 0 (freed pages are zeroed, so a stale table entry can never
+    leak another tenant's rows)."""
+    r = translate(table, slots, page_shift, arena.shape[0])
+    bad = r >= arena.shape[0]
+    got = arena[torch.where(bad, 0, r)]
+    fill = bad if arena.ndim == 1 else bad[:, None]
+    return got.masked_fill(fill, 0)
+
+
+def zero_step(arena, table, slots, *, page_shift: int) -> None:
+    """Zero the slots' rows in place (eviction sweep)."""
+    r = translate(table, slots, page_shift, arena.shape[0])
+    arena[r[r < arena.shape[0]]] = 0
+
+
+def zero_pages_step(arena, pages, *, page_rows: int) -> None:
+    """Zero every listed physical page in place, in one indexing op
+    (negative page ids are ignored): pages return to the free list all
+    zero so the next owner starts clean."""
+    p = torch.as_tensor(pages, device=arena.device).to(torch.int64)
+    p = p[p >= 0]
+    rows = (p[:, None] * page_rows
+            + torch.arange(page_rows, device=arena.device)[None, :])
+    arena[rows.reshape(-1)] = 0
+
+
+# ---------------------------------------------------------------------------
+# the fused span-metrics step (calls + latency hist + size + DDSketch)
+# ---------------------------------------------------------------------------
+
+def dd_index(v: torch.Tensor, gamma: float, min_value: float,
+             nb: int) -> torch.Tensor:
+    """DDSketch bucket of f32 durations, in the reference's f32 op order:
+    ceil(log(max(v, min) / min) / f32(log γ)), clipped to [0, nb-1].
+    Divisors are device tensors, never Python scalars: PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal, which is not
+    IEEE division."""
+    mn = torch.tensor(min_value, dtype=torch.float32, device=v.device)
+    lg = torch.tensor(math.log(gamma), dtype=torch.float32, device=v.device)
+    idx = torch.ceil(torch.log(torch.maximum(v, mn) / mn) / lg)
+    return idx.clamp(0, nb - 1).to(torch.int64)
+
+
+def _fused_body(arenas: Sequence[torch.Tensor], tables: Sequence[torch.Tensor],
+                slots, dur_s, sizes, weights, *, edges: tuple, gamma: float,
+                min_value: float, dd_rows: int, page_shift: int) -> None:
+    """One paged step for all span-metrics families, as composed
+    scatters, in place. `arenas` / `tables` are role-aligned: (calls,
+    hist_sums, hist_counts, sizes, hist_buckets[, dd_zeros, dd_counts]);
+    each plane scatters into its own role arena through its own table.
+    The op order and f32 arithmetic follow the reference's `_fused_body`
+    (`tempo_tpu/ops/pages.py:416`)."""
+    a_calls, a_hs, a_hc, a_sz, ab = arenas[:5]
+    t_calls, t_hs, t_hc, t_sz, t_hb = tables[:5]
+    dev = a_calls.device
+    slots = torch.as_tensor(slots, device=dev).to(torch.int64)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    v = torch.as_tensor(dur_s, dtype=torch.float32, device=dev)
+    _add1(a_calls, t_calls, slots, w, page_shift)
+    _hist_scatter(ab, t_hb, slots, hist_bucket(v, tuple(edges)), w,
+                  page_shift)
+    _add1(a_hs, t_hs, slots, v * w, page_shift)
+    _add1(a_hc, t_hc, slots, w, page_shift)
+    _add1(a_sz, t_sz, slots,
+          torch.as_tensor(sizes, dtype=torch.float32, device=dev) * w,
+          page_shift)
+    if dd_rows:
+        a_ddz, ad = arenas[5], arenas[6]
+        t_ddz, t_ddc = tables[5], tables[6]
+        # the DDSketch plane may cover a strict prefix of the table
+        dd_slots = torch.where(slots < dd_rows, slots, -1)
+        mn = torch.tensor(min_value, dtype=torch.float32, device=dev)
+        is_zero = v <= mn
+        idx = dd_index(v, gamma, min_value, ad.shape[-1])
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        _hist_scatter(ad, t_ddc, dd_slots, idx,
+                      torch.where(is_zero, zero, w), page_shift)
+        _add1(a_ddz, t_ddz, dd_slots, torch.where(is_zero, w, zero),
+              page_shift)
+
+
+def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
+               edges: tuple, gamma: float, min_value: float, dd_rows: int,
+               page_shift: int) -> None:
+    """The paged fused span-metrics update, in place.
+
+    `tables` is the stacked [R, P] int32 table, padded with -1. `batch`
+    is either one [4, N] f32 matrix (slots, dur_s, sizes, weights — slot
+    ids exact in f32 under the caller's capacity < 2^24 gate) or a tuple
+    of four vectors (int32 slots and three f32 rows). With dd off
+    (dd_rows=0) there are 5 arenas and 5 table rows, else 7."""
+    from tempo_tpu_torch.ops import cuda_kernels
+
+    dev = arenas[0].device
+    if isinstance(batch, torch.Tensor):
+        slots, vals = batch[0], batch[1:4]
+    else:
+        slots = torch.as_tensor(batch[0], dtype=torch.int32).to(dev)
+        vals = torch.stack([torch.as_tensor(x, dtype=torch.float32)
+                            for x in batch[1:4]]).to(dev)
+    cuda_kernels.paged_fused_update(
+        tables, slots, vals, tuple(arenas), page_rows=1 << page_shift,
+        edges=tuple(edges), gamma=gamma, min_value=min_value,
+        dd_rows=dd_rows)

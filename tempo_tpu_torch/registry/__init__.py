@@ -1,0 +1,9 @@
+"""Metrics registry: series tables, paged device state, collection."""
+
+from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
+                                               ManagedRegistry,
+                                               RegistryOverrides)
+from tempo_tpu_torch.registry.series import Exemplar, Sample
+
+__all__ = ["DEFAULT_HISTOGRAM_EDGES", "ManagedRegistry", "RegistryOverrides",
+           "Exemplar", "Sample"]

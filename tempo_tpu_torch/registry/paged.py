@@ -1,0 +1,137 @@
+"""Paged metric families: the registry's families over pooled pages.
+
+Counterpart of `tempo_tpu/registry/paged.py`. Each class keeps the
+family's host half (series table, exemplars, staleness markers, collect
+formatting — inherited) and supplies the device half: rows live in the
+page pool's arenas behind a per-family indirection table, updates go
+through the paged updates of `ops/pages.py` in place, and snapshots
+gather the active slots back through the same table into
+capacity-shaped host arrays. Every device op runs under the registry
+state lock, which is the pool's lock.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tempo_tpu_torch.ops import pages as op
+from tempo_tpu_torch.registry.pages import PageBacking, PagedPlane
+from tempo_tpu_torch.registry.registry import (
+    DEFAULT_HISTOGRAM_EDGES,
+    Counter,
+    Gauge,
+    Histogram,
+    _MetricBase,
+    _pad_len,
+)
+
+
+class _PagedBase(_MetricBase):
+    """Shared paged plumbing: planes + backing + gather snapshots."""
+
+    def __init__(self, registry, name, label_names, capacity) -> None:
+        super().__init__(registry, name, label_names, capacity)
+        self.pool = registry.pages
+        self.planes: dict[str, PagedPlane] = {}
+        self.table.backing = PageBacking(self.pool)
+
+    def _plane(self, role: str, width: int) -> PagedPlane:
+        p = PagedPlane(self.pool, "float32", width, self.table.capacity,
+                       self.registry.tenant, role=f"{self.name}/{role}")
+        self.planes[role] = p
+        self.table.backing.add_plane(p)
+        return p
+
+    def _padded_active(self) -> tuple[np.ndarray, int]:
+        """Active slots padded to a pow-2 bucket with -1 rows (read 0)."""
+        slots = self.table.active_slots()
+        padded = np.full(_pad_len(max(slots.size, 1)), -1, np.int32)
+        padded[:slots.size] = slots
+        return padded, slots.size
+
+    def _gather_full(self, plane: PagedPlane) -> np.ndarray:
+        """Capacity-shaped host array with the active rows filled."""
+        padded, n = self._padded_active()
+        shape = (self.table.capacity,) if plane.width == 1 \
+            else (self.table.capacity, plane.width)
+        full = np.zeros(shape, np.float32)
+        if n:
+            full[padded[:n]] = plane.gather(padded)[:n]
+        return full
+
+    def zero_evicted(self, padded_slots: np.ndarray) -> None:
+        for p in self.planes.values():
+            # the registry pads eviction batches with `capacity`; the paged
+            # discard encoding is a negative slot
+            p.zero_slots(np.where(padded_slots < p.capacity,
+                                  padded_slots, -1))
+
+    def device_state_bytes(self) -> int:
+        return sum(p.device_state_bytes() for p in self.planes.values())
+
+    def _dev(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.pool.device)
+
+
+class PagedCounter(_PagedBase, Counter):
+    def __init__(self, registry, name, label_names, capacity):
+        super().__init__(registry, name, label_names, capacity)
+        self.values = self._plane("values", 1)
+
+    def add_slots(self, slots: np.ndarray,
+                  weights: np.ndarray | None = None) -> None:
+        w = np.ones(len(slots), np.float32) if weights is None else weights
+        with self.registry.state_lock:
+            op.counter_add_step(self.values.data, self.values.device_map(),
+                                self._dev(slots, torch.int32),
+                                self._dev(w, torch.float32),
+                                page_shift=self.pool.page_shift)
+
+    def _snap(self) -> tuple:
+        return (self._gather_full(self.values),)
+
+
+class PagedGauge(_PagedBase, Gauge):
+    def __init__(self, registry, name, label_names, capacity):
+        super().__init__(registry, name, label_names, capacity)
+        self.values = self._plane("values", 1)
+
+    def _device_set(self, slots: np.ndarray, values: np.ndarray) -> None:
+        with self.registry.state_lock:
+            op.gauge_set_step(self.values.data, self.values.device_map(),
+                              self._dev(slots, torch.int32),
+                              self._dev(values, torch.float32),
+                              page_shift=self.pool.page_shift)
+
+    def _snap(self) -> tuple:
+        return (self._gather_full(self.values),)
+
+
+class PagedHistogram(_PagedBase, Histogram):
+    def __init__(self, registry, name, label_names, capacity,
+                 edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES):
+        super().__init__(registry, name, label_names, capacity)
+        self.edges = tuple(edges)
+        self.buckets = self._plane("buckets", len(self.edges) + 1)
+        self.sums = self._plane("sums", 1)
+        self.counts = self._plane("counts", 1)
+
+    def observe_slots(self, slots: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None) -> None:
+        w = np.ones(len(slots), np.float32) if weights is None else weights
+        with self.registry.state_lock:
+            op.histogram_observe_step(
+                self.sums.data, self.counts.data, self.buckets.data,
+                self.buckets.device_map(), self.sums.device_map(),
+                self.counts.device_map(), self._dev(slots, torch.int32),
+                self._dev(values, torch.float32), self._dev(w, torch.float32),
+                edges=self.edges, page_shift=self.pool.page_shift)
+
+    def _snap(self) -> tuple:
+        return (self._gather_full(self.buckets),
+                self._gather_full(self.sums),
+                self._gather_full(self.counts))
+
+
+__all__ = ["PagedCounter", "PagedGauge", "PagedHistogram"]
