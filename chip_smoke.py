@@ -6,23 +6,38 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 Phases, all on `cuda`, at the repository's default deployment widths
-(max_active_series 65,536, DDSketch 1,269 buckets over 16,384 series,
-15 latency buckets, page pool of 256-row pages and 131,072 usable rows
-per role arena):
+(max_active_series 65,536, DDSketch 1,269 buckets and a 12-moment row
+over 16,384 series, 15 latency buckets, page pool of 256-row pages and
+131,072 usable rows per role arena):
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every kernel of the path from `tempo_tpu_torch/csrc`;
-3. each kernel against its plain PyTorch version on the card, on copies
-   of the same arenas over 8 dispatches of 16,384 spans; then K1 on
-   durations placed on the DDSketch bucket edges, against the host;
-4. the main path through the entry points: seeded OTLP payloads →
-   `otlp_proto_to_batch` → `GeneratorInstance.push_batch` on the card →
-   `collect_and_push()` to a local remote-write receiver → `quantile()`,
-   with per-span sizes and sample weights, held against the same path
-   on the host (plain versions; quantiles exactly equal); kernel
-   launch counts are zeroed just before and read just after;
+2. build of every kernel source in `tempo_tpu_torch/csrc`, one `nvcc`
+   per source, all started together;
+3. each kernel against its plain PyTorch version on the card:
+   a. K1 (`paged_fused_update`) with f32 `sketch: dd` state, 7 roles,
+      8 dispatches of 16,384 spans; then K1 on durations placed on the
+      DDSketch bucket edges, against the host;
+   b. K1 with `sketch: both` and compact state, 8 roles (int32 counts,
+      a bf16 Kahan pair, f32 sizes and moments), 3 dispatches of 16,384
+      Zipf-skewed spans with dyadic durations and weights, from non-zero
+      state;
+   c. K2 (`fused_spanmetrics_matmul`) at the reference benchmark's shape
+      (262,144 spans, 4,096 series, 12 edges), driven over 8 batches;
+4. the main paths through the entry points, each on the card against the
+   same path on the host (plain versions), with kernel launch counts
+   zeroed just before and read just after: seeded OTLP payloads →
+   `otlp_proto_to_batch` → `GeneratorInstance.push_batch` →
+   `collect_and_push()` to a local remote-write receiver → quantiles;
+   a. `sketch: dd` with f32 state (quantiles exactly equal);
+   b. `sketch: both` with compact state (DDSketch quantiles exactly
+      equal, every series' moments row within the moments tolerance of
+      phase 3b, moments quantiles compared and the series outside rtol
+      1e-3 counted);
+   then device state bytes per active series of the dd-f32, both-compact
+   and moments tiers;
 5. times: per-dispatch kernel and plain times (CUDA events, median),
-   the least time the card could take, and end-to-end spans/s.
+   device time (torch.profiler), the least time the card could take,
+   the library yardstick where one exists, and end-to-end spans/s.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -47,6 +62,13 @@ N_SPANS = 16384
 N_DISPATCH = 8
 N_TIMED = 30
 SEED = 20261016
+PAGE_ROWS, PAGE_SHIFT = 256, 8
+N_SERIES, DD_ROWS = 65536, 16384
+ARENA_SLOTS = 131072             # usable rows per role arena
+MOM_K = 12
+K2_SPANS, K2_SERIES = 262144, 4096
+K2_EDGES = (0.002, 0.004, 0.008, 0.016, 0.032, 0.064, 0.128, 0.256, 0.512,
+            1.024, 2.048, 4.096)   # benchmarks/bench_kernels.py:22-23
 
 
 def smi_line() -> str:
@@ -67,36 +89,64 @@ def zipf_slots(rng, n, n_series, discard=0.05, a=1.1):
     return slots
 
 
-def touched_bytes(mat, tables, page_shift, dd_rows, nb, edges, gamma, minv):
-    """Bytes the fused update must move for this batch: the batch and the
-    tables read once, and every distinct touched arena cell read and
-    written once."""
+def _dd_meta():
+    from tempo_tpu_torch.ops.sketches import dd_params
+    gamma, nb = dd_params(0.01, 1e-6, 1e5)
+    return gamma, 1e-6, nb
+
+
+def _mom_meta():
+    from tempo_tpu_torch.ops.moments import moments_params
+    return moments_params(MOM_K, 1e-6, 1e5)
+
+
+def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
+    """Bytes K1 must move for this batch: the batch and the tables read
+    once; every distinct touched arena cell read and written once (4 B
+    each; a touched moments row is its k+3 cells); under compact, every
+    row of every backed page of the latency-sum pair read and written
+    (4 B), since the fold re-normalises each of them."""
     import torch
 
     from tempo_tpu_torch.ops.pages import dd_index, hist_bucket
 
+    gamma, minv, _ = _dd_meta()
     slots = mat[0].astype(np.int64)
     dur = torch.from_numpy(mat[1].copy())
     hb = hist_bucket(dur, edges).numpy()
-    ddi = dd_index(dur, gamma, minv, nb).numpy()
+    ddi = dd_index(dur, gamma, minv, nb).numpy() if dd_rows else None
     zero = mat[1] <= np.float32(minv)
-    lp = slots >> page_shift
+    lp = slots >> PAGE_SHIFT
     ok = (slots >= 0) & (lp < tables.shape[1])
-    cells = 0
-    for r in range(tables.shape[0]):
+    n_roles = tables.shape[0]
+    nbytes = mat.nbytes + tables.nbytes
+    for r in range(n_roles):
+        if compact and r == 1:
+            nbytes += 2 * 4 * int((tables[1] > 0).sum()) * PAGE_ROWS
+            continue
         phys = np.where(ok, tables[r][np.clip(lp, 0, tables.shape[1] - 1)], -1)
         keep = phys > 0
-        if r >= 5:
+        is_mom = mom_rows and r == n_roles - 1
+        if is_mom:
+            keep &= slots < mom_rows
+        elif r >= 5:
             keep &= slots < dd_rows
             keep &= zero if r == 5 else ~zero
-        rows = (phys.astype(np.int64) << page_shift) | (slots & ((1 << page_shift) - 1))
+        rows = (phys.astype(np.int64) << PAGE_SHIFT) | (slots & (PAGE_ROWS - 1))
         rows = rows[keep]
         if r == 4:
             rows = rows * (len(edges) + 1) + hb[keep]
-        elif r == 6:
+        elif r == 6 and not is_mom:
             rows = rows * nb + ddi[keep]
-        cells += np.unique(rows).size
-    return mat.nbytes + tables.nbytes + 2 * 4 * cells
+        cells = np.unique(rows).size * ((MOM_K + 3) if is_mom else 1)
+        nbytes += 2 * 4 * cells
+    return nbytes
+
+
+def bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def cuda_time_ms(fn, runs):
@@ -118,60 +168,97 @@ def cuda_time_ms(fn, runs):
     return statistics.median(times)
 
 
-def profiled_device_ms(fn, runs, kernel_name):
-    """Mean device time per launch of `kernel_name` from torch.profiler's
-    CUPTI trace, or None when the trace shows no device time for it."""
+def profiled_device_ms(fn, runs, kernel_names=None):
+    """Mean device time per call from torch.profiler's CUPTI trace: the
+    device events (kernels, memsets) whose name contains one of
+    `kernel_names`, or all of them when None; None when the trace shows
+    no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    total = 0.0
     for ev in prof.key_averages():
-        if kernel_name in ev.key and ev.count:
-            total = getattr(ev, "device_time_total", 0) or \
+        if not ev.count or ev.device_type != DeviceType.CUDA:
+            continue
+        if kernel_names is None or any(n in ev.key for n in kernel_names):
+            total += getattr(ev, "device_time_total", 0) or \
                 getattr(ev, "cuda_time_total", 0)
-            return total / ev.count / 1e3 if total else None
-    return None
+    return total / runs / 1e3 if total else None
 
 
-def phase_kernel_vs_plain(card):
-    """Phase 3 (and the kernel times of phase 5): K1 vs its plain version
-    on the card at full width."""
+def _tables(rng, n_roles, dd_rows, n_pages):
+    """Stacked [R, P] tables: a quarter of each role's pages unbacked; the
+    sketch roles cover only the dd_rows prefix."""
+    p_pages = N_SERIES // PAGE_ROWS
+    tables = np.full((n_roles, p_pages), -1, np.int32)
+    for r in range(n_roles):
+        lps = p_pages if r < 5 else dd_rows // PAGE_ROWS
+        backed = rng.random(lps) < 0.75
+        tables[r, :lps] = np.where(
+            backed, rng.permutation(np.arange(1, n_pages))[:lps], -1)
+    return tables
+
+
+def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx):
+    """Kernel arenas vs plain arenas: `sum_roles` at rtol 1e-5 / atol 1e-6,
+    `tol_roles` {role: check(k, p) -> bool}, the rest exact; page 0 zero;
+    every arena updated. Returns the max abs error."""
+    import torch
+
+    max_abs = 0.0
+    for r, (k, p) in enumerate(zip(k_ar, p_ar)):
+        kf, pf = k.float(), p.float()
+        diff = (kf - pf).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        if r in tol_roles:
+            ok = tol_roles[r](kf, pf)
+        elif r in sum_roles:
+            ok = torch.allclose(kf, pf, rtol=1e-5, atol=1e-6)
+        else:
+            ok = torch.equal(k, p)
+        if not ok:
+            raise AssertionError(f"{ctx}: K1 disagrees with its plain version "
+                                 f"on arena {r} (max abs {float(diff.max())})")
+        if bool(k[:PAGE_ROWS].any()):
+            raise AssertionError(f"{ctx}: K1 wrote the trash page of arena {r}")
+        if torch.equal(k, base[r]):
+            raise AssertionError(f"{ctx}: arena {r} was not updated")
+    return max_abs
+
+
+def phase_k1_dd():
+    """Phase 3a (and its phase-5 times): K1 with f32 dd state vs its plain
+    version on the card at full width."""
     import torch
 
     from tempo_tpu_torch.ops import cuda_kernels as ck
-    from tempo_tpu_torch.ops.sketches import dd_params
     from tempo_tpu_torch.registry.registry import DEFAULT_HISTOGRAM_EDGES
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    page_rows, page_shift = 256, 8
-    n_series, dd_rows = 65536, 16384
-    gamma, nb = dd_params(0.01, 1e-6, 1e5)
+    gamma, minv, nb = _dd_meta()
     edges = tuple(DEFAULT_HISTOGRAM_EDGES)
-    n_pages = -(-131072 // page_rows) + 1          # + the trash page
-    rows = n_pages * page_rows
-    p_pages = n_series // page_rows
-    tables = np.full((7, p_pages), -1, np.int32)
-    for r in range(7):
-        lps = p_pages if r < 5 else dd_rows // page_rows
-        backed = rng.random(lps) < 0.75              # a quarter unbacked
-        tables[r, :lps] = np.where(
-            backed, rng.permutation(np.arange(1, n_pages))[:lps], -1)
+    n_pages = -(-ARENA_SLOTS // PAGE_ROWS) + 1      # + the trash page
+    rows = n_pages * PAGE_ROWS
+    tables = _tables(rng, 7, DD_ROWS, n_pages)
     batches = []
     for _ in range(N_DISPATCH):
         mat = np.empty((4, N_SPANS), np.float32)
-        mat[0] = zipf_slots(rng, N_SPANS, n_series)
+        mat[0] = zipf_slots(rng, N_SPANS, N_SERIES)
         mat[1] = rng.lognormal(-3.0, 2.0, N_SPANS)
         mat[1, :64] = 0.0                            # DDSketch zero counts
         mat[2] = rng.integers(100, 5000, N_SPANS)
         mat[3] = rng.integers(1, 4, N_SPANS)
         batches.append(mat)
-    print(f"phase 3: slots >= dd_rows: "
-          f"{int((batches[0][0] >= dd_rows).sum())}, discards: "
+    print(f"phase 3a: slots >= dd_rows: "
+          f"{int((batches[0][0] >= DD_ROWS).sum())}, discards: "
           f"{int((batches[0][0] < 0).sum())}, backed pages per role: "
           f"{(tables > 0).sum(axis=1).tolist()}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -179,38 +266,22 @@ def phase_kernel_vs_plain(card):
     base = []
     for shape in shapes:
         a = torch.randint(0, 4, shape, generator=gen, device=dev).float()
-        a[:page_rows] = 0                            # the trash page
+        a[:PAGE_ROWS] = 0                            # the trash page
         base.append(a)
     t_dev = torch.from_numpy(tables).to(dev)
     b_dev = [torch.from_numpy(m).to(dev) for m in batches]
-    kw = dict(page_rows=page_rows, edges=edges, gamma=gamma, min_value=1e-6,
-              dd_rows=dd_rows)
+    kw = dict(page_rows=PAGE_ROWS, edges=edges, gamma=gamma, min_value=minv,
+              dd_rows=DD_ROWS)
     k_ar = [a.clone() for a in base]
     p_ar = [a.clone() for a in base]
     for b in b_dev:
         ck.paged_fused_update(t_dev, b[0], b[1:4], k_ar, **kw)
         ck.paged_fused_update_plain(t_dev, b[0], b[1:4], p_ar, **kw)
     torch.cuda.synchronize()
-    max_abs = max_rel = 0.0
-    for r, (k, p) in enumerate(zip(k_ar, p_ar)):
-        diff = (k - p).abs()
-        max_abs = max(max_abs, float(diff.max()))
-        max_rel = max(max_rel, float((diff / p.abs().clamp_min(1e-30)).max()))
-        if r in (1, 3):          # float sums: atomics add in no fixed order
-            ok = torch.allclose(k, p, rtol=1e-5, atol=1e-6)
-        else:                    # integer-count planes: exact
-            ok = torch.equal(k, p)
-        if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version on "
-                                 f"arena {r} (max abs {float(diff.max())})")
-        if bool(k[:page_rows].any()):
-            raise AssertionError(f"K1 wrote the trash page of arena {r}")
-        if torch.equal(k, base[r]):
-            raise AssertionError(f"arena {r} was not updated")
-    print("phase 3 kernel-vs-plain: " + json.dumps({
-        "name": "paged_fused_update", "launches": N_DISPATCH,
-        "max_abs_err": max_abs, "max_rel_err": max_rel, "pass": True}))
-    # phase 5 times, on the same full-width arenas and batch
+    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, "phase 3a")
+    print("phase 3a kernel-vs-plain: " + json.dumps({
+        "name": "paged_fused_update", "tier": "dd f32",
+        "dispatches": N_DISPATCH, "max_abs_err": max_abs, "pass": True}))
     b0 = b_dev[0]
     ms = cuda_time_ms(lambda: ck.paged_fused_update(
         t_dev, b0[0], b0[1:4], k_ar, **kw), N_TIMED)
@@ -218,23 +289,20 @@ def phase_kernel_vs_plain(card):
         t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
     device_ms = profiled_device_ms(lambda: ck.paged_fused_update(
         t_dev, b0[0], b0[1:4], k_ar, **kw), N_TIMED,
-        "paged_fused_update_kernel")
-    nbytes = touched_bytes(batches[0], tables, page_shift, dd_rows, nb, edges,
-                           gamma, 1e-6)
-    ops = N_SPANS * (40 + len(edges))   # translate, products, bucket search
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+        ["paged_fused_update_kernel"])
+    nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
+                         edges=edges)
+    bound_ms, bound_by = bound(nbytes, N_SPANS * (40 + len(edges)))
     del k_ar, p_ar, base
     torch.cuda.empty_cache()
     return {
-        "name": "paged_fused_update", "route": "cuda",
+        "name": "paged_fused_update (sketch dd, f32 state)", "route": "cuda",
         "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
         "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
-        "launches": None, "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "launches": None, "max_abs_err": max_abs,
         "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_bytes": nbytes, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "library_ms": None,
     }
 
 
@@ -253,9 +321,9 @@ def edge_probe_on_card():
     e = (minv * gamma ** np.arange(nb + 1)).astype(np.float32)
     dur = np.unique(np.concatenate([
         e, np.nextafter(e, np.float32(0)), np.nextafter(e, np.float32(np.inf))]))
-    n, page_rows = dur.size, 256
-    p_pages = -(-n // page_rows)
-    rows = (p_pages + 1) * page_rows
+    n = dur.size
+    p_pages = -(-n // PAGE_ROWS)
+    rows = (p_pages + 1) * PAGE_ROWS
     tables = np.tile(np.arange(1, p_pages + 1, dtype=np.int32), (7, 1))
     mat = np.zeros((4, n), np.float32)
     mat[0] = np.arange(n)
@@ -266,10 +334,10 @@ def edge_probe_on_card():
     arenas = [torch.zeros(s, device=dev) for s in shapes]
     b = torch.from_numpy(mat).to(dev)
     ck.paged_fused_update(torch.from_numpy(tables).to(dev), b[0], b[1:4],
-                          arenas, page_rows=page_rows,
+                          arenas, page_rows=PAGE_ROWS,
                           edges=tuple(DEFAULT_HISTOGRAM_EDGES), gamma=gamma,
                           min_value=minv, dd_rows=n)
-    at = np.arange(n) + page_rows                  # one row per probe
+    at = np.arange(n) + PAGE_ROWS                  # one row per probe
     zero = arenas[5].cpu().numpy()[at] > 0
     card = arenas[6].cpu().numpy()[at].argmax(axis=1)
     host = dd_index(torch.from_numpy(dur), gamma, minv, nb).numpy()
@@ -284,116 +352,432 @@ def edge_probe_on_card():
     return n, shifted
 
 
-def phase_main_path():
-    """Phase 4: the main path on the card against the same path on the
-    host (plain versions), with per-span sizes and integer sample
-    weights; returns (launches, spans/s, seconds)."""
+def _moments_ok(kf, pf):
+    """Moment sums within rtol 1e-5 + 2e-5 per unit of the row's weight
+    (each basis term is in [-1, 1]; CUDA `logf` and torch's CUDA `log` may
+    differ by an ulp); the two bound columns at atol 2e-6 (one ulp of a
+    value in [16, 32)); the count column exact."""
     import torch
 
-    import tempo_tpu_torch as tt
-    from tempo_tpu_torch.generator.remote_write import (
-        LocalReceiver, RemoteWriteConfig, decode_write_request)
-    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
-    from tempo_tpu_torch.ops import cuda_kernels as ck
-    from tempo_tpu_torch.registry import pages
+    k = MOM_K
+    if not torch.equal(kf[:, 0], pf[:, 0]):
+        return False
+    sums_ok = ((kf[:, 1:k + 1] - pf[:, 1:k + 1]).abs()
+               <= 1e-5 * pf[:, 1:k + 1].abs() + 2e-5 * pf[:, :1]).all()
+    bounds_ok = ((kf[:, k + 1:] - pf[:, k + 1:]).abs() <= 2e-6).all()
+    return bool(sums_ok and bounds_ok)
 
-    now = time.time()
+
+def phase_k1_compact():
+    """Phase 3b (and its phase-5 times): K1 with `sketch: both` and compact
+    state vs its plain version on the card, three dispatches of dyadic
+    durations (multiples of 1/256 s below 2 s) and weights (0.25, 0.5, 1,
+    1.5, 2.5), so every per-dispatch delta is exact (the hottest cell's
+    latency sum stays far below 2^24 units of 2^-10): int32 planes and
+    the pair must be bit-identical."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.registry.registry import DEFAULT_HISTOGRAM_EDGES
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 7)
+    gamma, minv, nb = _dd_meta()
+    mom_meta = _mom_meta()
+    edges = tuple(DEFAULT_HISTOGRAM_EDGES)
+    n_pages = -(-ARENA_SLOTS // PAGE_ROWS) + 1
+    rows = n_pages * PAGE_ROWS
+    tables = _tables(rng, 8, DD_ROWS, n_pages)
+    batches = []
+    for _ in range(3):
+        mat = np.empty((4, N_SPANS), np.float32)
+        mat[0] = zipf_slots(rng, N_SPANS, N_SERIES)
+        mat[1] = rng.integers(1, 2 * 256, N_SPANS) / 256
+        in_dd = np.flatnonzero((mat[0] >= 0) & (mat[0] < DD_ROWS))
+        mat[1, in_dd[:64]] = 0.0                     # DDSketch zero counts
+        mat[2] = rng.integers(100, 5000, N_SPANS)
+        mat[3] = rng.choice([0.25, 0.5, 1.0, 1.5, 2.5], N_SPANS)
+        batches.append(mat)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    i32, f32 = torch.int32, torch.float32
+    specs = [((rows,), i32), ((rows, 2), torch.bfloat16), ((rows,), i32),
+             ((rows,), f32), ((rows, len(edges) + 1), i32), ((rows,), i32),
+             ((rows, nb), i32), ((rows, MOM_K + 3), f32)]
+    base = []
+    for shape, dt in specs:
+        a = torch.randint(0, 4, shape, generator=gen, device=dev)
+        if dt == torch.bfloat16:                     # (sum, compensation)
+            a = torch.stack([a[:, 0] / 8.0, (a[:, 1] - 2.0) / 1024.0], 1)
+        a = a.to(dt)
+        a[:PAGE_ROWS] = 0                            # the trash page
+        base.append(a)
+    t_dev = torch.from_numpy(tables).to(dev)
+    b_dev = [torch.from_numpy(m).to(dev) for m in batches]
+    kw = dict(page_rows=PAGE_ROWS, edges=edges, gamma=gamma, min_value=minv,
+              dd_rows=DD_ROWS, mom_rows=DD_ROWS, mom_meta=mom_meta)
+    k_ar = [a.clone() for a in base]
+    p_ar = [a.clone() for a in base]
+    ck.reset_launch_counts()
+    for b in b_dev:
+        ck.paged_fused_update(t_dev, b[0], b[1:4], k_ar, **kw, compact=True)
+    launches = ck.paged_fused_update.launches
+    for b in b_dev:
+        ck.paged_fused_update_plain(t_dev, b[0], b[1:4], p_ar, **kw)
+    torch.cuda.synchronize()
+    if launches != 2 * len(b_dev):
+        raise AssertionError(f"phase 3b: {launches} launches for "
+                             f"{len(b_dev)} compact dispatches (want 2 each)")
+    max_abs = _check_planes(k_ar, p_ar, base, (3,), {7: _moments_ok},
+                            "phase 3b")
+    print("phase 3b kernel-vs-plain: " + json.dumps({
+        "name": "paged_fused_update", "tier": "both, compact",
+        "dispatches": len(b_dev), "launches": launches,
+        "max_abs_err": max_abs, "pass": True}))
+    b0 = b_dev[0]
+    call = lambda: ck.paged_fused_update(  # noqa: E731
+        t_dev, b0[0], b0[1:4], k_ar, **kw, compact=True)
+    ms = cuda_time_ms(call, N_TIMED)
+    plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
+        t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
+    device_ms = profiled_device_ms(call, N_TIMED)
+    pass_ms = {name: profiled_device_ms(call, N_TIMED, [name]) for name in
+               ("paged_fused_update_kernel", "paged_fused_update_fold_kernel")}
+    print(f"phase 5: compact K1 device time per dispatch {device_ms} ms, of "
+          f"which span pass {pass_ms['paged_fused_update_kernel']} ms and "
+          f"fold {pass_ms['paged_fused_update_fold_kernel']} ms (the rest "
+          f"zeroes the scratch)")
+    nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
+                         edges=edges, mom_rows=DD_ROWS, compact=True)
+    # the design's own traffic: the logical-row scratch zeroed and read
+    p_pages = tables.shape[1]
+    scratch = (4 * p_pages * PAGE_ROWS + p_pages * PAGE_ROWS * (len(edges) + 1)
+               + DD_ROWS * (1 + nb) + DD_ROWS * (MOM_K + 3)) * 4
+    bound_ms, bound_by = bound(nbytes, N_SPANS * (80 + len(edges)))
+    del k_ar, p_ar, base
+    torch.cuda.empty_cache()
+    return {
+        "name": "paged_fused_update (sketch both, compact state)",
+        "route": "cuda", "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": None, "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "scratch_bytes": scratch, "library_ms": None,
+    }
+
+
+def _k2_batch(rng, bad=0.0):
+    """The reference benchmark's K2 inputs (uniform slots, lognormal
+    durations, integer sizes, unit weights); `bad` is the share of slots
+    replaced by -1 or an id past the series range."""
+    slots = rng.integers(0, K2_SERIES, K2_SPANS).astype(np.int32)
+    nbad = int(bad * K2_SPANS)
+    slots[:nbad] = rng.choice([-1, K2_SERIES, K2_SERIES + 5], nbad)
+    dur = rng.lognormal(-3, 1.5, K2_SPANS).astype(np.float32)
+    sizes = rng.integers(100, 5000, K2_SPANS).astype(np.float32)
+    w = np.ones(K2_SPANS, np.float32)
+    return slots, dur, sizes, w
+
+
+def phase_k2():
+    """Phase 3c (and its phase-5 times): K2 driven over 8 benchmark-shaped
+    batches (launch counts zeroed before, read after), its summed state
+    held against the plain version's; counts and histogram columns exact,
+    sums at rtol 1e-5."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    batches = [[torch.from_numpy(x).to(dev) for x in _k2_batch(rng, bad)]
+               for bad in [0.05] + [0.0] * (N_DISPATCH - 1)]
+    kw = dict(n_series=K2_SERIES, edges=K2_EDGES)
+    ck.reset_launch_counts()
+    state = torch.zeros((K2_SERIES, 4 + len(K2_EDGES)), device=dev)
+    for b in batches:
+        state += ck.fused_spanmetrics_matmul(*b, **kw)
+    torch.cuda.synchronize()
+    launches = ck.fused_spanmetrics_matmul.launches
+    plain = torch.zeros_like(state)
+    for b in batches:
+        plain += ck.fused_spanmetrics_scatter(*b, **kw)
+    exact = [0] + list(range(3, state.shape[1]))
+    if not torch.equal(state[:, exact], plain[:, exact]) or not \
+            torch.allclose(state[:, 1:3], plain[:, 1:3], rtol=1e-5, atol=1e-6):
+        raise AssertionError("K2 disagrees with its plain version")
+    want = sum(float(((b[0] >= 0) & (b[0] < K2_SERIES)).sum()) for b in batches)
+    if float(state[:, 0].sum()) != want:
+        raise AssertionError(f"K2 count total {float(state[:, 0].sum())} != "
+                             f"{want} kept spans")
+    max_abs = float((state - plain).abs().max())
+    print("phase 3c kernel-vs-plain: " + json.dumps({
+        "name": "fused_spanmetrics_matmul", "batches": len(batches),
+        "launches": launches, "max_abs_err": max_abs, "pass": True}))
+    b = batches[1]                                   # all slots valid
+    ms = cuda_time_ms(lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED)
+    plain_ms = cuda_time_ms(lambda: ck.fused_spanmetrics_scatter(*b, **kw),
+                            N_TIMED)
+    device_ms = profiled_device_ms(
+        lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED,
+        ["fused_spanmetrics_kernel"])
+    # the library yardstick: one index_add_ of a prebuilt [N, 16] feature
+    # matrix (built outside the timed region) into a zeroed state
+    from tempo_tpu_torch.ops.pages import hist_bucket
+    slots, dur, sizes, w = b
+    feats = torch.zeros((K2_SPANS, 4 + len(K2_EDGES)), device=dev)
+    feats[:, 0] = w
+    feats[:, 1] = dur * w
+    feats[:, 2] = sizes * w
+    feats[torch.arange(K2_SPANS, device=dev), 3 + hist_bucket(dur, K2_EDGES)] = w
+    idx = slots.long()
+    lib_out = torch.zeros_like(state)
+    library = lambda: lib_out.index_add_(0, idx, feats)  # noqa: E731
+    library_ms = cuda_time_ms(library, N_TIMED)
+    print(f"phase 5: K2 library yardstick index_add_ device time per call "
+          f"{profiled_device_ms(library, N_TIMED)} ms; K2 call device time "
+          f"(output zeroing included) "
+          f"{profiled_device_ms(lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED)} ms")
+    nbytes = K2_SPANS * 16 + state.numel() * 4
+    bound_ms, bound_by = bound(nbytes, K2_SPANS * (6 + len(K2_EDGES)))
+    return {
+        "name": "fused_spanmetrics_matmul", "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/fused_spanmetrics.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:141",
+        "launches": launches, "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "library_ms": library_ms,
+    }
+
+
+def _payloads(now, n_payloads):
+    """Seeded k6-like OTLP payloads, per-span sizes, and the sample
+    weights of overload sampling: integer, or dyadic for compact state."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
     rng = np.random.default_rng(SEED + 1)
     payloads = [encode_spans_otlp(synthetic_spans(
         N_SPANS, seed=SEED + k, now_ns=int(now * 1e9)))
-        for k in range(N_DISPATCH)]
-    # bytes per span in the range of k6-tracing's spans, and the
-    # upscale factors of overload sampling
+        for k in range(n_payloads)]
     sizes = [rng.integers(200, 2000, N_SPANS).astype(np.float32)
              for _ in payloads]
-    weights = [rng.integers(1, 4, N_SPANS).astype(np.float32)
-               for _ in payloads]
-    with LocalReceiver() as rx:
-        insts = {}
-        for name, device in (("card", "cuda"), ("host", "cpu")):
-            pool = pages.PagePool(tt.PagePoolConfig(enabled=True),
-                                  device=device)
-            with pages.use(pool):
-                insts[name] = tt.GeneratorInstance(
-                    "smoke", tt.GeneratorConfig(remote_write=RemoteWriteConfig(
-                        url=f"{rx.url}/{name}")), now=lambda: now, device=device)
-        results = {}
-        for name, inst in insts.items():
-            if name == "card":
-                ck.reset_launch_counts()
-            t0 = time.perf_counter()
-            decode_s = 0.0
-            for data, size, weight in zip(payloads, sizes, weights):
-                td = time.perf_counter()
-                sb = tt.otlp_proto_to_batch(
-                    data, tt.SpanBatchBuilder(inst.registry.interner))
-                decode_s += time.perf_counter() - td
-                span_sizes = np.zeros(sb.capacity, np.float32)
-                span_sizes[:sb.n] = size[:sb.n]
-                inst.push_batch(sb, span_sizes, sample_weights=weight[:sb.n])
-            if name == "card":
-                torch.cuda.synchronize()
-                launches = ck.paged_fused_update.launches
-            push_s = time.perf_counter() - t0
-            tc = time.perf_counter()
-            n_samples = inst.collect_and_push()
-            collect_s = time.perf_counter() - tc
-            proc = inst.processors["span-metrics"]
-            tq = time.perf_counter()
-            q50, q99 = proc.quantile(0.5), proc.quantile(0.99)
-            quantile_s = time.perf_counter() - tq
-            results[name] = {
-                "push_s": push_s, "samples": n_samples, "q50": q50,
-                "q99": q99, "series": inst.registry.active_series}
-            print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
-                  f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
-                  f"push_batch {push_s - decode_s:.3f} s), "
-                  f"{results[name]['series']} series; collect_and_push "
-                  f"{n_samples} samples in {collect_s:.3f} s; two quantile "
-                  f"reads in {quantile_s:.3f} s")
+    int_w = [rng.integers(1, 4, N_SPANS).astype(np.float32) for _ in payloads]
+    dyadic_w = [rng.choice([1.0, 1.25, 1.5, 2.0, 4.0], N_SPANS).astype(
+        np.float32) for _ in payloads]
+    return payloads, sizes, int_w, dyadic_w
+
+
+def _instances(rx, now, sm, names):
+    """One generator instance per (name, device), each on its own pool,
+    remote-writing to `rx` under /<name>."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
+    from tempo_tpu_torch.registry import pages
+
+    insts = {}
+    for name, device in names:
+        pool = pages.PagePool(tt.PagePoolConfig(enabled=True), device=device)
+        with pages.use(pool):
+            insts[name] = tt.GeneratorInstance(
+                "smoke", tt.GeneratorConfig(
+                    spanmetrics=tt.SpanMetricsConfig(**sm),
+                    remote_write=RemoteWriteConfig(url=f"{rx.url}/{name}")),
+                now=lambda: now, device=device)
+    return insts
+
+
+def _push_all(inst, payloads, sizes, weights):
+    """Decode and push every payload; returns (seconds, decode seconds),
+    the seconds closed by a synchronize on the card."""
+    import torch
+
+    import tempo_tpu_torch as tt
+
+    t0 = time.perf_counter()
+    decode_s = 0.0
+    for data, size, weight in zip(payloads, sizes, weights):
+        td = time.perf_counter()
+        sb = tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(inst.registry.interner))
+        decode_s += time.perf_counter() - td
+        span_sizes = np.zeros(sb.capacity, np.float32)
+        span_sizes[:sb.n] = size[:sb.n]
+        inst.push_batch(sb, span_sizes, sample_weights=weight[:sb.n])
+    if inst.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, decode_s
+
+
+def _compare_samples(rx, compact, ctx):
+    """The card's WriteRequest against the host's: counts exact, the size
+    counter at rtol 1e-5, the latency `_sum` at rtol 1e-5 (f32) or 1e-2
+    (folded from the bf16 pair under compact). Returns (label sets,
+    calls total)."""
+    from tempo_tpu_torch.generator.remote_write import decode_write_request
+
     bodies = rx.bodies
-    if not bodies.get("/card") or not bodies.get("/host"):
-        raise AssertionError(f"remote write received {list(bodies)}")
-    gpu = decode_write_request(bodies["/card"])
-    cpu = decode_write_request(bodies["/host"])
+    card, host = bodies.get(f"/{ctx}-card"), bodies.get(f"/{ctx}-host")
+    if not card or not host:
+        raise AssertionError(f"{ctx}: remote write received {list(bodies)}")
+    gpu, cpu = decode_write_request(card), decode_write_request(host)
     if not gpu or set(gpu) != set(cpu):
-        raise AssertionError("card and host wrote different series sets")
-    total = sum(v[0] for k, v in gpu.items()
-                if dict(k)["__name__"] == "traces_spanmetrics_calls_total")
-    want = float(sum(w.sum() for w in weights))
-    if total != want:
-        raise AssertionError(f"calls total {total} != {want}, the weighted "
-                             f"spans pushed")
+        raise AssertionError(f"{ctx}: card and host wrote different series sets")
     for k, vs in gpu.items():
         labels = dict(k)
         for i, (v, h) in enumerate(zip(vs, cpu[k], strict=True)):
             # float sums: the size counter and the latency `_sum` (second
             # sample of a bucketless latency label set); the rest count
-            is_sum = labels["__name__"] == "traces_spanmetrics_size_total" \
-                or ("le" not in labels and i == 1)
-            ok = abs(v - h) <= 1e-5 * abs(h) + 1e-6 if is_sum else v == h
+            size = labels["__name__"] == "traces_spanmetrics_size_total"
+            lat_sum = labels["__name__"] == "traces_spanmetrics_latency" \
+                and "le" not in labels and i == 1
+            if lat_sum and compact:
+                ok = abs(v - h) <= 1e-2 * abs(h) + 1e-6
+            elif size or lat_sum:
+                ok = abs(v - h) <= 1e-5 * abs(h) + 1e-6
+            else:
+                ok = v == h
             if not ok:
-                raise AssertionError(f"sample {k}[{i}]: card {v} vs host {h}")
-    for q in ("q50", "q99"):
-        a, b = results["card"][q], results["host"][q]
-        if a != b:
+                raise AssertionError(f"{ctx} sample {k}[{i}]: card {v} vs host {h}")
+    total = sum(v[0] for k, v in gpu.items()
+                if dict(k)["__name__"] == "traces_spanmetrics_calls_total")
+    return len(gpu), total
+
+
+def _moment_rows(proc):
+    """{labels: moments row} of the processor's active sketch slots,
+    gathered through the moments plane's page table."""
+    mp, limit = proc._pmom[0], proc._pmom[4]
+    with proc.registry.state_lock:
+        slots = proc.calls.table.active_slots()
+        slots = slots[slots < limit].astype(np.int32)
+        rows = mp.gather(slots)
+    return {proc.calls.labels_of(int(s)): rows[i] for i, s in enumerate(slots)}
+
+
+def _compare_moment_rows(card, host, tier):
+    """The card's moments rows against the host's, series by series, under
+    `_moments_ok`. Returns (rows, max abs error)."""
+    import torch
+
+    if card.keys() != host.keys() or not card:
+        raise AssertionError(f"{tier}: moments rows of different series sets")
+    keys = list(card)
+    kf = torch.from_numpy(np.stack([card[k] for k in keys]))
+    pf = torch.from_numpy(np.stack([host[k] for k in keys]))
+    if not _moments_ok(kf, pf):
+        raise AssertionError(f"{tier}: the card's moments rows disagree with "
+                             f"the host's (max abs "
+                             f"{float((kf - pf).abs().max())})")
+    return len(keys), float((kf - pf).abs().max())
+
+
+def phase_main_path(tier, n_payloads=N_DISPATCH):
+    """Phase 4: one main path on the card against the same path on the
+    host (plain versions). `tier` "dd": f32 state, integer sample weights,
+    q50/q99 exactly equal. `tier` "both_compact": `sketch: both` with
+    compact state, dyadic sample weights; DDSketch q50/q99 exactly equal,
+    moments q50/q99 (one solve per row for both) compared and the series
+    outside rtol 1e-3 counted. Returns a result dict."""
+    import torch
+
+    from tempo_tpu_torch.generator.remote_write import LocalReceiver
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    compact = tier == "both_compact"
+    sm = dict(sketch="both", compact_state=True) if compact else {}
+    now = time.time()
+    payloads, sizes, int_w, dyadic_w = _payloads(now, n_payloads)
+    weights = dyadic_w if compact else int_w
+    res = {}
+    with LocalReceiver() as rx:
+        names = ((f"{tier}-card", "cuda"), (f"{tier}-host", "cpu"))
+        insts = _instances(rx, now, sm, names)
+        for name, inst in insts.items():
+            on_card = name.endswith("card")
+            if on_card:
+                ck.reset_launch_counts()
+            push_s, decode_s = _push_all(inst, payloads, sizes, weights)
+            if on_card:
+                launches = ck.paged_fused_update.launches
+            tc = time.perf_counter()
+            n_samples = inst.collect_and_push()
+            collect_s = time.perf_counter() - tc
+            proc = inst.processors["span-metrics"]
+            tq = time.perf_counter()
+            dd_q = proc.dd_quantiles((0.5, 0.99))
+            dd_s = time.perf_counter() - tq
+            tq = time.perf_counter()
+            mom_q = proc.quantiles((0.5, 0.99)) if compact else None
+            mom_s = time.perf_counter() - tq
+            res[name] = {"push_s": push_s, "dd_q": dd_q, "mom_q": mom_q,
+                         "mom_rows": _moment_rows(proc) if compact else None,
+                         "series": inst.registry.active_series,
+                         "state_bytes": inst.device_state_bytes()}
+            print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
+                  f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
+                  f"push_batch {push_s - decode_s:.3f} s), "
+                  f"{res[name]['series']} series; collect_and_push "
+                  f"{n_samples} samples in {collect_s:.3f} s; DDSketch "
+                  f"q50+q99 in {dd_s:.3f} s"
+                  + (f"; moments q50+q99 in {mom_s:.3f} s" if compact else ""))
+        n_sets, total = _compare_samples(rx, compact, tier)
+    card, host = res[f"{tier}-card"], res[f"{tier}-host"]
+    want = float(sum(w.sum() for w in weights))
+    if not compact and total != want:
+        raise AssertionError(f"calls total {total} != {want}, the weighted "
+                             f"spans pushed")
+    for i, q in enumerate((0.5, 0.99)):
+        a, b = card["dd_q"][i], host["dd_q"][i]
+        if a != b or not a:
             bad = sum(a.get(k) != b.get(k) for k in a.keys() | b.keys())
-            raise AssertionError(f"{q}: {bad} series differ between card "
-                                 f"and host")
-    print(f"phase 4 checks: {len(gpu)} label sets in the card's WriteRequest "
-          f"equal the host's; calls total {int(total)} (weighted spans); "
-          f"quantiles q50/q99 of {len(results['card']['q50'])} series equal")
-    if launches != len(payloads):
-        raise AssertionError(f"K1 launched {launches} times for "
+            raise AssertionError(f"{tier}: DDSketch q{q}: {bad} series differ "
+                                 f"between card and host")
+    outside = {}
+    if compact:
+        n_rows, rows_err = _compare_moment_rows(card["mom_rows"],
+                                                host["mom_rows"], tier)
+        for i, q in enumerate((0.5, 0.99)):
+            a, b = card["mom_q"][i], host["mom_q"][i]
+            if a.keys() != b.keys() or not a:
+                raise AssertionError(f"{tier}: moments q{q} series differ")
+            vals = np.array([a[k] for k in a])
+            if not np.isfinite(vals).all() or (vals <= 0).any():
+                raise AssertionError(f"{tier}: moments q{q} not finite positive")
+            outside[q] = int(sum(abs(a[k] - b[k]) > 1e-3 * abs(b[k]) for k in a))
+        lo = card["mom_q"][0]
+        if any(card["mom_q"][1][k] < lo[k] for k in lo):
+            raise AssertionError(f"{tier}: a moments q99 below its q50")
+    n_q = len(card["dd_q"][0])
+    print(f"phase 4 {tier} checks: {n_sets} label sets in the card's "
+          f"WriteRequest equal the host's under the stated tolerances; calls "
+          f"total {total} (weighted spans {want}); DDSketch q50/q99 of "
+          f"{n_q} series equal"
+          + (f"; moments rows of {n_rows} series within the moments "
+             f"tolerance (max abs {rows_err}); moments quantiles outside "
+             f"rtol 1e-3 of {len(card['mom_q'][0])} series: q50 "
+             f"{outside[0.5]}, q99 {outside[0.99]}" if compact else ""))
+    kernels_per_push = 2 if compact else 1
+    if launches != kernels_per_push * len(payloads):
+        raise AssertionError(f"{tier}: K1 launched {launches} times for "
                              f"{len(payloads)} pushes")
-    spans_per_s = len(payloads) * N_SPANS / results["card"]["push_s"]
-    return launches, spans_per_s, results["card"]["push_s"]
+    return {"launches": launches, "push_s": card["push_s"],
+            "spans_per_s": len(payloads) * N_SPANS / card["push_s"],
+            "bytes_per_series": card["state_bytes"] / card["series"],
+            "series": card["series"], "outside": outside}
 
 
-def _dd_meta():
-    from tempo_tpu_torch.ops.sketches import dd_params
-    gamma, nb = dd_params(0.01, 1e-6, 1e5)
-    return gamma, 1e-6, nb
+def moments_state_bytes(n_payloads=N_DISPATCH):
+    """Device state bytes per active series of the `sketch: moments` tier
+    (f32 state) after the same pushes, on the card."""
+    from tempo_tpu_torch.generator.remote_write import LocalReceiver
+
+    now = time.time()
+    payloads, sizes, int_w, _ = _payloads(now, n_payloads)
+    with LocalReceiver() as rx:
+        inst = _instances(rx, now, dict(sketch="moments"),
+                          (("moments-card", "cuda"),))["moments-card"]
+        _push_all(inst, payloads, sizes, int_w)
+    return inst.device_state_bytes() / inst.registry.active_series
 
 
 def main() -> int:
@@ -413,33 +797,54 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    path = ck.build("paged_fused_update")
-    ck._lib("paged_fused_update")
+    paths = ck.build_all()
+    for src in ck.SOURCES:
+        ck._lib(src)
     build_s = time.perf_counter() - t0
-    log = ck.BUILD_INFO.get("paged_fused_update", {}).get("log", "cached")
-    print(f"build: paged_fused_update in {build_s:.2f} s -> "
-          f"{os.path.relpath(path, ROOT)}\n{log}")
-    kern = phase_kernel_vs_plain(card)
+    for src, path in paths.items():
+        info = ck.BUILD_INFO.get(src, {})
+        print(f"build: {src} in {info.get('seconds', 0.0):.2f} s -> "
+              f"{os.path.relpath(path, ROOT)}\n{info.get('log', 'cached')}")
+    print(f"build: all sources in {build_s:.2f} s (one nvcc each, together)")
+    k1 = phase_k1_dd()
     n_probe, shifted = edge_probe_on_card()
-    print(f"phase 3 edge probe: {shifted} of {n_probe} DDSketch edge "
+    print(f"phase 3a edge probe: {shifted} of {n_probe} DDSketch edge "
           f"durations land one bucket apart between K1 (CUDA logf) and the "
           f"host (torch CPU log)")
-    launches, spans_per_s, push_s = phase_main_path()
-    kern["launches"] = launches
-    print(f"phase 5 [{card}]: paged_fused_update {kern['ms']:.4f} ms per "
-          f"dispatch of {N_SPANS} spans (median of {N_TIMED}, CUDA events)")
-    dms = kern["device_ms"]
-    print(f"phase 5 [{card}]: paged_fused_update device time per launch "
-          f"(torch.profiler): "
-          f"{'not measured' if dms is None else f'{dms:.4f} ms'}")
-    print(f"phase 5 [{card}]: plain version on the card "
-          f"{kern['plain_ms']:.4f} ms")
-    print(f"phase 5 [{card}]: bound {kern['bound_ms']:.6f} ms by "
-          f"{kern['bound_by']} ({kern['bound_bytes']} bytes at 3.35 TB/s)")
-    print(f"phase 5 [{card}]: end to end {spans_per_s:.0f} spans/s "
-          f"(decode + push of {N_DISPATCH} x {N_SPANS} spans in "
-          f"{push_s:.3f} s)")
-    print(json.dumps({"kernels": [kern]}))
+    k1c = phase_k1_compact()
+    k2 = phase_k2()
+    dd = phase_main_path("dd")
+    bc = phase_main_path("both_compact")
+    k1["launches"], k1c["launches"] = dd["launches"], bc["launches"]
+    mom_bytes = moments_state_bytes()
+    print(f"phase 4 [{card}]: device state bytes per active series: "
+          f"dd f32 {dd['bytes_per_series']:.1f} ({dd['series']} series), "
+          f"both compact {bc['bytes_per_series']:.1f}, moments f32 "
+          f"{mom_bytes:.1f}")
+    for k in (k1, k1c, k2):
+        dms = k["device_ms"]
+        lib = k["library_ms"]
+        print(f"phase 5 [{card}]: {k['name']}: {k['ms']:.4f} ms per call "
+              f"(median of {N_TIMED}, CUDA events, host wrapper included); "
+              f"device time per call (torch.profiler): "
+              f"{'not measured' if dms is None else f'{dms:.4f} ms'}; plain "
+              f"version {k['plain_ms']:.4f} ms; bound {k['bound_ms']:.6f} ms "
+              f"by {k['bound_by']} ({k['bound_bytes']} bytes at 3.35 TB/s); "
+              f"library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms (index_add_)'}; "
+              f"launches on its path {k['launches']}")
+    print(f"phase 5 [{card}]: compact K1 scratch traffic "
+          f"{k1c['scratch_bytes']} bytes zeroed and read per dispatch "
+          f"({2 * k1c['scratch_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms at "
+          f"3.35 TB/s)")
+    for tier, r in (("dd f32", dd), ("both compact", bc)):
+        print(f"phase 5 [{card}]: end to end {tier} {r['spans_per_s']:.0f} "
+              f"spans/s (decode + push of {N_DISPATCH} x {N_SPANS} spans in "
+              f"{r['push_s']:.3f} s)")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                  for k in (k1, k1c, k2)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

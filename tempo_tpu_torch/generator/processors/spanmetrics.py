@@ -14,31 +14,44 @@ spanmetrics.go`:
 
 One host staging pass builds the interned label-id rows [N, L] and
 resolves series slots; then one fused device update adds calls,
-latency histogram, size and the DDSketch sidecar together, in place, in
-the page pool's arenas (`ops.pages.fused_step` → the CUDA kernel on the
-card, its plain version on the host).
+latency histogram, size and the quantile sidecars together, in place,
+in the page pool's arenas (`ops.pages.fused_step` → the CUDA kernel on
+the card, its plain version on the host).
 
-This slice runs the paged layout with the `sketch: dd` f32 state on the
-direct route. The dense layout, the moments sketch tiers, the compact
-state tier, the scheduler route and the staged native fast paths come
-with later slices and raise `NotImplementedError` here.
+Quantile sidecars (`sketch`): "dd", the ~1,269-bucket DDSketch plane;
+"moments", the ~15-float moments row of `ops/moments.py`, answered by
+the host maxent solver (failed solves fall back to the classic latency
+histogram); "both", moments answers with DDSketch fallback.
+`compact_state` stores counts and bucket grids as int32 and the latency
+sum as a bf16 Kahan pair (the reference's documented ~1% envelope for
+that sum). The reference runs compact state only on its Pallas tier and
+otherwise warns and stays f32; the port's only paged route is its K1
+kernel, which carries the compact semantics, so compact always applies.
+
+This slice runs the paged layout on the direct route. The dense layout,
+the scheduler route and the staged native fast paths come with later
+slices and raise `NotImplementedError` here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
 
 from tempo_tpu_torch.model.interner import INVALID_ID
 from tempo_tpu_torch.model.span_batch import SpanBatch
+from tempo_tpu_torch.ops import moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
 from tempo_tpu_torch.registry.pages import PagedPlane
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
                                                ManagedRegistry, _pad_len)
 from tempo_tpu_torch.utils.spanfilter import FilterPolicy, compile_policies
+
+_LOG = logging.getLogger("tempo_tpu_torch.spanmetrics")
 
 _KIND_STRS = ("SPAN_KIND_UNSPECIFIED", "SPAN_KIND_INTERNAL", "SPAN_KIND_SERVER",
               "SPAN_KIND_CLIENT", "SPAN_KIND_PRODUCER", "SPAN_KIND_CONSUMER")
@@ -60,11 +73,14 @@ class SpanMetricsConfig:
     enable_target_info: bool = False
     filter_policies: tuple[FilterPolicy, ...] = ()
     span_multiplier_key: str = ""             # attr holding a weight multiplier
-    enable_quantile_sketch: bool = True       # DDSketch sidecar per series
-    # quantile sketch tier: only "dd" in this slice ("moments" and "both"
-    # raise NotImplementedError)
+    enable_quantile_sketch: bool = True       # quantile sidecar per series
+    # quantile sketch tier: "dd" (DDSketch, ≤1% relative error), "moments"
+    # (the moments row, maxent quantiles) or "both" (moments answers,
+    # DDSketch fallback)
     sketch: str = "dd"
-    compact_state: bool = False               # raises: a later slice
+    moments_k: int = 12                       # moment count (2..16)
+    # int32 counts and bucket grids, bf16 Kahan-pair latency sums
+    compact_state: bool = False
     sketch_rel_err: float = 0.01              # DDSketch relative-error budget
     sketch_min_s: float = 1e-6                # 1µs .. ~28h latency range
     sketch_max_s: float = 1e5
@@ -79,16 +95,9 @@ class SpanMetricsProcessor:
     def __init__(self, registry: ManagedRegistry,
                  config: SpanMetricsConfig | None = None):
         self.cfg = cfg = config or SpanMetricsConfig()
-        if cfg.sketch in ("moments", "both"):
-            raise NotImplementedError(
-                f"sketch: {cfg.sketch} (the moments sketch tier) comes with "
-                "a later slice of the port (K1's moments variant)")
-        if cfg.sketch != "dd":
-            raise ValueError(f"unknown sketch tier {cfg.sketch!r} (use dd)")
-        if cfg.compact_state:
-            raise NotImplementedError(
-                "compact_state (int32 counts, bf16 Kahan-pair sums) comes "
-                "with a later slice of the port (K1's compact variant)")
+        if cfg.sketch not in ("dd", "moments", "both"):
+            raise ValueError(f"unknown sketch tier {cfg.sketch!r} (use dd | "
+                             "moments | both)")
         if cfg.use_scheduler:
             raise NotImplementedError(
                 "the device-scheduler route comes with a later slice of the "
@@ -99,34 +108,58 @@ class SpanMetricsProcessor:
         self._labels = tuple(dims)
         self._pool = registry.pages
         self.device = self._pool.device
+        self._compact = compact = bool(cfg.compact_state)
         self.calls = registry.new_counter("traces_spanmetrics_calls_total",
-                                          self._labels)
+                                          self._labels, compact=compact)
         self.latency = registry.new_histogram(
             "traces_spanmetrics_latency", self._labels,
-            edges=cfg.histogram_buckets)
+            edges=cfg.histogram_buckets, compact=compact)
         # latency and size share the calls table so all three stay
         # slot-aligned (the shared table's backing adopts their planes)
         self.latency.share_table(self.calls)
+        # sizes stay f32 under compact: byte sums overflow int32 at
+        # 2 GB per series
         self.sizes = registry.new_counter("traces_spanmetrics_size_total",
                                           self._labels)
         self.sizes.share_table(self.calls)
-        self._pdd = None
-        if cfg.enable_quantile_sketch:
-            cap = registry.overrides.max_active_series
-            dd_rows = min(cap, cfg.sketch_max_series)
-            pr = self._pool.page_rows
-            plane_rows = -(-dd_rows // pr) * pr  # page-aligned cover
+        dd_on = cfg.enable_quantile_sketch and cfg.sketch in ("dd", "both")
+        mom_on = cfg.enable_quantile_sketch and \
+            cfg.sketch in ("moments", "both")
+        self._mom_meta = None
+        if mom_on:
+            mk = max(2, min(int(cfg.moments_k), 16))
+            if mk != cfg.moments_k:
+                _LOG.warning("spanmetrics %s: moments_k %d clamped to %d "
+                             "(supported range 2..16)", registry.tenant,
+                             cfg.moments_k, mk)
+            self._mom_meta = moments.moments_params(mk, cfg.sketch_min_s,
+                                                    cfg.sketch_max_s)
+        self._pdd = self._pmom = None
+        cap = registry.overrides.max_active_series
+        dd_rows = min(cap, cfg.sketch_max_series)
+        pr = self._pool.page_rows
+        plane_rows = -(-dd_rows // pr) * pr  # page-aligned cover
+        if dd_on:
             gamma, nb = sketches.dd_params(cfg.sketch_rel_err, cfg.sketch_min_s,
                                            cfg.sketch_max_s)
-            ddc = PagedPlane(self._pool, "float32", nb, plane_rows,
+            dd_dt = "int32" if compact else "float32"
+            ddc = PagedPlane(self._pool, dd_dt, nb, plane_rows,
                              registry.tenant,
                              role="traces_spanmetrics_latency/ddsketch")
-            ddz = PagedPlane(self._pool, "float32", 1, plane_rows,
+            ddz = PagedPlane(self._pool, dd_dt, 1, plane_rows,
                              registry.tenant,
                              role="traces_spanmetrics_latency/ddzeros")
             self.calls.table.backing.add_plane(ddc, dd_rows)
             self.calls.table.backing.add_plane(ddz, dd_rows)
             self._pdd = (ddc, ddz, gamma, cfg.sketch_min_s, dd_rows)
+        if mom_on:
+            mk, mlo, mhi = self._mom_meta
+            mp = PagedPlane(self._pool, "float32", moments.n_cols(mk),
+                            plane_rows, registry.tenant,
+                            role="traces_spanmetrics_latency/moments")
+            self.calls.table.backing.add_plane(mp, dd_rows)
+            self._pmom = (mp, mk, mlo, mhi, dd_rows)
+        if dd_on or mom_on:
             # eviction clears the sketch rows with the family rows: a
             # reused slot must not inherit another series' latencies
             self.calls.evict_hooks.append(self._zero_sketch_slots)
@@ -144,12 +177,15 @@ class SpanMetricsProcessor:
 
     def _paged_planes(self):
         """Role-aligned planes of the fused step: (calls, hist_sums,
-        hist_counts, sizes, hist_buckets[, dd_zeros, dd_counts])."""
+        hist_counts, sizes, hist_buckets[, dd_zeros, dd_counts][,
+        moments])."""
         lat = self.latency
         planes = (self.calls.values, lat.sums, lat.counts,
                   self.sizes.values, lat.buckets)
         if self._pdd is not None:
             planes += (self._pdd[1], self._pdd[0])
+        if self._pmom is not None:
+            planes += (self._pmom[0],)
         return planes
 
     def _stacked_tables(self, planes) -> torch.Tensor:
@@ -185,12 +221,15 @@ class SpanMetricsProcessor:
         dd_rows = self._pdd[4] if self._pdd is not None else 0
         gamma = self._pdd[2] if self._pdd is not None else 1.0
         minv = self._pdd[3] if self._pdd is not None else 0.0
+        mom_rows = self._pmom[4] if self._pmom is not None else 0
         with self.registry.state_lock:
             op.fused_step(tuple(p.data for p in planes),
                           self._stacked_tables(planes), batch,
                           edges=tuple(self.cfg.histogram_buckets),
                           gamma=gamma, min_value=minv, dd_rows=dd_rows,
-                          page_shift=self._pool.page_shift)
+                          page_shift=self._pool.page_shift,
+                          mom_rows=mom_rows, mom_meta=self._mom_meta,
+                          compact=self._compact)
 
     # -- staging -----------------------------------------------------------
 
@@ -262,38 +301,109 @@ class SpanMetricsProcessor:
 
     def _zero_sketch_slots(self, padded: np.ndarray) -> None:
         """Purge hook (under the state lock): zero the evicted slots'
-        DDSketch rows; slots past the sketch plane are ignored."""
-        dd_rows = self._pdd[4]
-        s = np.where(padded < dd_rows, padded, -1)
-        self._pdd[0].zero_slots(s)
-        self._pdd[1].zero_slots(s)
+        sketch rows; slots past the sketch planes are ignored."""
+        limit = (self._pdd or self._pmom)[4]
+        s = np.where(padded < limit, padded, -1)
+        for plane in self._sketch_planes():
+            plane.zero_slots(s)
+
+    def _sketch_planes(self) -> tuple:
+        return ((self._pdd[0], self._pdd[1]) if self._pdd else ()) + \
+            ((self._pmom[0],) if self._pmom else ())
 
     def device_state_bytes(self) -> int:
-        """Device bytes of the processor-owned sketch sidecar (backed pages
-        only); the registry families report their own."""
-        if self._pdd is None:
-            return 0
-        return self._pdd[0].device_state_bytes() + self._pdd[1].device_state_bytes()
+        """Device bytes of the processor-owned sketch sidecars (backed
+        pages only); the registry families report their own."""
+        return sum(p.device_state_bytes() for p in self._sketch_planes())
 
     def quantile(self, q: float) -> dict[tuple[tuple[str, str], ...], float]:
-        """Per-series latency quantile from the DDSketch plane: the active
-        slots' rows are gathered through the page table on the device and
-        run through `dd_quantile` there."""
+        """Per-series latency quantile from the configured sketch tier."""
+        return self.quantiles((q,))[0]
+
+    def quantiles(self, qs) -> list[dict[tuple[tuple[str, str], ...], float]]:
+        """One {labels: value} map per q in `qs`, from one read of the
+        sketch rows: the moments tier solves each row's CDF once for all
+        q's; the DDSketch tier gathers the rows once."""
+        qs = tuple(float(q) for q in qs)
+        if self._pmom is not None:
+            return self._moments_quantiles(qs)
+        return self.dd_quantiles(qs)
+
+    def dd_quantiles(self, qs) -> list[dict]:
+        """DDSketch tier: one {labels: value} map per q."""
         if self._pdd is None:
-            return {}
-        ddc, ddz, gamma, minv, dd_rows = self._pdd
+            return [{} for _ in qs]
         with self.registry.state_lock:
             slots = self.calls.table.active_slots()
-            slots = slots[slots < dd_rows]
+            slots = slots[slots < self._pdd[4]]
             if not slots.size:
-                return {}
+                return [{} for _ in qs]
+            vals = self._dd_quantiles(qs, slots)
+        return [{self.calls.labels_of(int(s)): float(v[i])
+                 for i, s in enumerate(slots.tolist())} for v in vals]
+
+    def _dd_quantiles(self, qs, slots: np.ndarray) -> list[np.ndarray]:
+        """DDSketch quantiles of the slots' rows, gathered through the
+        page table on the device (int32 compact grids upcast there,
+        exactly). Caller holds the state lock."""
+        ddc, ddz, gamma, minv, _ = self._pdd
+        padded = np.full(_pad_len(slots.size), -1, np.int32)
+        padded[:slots.size] = slots
+        sk = sketches.DDSketch(ddc.gather_dev(padded).float(),
+                               ddz.gather_dev(padded).float(), gamma, minv)
+        return [sketches.dd_quantile(sk, q).cpu().numpy()[:slots.size]
+                for q in qs]
+
+    def _moments_quantiles(self, qs) -> list[dict]:
+        """Moments tier: gather the active slots' ~15-float rows, run the
+        host maxent solver once per distinct row (cached), and fill any
+        row whose solve failed from the bucket sketches ("both": the
+        DDSketch value; "moments": the classic latency histogram)."""
+        mp, mk, mlo, mhi, limit = self._pmom
+        with self.registry.state_lock:
+            slots = self.calls.table.active_slots()
+            slots = slots[slots < limit]
+            if not slots.size:
+                return [{} for _ in qs]
             padded = np.full(_pad_len(slots.size), -1, np.int32)
             padded[:slots.size] = slots
-            vals = sketches.dd_quantile(
-                sketches.DDSketch(ddc.gather_dev(padded), ddz.gather_dev(padded),
-                                  gamma, minv), q).cpu().numpy()
-        return {self.calls.labels_of(int(s)): float(vals[i])
-                for i, s in enumerate(slots.tolist())}
+            rows = mp.gather(padded)[:slots.size]
+        vals, failed = moments.quantiles_for_rows(rows, mk, mlo, mhi, qs)
+        out = []
+        for j, q in enumerate(qs):
+            v = vals[:, j]
+            if failed.any():
+                v = self._sketch_fallback(q, slots, v, failed)
+            out.append({self.calls.labels_of(int(s)): float(v[i])
+                        for i, s in enumerate(slots.tolist())})
+        return out
+
+    def _sketch_fallback(self, q: float, slots: np.ndarray, vals: np.ndarray,
+                         failed: np.ndarray) -> np.ndarray:
+        """Fill failed moments solves from the bucket sketches."""
+        idx = np.flatnonzero(failed)
+        with self.registry.state_lock:
+            if self._pdd is not None:
+                vals[idx] = self._dd_quantiles((q,), slots[idx])[0]
+                return vals
+            # moments-only tier: interpolate the classic latency histogram
+            padded = np.full(_pad_len(idx.size), -1, np.int32)
+            padded[:idx.size] = slots[idx]
+            bc = self.latency.buckets.gather(padded)[:idx.size]
+        edges = np.asarray(self.cfg.histogram_buckets, np.float64)
+        cum = np.cumsum(np.asarray(bc, np.float64), axis=1)
+        total = cum[:, -1]
+        target = np.maximum(q * total, 1e-12)
+        b = np.minimum((cum < target[:, None]).sum(axis=1), cum.shape[1] - 1)
+        prev = np.where(b > 0, cum[np.arange(len(b)), np.maximum(b - 1, 0)],
+                        0.0)
+        inb = bc[np.arange(len(b)), b]
+        frac = np.where(inb > 0, (target - prev) / np.maximum(inb, 1e-30), 1.0)
+        lo = np.where(b > 0, edges[np.minimum(np.maximum(b - 1, 0),
+                                              len(edges) - 1)], 0.0)
+        hi = edges[np.minimum(b, len(edges) - 1)]
+        vals[idx] = np.where(total > 0, lo + (hi - lo) * frac, 0.0)
+        return vals
 
 
 def _sanitize(k: str) -> str:

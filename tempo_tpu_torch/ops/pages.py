@@ -20,8 +20,13 @@ callers hold it across dispatch and rebind.
 
 `fused_step` is the slice's hot path: it hands the whole span-metrics
 plane family to `ops.cuda_kernels.paged_fused_update`, which launches
-the hand-written CUDA kernel for tensors on the card and runs the plain
-composed scatters of `_fused_body` for tensors on the host.
+the hand-written CUDA kernel for tensors on the card and runs its plain
+version for tensors on the host: the composed scatters of `_fused_body`
+into per-role logical-row deltas (`dispatch_deltas`), folded into the
+backed pages under each arena's storage rule (`fold_deltas`).
+
+Arenas are f32, or under the compact-state tier int32 (counts and bucket
+grids) and bf16 [rows, 2] (the latency sum's Kahan pair).
 """
 
 from __future__ import annotations
@@ -64,14 +69,42 @@ def _hist_scatter(arena2d, table, slots, buckets, w, page_shift) -> None:
     arena2d.index_put_((r, buckets[keep]), w[keep], accumulate=True)
 
 
+def round_i32(x: torch.Tensor) -> torch.Tensor:
+    """Compact-tier integer projection: nearest int, ties to even (as
+    `jnp.round`)."""
+    return torch.round(x).to(torch.int32)
+
+
+def _moments_scatter(am, table, slots, dur_s, w, mom_meta: tuple,
+                     page_shift: int) -> None:
+    """Paged moments update (ops/moments.py layout), in place: count and
+    Chebyshev log-moment sums add into columns 0..k, the two shifted
+    bound columns take the max, unweighted. Discards drop."""
+    from tempo_tpu_torch.ops import moments as msk
+
+    mk, mlo, mhi = mom_meta
+    r, keep = _kept(am, table, slots, page_shift)
+    z, basis = msk.moments_basis(dur_s, mk, mlo, mhi)
+    cols = torch.arange(mk + 1, device=am.device)
+    am.index_put_((r[:, None], cols[None, :]), (basis * w[:, None])[keep],
+                  accumulate=True)
+    f32 = dict(dtype=torch.float32, device=am.device)
+    zero = torch.zeros((), **f32)
+    zk = z[keep]
+    am[:, mk + 1].scatter_reduce_(
+        0, r, torch.maximum(zk - torch.tensor(mlo, **f32), zero), "amax")
+    am[:, mk + 2].scatter_reduce_(
+        0, r, torch.maximum(torch.tensor(mhi, **f32) - zk, zero), "amax")
+
+
 # ---------------------------------------------------------------------------
 # per-family updates (the non-fused registry paths)
 # ---------------------------------------------------------------------------
 
 def counter_add_step(arena, table, slots, vals, *, page_shift: int) -> None:
-    """Paged counter add, in place."""
+    """Paged counter add, in place (values cast to the arena's dtype)."""
     _add1(arena, table, slots,
-          torch.as_tensor(vals, dtype=arena.dtype, device=arena.device),
+          torch.as_tensor(vals, device=arena.device).to(arena.dtype),
           page_shift)
 
 
@@ -94,8 +127,8 @@ def hist_bucket(v: torch.Tensor, edges: tuple) -> torch.Tensor:
 def histogram_observe_step(a_sums, a_counts, ab, t_bucket, t_sums, t_counts,
                            slots, values, weights, *, edges: tuple,
                            page_shift: int) -> None:
-    """Classic histogram, in place: bucket increments in the wide arena,
-    sums and counts each in their own width-1 role arena."""
+    """Classic histogram over f32 arenas, in place: bucket increments in
+    the wide arena, sums and counts each in their own role arena."""
     dev = ab.device
     v = torch.as_tensor(values, dtype=torch.float32, device=dev)
     w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
@@ -156,13 +189,17 @@ def dd_index(v: torch.Tensor, gamma: float, min_value: float,
 
 def _fused_body(arenas: Sequence[torch.Tensor], tables: Sequence[torch.Tensor],
                 slots, dur_s, sizes, weights, *, edges: tuple, gamma: float,
-                min_value: float, dd_rows: int, page_shift: int) -> None:
-    """One paged step for all span-metrics families, as composed
-    scatters, in place. `arenas` / `tables` are role-aligned: (calls,
-    hist_sums, hist_counts, sizes, hist_buckets[, dd_zeros, dd_counts]);
-    each plane scatters into its own role arena through its own table.
-    The op order and f32 arithmetic follow the reference's `_fused_body`
-    (`tempo_tpu/ops/pages.py:416`)."""
+                min_value: float, dd_rows: int, page_shift: int,
+                mom_rows: int = 0, mom_meta: "tuple | None" = None) -> None:
+    """One paged step for all span-metrics families over f32 arenas, as
+    composed scatters, in place. `arenas` / `tables` are role-aligned:
+    (calls, hist_sums, hist_counts, sizes, hist_buckets[, dd_zeros,
+    dd_counts][, moments]); each plane scatters into its own role arena
+    through its own table. The op order and f32 arithmetic follow the
+    reference's `_fused_body` (`tempo_tpu/ops/pages.py:416`). The paged
+    fused update's plain version runs it on f32 logical-row deltas
+    (`dispatch_deltas`) and folds them under each arena's storage rule
+    (`fold_deltas`), as the reference's Pallas kernel does."""
     a_calls, a_hs, a_hc, a_sz, ab = arenas[:5]
     t_calls, t_hs, t_hc, t_sz, t_hb = tables[:5]
     dev = a_calls.device
@@ -170,8 +207,7 @@ def _fused_body(arenas: Sequence[torch.Tensor], tables: Sequence[torch.Tensor],
     w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
     v = torch.as_tensor(dur_s, dtype=torch.float32, device=dev)
     _add1(a_calls, t_calls, slots, w, page_shift)
-    _hist_scatter(ab, t_hb, slots, hist_bucket(v, tuple(edges)), w,
-                  page_shift)
+    _hist_scatter(ab, t_hb, slots, hist_bucket(v, tuple(edges)), w, page_shift)
     _add1(a_hs, t_hs, slots, v * w, page_shift)
     _add1(a_hc, t_hc, slots, w, page_shift)
     _add1(a_sz, t_sz, slots,
@@ -186,22 +222,115 @@ def _fused_body(arenas: Sequence[torch.Tensor], tables: Sequence[torch.Tensor],
         is_zero = v <= mn
         idx = dd_index(v, gamma, min_value, ad.shape[-1])
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        _hist_scatter(ad, t_ddc, dd_slots, idx,
-                      torch.where(is_zero, zero, w), page_shift)
+        _hist_scatter(ad, t_ddc, dd_slots, idx, torch.where(is_zero, zero, w),
+                      page_shift)
         _add1(a_ddz, t_ddz, dd_slots, torch.where(is_zero, w, zero),
               page_shift)
+    if mom_rows:
+        mom_slots = torch.where(slots < mom_rows, slots, -1)
+        _moments_scatter(arenas[-1], tables[-1], mom_slots, v, w, mom_meta,
+                         page_shift)
+
+
+def delta_shapes(n_lrows: int, n_edges: int, dd_rows: int, nb_dd: int,
+                 mom_rows: int, mom_k: int) -> list[tuple[int, int]]:
+    """(rows, width) of each role's dispatch delta by logical row: calls,
+    latency sum, latency count and size 1 wide, the latency histogram
+    n_edges+1, the DDSketch zeros 1 and grid `nb_dd`, the moments row
+    k+3; rows are the series table's `n_lrows`, `dd_rows` or `mom_rows`
+    (the sketch planes cover a prefix of the table)."""
+    shapes = [(n_lrows, 1)] * 4 + [(n_lrows, n_edges + 1)]
+    if dd_rows:
+        shapes += [(dd_rows, 1), (dd_rows, nb_dd)]
+    if mom_rows:
+        shapes.append((mom_rows, mom_k + 3))
+    return shapes
+
+
+def dispatch_deltas(slots, vals, *, n_lrows: int, edges: tuple, gamma: float,
+                    min_value: float, dd_rows: int, nb_dd: int, mom_rows: int,
+                    mom_meta: "tuple | None", page_shift: int
+                    ) -> list[torch.Tensor]:
+    """Each role's whole-dispatch f32 delta by LOGICAL row (shapes from
+    `delta_shapes`): the accumulation the reference's Pallas kernel makes
+    per page before it writes back. Spans aimed at any logical page land
+    here; the fold keeps only backed pages."""
+    dev = vals.device
+    shapes = delta_shapes(n_lrows, len(edges), dd_rows, nb_dd, mom_rows,
+                          mom_meta[0] if mom_rows else 0)
+    deltas = [torch.zeros((r,) if w == 1 else (r, w), dtype=torch.float32,
+                          device=dev) for r, w in shapes]
+    rows = [r for r, _ in shapes]
+    # identity page tables: logical page p → delta page p
+    ident = [torch.arange(-(-r // (1 << page_shift)), dtype=torch.int32,
+                          device=dev) for r in rows]
+    _fused_body(deltas, ident, slots, vals[0], vals[1], vals[2],
+                edges=edges, gamma=gamma, min_value=min_value,
+                dd_rows=dd_rows, page_shift=page_shift, mom_rows=mom_rows,
+                mom_meta=mom_meta)
+    return deltas
+
+
+def fold_deltas(arenas: Sequence[torch.Tensor], tables: torch.Tensor,
+                deltas: Sequence[torch.Tensor], *, page_shift: int,
+                mom_k: "int | None") -> None:
+    """Fold logical-row deltas into every backed page of each role, in
+    place, under the arena's storage rule (the write-back of the
+    reference's Pallas kernel, `pallas_kernels.py:338-378`):
+
+      int32            += round-half-even(delta), once per dispatch
+      bf16 [rows, 2]   the Kahan pair (sum, compensation): y = delta +
+                       comp, tot = sum + y, comp' = y - (tot - sum) in
+                       f32, both stored as bf16 — on EVERY row of every
+                       backed page, untouched rows included (delta 0)
+      f32              += delta
+      moments (last role when `mom_k` is given): columns 0..k add, the
+                       two bound columns take the max
+
+    A table entry <= 0 (unbacked, padding) is skipped, so the trash page
+    stays zero."""
+    pr = 1 << page_shift
+    dev = arenas[0].device
+    offs = torch.arange(pr, device=dev)
+    for r, (a, d) in enumerate(zip(arenas, deltas)):
+        n_lp = -(-d.shape[0] // pr)
+        t = tables[r, :n_lp].to(torch.int64)
+        lps = torch.nonzero(t > 0).flatten()
+        if not lps.numel():
+            continue
+        lrow = (lps[:, None] * pr + offs).reshape(-1)
+        prow = (t[lps][:, None] * pr + offs).reshape(-1)
+        inb = lrow < d.shape[0]
+        lrow, prow = lrow[inb], prow[inb]
+        delta = d[lrow]
+        if a.dtype == torch.int32:
+            a[prow] += round_i32(delta)
+        elif a.dtype == torch.bfloat16:
+            s, comp = a[prow, 0].float(), a[prow, 1].float()
+            y = delta + comp
+            tot = s + y
+            a[prow] = torch.stack([tot, y - (tot - s)], dim=1).to(a.dtype)
+        elif mom_k is not None and r == len(arenas) - 1:
+            a[prow, :mom_k + 1] += delta[:, :mom_k + 1]
+            a[prow, mom_k + 1:] = torch.maximum(a[prow, mom_k + 1:],
+                                                delta[:, mom_k + 1:])
+        else:
+            a[prow] += delta
 
 
 def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
                edges: tuple, gamma: float, min_value: float, dd_rows: int,
-               page_shift: int) -> None:
+               page_shift: int, mom_rows: int = 0,
+               mom_meta: "tuple | None" = None, compact: bool = False) -> None:
     """The paged fused span-metrics update, in place.
 
     `tables` is the stacked [R, P] int32 table, padded with -1. `batch`
     is either one [4, N] f32 matrix (slots, dur_s, sizes, weights — slot
     ids exact in f32 under the caller's capacity < 2^24 gate) or a tuple
-    of four vectors (int32 slots and three f32 rows). With dd off
-    (dd_rows=0) there are 5 arenas and 5 table rows, else 7."""
+    of four vectors (int32 slots and three f32 rows). There are 5 roles,
+    +2 with the DDSketch planes (dd_rows > 0), +1 with the moments plane
+    (mom_rows > 0, `mom_meta` = (k, lo, hi)); `compact` takes int32 count
+    arenas and the bf16 pair for the latency sum."""
     from tempo_tpu_torch.ops import cuda_kernels
 
     dev = arenas[0].device
@@ -214,4 +343,5 @@ def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
     cuda_kernels.paged_fused_update(
         tables, slots, vals, tuple(arenas), page_rows=1 << page_shift,
         edges=tuple(edges), gamma=gamma, min_value=min_value,
-        dd_rows=dd_rows)
+        dd_rows=dd_rows, mom_rows=mom_rows, mom_meta=mom_meta,
+        compact=compact)

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops.pages import hist_bucket
 
 
@@ -40,9 +41,10 @@ class CounterState:
     values: torch.Tensor  # [S] f32
 
 
-def counter_init(capacity: int, device="cpu") -> CounterState:
+def counter_init(capacity: int, device=None) -> CounterState:
+    """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
     return CounterState(values=torch.zeros(capacity, dtype=torch.float32,
-                                           device=device))
+                                           device=resolve_device(device)))
 
 
 def counter_update(state: CounterState, slots, weights=None,
@@ -68,9 +70,12 @@ class HistogramState:
     edges: tuple
 
 
-def histogram_init(capacity: int, edges: tuple, device="cpu") -> HistogramState:
+def histogram_init(capacity: int, edges: tuple, device=None) -> HistogramState:
+    """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
+    dev = resolve_device(device)
+
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     return HistogramState(bucket_counts=z(capacity, len(edges) + 1),
                           sums=z(capacity), counts=z(capacity),

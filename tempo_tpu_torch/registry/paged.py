@@ -8,6 +8,13 @@ through the paged updates of `ops/pages.py` in place, and snapshots
 gather the active slots back through the same table into
 capacity-shaped host arrays. Every device op runs under the registry
 state lock, which is the pool's lock.
+
+Under the compact-state tier (`compact=True`) counts and histogram
+buckets are int32 and a histogram's sum is a [2]-wide bf16 Kahan pair
+(sum, compensation); snapshots upcast to f32 and fold the pair. Such
+families are written only by the span-metrics processor, through the
+paged fused update (one rounding per cell per dispatch); their own
+non-fused writes raise.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ class _PagedBase(_MetricBase):
         self.planes: dict[str, PagedPlane] = {}
         self.table.backing = PageBacking(self.pool)
 
-    def _plane(self, role: str, width: int) -> PagedPlane:
-        p = PagedPlane(self.pool, "float32", width, self.table.capacity,
+    def _plane(self, role: str, width: int,
+               dtype: str = "float32") -> PagedPlane:
+        p = PagedPlane(self.pool, dtype, width, self.table.capacity,
                        self.registry.tenant, role=f"{self.name}/{role}")
         self.planes[role] = p
         self.table.backing.add_plane(p)
@@ -51,13 +59,14 @@ class _PagedBase(_MetricBase):
         return padded, slots.size
 
     def _gather_full(self, plane: PagedPlane) -> np.ndarray:
-        """Capacity-shaped host array with the active rows filled."""
+        """Capacity-shaped f32 host array with the active rows filled
+        (int32 planes upcast: counts below 2^24 are exact in f32)."""
         padded, n = self._padded_active()
         shape = (self.table.capacity,) if plane.width == 1 \
             else (self.table.capacity, plane.width)
         full = np.zeros(shape, np.float32)
         if n:
-            full[padded[:n]] = plane.gather(padded)[:n]
+            full[padded[:n]] = plane.gather(padded)[:n].astype(np.float32)
         return full
 
     def zero_evicted(self, padded_slots: np.ndarray) -> None:
@@ -74,13 +83,25 @@ class _PagedBase(_MetricBase):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.pool.device)
 
 
+def _compact_write(name: str) -> None:
+    raise NotImplementedError(
+        f"{name}: non-fused writes to a compact-state family come with a "
+        "later slice of the port (the span-metrics processor writes its "
+        "compact families through ops.pages.fused_step)")
+
+
 class PagedCounter(_PagedBase, Counter):
-    def __init__(self, registry, name, label_names, capacity):
+    def __init__(self, registry, name, label_names, capacity,
+                 compact: bool = False):
         super().__init__(registry, name, label_names, capacity)
-        self.values = self._plane("values", 1)
+        self.compact = compact
+        self.values = self._plane("values", 1,
+                                  "int32" if compact else "float32")
 
     def add_slots(self, slots: np.ndarray,
                   weights: np.ndarray | None = None) -> None:
+        if self.compact:
+            _compact_write(self.name)
         w = np.ones(len(slots), np.float32) if weights is None else weights
         with self.registry.state_lock:
             op.counter_add_step(self.values.data, self.values.device_map(),
@@ -110,15 +131,21 @@ class PagedGauge(_PagedBase, Gauge):
 
 class PagedHistogram(_PagedBase, Histogram):
     def __init__(self, registry, name, label_names, capacity,
-                 edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES):
+                 edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES,
+                 compact: bool = False):
         super().__init__(registry, name, label_names, capacity)
         self.edges = tuple(edges)
-        self.buckets = self._plane("buckets", len(self.edges) + 1)
-        self.sums = self._plane("sums", 1)
-        self.counts = self._plane("counts", 1)
+        self.compact = compact
+        count_dt = "int32" if compact else "float32"
+        self.buckets = self._plane("buckets", len(self.edges) + 1, count_dt)
+        self.sums = self._plane("sums", 2 if compact else 1,
+                                "bfloat16" if compact else "float32")
+        self.counts = self._plane("counts", 1, count_dt)
 
     def observe_slots(self, slots: np.ndarray, values: np.ndarray,
                       weights: np.ndarray | None = None) -> None:
+        if self.compact:
+            _compact_write(self.name)
         w = np.ones(len(slots), np.float32) if weights is None else weights
         with self.registry.state_lock:
             op.histogram_observe_step(
@@ -129,8 +156,17 @@ class PagedHistogram(_PagedBase, Histogram):
                 edges=self.edges, page_shift=self.pool.page_shift)
 
     def _snap(self) -> tuple:
-        return (self._gather_full(self.buckets),
-                self._gather_full(self.sums),
+        if not self.compact:
+            return (self._gather_full(self.buckets),
+                    self._gather_full(self.sums),
+                    self._gather_full(self.counts))
+        # the pair folds to sum + compensation in f32
+        padded, n = self._padded_active()
+        full = np.zeros((self.table.capacity,), np.float32)
+        if n:
+            pair = self.sums.gather(padded)[:n]
+            full[padded[:n]] = pair[:, 0] + pair[:, 1]
+        return (self._gather_full(self.buckets), full,
                 self._gather_full(self.counts))
 
 

@@ -22,6 +22,9 @@ and returned to the free list by the staleness sweeps.
 - `load_reference_state` — installs arenas and page maps taken from the
   JAX reference's pool, so both packages can start from one state.
 
+Arenas are f32, or for the compact-state tier int32 (counts) and
+bfloat16 (the latency sum's [rows, 2] Kahan pair).
+
 The reference's `configure` logs a bad config and falls back to the dense
 layout; the port has no dense layout yet, so it raises.
 """
@@ -38,7 +41,8 @@ import torch
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops import pages as op
 
-_DTYPE_BYTES = {"float32": 4}
+_TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32,
+                 "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -82,17 +86,17 @@ class _Arena:
 
     def __init__(self, pool: "PagePool", dtype: str, width: int,
                  role: str) -> None:
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"{dtype} arenas belong to the compact-state tier, which "
-                "comes with a later slice of the port")
+        if dtype not in _TORCH_DTYPES:
+            raise ValueError(f"unsupported arena dtype {dtype!r} "
+                             f"(use one of {sorted(_TORCH_DTYPES)})")
         self.dtype = dtype
         self.width = width
         self.role = role
         self.n_pages = pool._arena_pages
         self.rows = self.n_pages * pool.page_rows
         shape = (self.rows,) if width == 1 else (self.rows, width)
-        self.data = torch.zeros(shape, dtype=torch.float32, device=pool.device)
+        self.data = torch.zeros(shape, dtype=_TORCH_DTYPES[dtype],
+                                device=pool.device)
         # physical page 0 is the trash page: never handed out, so every
         # table entry of a backed page is >= 1 and the kernel can skip
         # entries <= 0 without a separate valid bit
@@ -101,7 +105,7 @@ class _Arena:
 
     @property
     def page_bytes(self) -> int:
-        return (self.rows // self.n_pages) * self.width * _DTYPE_BYTES[self.dtype]
+        return (self.rows // self.n_pages) * self.width * self.data.element_size()
 
 
 class PagePool:
@@ -238,8 +242,12 @@ class PagedPlane:
 
     def gather(self, slots: np.ndarray) -> np.ndarray:
         """Host copy of the slots' rows ([n] or [n, width]); unbacked or
-        negative slots read 0. Caller holds pool.lock."""
-        return self.gather_dev(slots).cpu().numpy()
+        negative slots read 0. A bfloat16 plane comes back as f32 (exact;
+        numpy has no bfloat16). Caller holds pool.lock."""
+        rows = self.gather_dev(slots)
+        if rows.dtype == torch.bfloat16:
+            rows = rows.float()
+        return rows.cpu().numpy()
 
     def gather_dev(self, slots: np.ndarray) -> torch.Tensor:
         """Like `gather` but stays on the device."""
@@ -321,16 +329,27 @@ def load_reference_state(pool: PagePool, arenas: dict, page_maps: dict,
     """Install state taken from the JAX reference's pool.
 
     `arenas` maps (dtype, width, role) to the reference arena as a numpy
-    array (`np.asarray(arena.data)`); `page_maps` maps (tenant, role) to a
-    plane's host page map, and `refcounts` (optional, same keys) to its
-    per-page active-slot counts. Arena contents are copied into this
+    array (`np.asarray(arena.data)`: float32, int32, or ml_dtypes'
+    bfloat16); `page_maps` maps (tenant, role) to a plane's host page map,
+    and `refcounts` (optional, same keys) to its per-page active-slot
+    counts. Arena contents are copied, each in its own dtype, into this
     pool's arenas (created when missing); each page map is installed in
     the matching plane of this pool, and the pages it names leave the
-    arena's free list. Raises on a shape mismatch or an unknown plane."""
+    arena's free list. Raises on a dtype or shape mismatch or an unknown
+    plane."""
     with pool.lock:
         for (dtype, width, role), data in arenas.items():
             a = pool.arena(dtype, width, role)
-            src = torch.from_numpy(np.array(data, np.float32))   # a copy
+            data = np.asarray(data)
+            if data.dtype.name != a.dtype:
+                raise ValueError(f"arena {role}: reference dtype "
+                                 f"{data.dtype.name} vs {a.dtype}")
+            if a.dtype == "bfloat16":
+                # torch cannot take ml_dtypes' bfloat16: move the bits
+                src = torch.from_numpy(data.view(np.uint16).copy()).view(
+                    torch.bfloat16)
+            else:
+                src = torch.from_numpy(data.copy())
             if tuple(src.shape) != tuple(a.data.shape):
                 raise ValueError(f"arena {role}: reference shape "
                                  f"{tuple(src.shape)} vs {tuple(a.data.shape)}")

@@ -218,10 +218,13 @@ class ManagedRegistry:
         # serializes its device reads and updates on the pool's lock
         self.state_lock = self.pages.lock
 
-    def new_counter(self, name: str, label_names: Sequence[str]):
+    def new_counter(self, name: str, label_names: Sequence[str],
+                    compact: bool = False):
+        """A paged counter; `compact` keeps its rows as int32."""
         from tempo_tpu_torch.registry.paged import PagedCounter
         c = self._metrics[name] = PagedCounter(
-            self, name, label_names, self.overrides.max_active_series)
+            self, name, label_names, self.overrides.max_active_series,
+            compact=compact)
         return c
 
     def new_gauge(self, name: str, label_names: Sequence[str]):
@@ -231,10 +234,14 @@ class ManagedRegistry:
         return g
 
     def new_histogram(self, name: str, label_names: Sequence[str],
-                      edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES):
+                      edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES,
+                      compact: bool = False):
+        """A paged classic histogram; `compact` keeps int32 buckets and
+        counts and the sum as a bf16 Kahan pair."""
         from tempo_tpu_torch.registry.paged import PagedHistogram
         h = self._metrics[name] = PagedHistogram(
-            self, name, label_names, self.overrides.max_active_series, edges)
+            self, name, label_names, self.overrides.max_active_series, edges,
+            compact=compact)
         return h
 
     @property

@@ -1,8 +1,9 @@
 """Import and device guards of the PyTorch/CUDA port.
 
-- A fresh interpreter imports `tempo_tpu_torch`, pushes and collects once
-  on the CPU, and ends with neither `jax` nor any `tempo_tpu` module
-  loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
+- A fresh interpreter imports `tempo_tpu_torch`, pushes, collects and
+  reads a quantile on the CPU under the `sketch: dd` f32 tier and under
+  `sketch: both` with compact state, and ends with neither `jax` nor any
+  `tempo_tpu` module loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
   the string "tempo_tpu", so a module counts as the reference only when
   its name is `tempo_tpu` or starts with `tempo_tpu.`.
 - No source file of the port, nor `chip_smoke.py`, imports either.
@@ -46,15 +47,16 @@ from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
 from tempo_tpu_torch.registry import pages
 pool = pages.PagePool(tt.PagePoolConfig(enabled=True, page_rows=64,
                                         arena_slots=1024), device="cpu")
-with pages.use(pool):
-    g = tt.GeneratorInstance("t", tt.GeneratorConfig(
-        registry=tt.RegistryOverrides(max_active_series=512),
-        spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
-        now=lambda: 1.7e9, device="cpu")
 data = encode_spans_otlp(synthetic_spans(300, seed=0, now_ns=int(1.7e18)))
-g.push_batch(tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(g.registry.interner)))
-assert g.collect_and_push() > 0
-assert g.processors["span-metrics"].quantile(0.5)
+for sm in (dict(), dict(sketch="both", compact_state=True)):
+    with pages.use(pool):
+        g = tt.GeneratorInstance(f"t{len(sm)}", tt.GeneratorConfig(
+            registry=tt.RegistryOverrides(max_active_series=512),
+            spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128, **sm)),
+            now=lambda: 1.7e9, device="cpu")
+    g.push_batch(tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(g.registry.interner)))
+    assert g.collect_and_push() > 0
+    assert g.processors["span-metrics"].quantile(0.5)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu") or m.startswith(("jax.", "tempo_tpu.")))
 print("LOADED", bad)
@@ -115,11 +117,21 @@ def _instance(**sm):
 
 
 @pytest.mark.parametrize("sm", [dict(sketch="moments"), dict(sketch="both"),
-                                dict(compact_state=True),
-                                dict(use_scheduler=True)])
+                                dict(compact_state=True), dict()])
 def test_unsupported_spanmetrics_configs_raise(sm):
+    """The scheduler route raises under every sketch and state tier."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        _instance(**sm)
+        _instance(use_scheduler=True, **sm)
+
+
+@pytest.mark.parametrize("sm", [dict(sketch="moments"), dict(sketch="both"),
+                                dict(sketch="both", compact_state=True)])
+def test_moments_and_compact_tiers_build(sm):
+    g = _instance(**sm)
+    proc = g.processors["span-metrics"]
+    assert (proc._pmom is not None) == (sm["sketch"] != "dd")
+    assert proc.calls.values.data.dtype == (
+        torch.int32 if sm.get("compact_state") else torch.float32)
 
 
 def test_dense_layout_and_other_entry_points_raise():

@@ -114,11 +114,11 @@ def test_registry_metric_updates_match():
     v = rng.lognormal(-3, 1.5, n).astype(np.float32)
     edges = (0.002, 0.008, 0.032, 0.128)
     rc = jm.counter_update(jm.counter_init(cap), slots, w, mask)
-    tc = tm.counter_update(tm.counter_init(cap), torch.from_numpy(slots),
+    tc = tm.counter_update(tm.counter_init(cap, device="cpu"), torch.from_numpy(slots),
                            torch.from_numpy(w), torch.from_numpy(mask))
     np.testing.assert_array_equal(tc.values.numpy(), np.asarray(rc.values))
     rh = jm.histogram_update(jm.histogram_init(cap, edges), slots, v, w, mask)
-    th = tm.histogram_update(tm.histogram_init(cap, edges),
+    th = tm.histogram_update(tm.histogram_init(cap, edges, device="cpu"),
                              torch.from_numpy(slots), torch.from_numpy(v),
                              torch.from_numpy(w), torch.from_numpy(mask))
     np.testing.assert_array_equal(th.bucket_counts.numpy(),
@@ -264,5 +264,134 @@ def test_load_reference_state_round_trip():
         ref, got = np.asarray(jp.data), tp.data.numpy()
         if r in (1, 3):
             np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, ref, err_msg=f"role {r}")
+
+
+def test_metric_states_default_to_cuda(monkeypatch):
+    """`counter_init` / `histogram_init` run on the card unless the CPU is
+    asked for: without CUDA the default raises, `device="cpu"` works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.counter_init(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.histogram_init(8, (0.1, 1.0))
+    assert tm.counter_init(8, device="cpu").values.device.type == "cpu"
+    h = tm.histogram_init(8, (0.1, 1.0), device="cpu")
+    assert h.bucket_counts.shape == (8, 3) and h.sums.device.type == "cpu"
+
+
+@pytest.mark.parametrize("family", ["counter", "histogram"])
+def test_compact_families_refuse_non_fused_writes(family):
+    """A compact-state family is written only through the paged fused
+    update (one rounding per cell per dispatch): its own per-call write
+    raises and leaves the planes untouched; an f32 family's works."""
+    from tempo_tpu_torch.registry.registry import (ManagedRegistry,
+                                                   RegistryOverrides)
+
+    _, tpool = _pools(page_rows=8, arena_slots=64)
+    with tpages.use(tpool):
+        reg = ManagedRegistry("t", RegistryOverrides(max_active_series=32),
+                              now=lambda: 1000.0)
+    slots = np.array([0, 3, 3], np.int32)
+    w = np.array([0.25, 0.25, 0.5], np.float32)
+    for compact in (True, False):
+        name = f"{family}_{compact}"
+        if family == "counter":
+            m = reg.new_counter(name, ("a",), compact=compact)
+            write = lambda: m.add_slots(slots, w)  # noqa: E731
+        else:
+            m = reg.new_histogram(name, ("a",), compact=compact)
+            write = lambda: m.observe_slots(  # noqa: E731
+                slots, np.full(3, 0.01, np.float32), w)
+        m.table.backing.ensure_slot(0)
+        m.table.backing.ensure_slot(3)
+        if compact:
+            with pytest.raises(NotImplementedError, match="fused_step"):
+                write()
+            assert not any(p.data.any() for p in m.planes.values())
+        else:
+            write()
+            plane = m.values if family == "counter" else m.counts
+            np.testing.assert_array_equal(plane.gather(slots), [0.25, 0.75,
+                                                                0.75])
+
+
+def test_load_reference_state_compact_round_trip():
+    """A JAX processor under `sketch: both` with compact state (int32
+    counts, a bf16 Kahan pair, the moments plane; the reference's Pallas
+    kernel in interpret mode) installed in the port's pool: each arena
+    round-trips in its own dtype, and one more identical push through
+    both packages gives equal planes (int32 exact, the pair folded within
+    1%, f32 sums at rtol 1e-5, moment sums and bounds at the `log`
+    tolerance of tests/test_torch_moments.py)."""
+    from tempo_tpu.generator.processors.spanmetrics import (
+        SpanMetricsConfig as JCfg, SpanMetricsProcessor as JProc)
+    from tempo_tpu.model.span_batch import synthetic_batch
+    from tempo_tpu.registry.registry import (ManagedRegistry as JReg,
+                                             RegistryOverrides as JOv)
+    from tempo_tpu_torch.generator.processors.spanmetrics import (
+        SpanMetricsConfig, SpanMetricsProcessor)
+    from tempo_tpu_torch.registry.registry import (ManagedRegistry,
+                                                   RegistryOverrides)
+
+    pc = dict(enabled=True, page_rows=64, arena_slots=1024)
+    sm = dict(sketch_max_series=128, sketch="both", compact_state=True,
+              sketch_rel_err=0.05, moments_k=6)
+    jpool = jpages.PagePool(jpages.PagePoolConfig(**pc))
+    with jpages.use(jpool):
+        jreg = JReg("t", JOv(max_active_series=512), now=lambda: 1000.0)
+        jproc = JProc(jreg, JCfg(use_scheduler=False, kernel="pallas",
+                                 pallas_interpret=True, **sm))
+    assert jproc._compact
+    jproc.push_batch(synthetic_batch(400, interner=jreg.interner,
+                                     n_services=4, n_names=40, seed=1))
+    tpool = tpages.PagePool(tpages.PagePoolConfig(**pc), device="cpu")
+    with tpages.use(tpool):
+        treg = ManagedRegistry("t", RegistryOverrides(max_active_series=512),
+                               now=lambda: 1000.0)
+        tproc = SpanMetricsProcessor(treg, SpanMetricsConfig(**sm))
+    arenas = {k: np.asarray(a.data) for k, a in jpool.arenas.items()}
+    assert {a.dtype.name for a in arenas.values()} == \
+        {"int32", "bfloat16", "float32"}
+    jplanes = jproc._paged_planes()
+    maps = {(p.tenant, p._arena.role): p.page_map for p in jplanes}
+    tpages.load_reference_state(tpool, arenas, maps)
+    for key, a in arenas.items():
+        got = tpool.arenas[key].data
+        assert str(got.dtype) == f"torch.{a.dtype.name}"
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      a.astype(np.float32))
+    bad = dict(arenas)
+    key = next(k for k, a in arenas.items() if a.dtype.name == "int32")
+    bad[key] = arenas[key].astype(np.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        tpages.load_reference_state(tpool, bad, {})
+    rng = np.random.default_rng(11)
+    live = np.flatnonzero(jproc.calls.table.active)
+    mat = np.zeros((4, 128), np.float32)
+    mat[0] = rng.choice(live, 128)
+    mat[1] = rng.lognormal(-3, 1.5, 128)
+    mat[2] = rng.integers(100, 5000, 128)
+    mat[3] = rng.integers(1, 3, 128)
+    jproc._paged_dispatch_packed4(mat)
+    tproc._paged_update(mat[0], mat[1], mat[2], mat[3])
+    tplanes = tproc._paged_planes()
+    k = sm["moments_k"]
+    for r, (jp, tp) in enumerate(zip(jplanes, tplanes)):
+        ref = np.asarray(jp.data).astype(np.float32)
+        got = tp.data.float().numpy()
+        if r == 1:
+            np.testing.assert_allclose(got.sum(axis=1), ref.sum(axis=1),
+                                       rtol=1e-2, atol=1e-6)
+        elif r == 3:
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+        elif r == 7:
+            assert (np.abs(got[:, 1:k + 1] - ref[:, 1:k + 1])
+                    <= 1e-5 * np.abs(ref[:, 1:k + 1])
+                    + 2e-5 * ref[:, :1]).all()
+            np.testing.assert_array_equal(got[:, 0], ref[:, 0])
+            np.testing.assert_allclose(got[:, k + 1:], ref[:, k + 1:],
+                                       rtol=0, atol=2e-6)
         else:
             np.testing.assert_array_equal(got, ref, err_msg=f"role {r}")

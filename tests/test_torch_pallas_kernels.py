@@ -249,3 +249,253 @@ def test_dd_index_edge_probe():
     assert np.abs(shift).max() <= 1, "a probe moved more than one bucket"
     assert n_shifted <= len(probes) // 6, n_shifted
     print(f"dd edge probe: {n_shifted} of {len(probes)} shifted one bucket")
+
+
+# ---------------------------------------------------------------------------
+# moments and compact branches, three dispatches from non-zero state
+# ---------------------------------------------------------------------------
+
+MOM_META = (4, float(np.log(1e-6)), float(np.log(1e5)))
+# calls, hist_counts, hist_buckets, dd_zeros, dd_counts under compact
+INT_ROLES = (0, 2, 4, 5, 6)
+
+
+def _roles(dd, mom):
+    return 5 + (2 if dd else 0) + (1 if mom else 0)
+
+
+def _state(seed, dd, mom, compact):
+    """Role arenas with non-zero state on the backed pages 1..3, in the
+    storage of the tier: f32, or int32 counts, a bf16 (sum, compensation)
+    pair for the latency sum, f32 sizes and moments."""
+    rng = np.random.default_rng(seed)
+    rows = N_PHYS * PAGE_ROWS
+    live = slice(PAGE_ROWS, 4 * PAGE_ROWS)
+    out = []
+    for r in range(_roles(dd, mom)):
+        is_mom = mom and r == _roles(dd, mom) - 1
+        width = MOM_META[0] + 3 if is_mom else {4: len(EDGES) + 1,
+                                                6: DD_NB}.get(r)
+        if compact and r == 1:
+            pair = np.zeros((rows, 2), np.float32)
+            pair[live, 0] = rng.integers(0, 64, 3 * PAGE_ROWS) / 8
+            pair[live, 1] = rng.integers(-4, 5, 3 * PAGE_ROWS) / 1024
+            out.append(torch.from_numpy(pair).to(torch.bfloat16))
+            continue
+        a = np.zeros((rows,) if width is None else (rows, width), np.float32)
+        a[live] = rng.integers(0, 5, a[live].shape)
+        int32 = compact and r in INT_ROLES and not is_mom
+        dt = torch.int32 if int32 else torch.float32
+        out.append(torch.from_numpy(a).to(dt))
+    return out
+
+
+def _dispatch(seed, arm, n=48):
+    """A [4, n] batch. Dyadic arm: weights in {0.25, 0.5, 1, 1.5, 2.5},
+    durations multiples of 1/1024, so every f32 delta is exact; the first
+    five spans pin per-dispatch deltas of 0.5, 2.5 and 1.5 on slots 0..2,
+    which no other span touches (half-to-even rounding: 0, 2, 2).
+    Lognormal arm: lognormal durations, integer weights."""
+    rng = np.random.default_rng(seed)
+    mat = np.empty((4, n), np.float32)
+    mat[0] = rng.integers(-1, 4 * PAGE_ROWS, n)          # incl. discards
+    mat[0][(mat[0] >= 0) & (mat[0] < 3)] = 3
+    mat[2] = rng.integers(100, 5000, n)
+    if arm == "dyadic":
+        mat[1] = rng.integers(1, 8 * 1024, n) / 1024
+        mat[3] = rng.choice([0.25, 0.5, 1.0, 1.5, 2.5], n)
+        mat[0, :5] = (0, 0, 1, 2, 2)
+        mat[3, :5] = (0.25, 0.25, 2.5, 0.5, 1.0)
+    else:
+        mat[1] = rng.lognormal(-3, 1.5, n)
+        mat[3] = rng.integers(1, 4, n)
+    mat[1, 5:8] = (DD_MIN, DD_MIN / 2, 0.0)              # DDSketch zeros
+    return mat
+
+
+def _k1_kw(dd, mom, compact):
+    return dict(page_rows=PAGE_ROWS, edges=EDGES, gamma=DD_GAMMA,
+                min_value=DD_MIN, dd_rows=2 * PAGE_ROWS if dd else 0,
+                mom_rows=3 * PAGE_ROWS if mom else 0,
+                mom_meta=MOM_META if mom else None, compact=compact)
+
+
+def _run_both(dd, mom, compact, arm, dispatches=3):
+    """Three dispatches through the reference's Pallas kernel (interpret
+    mode) and the port's wrapper on CPU tensors (its plain version)."""
+    kw = _k1_kw(dd, mom, compact)
+    got = _state(20, dd, mom, compact)
+    ref = tuple(jnp.asarray(_to_np(a)) if a.dtype != torch.bfloat16
+                else jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+                for a in got)
+    tabs = _stacked(_tables(_roles(dd, mom)))
+    for d in range(dispatches):
+        mat = _dispatch(30 + d, arm)
+        slots = mat[0].astype(np.int32)
+        ref = jpk.paged_fused_update(
+            jnp.asarray(tabs), jnp.asarray(slots), jnp.asarray(mat[1:]), ref,
+            interpret=True, **kw)
+        tck.paged_fused_update(torch.from_numpy(tabs), torch.from_numpy(slots),
+                               torch.from_numpy(mat[1:].copy()), got, **kw)
+    return [_ref_np(x) for x in ref], [_to_np(g) for g in got]
+
+
+def _to_np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _ref_np(x):
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+def _assert_moments(ref, got, ctx, exact_sums=False):
+    """Moment columns take a `log`, and XLA's f32 log and torch's differ
+    by an ulp on some inputs: sums at rtol 1e-5, atol 1e-6 (each basis
+    term is in [-1, 1] times the weight); the two bound columns at
+    atol 2e-6, one f32 ulp of a value in [16, 32)."""
+    k = MOM_META[0]
+    np.testing.assert_allclose(got[:, :k + 1], ref[:, :k + 1], rtol=1e-5,
+                               atol=1e-6, err_msg=f"{ctx} moment sums")
+    np.testing.assert_allclose(got[:, k + 1:], ref[:, k + 1:], rtol=0,
+                               atol=2e-6, err_msg=f"{ctx} moment bounds")
+
+
+COMBOS = [(dd, mom, compact) for dd in (True, False) for mom in (True, False)
+          for compact in (True, False)]
+
+
+@pytest.mark.parametrize("dd,mom,compact", COMBOS)
+def test_plain_matches_pallas_dyadic(dd, mom, compact):
+    """Dyadic arm: every f32 delta is exact, so the int32 planes, the bf16
+    pair (as stored) and the f32 sums are bit-identical to the
+    reference's Pallas kernel over three dispatches, and the half-way
+    per-dispatch deltas round to even; moment columns under
+    `_assert_moments`; page 0 stays zero."""
+    ref, got = _run_both(dd, mom, compact, "dyadic")
+    n_roles = _roles(dd, mom)
+    for r, (x, p) in enumerate(zip(ref, got)):
+        ctx = f"dd={dd} mom={mom} compact={compact} role {r}"
+        if mom and r == n_roles - 1:
+            _assert_moments(x, p, ctx)
+        else:
+            np.testing.assert_array_equal(p, x, err_msg=ctx)
+        assert not p[:PAGE_ROWS].any(), f"{ctx}: trash page written"
+    if compact:
+        # slots 0..2 sit on logical page 0 → physical page 1 of calls;
+        # their per-dispatch deltas 0.5, 2.5, 1.5 round to 0, 2, 2
+        start = _state(20, dd, mom, compact)[0].numpy()
+        np.testing.assert_array_equal(
+            got[0][PAGE_ROWS:PAGE_ROWS + 3] - start[PAGE_ROWS:PAGE_ROWS + 3],
+            [0, 6, 6])
+
+
+@pytest.mark.parametrize("dd,mom,compact", COMBOS)
+def test_plain_matches_pallas_lognormal(dd, mom, compact):
+    """Lognormal arm (integer weights): int32 and integer-count planes
+    exact; f32 sums at rtol 1e-5, atol 1e-6; moments under
+    `_assert_moments`; the bf16 pair folded (sum + compensation) within
+    the reference's documented compact envelope, 1% relative."""
+    ref, got = _run_both(dd, mom, compact, "lognormal")
+    n_roles = _roles(dd, mom)
+    for r, (x, p) in enumerate(zip(ref, got)):
+        ctx = f"dd={dd} mom={mom} compact={compact} role {r}"
+        if mom and r == n_roles - 1:
+            _assert_moments(x, p, ctx)
+        elif r == 1 and compact:
+            np.testing.assert_allclose(p.sum(axis=1), x.sum(axis=1),
+                                       rtol=1e-2, atol=1e-6, err_msg=ctx)
+        elif r in SUM_ROLES:
+            np.testing.assert_allclose(p, x, rtol=1e-5, atol=1e-6,
+                                       err_msg=ctx)
+        else:
+            np.testing.assert_array_equal(p, x, err_msg=ctx)
+        assert not p[:PAGE_ROWS].any(), f"{ctx}: trash page written"
+
+
+def test_fused_step_with_moments_matches_xla_tier():
+    """With f32 state the two reference tiers agree within tolerance, and
+    the port's plain version matches the composed-scatter one too:
+    `ops.pages.fused_step` with the moments plane vs the reference's XLA
+    step, over three dispatches."""
+    kw = _k1_kw(True, True, False)
+    step = jop.fused_step(EDGES, DD_GAMMA, DD_MIN, kw["dd_rows"], PAGE_SHIFT,
+                          True, mom_rows=kw["mom_rows"], mom_meta=MOM_META,
+                          kernel="xla")
+    got = _state(21, True, True, False)
+    ref = tuple(jnp.asarray(a.numpy()) for a in got)
+    tabs = _tables(8)
+    for d in range(3):
+        mat = _dispatch(40 + d, "lognormal")
+        ref = step(*ref, *(jnp.asarray(t) for t in tabs), mat)
+        top.fused_step(got, torch.from_numpy(_stacked(tabs)),
+                       torch.from_numpy(mat), edges=EDGES, gamma=DD_GAMMA,
+                       min_value=DD_MIN, dd_rows=kw["dd_rows"],
+                       page_shift=PAGE_SHIFT, mom_rows=kw["mom_rows"],
+                       mom_meta=MOM_META)
+    _compare(ref[:7], [g.numpy() for g in got[:7]], "moments")
+    _assert_moments(np.asarray(ref[7]), got[7].numpy(), "moments")
+
+
+def test_wrapper_checks_compact_dtypes():
+    kw = _k1_kw(True, True, True)
+    arenas = _state(0, True, True, True)
+    tabs = torch.from_numpy(_stacked(_tables(8)))
+    slots, vals = torch.zeros(4, dtype=torch.int32), torch.zeros(3, 4)
+    tck.paged_fused_update(tabs, slots, vals, arenas, **kw)
+    bad = list(arenas)
+    bad[0] = bad[0].float()
+    with pytest.raises(ValueError, match="arena 0"):
+        tck.paged_fused_update(tabs, slots, vals, bad, **kw)
+    with pytest.raises(ValueError, match="arena 0: want torch.float32"):
+        tck.paged_fused_update(tabs, slots, vals, arenas,
+                               **dict(kw, compact=False))
+    with pytest.raises(ValueError, match="mom_meta"):
+        tck.paged_fused_update(tabs, slots, vals, arenas,
+                               **dict(kw, mom_meta=None))
+
+
+# ---------------------------------------------------------------------------
+# K2: the dense fused span-metrics delta
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_plain_matches_reference(seed):
+    """The port's K2 on CPU tensors (its plain version, the scatter twin)
+    against the reference's Pallas kernel in interpret mode and its XLA
+    scatter twin, with negative and out-of-range slots: count and
+    histogram columns exact for integer weights, sums at rtol 1e-5."""
+    from tempo_tpu.ops.pallas_kernels import (fused_spanmetrics_matmul,
+                                              fused_spanmetrics_scatter)
+
+    rng = np.random.default_rng(seed)
+    n, s = 1024, 64
+    slots = rng.integers(-2, s + 3, n).astype(np.int32)
+    dur = rng.lognormal(-3, 1.5, n).astype(np.float32)
+    dur[:4] = EDGES[:4]                          # on an edge: lower bucket
+    sizes = rng.integers(100, 5000, n).astype(np.float32)
+    w = rng.integers(1, 4, n).astype(np.float32)
+    j = [jnp.asarray(x) for x in (slots, dur, sizes, w)]
+    ref_mm = np.asarray(fused_spanmetrics_matmul(*j, n_series=s, edges=EDGES,
+                                                 block=256, interpret=True))
+    ref_sc = np.asarray(fused_spanmetrics_scatter(*j, n_series=s,
+                                                  edges=EDGES))
+    got = tck.fused_spanmetrics_matmul(
+        *(torch.from_numpy(x) for x in (slots, dur, sizes, w)), n_series=s,
+        edges=EDGES).numpy()
+    assert got.shape == (s, 4 + len(EDGES))
+    for ref in (ref_mm, ref_sc):
+        np.testing.assert_array_equal(got[:, [0] + list(range(3, got.shape[1]))],
+                                      ref[:, [0] + list(range(3, ref.shape[1]))])
+        np.testing.assert_allclose(got[:, 1:3], ref[:, 1:3], rtol=1e-5)
+    keep = (slots >= 0) & (slots < s)
+    assert got[:, 0].sum() == w[keep].sum()
+    assert tck.fused_spanmetrics_matmul.launches == 0
+
+
+def test_k2_wrapper_checks_its_inputs():
+    z = torch.zeros(4)
+    with pytest.raises(ValueError, match="int32 slots"):
+        tck.fused_spanmetrics_matmul(z, z, z, z, n_series=4, edges=EDGES)
+    with pytest.raises(ValueError, match="int32 slots"):
+        tck.fused_spanmetrics_matmul(torch.zeros(4, dtype=torch.int32), z,
+                                     z[:3], z, n_series=4, edges=EDGES)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import pytest
 
 from tempo_tpu.generator.instance import (GeneratorConfig as JGenCfg,
@@ -32,6 +33,7 @@ from tempo_tpu_torch.generator.remote_write import (LocalReceiver,
                                                     RemoteWriteConfig,
                                                     decode_write_request)
 from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.ops import moments as tmom
 from tempo_tpu_torch.registry import pages as tpages
 from tempo_tpu_torch.utils.spanfilter import (AttributeMatch, FilterPolicy,
                                               PolicyMatch)
@@ -54,8 +56,8 @@ def _worlds(url="", clock=None, jsm=None, tsm=None):
     with jpages.use(jpages.PagePool(jpages.PagePoolConfig(**POOL))):
         jg = JGen("t", JGenCfg(
             processors=("span-metrics",), registry=JOv(max_active_series=SERIES),
-            spanmetrics=JSmCfg(use_scheduler=False, kernel="xla", **SM,
-                               **(jsm or {})),
+            spanmetrics=JSmCfg(**dict(dict(use_scheduler=False, kernel="xla",
+                                           **SM), **(jsm or {}))),
             remote_write=JRwCfg(url=url and url + "/jax")), now=now)
     # which series own a DDSketch row (slot < sketch_max_series) depends on
     # the order slots are handed out: the reference's C++ row table gives
@@ -177,3 +179,137 @@ def test_remote_write_samples_match(receiver):
         name = dict(k)["__name__"]
         for i, (a, b) in enumerate(zip(td[k], jv, strict=True)):
             assert _same(a, b, _is_sum(name, k, i)), (k, i, a, b)
+
+
+# ---------------------------------------------------------------------------
+# the moments and compact-state tiers
+# ---------------------------------------------------------------------------
+#
+# The reference runs compact state only on its Pallas tier (otherwise it
+# warns and stays f32), so under compact it runs that kernel in interpret
+# mode. A narrower DDSketch (rel_err 0.05, 254 buckets) keeps the
+# interpreted kernel inside the runtime guard.
+
+TIERS = {
+    "moments": dict(sketch="moments"),
+    "both": dict(sketch="both"),
+    "both_compact": dict(sketch="both", compact_state=True),
+}
+NARROW = dict(sketch_rel_err=0.05)
+
+
+def _tier_worlds(tier):
+    sm = dict(TIERS[tier], **NARROW)
+    jsm = dict(sm, kernel="pallas", pallas_interpret=True) \
+        if sm.get("compact_state") else sm
+    clock, jg, tg = _worlds(jsm=jsm, tsm=sm)
+    jp = jg.processors["span-metrics"]
+    assert jp._compact is bool(sm.get("compact_state"))
+    assert (jp._pmom is not None) and tg.processors["span-metrics"]._pmom
+    return clock, jg, tg
+
+
+def _moment_rows(proc):
+    """{labels: moments row} of the active slots inside the sketch plane."""
+    mp, limit = proc._pmom[0], proc._pmom[4]
+    slots = proc.calls.table.active_slots()
+    slots = slots[slots < limit]
+    padded = np.full(max(16, slots.size), -1, np.int32)
+    padded[:slots.size] = slots
+    rows = np.asarray(mp.gather(padded), np.float32)[:slots.size]
+    return {proc.calls.labels_of(int(s)): rows[i]
+            for i, s in enumerate(slots.tolist())}
+
+
+def _compare_tier(jg, tg, ctx, compact):
+    """Samples under the rules of the module docstring, with the latency
+    sum folded from the bf16 pair at rtol 1e-2 under compact; DDSketch
+    quantiles bit-identical; moment rows with counts exact, sums within
+    rtol 1e-5 + 2e-5 per unit of weight and bounds at atol 2e-6 (the
+    `log` ulp of tests/test_torch_moments.py). Returns {q: number of
+    series whose moments quantile is outside rtol 1e-3}.
+
+    Moments quantiles: the port's solver is the reference's numpy code,
+    bit-identical on the same row (tests/test_torch_moments.py), but the
+    rows differ by f32 rounding, and a maxent fit to a few observations
+    can put the median in a low-density gap that moves with an ulp of the
+    moments. Measured on these payloads (x86 CPU): q50 outside rtol 1e-3
+    on 34-43 of 256 series after three pushes, 7-11 of 32 after the purge
+    and 38-42 of 253 after slot reuse (under `sketch: moments` after three
+    pushes all of them series of at most 6 observations); q99 on none. So q99 is held at
+    rtol 1e-3 for every series, and a q50 outside it must still lie, in
+    both packages, inside the row's observed support."""
+    ja = {(s.name, s.labels): s for s in jg.registry.collect(1)}
+    ta = {(s.name, s.labels): s for s in tg.registry.collect(1)}
+    assert ja.keys() == ta.keys(), f"{ctx}: series sets differ"
+    for k, js in ja.items():
+        a, b = ta[k].value, js.value
+        if math.isnan(b):
+            assert math.isnan(a), f"{ctx}: {k}"
+        elif compact and k[0].endswith("_sum"):
+            assert abs(a - b) <= 1e-2 * abs(b) + 1e-6, f"{ctx}: {k} {a} {b}"
+        else:
+            assert _same(a, b, _is_sum(*k)), f"{ctx}: {k} {a} vs {b}"
+    jp, tp = jg.processors["span-metrics"], tg.processors["span-metrics"]
+    jr, tr = _moment_rows(jp), _moment_rows(tp)
+    assert jr.keys() == tr.keys() and jr, ctx
+    k = jp._pmom[1]
+    for key, x in jr.items():
+        y = tr[key]
+        assert y[0] == x[0], f"{ctx}: {key} count"
+        assert (np.abs(y[1:k + 1] - x[1:k + 1])
+                <= 1e-5 * np.abs(x[1:k + 1]) + 2e-5 * x[0]).all(), key
+        np.testing.assert_allclose(y[k + 1:], x[k + 1:], rtol=0, atol=2e-6)
+    _, k, lo, hi, _ = tp._pmom
+    keys = list(tr)
+    _, failed = tmom.quantiles_for_rows(np.stack([tr[key] for key in keys]),
+                                        k, lo, hi, [0.5])
+    outside = {}
+    for q in (0.5, 0.99):
+        if jp._pdd is not None:
+            assert tp.dd_quantiles((q,))[0] == jp._paged_quantile(q), \
+                f"{ctx}: DDSketch quantile({q})"
+        jq, tq = jp.quantile(q), tp.quantile(q)
+        assert jq.keys() == tq.keys() == jr.keys()
+        far = [i for i, key in enumerate(keys)
+               if abs(tq[key] - jq[key]) > 1e-3 * abs(jq[key])]
+        outside[q] = len(far)
+        for i in far:
+            if failed[i]:
+                continue
+            # both answers inside the row's support, widened by the
+            # solver's 0.5% quadrature pad
+            row = tr[keys[i]]
+            zmax, zmin = lo + max(row[k + 1], 0), hi - max(row[k + 2], 0)
+            pad = 0.005 * (zmax - zmin) + 1e-5
+            for v in (tq[keys[i]], jq[keys[i]]):
+                assert zmin - pad <= math.log(v) <= zmax + pad, (ctx, q, v)
+    print(f"{ctx}: moments quantiles outside rtol 1e-3 of {len(keys)} "
+          f"series: {outside}, solver failures {int(failed.sum())}")
+    assert outside[0.99] == 0
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_tier_push_collect_quantile_match(tier):
+    """Three pushes under `sketch: moments`, `both` and `both` with
+    compact state, against the reference (`_compare_tier`)."""
+    _, jg, tg = _tier_worlds(tier)
+    for seed in range(3):
+        _push(jg, tg, _payload(seed, T0))
+    _compare_tier(jg, tg, tier, "compact" in tier)
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_tier_purge_then_reuse_match(tier):
+    """As `test_slack_drops_and_purge_then_reuse_match`, under each tier:
+    evicted series zero their sketch rows, and reused slots start
+    clean."""
+    clock, jg, tg = _tier_worlds(tier)
+    _push(jg, tg, _payload(0, T0))
+    clock[0] = T0 + 600
+    _push(jg, tg, _payload(2, clock[0], kinds=(2,), statuses=(0,)))
+    clock[0] = T0 + 1000
+    assert tg.registry.purge_stale() == jg.registry.purge_stale() > 0
+    _compare_tier(jg, tg, "after purge", "compact" in tier)
+    _push(jg, tg, _payload(3, clock[0]))
+    _compare_tier(jg, tg, "after reuse", "compact" in tier)
