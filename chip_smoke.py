@@ -18,9 +18,11 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
       8 dispatches of 16,384 spans; then K1 on durations placed on the
       DDSketch bucket edges, against the host;
    b. K1 with `sketch: both` and compact state, 8 roles (int32 counts,
-      a bf16 Kahan pair, f32 sizes and moments), 3 dispatches of 16,384
-      Zipf-skewed spans with dyadic durations and weights, from non-zero
-      state;
+      a bf16 Kahan pair, f32 sizes and moments), from non-zero state:
+      3 dispatches of 16,384 Zipf-skewed spans with dyadic durations and
+      weights, one of no spans, and one after a logical page of two
+      roles moved to a reused physical page; the persistent scratch all
+      zero after each;
    c. K2 (`fused_spanmetrics_matmul`) at the reference benchmark's shape
       (262,144 spans, 4,096 series, 12 edges), driven over 8 batches;
 4. the main paths through the entry points, each on the card against the
@@ -33,11 +35,19 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
       equal, every series' moments row within the moments tolerance of
       phase 3b, moments quantiles compared and the series outside rtol
       1e-3 counted);
-   then device state bytes per active series of the dd-f32, both-compact
-   and moments tiers;
-5. times: per-dispatch kernel and plain times (CUDA events, median),
-   device time (torch.profiler), the least time the card could take,
-   the library yardstick where one exists, and end-to-end spans/s.
+   K1's launch plans built on each card path (one: the processor's
+   tables, arenas and scratch are the same tensors at every push); then
+   device state bytes per active series of the dd-f32, both-compact and
+   moments tiers, and the compact tier's scratch bytes (working memory,
+   not state);
+5. times: per-dispatch kernel and plain times (CUDA events, min /
+   median / max of 30); K1 timed two ways side by side, through the call
+   the main path makes (`ops.pages.fused_step` on the packed [4, N]
+   batch) and through the wrapper with the batch sliced on each call
+   (the yardstick of K1's earlier times in PERF.md); K1's host time per call (1,000 calls with no
+   synchronisation) both ways; device time (torch.profiler, by kernel);
+   the least time the card could take, the library yardstick where one
+   exists, and end-to-end spans/s.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -46,6 +56,7 @@ or outside a checkout of the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -67,6 +78,10 @@ N_SERIES, DD_ROWS = 65536, 16384
 ARENA_SLOTS = 131072             # usable rows per role arena
 MOM_K = 12
 K2_SPANS, K2_SERIES = 262144, 4096
+# moments quantiles, card against host, outside rtol 1e-3 (of 16,384
+# series): 876-917 at q50 and 11-15 at q99 in the smoke's runs on an H100
+# (PERF.md); a run above these limits has drifted further
+MOM_OUTSIDE_MAX = {0.5: 1200, 0.99: 40}
 K2_EDGES = (0.002, 0.004, 0.008, 0.016, 0.032, 0.064, 0.128, 0.256, 0.512,
             1.024, 2.048, 4.096)   # benchmarks/bench_kernels.py:22-23
 
@@ -100,12 +115,9 @@ def _mom_meta():
     return moments_params(MOM_K, 1e-6, 1e5)
 
 
-def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
-    """Bytes K1 must move for this batch: the batch and the tables read
-    once; every distinct touched arena cell read and written once (4 B
-    each; a touched moments row is its k+3 cells); under compact, every
-    row of every backed page of the latency-sum pair read and written
-    (4 B), since the fold re-normalises each of them."""
+def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0):
+    """{role: distinct arena cells on backed pages that the batch adds
+    to}; a touched moments row counts its k+3 cells."""
     import torch
 
     from tempo_tpu_torch.ops.pages import dd_index, hist_bucket
@@ -119,11 +131,8 @@ def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
     lp = slots >> PAGE_SHIFT
     ok = (slots >= 0) & (lp < tables.shape[1])
     n_roles = tables.shape[0]
-    nbytes = mat.nbytes + tables.nbytes
+    out = {}
     for r in range(n_roles):
-        if compact and r == 1:
-            nbytes += 2 * 4 * int((tables[1] > 0).sum()) * PAGE_ROWS
-            continue
         phys = np.where(ok, tables[r][np.clip(lp, 0, tables.shape[1] - 1)], -1)
         keep = phys > 0
         is_mom = mom_rows and r == n_roles - 1
@@ -138,8 +147,22 @@ def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
             rows = rows * (len(edges) + 1) + hb[keep]
         elif r == 6 and not is_mom:
             rows = rows * nb + ddi[keep]
-        cells = np.unique(rows).size * ((MOM_K + 3) if is_mom else 1)
-        nbytes += 2 * 4 * cells
+        out[r] = np.unique(rows).size * ((MOM_K + 3) if is_mom else 1)
+    return out
+
+
+def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
+    """Bytes K1 must move for this batch: the batch and the tables read
+    once; every distinct touched arena cell read and written once (4 B
+    each; a touched moments row is its k+3 cells); under compact, every
+    row of every backed page of the latency-sum pair read and written
+    (4 B), since the fold re-normalises each of them."""
+    cells = touched_cells(mat, tables, dd_rows=dd_rows, nb=nb, edges=edges,
+                          mom_rows=mom_rows)
+    nbytes = mat.nbytes + tables.nbytes + 2 * 4 * sum(
+        k for r, k in cells.items() if not (compact and r == 1))
+    if compact:
+        nbytes += 2 * 4 * int((tables[1] > 0).sum()) * PAGE_ROWS
     return nbytes
 
 
@@ -150,29 +173,59 @@ def bound(nbytes, ops):
 
 
 def cuda_time_ms(fn, runs):
-    """Median per-call time from CUDA events, after three warm-up calls."""
+    """(min, median, max) per-call time from CUDA events, after three
+    warm-up calls, with Python's garbage collector paused."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
+    gc.disable()
+    try:
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    finally:
+        gc.enable()
+    return min(times), statistics.median(times), max(times)
+
+
+def host_ms(fn, runs=1000):
+    """Host time per call over `runs` calls with no synchronisation
+    between them: what the wrapper costs the calling thread."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    out = (time.perf_counter() - t0) / runs * 1e3
+    torch.cuda.synchronize()
+    return out
 
 
-def profiled_device_ms(fn, runs, kernel_names=None):
+def host_floor_ms():
+    """`host_ms` of one PyTorch op on the card (an add_ on one element):
+    the yardstick for a wrapper's host time, taken beside it."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return host_ms(lambda: one.add_(1.0))
+
+
+def profiled_device_ms(fn, runs, kernel_names=None, by_name=None):
     """Mean device time per call from torch.profiler's CUPTI trace: the
     device events (kernels, memsets) whose name contains one of
     `kernel_names`, or all of them when None; None when the trace shows
-    no device time."""
+    no device time. `by_name`, a dict, receives every device event's mean
+    time per call by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -187,10 +240,17 @@ def profiled_device_ms(fn, runs, kernel_names=None):
     for ev in prof.key_averages():
         if not ev.count or ev.device_type != DeviceType.CUDA:
             continue
+        t = getattr(ev, "device_time_total", 0) or \
+            getattr(ev, "cuda_time_total", 0)
+        if by_name is not None:
+            by_name[ev.key] = t / runs / 1e3
         if kernel_names is None or any(n in ev.key for n in kernel_names):
-            total += getattr(ev, "device_time_total", 0) or \
-                getattr(ev, "cuda_time_total", 0)
+            total += t
     return total / runs / 1e3 if total else None
+
+
+def spread(t):
+    return f"min {t[0]:.4f} / median {t[1]:.4f} / max {t[2]:.4f} ms"
 
 
 def _tables(rng, n_roles, dd_rows, n_pages):
@@ -283,26 +343,45 @@ def phase_k1_dd():
         "name": "paged_fused_update", "tier": "dd f32",
         "dispatches": N_DISPATCH, "max_abs_err": max_abs, "pass": True}))
     b0 = b_dev[0]
-    ms = cuda_time_ms(lambda: ck.paged_fused_update(
-        t_dev, b0[0], b0[1:4], k_ar, **kw), N_TIMED)
+    calls = k1_calls(t_dev, b0, k_ar, kw)
+    times = {how: (cuda_time_ms(fn, N_TIMED), host_ms(fn))
+             for how, fn in calls.items()}
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
-    device_ms = profiled_device_ms(lambda: ck.paged_fused_update(
-        t_dev, b0[0], b0[1:4], k_ar, **kw), N_TIMED,
-        ["paged_fused_update_kernel"])
+    device_ms = profiled_device_ms(calls["fused_step"], N_TIMED,
+                                   ["pfu_span_kernel"])
     nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
                          edges=edges)
     bound_ms, bound_by = bound(nbytes, N_SPANS * (40 + len(edges)))
-    del k_ar, p_ar, base
+    del k_ar, p_ar, base, calls
     torch.cuda.empty_cache()
     return {
         "name": "paged_fused_update (sketch dd, f32 state)", "route": "cuda",
         "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
         "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
         "launches": None, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+        "ms": times["sliced"][0][1], "times": times,
+        "plain_ms": plain_ms[1], "device_ms": device_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
         "library_ms": None,
+    }
+
+
+def k1_calls(t_dev, b, arenas, kw, **extra):
+    """K1 on the packed [4, N] batch `b`, two ways: "fused_step", the call
+    the main path makes (`ops.pages.fused_step`, which slices the batch
+    on each call), and "sliced", the wrapper with the batch sliced on
+    each call, as K1's earlier times in PERF.md were taken."""
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops import pages as op
+
+    step_kw = dict(kw, page_shift=PAGE_SHIFT)
+    del step_kw["page_rows"]
+    return {
+        "fused_step": lambda: op.fused_step(arenas, t_dev, b, **step_kw,
+                                            **extra),
+        "sliced": lambda: ck.paged_fused_update(t_dev, b[0], b[1:4], arenas,
+                                                **kw, **extra),
     }
 
 
@@ -370,11 +449,14 @@ def _moments_ok(kf, pf):
 
 def phase_k1_compact():
     """Phase 3b (and its phase-5 times): K1 with `sketch: both` and compact
-    state vs its plain version on the card, three dispatches of dyadic
-    durations (multiples of 1/256 s below 2 s) and weights (0.25, 0.5, 1,
-    1.5, 2.5), so every per-dispatch delta is exact (the hottest cell's
-    latency sum stays far below 2^24 units of 2^-10): int32 planes and
-    the pair must be bit-identical."""
+    state vs its plain version on the card, five dispatches from non-zero
+    state: three of dyadic durations (multiples of 1/256 s below 2 s) and
+    weights (0.25, 0.5, 1, 1.5, 2.5), so every per-dispatch delta is exact
+    (the hottest cell's latency sum stays far below 2^24 units of 2^-10);
+    a fourth of no spans (only the pair rows are folded); a fifth after a
+    logical page of the histogram and pair roles moved to a reused
+    physical page. The int32 planes and the pair must be bit-identical,
+    and the persistent scratch all zero after every dispatch."""
     import torch
 
     from tempo_tpu_torch.ops import cuda_kernels as ck
@@ -389,7 +471,7 @@ def phase_k1_compact():
     rows = n_pages * PAGE_ROWS
     tables = _tables(rng, 8, DD_ROWS, n_pages)
     batches = []
-    for _ in range(3):
+    for _ in range(4):
         mat = np.empty((4, N_SPANS), np.float32)
         mat[0] = zipf_slots(rng, N_SPANS, N_SERIES)
         mat[1] = rng.integers(1, 2 * 256, N_SPANS) / 256
@@ -417,52 +499,108 @@ def phase_k1_compact():
               dd_rows=DD_ROWS, mom_rows=DD_ROWS, mom_meta=mom_meta)
     k_ar = [a.clone() for a in base]
     p_ar = [a.clone() for a in base]
+    scratch = ck.compact_scratch(t_dev, k_ar, page_rows=PAGE_ROWS,
+                                 edges=edges, dd_rows=DD_ROWS)
+
+    def k1(ar, b):
+        ck.paged_fused_update(t_dev, b[0], b[1:4], ar, **kw, compact=True,
+                              scratch=scratch)
+        nz = int(torch.count_nonzero(scratch))
+        if nz:
+            raise AssertionError(f"phase 3b: {nz} scratch cells not zero "
+                                 f"after a dispatch")
+
     ck.reset_launch_counts()
-    for b in b_dev:
-        ck.paged_fused_update(t_dev, b[0], b[1:4], k_ar, **kw, compact=True)
-    launches = ck.paged_fused_update.launches
-    for b in b_dev:
+    for b in b_dev[:3]:
+        k1(k_ar, b)
         ck.paged_fused_update_plain(t_dev, b[0], b[1:4], p_ar, **kw)
+    launches = ck.paged_fused_update.launches
+    # a dispatch of no spans: only the pair rows are folded
+    before = [a.clone() for a in k_ar]
+    ck.reset_launch_counts()
+    empty = torch.zeros((4, 0), device=dev)
+    k1(k_ar, empty)
+    ck.paged_fused_update_plain(t_dev, empty[0], empty[1:4], p_ar, **kw)
+    launches_empty = ck.paged_fused_update.launches
+    if not torch.equal(k_ar[1], p_ar[1]) or any(
+            not torch.equal(a, b) for r, (a, b) in enumerate(zip(k_ar, before))
+            if r != 1):
+        raise AssertionError("phase 3b: a dispatch of no spans changed more "
+                             "than the pair, or the pair differs")
+    # page reuse: the hottest slot's logical page of the histogram and the
+    # pair moves to a free physical page; both pages are zeroed, as the
+    # pool zeroes a page it releases and hands out zeroed pages
+    hot = np.bincount(batches[3][0][batches[3][0] >= 0].astype(np.int64))
+    lp = next(int(s) >> PAGE_SHIFT for s in np.argsort(-hot, kind="stable")
+              if (tables[(1, 4), int(s) >> PAGE_SHIFT] > 0).all())
+    moved = {}
+    for r in (1, 4):
+        old = int(tables[r, lp])
+        new = int(np.setdiff1d(np.arange(1, n_pages), tables[r])[0])
+        for ar in (k_ar, p_ar):
+            for page in (old, new):
+                if page > 0:
+                    ar[r][page * PAGE_ROWS:(page + 1) * PAGE_ROWS] = 0
+        tables[r, lp] = new
+        moved[r] = (old, new)
+    t_dev.copy_(torch.from_numpy(tables))
+    ck.reset_launch_counts()
+    k1(k_ar, b_dev[3])
+    ck.paged_fused_update_plain(t_dev, b_dev[3][0], b_dev[3][1:4], p_ar, **kw)
+    launches += ck.paged_fused_update.launches
     torch.cuda.synchronize()
-    if launches != 2 * len(b_dev):
-        raise AssertionError(f"phase 3b: {launches} launches for "
-                             f"{len(b_dev)} compact dispatches (want 2 each)")
+    if launches != 2 * 4 or launches_empty != 1:
+        raise AssertionError(f"phase 3b: {launches} launches for 4 "
+                             f"dispatches of spans (want 2 each), "
+                             f"{launches_empty} for the empty one (want 1)")
     max_abs = _check_planes(k_ar, p_ar, base, (3,), {7: _moments_ok},
                             "phase 3b")
     print("phase 3b kernel-vs-plain: " + json.dumps({
         "name": "paged_fused_update", "tier": "both, compact",
-        "dispatches": len(b_dev), "launches": launches,
-        "max_abs_err": max_abs, "pass": True}))
+        "dispatches": 5, "launches": launches + launches_empty,
+        "empty_dispatch": "only the pair changed, bit-identical",
+        "moved_pages": {f"role {r}": f"logical page {lp}: {o} -> {n}"
+                        for r, (o, n) in moved.items()},
+        "scratch_zero_after_each": True, "max_abs_err": max_abs,
+        "pass": True}))
     b0 = b_dev[0]
-    call = lambda: ck.paged_fused_update(  # noqa: E731
-        t_dev, b0[0], b0[1:4], k_ar, **kw, compact=True)
-    ms = cuda_time_ms(call, N_TIMED)
+    calls = k1_calls(t_dev, b0, k_ar, kw, compact=True, scratch=scratch)
+    times = {how: (cuda_time_ms(fn, N_TIMED), host_ms(fn))
+             for how, fn in calls.items()}
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
-    device_ms = profiled_device_ms(call, N_TIMED)
-    pass_ms = {name: profiled_device_ms(call, N_TIMED, [name]) for name in
-               ("paged_fused_update_kernel", "paged_fused_update_fold_kernel")}
+    events = {}
+    device_ms = profiled_device_ms(calls["fused_step"], N_TIMED,
+                                   by_name=events)
+    memsets = [k for k in events if "emset" in k]
+    if memsets:
+        raise AssertionError(f"phase 5: compact K1 runs memsets {memsets}")
+    split = {name: sum(t for k, t in events.items() if name in k)
+             for name in ("pfu_span_kernel", "pfu_fold_kernel")}
     print(f"phase 5: compact K1 device time per dispatch {device_ms} ms, of "
-          f"which span pass {pass_ms['paged_fused_update_kernel']} ms and "
-          f"fold {pass_ms['paged_fused_update_fold_kernel']} ms (the rest "
-          f"zeroes the scratch)")
+          f"which span pass {split['pfu_span_kernel']} ms and fold "
+          f"{split['pfu_fold_kernel']} ms; every device event per dispatch: "
+          f"{json.dumps(events)}")
     nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
                          edges=edges, mom_rows=DD_ROWS, compact=True)
-    # the design's own traffic: the logical-row scratch zeroed and read
-    p_pages = tables.shape[1]
-    scratch = (4 * p_pages * PAGE_ROWS + p_pages * PAGE_ROWS * (len(edges) + 1)
-               + DD_ROWS * (1 + nb) + DD_ROWS * (MOM_K + 3)) * 4
+    cells = touched_cells(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
+                          edges=edges, mom_rows=DD_ROWS)
+    int_cells = sum(cells[r] for r in (0, 2, 4, 5, 6))
+    pair_rows = int((tables[1] > 0).sum()) * PAGE_ROWS
     bound_ms, bound_by = bound(nbytes, N_SPANS * (80 + len(edges)))
-    del k_ar, p_ar, base
+    scratch_bytes = scratch.numel() * 4
+    del k_ar, p_ar, base, scratch, calls
     torch.cuda.empty_cache()
     return {
         "name": "paged_fused_update (sketch both, compact state)",
         "route": "cuda", "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
         "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
         "launches": None, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+        "ms": times["sliced"][0][1], "times": times,
+        "plain_ms": plain_ms[1], "device_ms": device_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
-        "scratch_bytes": scratch, "library_ms": None,
+        "library_ms": None, "int_cells": int_cells, "pair_rows": pair_rows,
+        "scratch_bytes": scratch_bytes,
     }
 
 
@@ -545,9 +683,9 @@ def phase_k2():
         "source": "tempo_tpu_torch/csrc/fused_spanmetrics.cu",
         "replaces": "tempo_tpu/ops/pallas_kernels.py:141",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
-        "library_ms": library_ms,
+        "ms": ms[1], "times": {"call": (ms, None)}, "plain_ms": plain_ms[1],
+        "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_bytes": nbytes, "library_ms": library_ms[1],
     }
 
 
@@ -696,9 +834,11 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
             on_card = name.endswith("card")
             if on_card:
                 ck.reset_launch_counts()
+                ck.paged_fused_update.plans = 0
             push_s, decode_s = _push_all(inst, payloads, sizes, weights)
             if on_card:
                 launches = ck.paged_fused_update.launches
+                plans = ck.paged_fused_update.plans
             tc = time.perf_counter()
             n_samples = inst.collect_and_push()
             collect_s = time.perf_counter() - tc
@@ -712,7 +852,8 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
             res[name] = {"push_s": push_s, "dd_q": dd_q, "mom_q": mom_q,
                          "mom_rows": _moment_rows(proc) if compact else None,
                          "series": inst.registry.active_series,
-                         "state_bytes": inst.device_state_bytes()}
+                         "state_bytes": inst.device_state_bytes(),
+                         "scratch_bytes": proc.scratch_bytes()}
             print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
                   f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
                   f"push_batch {push_s - decode_s:.3f} s), "
@@ -747,6 +888,10 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
         lo = card["mom_q"][0]
         if any(card["mom_q"][1][k] < lo[k] for k in lo):
             raise AssertionError(f"{tier}: a moments q99 below its q50")
+        if any(outside[q] > MOM_OUTSIDE_MAX[q] for q in outside):
+            raise AssertionError(f"{tier}: moments quantiles outside rtol 1e-3 "
+                                 f"{outside}, above the limits "
+                                 f"{MOM_OUTSIDE_MAX}")
     n_q = len(card["dd_q"][0])
     print(f"phase 4 {tier} checks: {n_sets} label sets in the card's "
           f"WriteRequest equal the host's under the stated tolerances; calls "
@@ -755,11 +900,21 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
           + (f"; moments rows of {n_rows} series within the moments "
              f"tolerance (max abs {rows_err}); moments quantiles outside "
              f"rtol 1e-3 of {len(card['mom_q'][0])} series: q50 "
-             f"{outside[0.5]}, q99 {outside[0.99]}" if compact else ""))
+             f"{outside[0.5]}, q99 {outside[0.99]} (limits "
+             f"{MOM_OUTSIDE_MAX[0.5]}, {MOM_OUTSIDE_MAX[0.99]})"
+             if compact else "")
+          + f"; K1 launch plans built over the pushes: {plans}")
     kernels_per_push = 2 if compact else 1
     if launches != kernels_per_push * len(payloads):
         raise AssertionError(f"{tier}: K1 launched {launches} times for "
                              f"{len(payloads)} pushes")
+    if plans != 1:
+        raise AssertionError(f"{tier}: K1 built {plans} launch plans over "
+                             f"{len(payloads)} pushes (want 1: the same "
+                             f"tables, arenas and scratch every push)")
+    if compact:
+        print(f"phase 4 {tier}-card: K1's compact scratch, working memory "
+              f"outside the state bytes: {card['scratch_bytes']} bytes")
     return {"launches": launches, "push_s": card["push_s"],
             "spans_per_s": len(payloads) * N_SPANS / card["push_s"],
             "bytes_per_series": card["state_bytes"] / card["series"],
@@ -794,18 +949,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     card = smi_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    paths = ck.build_all()
+    ck.build_all()                  # one nvcc per source, all together
     for src in ck.SOURCES:
         ck._lib(src)
     build_s = time.perf_counter() - t0
-    for src, path in paths.items():
-        info = ck.BUILD_INFO.get(src, {})
-        print(f"build: {src} in {info.get('seconds', 0.0):.2f} s -> "
-              f"{os.path.relpath(path, ROOT)}\n{info.get('log', 'cached')}")
-    print(f"build: all sources in {build_s:.2f} s (one nvcc each, together)")
+    for what, info in ck.BUILD_INFO.items():
+        print(f"build: {what} in {info['seconds']:.2f} s -> "
+              f"{os.path.relpath(info['path'], ROOT)}\n{info['log']}")
+    print(f"build: {len(ck.BUILD_INFO)} builds in {build_s:.2f} s (one nvcc "
+          f"each, together)")
     k1 = phase_k1_dd()
     n_probe, shifted = edge_probe_on_card()
     print(f"phase 3a edge probe: {shifted} of {n_probe} DDSketch edge "
@@ -821,22 +976,33 @@ def main() -> int:
           f"dd f32 {dd['bytes_per_series']:.1f} ({dd['series']} series), "
           f"both compact {bc['bytes_per_series']:.1f}, moments f32 "
           f"{mom_bytes:.1f}")
+    floor = host_floor_ms()
     for k in (k1, k1c, k2):
         dms = k["device_ms"]
         lib = k["library_ms"]
-        print(f"phase 5 [{card}]: {k['name']}: {k['ms']:.4f} ms per call "
-              f"(median of {N_TIMED}, CUDA events, host wrapper included); "
-              f"device time per call (torch.profiler): "
+        print(f"phase 5 [{card}]: {k['name']}: per call ({N_TIMED} calls, "
+              f"CUDA events, host included): "
+              + "; ".join(f"{how} {spread(t)}" + (
+                  "" if host is None else f", host {host:.4f} ms a call over "
+                  f"1000 unsynchronised calls")
+                  for how, (t, host) in k["times"].items())
+              + f"; device time per call (torch.profiler): "
               f"{'not measured' if dms is None else f'{dms:.4f} ms'}; plain "
               f"version {k['plain_ms']:.4f} ms; bound {k['bound_ms']:.6f} ms "
               f"by {k['bound_by']} ({k['bound_bytes']} bytes at 3.35 TB/s); "
               f"library call "
               f"{'none' if lib is None else f'{lib:.4f} ms (index_add_)'}; "
               f"launches on its path {k['launches']}")
-    print(f"phase 5 [{card}]: compact K1 scratch traffic "
-          f"{k1c['scratch_bytes']} bytes zeroed and read per dispatch "
-          f"({2 * k1c['scratch_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms at "
-          f"3.35 TB/s)")
+    print(f"phase 5 [{card}]: host yardstick, one PyTorch op on the card (a "
+          f"1-element add_), 1000 unsynchronised calls: {floor:.4f} ms a call")
+    traffic = 8 * (k1c["int_cells"] + k1c["pair_rows"])
+    print(f"phase 5 [{card}]: compact K1 scratch traffic per dispatch "
+          f"{traffic} bytes: {k1c['int_cells']} touched int32 cells, each "
+          f"added to by the span pass and exchanged once by the fold, and "
+          f"{k1c['pair_rows']} backed pair rows, each delta read and cleared "
+          f"({traffic / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s); the "
+          f"scratch holds {k1c['scratch_bytes']} bytes and is never cleared "
+          f"whole")
     for tier, r in (("dd f32", dd), ("both compact", bc)):
         print(f"phase 5 [{card}]: end to end {tier} {r['spans_per_s']:.0f} "
               f"spans/s (decode + push of {N_DISPATCH} x {N_SPANS} spans in "
@@ -847,7 +1013,7 @@ def main() -> int:
                                   for k in (k1, k1c, k2)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -43,7 +43,7 @@ import torch
 
 from tempo_tpu_torch.model.interner import INVALID_ID
 from tempo_tpu_torch.model.span_batch import SpanBatch
-from tempo_tpu_torch.ops import moments
+from tempo_tpu_torch.ops import cuda_kernels, moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
 from tempo_tpu_torch.registry.pages import PagedPlane
@@ -169,6 +169,10 @@ class SpanMetricsProcessor:
         self.spans_discarded = 0
         self._tables_key: "tuple | None" = None
         self._tables: "torch.Tensor | None" = None
+        # K1's compact working memory on the card, made once (all zero
+        # between dispatches; logical-row indexed, so page-map changes
+        # need nothing); the host's plain version needs none
+        self._scratch: "torch.Tensor | None" = None
 
     def name(self) -> str:
         return "span-metrics"
@@ -189,15 +193,21 @@ class SpanMetricsProcessor:
         return planes
 
     def _stacked_tables(self, planes) -> torch.Tensor:
-        """The [R, P] stacked page tables on the device, rebuilt only when
-        a plane's page map changed. Caller holds the pool lock."""
+        """The [R, P] stacked page tables on the device, refreshed in place
+        only when a plane's page map changed: one tensor for the
+        processor's life (each plane's `n_lpages` is fixed), so K1's
+        launch plan, keyed on it, outlives page-map changes. Caller holds
+        the pool lock."""
         key = tuple(p.version for p in planes)
         if key != self._tables_key:
             p_pages = max(p.n_lpages for p in planes)
             host = np.full((len(planes), p_pages), -1, np.int32)
             for r, p in enumerate(planes):
                 host[r, :p.n_lpages] = p.page_map
-            self._tables = torch.from_numpy(host).to(self.device)
+            if self._tables is None:
+                self._tables = torch.from_numpy(host).to(self.device)
+            else:   # stream-ordered after the dispatches that read it
+                self._tables.copy_(torch.from_numpy(host))
             self._tables_key = key
         return self._tables
 
@@ -222,14 +232,26 @@ class SpanMetricsProcessor:
         gamma = self._pdd[2] if self._pdd is not None else 1.0
         minv = self._pdd[3] if self._pdd is not None else 0.0
         mom_rows = self._pmom[4] if self._pmom is not None else 0
+        edges = tuple(self.cfg.histogram_buckets)
         with self.registry.state_lock:
-            op.fused_step(tuple(p.data for p in planes),
-                          self._stacked_tables(planes), batch,
-                          edges=tuple(self.cfg.histogram_buckets),
-                          gamma=gamma, min_value=minv, dd_rows=dd_rows,
+            arenas = tuple(p.data for p in planes)
+            tables = self._stacked_tables(planes)
+            if self._compact and self._scratch is None \
+                    and self.device.type == "cuda":
+                self._scratch = cuda_kernels.compact_scratch(
+                    tables, arenas, page_rows=self._pool.page_rows,
+                    edges=edges, dd_rows=dd_rows)
+            op.fused_step(arenas, tables, batch, edges=edges, gamma=gamma,
+                          min_value=minv, dd_rows=dd_rows,
                           page_shift=self._pool.page_shift,
                           mom_rows=mom_rows, mom_meta=self._mom_meta,
-                          compact=self._compact)
+                          compact=self._compact, scratch=self._scratch)
+
+    def scratch_bytes(self) -> int:
+        """Device bytes of K1's compact working memory (not state: it is
+        all zero between dispatches)."""
+        return 0 if self._scratch is None else \
+            self._scratch.numel() * self._scratch.element_size()
 
     # -- staging -----------------------------------------------------------
 

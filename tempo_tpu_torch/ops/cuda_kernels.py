@@ -8,10 +8,12 @@ zeros and buckets, moments row) in the page pool's arenas, in place.
 Source and design note: `tempo_tpu_torch/csrc/paged_fused_update.cu`.
 With f32 state it is one launch: one thread per span, f32 atomics into
 the arena cells. Under the compact tier (int32 counts, a bf16 Kahan pair
-for the latency sum) it is two: the span pass adds each role's f32 delta
-into a zeroed logical-row scratch the wrapper allocates, and a fold pass
-rounds every cell's whole-dispatch delta once and runs the Kahan step on
-every row of every backed page, as the TPU kernel does.
+for the latency sum) it is two: the span pass adds the int32 roles' and
+the pair's f32 deltas into a persistent logical-row scratch that the
+caller owns (`compact_scratch`), and a fold pass takes each touched
+cell's whole-dispatch delta out of it once (rounded half to even) and
+runs the Kahan step on every row of every backed page, as the TPU kernel
+does, leaving the scratch all zero.
 
 K2, `fused_spanmetrics_matmul`, replaces the dense one-hot kernel of the
 same name (`pallas_kernels.py:141`, `pl.pallas_call` at :156): the
@@ -36,9 +38,11 @@ import hashlib
 import math
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Sequence
 
@@ -55,6 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("paged_fused_update", "fused_spanmetrics")
 MAX_EDGES = 64
 MAX_ROLES = 8
+# with the moments row, K1's span pass stages the [R, P] tables in 227 KB
+MAX_TABLE_BYTES = 232448
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -115,17 +121,17 @@ def build(name: str) -> Path:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)        # the hot path: loaded, no lock
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name)))
             p, i = ctypes.c_void_p, ctypes.c_int
             if name == "paged_fused_update":
                 fn = lib.paged_fused_update_launch
-                fn.argtypes = [p, i, p, p, p, p, p, p]
-                fn.restype = i
-                fn = lib.paged_fused_update_fold_launch
-                fn.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
+                fn.argtypes = [p, i, i, p, p, p, p]
                 fn.restype = i
             else:
                 fn = lib.fused_spanmetrics_launch
@@ -133,6 +139,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn.restype = i
             lib.kernel_error.argtypes = [i]
             lib.kernel_error.restype = ctypes.c_char_p
+            _libs[name] = lib    # published only once it is set up
         return lib
 
 
@@ -195,8 +202,39 @@ def _arena_spec(r: int, dd: bool, mom: bool, compact: bool, n_hist: int,
     return dt, {4: n_hist, 6: nb_dd}.get(r)
 
 
-def _check(tables, slots, vals, arenas, page_rows, edges, dd_rows, mom_rows,
-           mom_meta, compact) -> None:
+def _scratch_roles(n_lrows: int, n_edges: int, dd_rows: int,
+                   nb_dd: int) -> list[tuple[int, int]]:
+    """(role, elements) of the compact scratch, in its order: the f32
+    deltas by logical row (`ops.pages.delta_shapes`) of calls, the latency
+    sum (the pair), latency count, the histogram, and the DDSketch zeros
+    and grid. Sizes (role 3) and the moments row have none: their atomics
+    go straight into the arena."""
+    from tempo_tpu_torch.ops.pages import delta_shapes
+
+    shapes = delta_shapes(n_lrows, n_edges, dd_rows, nb_dd, 0, 0)
+    return [(r, rows * w) for r, (rows, w) in enumerate(shapes) if r != 3]
+
+
+def _scratch_numel(tables, arenas, page_rows, n_edges, dd_rows) -> int:
+    nb_dd = arenas[6].shape[-1] if dd_rows else 0
+    return sum(k for _, k in _scratch_roles(tables.shape[1] * page_rows,
+                                            n_edges, dd_rows, nb_dd))
+
+
+def compact_scratch(tables: torch.Tensor, arenas: Sequence[torch.Tensor], *,
+                    page_rows: int, edges: tuple, dd_rows: int) -> torch.Tensor:
+    """The zeroed f32 working memory K1 needs under compact state on the
+    card, allocated once by the owner of the arenas and passed to every
+    `paged_fused_update` call (`scratch=`). K1 leaves it all zero after
+    each dispatch. It is indexed by logical row, so page eviction or reuse
+    between dispatches needs nothing (~88 MB at the default widths)."""
+    return torch.zeros(_scratch_numel(tables, arenas, page_rows, len(edges),
+                                      dd_rows),
+                       dtype=torch.float32, device=arenas[0].device)
+
+
+def _check_state(tables, arenas, page_rows, edges, dd_rows, mom_rows,
+                 mom_meta, compact, scratch) -> None:
     n_roles = len(arenas)
     want = _roles(dd_rows, mom_rows)
     if n_roles != want:
@@ -210,18 +248,13 @@ def _check(tables, slots, vals, arenas, page_rows, edges, dd_rows, mom_rows,
     if len(edges) > MAX_EDGES:
         raise ValueError(f"{len(edges)} histogram edges (at most {MAX_EDGES})")
     dev = arenas[0].device
-    tensors = [tables, slots, vals, *arenas]
+    tensors = [tables, *arenas]
     if any(t.device != dev for t in tensors):
         raise ValueError("paged_fused_update: tensors on different devices")
     if tables.dtype != torch.int32 or tables.ndim != 2 \
             or tables.shape[0] != n_roles:
         raise ValueError(f"tables must be int32 [{n_roles}, P], got "
                          f"{tables.dtype} {tuple(tables.shape)}")
-    n = slots.shape[0]
-    if slots.ndim != 1 or slots.dtype not in (torch.int32, torch.float32):
-        raise ValueError("slots must be a 1-D int32 or float32 tensor")
-    if vals.dtype != torch.float32 or tuple(vals.shape) != (3, n):
-        raise ValueError(f"vals must be f32 [3, {n}]")
     rows = arenas[0].shape[0]
     nb_dd = arenas[6].shape[-1] if dd_rows else 0
     mom_w = mom_meta[0] + 3 if mom_rows else 0
@@ -236,27 +269,83 @@ def _check(tables, slots, vals, arenas, page_rows, edges, dd_rows, mom_rows,
         raise ValueError(f"arena rows {rows} not a multiple of {page_rows}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_fused_update: tensors must be contiguous")
+    if compact and scratch is not None:
+        numel = _scratch_numel(tables, arenas, page_rows, len(edges), dd_rows)
+        if scratch.dtype != torch.float32 or tuple(scratch.shape) != (numel,) \
+                or scratch.device != dev or not scratch.is_contiguous():
+            raise ValueError(f"scratch: want contiguous torch.float32 "
+                             f"({numel},) on {dev}, got {scratch.dtype} "
+                             f"{tuple(scratch.shape)} on {scratch.device}")
 
 
-def _pfu_params(n, n_roles, p_pages, page_rows, edges, gamma, min_value,
-                dd_rows, nb_dd, mom_rows, mom_meta, compact):
+def _check_batch(slots, vals, dev) -> None:
+    if slots.device != dev or vals.device != dev:
+        raise ValueError("paged_fused_update: tensors on different devices")
+    n = slots.shape[0]
+    if slots.ndim != 1 or slots.dtype not in (torch.int32, torch.float32):
+        raise ValueError("slots must be a 1-D int32 or float32 tensor")
+    if vals.dtype != torch.float32 or tuple(vals.shape) != (3, n):
+        raise ValueError(f"vals must be f32 [3, {n}]")
+    if not (slots.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("paged_fused_update: tensors must be contiguous")
+
+
+# the kernel's parameter block, `PfuParams` in the source, field by field
+_PFU_FIELDS = (("n_roles", "i"), ("p_pages", "i"), ("page_shift", "i"),
+               ("dd_rows", "i"), ("nb_dd", "i"), ("n_edges", "i"),
+               ("mom_rows", "i"), ("mom_k", "i"), ("compact", "i"),
+               ("min_value", "f"), ("log_gamma", "f"), ("mom_vmin", "f"),
+               ("mom_vmax", "f"), ("mom_c", "f"), ("mom_h", "f"),
+               ("mom_lo", "f"), ("mom_hi", "f"), ("edges", f"{MAX_EDGES}f"))
+_PFU_FORMAT = "=" + "".join(t for _, t in _PFU_FIELDS)
+
+
+def _pfu_params(n_roles, p_pages, page_rows, edges, gamma, min_value,
+                dd_rows, nb_dd, mom_rows, mom_meta, compact) -> bytes:
     """The kernel's parameter block (`PfuParams` in the source) as bytes.
     Constants are computed as the reference does: Python double, then
     f32 where they meet f32 data."""
-    import struct
-
     from tempo_tpu_torch.ops.moments import basis_constants
 
     mk, mlo, mhi = mom_meta if mom_rows else (0, 0.0, 0.0)
     vmin, vmax, c, h = basis_constants(mlo, mhi) if mom_rows \
         else (0.0, 0.0, 0.0, 1.0)
-    ints = (n, n_roles, p_pages, page_rows.bit_length() - 1, dd_rows, nb_dd,
-            len(edges), mom_rows, mk, int(compact))
-    floats = (min_value, math.log(gamma) if dd_rows else 1.0, vmin, vmax, c, h,
-              mlo, mhi)
     e = list(edges) + [0.0] * (MAX_EDGES - len(edges))
-    return struct.pack(f"{len(ints)}i{len(floats)}f{MAX_EDGES}f", *ints,
-                       *floats, *e)
+    return struct.pack(
+        _PFU_FORMAT, n_roles, p_pages, page_rows.bit_length() - 1, dd_rows,
+        nb_dd, len(edges), mom_rows, mk, int(compact), min_value,
+        math.log(gamma) if dd_rows else 1.0, vmin, vmax, c, h, mlo, mhi, *e)
+
+
+class _Plan:
+    """What a K1 launch needs that does not change between dispatches on
+    one set of tables, arenas and scratch, packed as the launch function
+    reads it: the tables pointer, the arena and scratch pointers and the
+    parameter block. Built (and the set validated) once per key."""
+
+    def __init__(self, tables, arenas, scratch, page_rows, edges, gamma,
+                 min_value, dd_rows, mom_rows, mom_meta, compact):
+        n_roles, p_pages = tables.shape
+        nb_dd = arenas[6].shape[1] if dd_rows else 0
+        scr = [0] * MAX_ROLES
+        if compact:
+            at = scratch.data_ptr()
+            for r, k in _scratch_roles(p_pages * page_rows, len(edges),
+                                       dd_rows, nb_dd):
+                scr[r] = at
+                at += 4 * k
+        arena = [a.data_ptr() for a in arenas]
+        block = struct.pack(f"={1 + 2 * MAX_ROLES}Q", tables.data_ptr(),
+                            *arena, *[0] * (MAX_ROLES - n_roles), *scr) \
+            + _pfu_params(n_roles, p_pages, page_rows, edges, gamma,
+                          min_value, dd_rows, nb_dd, mom_rows, mom_meta,
+                          compact)
+        self.buf = ctypes.create_string_buffer(block, len(block))
+        self.block = ctypes.addressof(self.buf)
+        self.block_bytes = len(block)
+
+
+_plans: dict[tuple, _Plan] = {}
 
 
 def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
@@ -264,7 +353,8 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
                        page_rows: int, edges: tuple, gamma: float,
                        min_value: float, dd_rows: int, mom_rows: int = 0,
                        mom_meta: "tuple | None" = None,
-                       compact: bool = False) -> None:
+                       compact: bool = False,
+                       scratch: "torch.Tensor | None" = None) -> None:
     """Update the span-metrics plane family in place.
 
       tables  [R, P] int32 — per-role page tables, padded with -1; R is 5
@@ -277,84 +367,77 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
       arenas  the role arenas; all share one row count. f32, or under
               `compact` int32 counts, the latency sum as a bf16 [rows, 2]
               Kahan pair, sizes and moments f32.
+      scratch under `compact` on the card: the caller's all-zero working
+              memory from `compact_scratch`, left all zero (checked when
+              given; the plain version needs none).
 
     CPU tensors run `paged_fused_update_plain`; CUDA tensors launch the
-    kernels on the current stream (no synchronisation) or raise."""
-    edges = tuple(float(e) for e in edges)
-    _check(tables, slots, vals, arenas, page_rows, edges, dd_rows, mom_rows,
-           mom_meta, compact)
+    kernels on the current stream (no synchronisation) or raise. The
+    tables, arenas and scratch are validated once per set of tensor
+    objects (the port never changes a tensor's storage, dtype or shape in
+    place); the batch on every call."""
+    edges = edges if type(edges) is tuple else tuple(edges)
     dev = arenas[0].device
-    kw = dict(page_rows=page_rows, edges=edges, gamma=gamma,
-              min_value=min_value, dd_rows=dd_rows, mom_rows=mom_rows,
-              mom_meta=mom_meta)
     if dev.type == "cpu":
-        paged_fused_update_plain(tables, slots, vals, arenas, **kw)
+        _check_state(tables, arenas, page_rows, edges, dd_rows, mom_rows,
+                     mom_meta, compact, scratch)
+        _check_batch(slots, vals, dev)
+        paged_fused_update_plain(
+            tables, slots, vals, arenas, page_rows=page_rows, edges=edges,
+            gamma=gamma, min_value=min_value, dd_rows=dd_rows,
+            mom_rows=mom_rows, mom_meta=mom_meta)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"paged_fused_update: unsupported device {dev}")
+    # a plan is keyed by the tensors' identities and holds weak references
+    # to them: a tensor that died cannot lend its id to a stale plan
+    tensors = (tables, *arenas) if scratch is None else \
+        (tables, *arenas, scratch)
+    key = (page_rows, edges, gamma, min_value, dd_rows, mom_rows, mom_meta,
+           compact, *map(id, tensors))
+    plan = _plans.get(key)
+    if plan is None or not all(r() is t for r, t in zip(plan.refs, tensors)):
+        if dev.type != "cuda":
+            raise ValueError(f"paged_fused_update: unsupported device {dev}")
+        _check_state(tables, arenas, page_rows, edges, dd_rows, mom_rows,
+                     mom_meta, compact, scratch)
+        if compact and scratch is None:
+            raise ValueError("paged_fused_update: compact state on the card "
+                             "needs the caller's scratch (compact_scratch)")
+        if mom_rows and tables.numel() * 4 > MAX_TABLE_BYTES:
+            raise ValueError(f"tables {tuple(tables.shape)} take "
+                             f"{tables.numel() * 4} B of shared memory (at "
+                             f"most {MAX_TABLE_BYTES} with the moments row)")
+        if len(_plans) >= 64:
+            _plans.clear()
+        plan = _plans[key] = _Plan(tables, arenas, scratch, page_rows, edges,
+                                   gamma, min_value, dd_rows, mom_rows,
+                                   mom_meta, compact)
+        plan.refs = [weakref.ref(t) for t in tensors]
+        paged_fused_update.plans += 1
+    _check_batch(slots, vals, dev)
     n = slots.shape[0]
     if not n and not compact:
         return
     lib = _lib("paged_fused_update")
-    n_roles, p_pages = tables.shape
-    nb_dd = arenas[6].shape[1] if dd_rows else 0
-    params = _pfu_params(n, n_roles, p_pages, page_rows, edges, gamma,
-                         min_value, dd_rows, nb_dd, mom_rows, mom_meta,
-                         compact)
-    host_params = ctypes.create_string_buffer(params, len(params))
-    if compact:
-        # the dispatch's f32 delta of every role, by logical row
-        from tempo_tpu_torch.ops.pages import delta_shapes
-
-        shapes = delta_shapes(p_pages * page_rows, len(edges), dd_rows, nb_dd,
-                              mom_rows, mom_meta[0] if mom_rows else 0)
-        rows, widths = [r for r, _ in shapes], [w for _, w in shapes]
-        sizes = [r * w for r, w in shapes]
-        scratch = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-        begins = [sum(sizes[:r]) for r in range(n_roles)]
-        dst = [scratch[b:] for b in begins]
-    else:
-        dst = list(arenas)
-    with torch.cuda.device(dev):
-        stream = _stream(dev)
+    f32_slots = slots.dtype == torch.float32
+    args = (plan.block, plan.block_bytes, n,
+            slots.data_ptr() if f32_slots else None,
+            None if f32_slots else slots.data_ptr(), vals.data_ptr())
+    if dev.index == torch.cuda.current_device():
         code = lib.paged_fused_update_launch(
-            ctypes.cast(host_params, ctypes.c_void_p), len(params),
-            _ptr(tables),
-            _ptr(slots) if slots.dtype == torch.float32 else None,
-            _ptr(slots) if slots.dtype == torch.int32 else None,
-            _ptr(vals), _ptr_array([t.data_ptr() for t in dst]), stream)
+            *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            code = lib.paged_fused_update_launch(
+                *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if code != 0:
+        if compact:   # a pass may have run: restore the all-zero invariant
+            scratch.zero_()
         _raise_on(lib, code, "paged_fused_update")
-        if n:
-            paged_fused_update.launches += 1
-        if not compact:
-            return
-        kinds = [_FOLD_KIND[a.dtype] for a in arenas]
-        if mom_rows:
-            kinds[-1] = _FOLD_MOMENTS
-        code = lib.paged_fused_update_fold_launch(
-            _ptr_array([a.data_ptr() for a in arenas]),
-            _ptr_array([t.data_ptr() for t in dst]), _i64_array(rows),
-            _i64_array(widths), _i64_array(kinds), n_roles, p_pages,
-            page_rows.bit_length() - 1, mom_meta[0] if mom_rows else 0,
-            _ptr(tables), stream)
-        _raise_on(lib, code, "paged_fused_update fold")
-        paged_fused_update.launches += 1
+    paged_fused_update.launches += (1 if n else 0) + (1 if compact else 0)
 
-
-def _ptr_array(ptrs: list) -> ctypes.Array:
-    return (ctypes.c_void_p * MAX_ROLES)(*ptrs,
-                                         *[None] * (MAX_ROLES - len(ptrs)))
-
-
-def _i64_array(xs: list) -> ctypes.Array:
-    return (ctypes.c_longlong * MAX_ROLES)(*xs, *[0] * (MAX_ROLES - len(xs)))
-
-
-# fold kinds of the compact write-back (`FOLD_*` in the source)
-_FOLD_KIND = {torch.int32: 0, torch.bfloat16: 1, torch.float32: 2}
-_FOLD_MOMENTS = 3
 
 paged_fused_update.launches = 0
+paged_fused_update.plans = 0     # launch plans built (validated sets)
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +519,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["paged_fused_update", "paged_fused_update_plain",
+__all__ = ["paged_fused_update", "paged_fused_update_plain", "compact_scratch",
            "fused_spanmetrics_matmul", "fused_spanmetrics_scatter", "build",
-           "build_all", "BUILD_INFO", "BUILD_DIR", "SOURCES", "WRAPPERS",
-           "reset_launch_counts"]
+           "build_all", "BUILD_INFO", "BUILD_DIR", "SOURCES",
+           "WRAPPERS", "reset_launch_counts"]

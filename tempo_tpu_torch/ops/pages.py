@@ -321,7 +321,8 @@ def fold_deltas(arenas: Sequence[torch.Tensor], tables: torch.Tensor,
 def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
                edges: tuple, gamma: float, min_value: float, dd_rows: int,
                page_shift: int, mom_rows: int = 0,
-               mom_meta: "tuple | None" = None, compact: bool = False) -> None:
+               mom_meta: "tuple | None" = None, compact: bool = False,
+               scratch: "torch.Tensor | None" = None) -> None:
     """The paged fused span-metrics update, in place.
 
     `tables` is the stacked [R, P] int32 table, padded with -1. `batch`
@@ -330,7 +331,8 @@ def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
     of four vectors (int32 slots and three f32 rows). There are 5 roles,
     +2 with the DDSketch planes (dd_rows > 0), +1 with the moments plane
     (mom_rows > 0, `mom_meta` = (k, lo, hi)); `compact` takes int32 count
-    arenas and the bf16 pair for the latency sum."""
+    arenas and the bf16 pair for the latency sum, and on the card the
+    caller's persistent `scratch` (`cuda_kernels.compact_scratch`)."""
     from tempo_tpu_torch.ops import cuda_kernels
 
     dev = arenas[0].device
@@ -344,4 +346,4 @@ def fused_step(arenas: Sequence[torch.Tensor], tables: torch.Tensor, batch, *,
         tables, slots, vals, tuple(arenas), page_rows=1 << page_shift,
         edges=tuple(edges), gamma=gamma, min_value=min_value,
         dd_rows=dd_rows, mom_rows=mom_rows, mom_meta=mom_meta,
-        compact=compact)
+        compact=compact, scratch=scratch)

@@ -325,7 +325,9 @@ def _run_both(dd, mom, compact, arm, dispatches=3):
     mode) and the port's wrapper on CPU tensors (its plain version)."""
     kw = _k1_kw(dd, mom, compact)
     got = _state(20, dd, mom, compact)
-    ref = tuple(jnp.asarray(_to_np(a)) if a.dtype != torch.bfloat16
+    # copies: JAX may wrap host memory without copying it and reads it
+    # asynchronously, while the port's update below writes `got` in place
+    ref = tuple(jnp.asarray(_to_np(a).copy()) if a.dtype != torch.bfloat16
                 else jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
                 for a in got)
     tabs = _stacked(_tables(_roles(dd, mom)))
@@ -422,7 +424,7 @@ def test_fused_step_with_moments_matches_xla_tier():
                           True, mom_rows=kw["mom_rows"], mom_meta=MOM_META,
                           kernel="xla")
     got = _state(21, True, True, False)
-    ref = tuple(jnp.asarray(a.numpy()) for a in got)
+    ref = tuple(jnp.asarray(a.numpy().copy()) for a in got)  # see _run_both
     tabs = _tables(8)
     for d in range(3):
         mat = _dispatch(40 + d, "lognormal")
@@ -499,3 +501,162 @@ def test_k2_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="int32 slots"):
         tck.fused_spanmetrics_matmul(torch.zeros(4, dtype=torch.int32), z,
                                      z[:3], z, n_series=4, edges=EDGES)
+
+
+# ---------------------------------------------------------------------------
+# the identity K1's compact fold relies on, and its host-side contract
+# ---------------------------------------------------------------------------
+
+def _touched_cells(mat, n_lrows, dd_rows, mom_rows):
+    """Per role, the flat cells of its logical-row delta that the batch's
+    spans add to (what the kernel's `span_cells` yields), in numpy."""
+    s = mat[0].astype(np.int64)
+    dur = mat[1]
+    ok = (s >= 0) & (s < n_lrows)
+    hb = (dur[:, None] > np.asarray(EDGES, np.float32)[None, :]).sum(axis=1)
+    cells = {r: s[ok] for r in range(4)}
+    cells[4] = s[ok] * (len(EDGES) + 1) + hb[ok]
+    if dd_rows:
+        zero = dur <= np.float32(DD_MIN)
+        idx = top.dd_index(torch.from_numpy(dur.copy()), DD_GAMMA, DD_MIN,
+                           DD_NB).numpy()
+        in_dd = ok & (s < dd_rows)
+        cells[5] = s[in_dd & zero]
+        cells[6] = s[in_dd & ~zero] * DD_NB + idx[in_dd & ~zero]
+    if mom_rows:
+        width = MOM_META[0] + 3
+        rows = s[ok & (s < mom_rows)]
+        cells[_roles(bool(dd_rows), True) - 1] = (
+            rows[:, None] * width + np.arange(width)[None, :]).reshape(-1)
+    return cells
+
+
+def _fold_batch(seed):
+    """A dyadic batch (deltas 0.5, 2.5, 1.5 pinned on slots 0..2), plus
+    slot 12 (backed in every role) taking weights +1.5 and -1.5 on one
+    duration, so its calls and moment-sum deltas are exactly 0 while its
+    bounds are not; spans on the unbacked logical page 3 and on slots >=
+    dd_rows."""
+    mat = _dispatch(seed, "dyadic")
+    mat[0][(mat[0] == 12)] = 13
+    mat[0, 8:10] = 12
+    mat[1, 8:10] = 0.125
+    mat[3, 8:10] = (1.5, -1.5)
+    assert (mat[0] >= 3 * PAGE_ROWS).any() and (mat[0] >= 2 * PAGE_ROWS).any()
+    return mat
+
+
+@pytest.mark.parametrize("dd,mom,compact", COMBOS)
+def test_fold_of_touched_cells_matches_full_fold(dd, mom, compact):
+    """`fold_deltas` of the whole-dispatch deltas equals `fold_deltas` of
+    the same deltas kept only on the cells the spans map to (the pair role
+    left whole: it is folded on every backed row), bit for bit: the
+    identity behind K1's fold of touched cells."""
+    kw = _k1_kw(dd, mom, compact)
+    n_roles = _roles(dd, mom)
+    tabs = torch.from_numpy(_stacked(_tables(n_roles)))
+    mat = _fold_batch(50)
+    n_lrows = tabs.shape[1] * PAGE_ROWS
+    deltas = top.dispatch_deltas(
+        torch.from_numpy(mat[0].astype(np.int32)), torch.from_numpy(mat[1:]),
+        n_lrows=n_lrows, edges=EDGES, gamma=DD_GAMMA, min_value=DD_MIN,
+        dd_rows=kw["dd_rows"], nb_dd=DD_NB if dd else 0,
+        mom_rows=kw["mom_rows"], mom_meta=kw["mom_meta"],
+        page_shift=PAGE_SHIFT)
+    cells = _touched_cells(mat, n_lrows, kw["dd_rows"], kw["mom_rows"])
+    kept = []
+    for r, d in enumerate(deltas):
+        if compact and r == 1:
+            kept.append(d.clone())
+            continue
+        k = torch.zeros_like(d).reshape(-1)
+        at = torch.from_numpy(cells[r])
+        k[at] = d.reshape(-1)[at]
+        kept.append(k.reshape(d.shape))
+    mom_k = MOM_META[0] if mom else None
+    full = _state(60, dd, mom, compact)
+    part = [a.clone() for a in full]
+    top.fold_deltas(full, tabs, deltas, page_shift=PAGE_SHIFT, mom_k=mom_k)
+    top.fold_deltas(part, tabs, kept, page_shift=PAGE_SHIFT, mom_k=mom_k)
+    for r, (a, b) in enumerate(zip(full, part)):
+        assert torch.equal(a, b), f"role {r}"
+    if mom:   # slot 12: zero moment sums, non-zero bounds
+        row = deltas[-1][12]
+        assert not row[:MOM_META[0] + 1].any() and row[MOM_META[0] + 1:].all()
+    if compact:   # the half-way deltas are there to be rounded
+        np.testing.assert_array_equal(deltas[0][:3].numpy(), [0.5, 2.5, 1.5])
+
+
+def test_wrapper_checks_compact_scratch():
+    """A compact call's scratch must be contiguous f32 of the layout's
+    size on the arenas' device; the check runs before any dispatch, so it
+    needs no card. The CPU path leaves a right scratch all zero."""
+    kw = _k1_kw(True, True, True)
+    arenas = _state(0, True, True, True)
+    tabs = torch.from_numpy(_stacked(_tables(8)))
+    slots = torch.from_numpy(_dispatch(1, "dyadic")[0].astype(np.int32))
+    vals = torch.from_numpy(_dispatch(1, "dyadic")[1:].copy())
+    scratch = tck.compact_scratch(tabs, arenas, page_rows=PAGE_ROWS,
+                                  edges=EDGES, dd_rows=kw["dd_rows"])
+    n_lrows = tabs.shape[1] * PAGE_ROWS
+    assert scratch.numel() == n_lrows * (3 + len(EDGES) + 1) + \
+        kw["dd_rows"] * (1 + DD_NB)
+    tck.paged_fused_update(tabs, slots, vals, arenas, **kw, scratch=scratch)
+    assert not scratch.any()
+    for bad in (scratch[:-1], scratch.double(), scratch.to("meta"),
+                torch.zeros(scratch.numel(), 2)[:, 0]):
+        with pytest.raises(ValueError, match="scratch"):
+            tck.paged_fused_update(tabs, slots, vals, arenas, **kw,
+                                   scratch=bad)
+
+
+def test_params_block_matches_the_source():
+    """`PfuParams` in `paged_fused_update.cu`, field by field, against
+    the wrapper's `_PFU_FIELDS` (order, type, count); the block a plan
+    caches is byte-equal to a freshly packed one, and its scratch pointers
+    follow `_scratch_roles`."""
+    import re
+    import struct
+
+    src = (tck._CSRC / "paged_fused_update.cu").read_text()
+    body = re.search(r"struct PfuParams \{(.*?)\n\};", src, re.S).group(1)
+    fields = []
+    for m in re.finditer(r"^\s*(int|float)\s+(\w+)(?:\[(\w+)\])?;", body,
+                         re.M):
+        kind, name, count = m.groups()
+        n = int(re.search(rf"#define {count} (\d+)", src).group(1)) \
+            if count else 1
+        fields.append((name, f"{n}{kind[0]}" if count else kind[0]))
+    assert fields == list(tck._PFU_FIELDS)
+    assert struct.calcsize(tck._PFU_FORMAT) == 4 * sum(
+        int(t[:-1] or 1) for _, t in fields)
+    kw = _k1_kw(True, True, True)
+    arenas = _state(0, True, True, True)
+    tabs = torch.from_numpy(_stacked(_tables(8)))
+    scratch = tck.compact_scratch(tabs, arenas, page_rows=PAGE_ROWS,
+                                  edges=EDGES, dd_rows=kw["dd_rows"])
+    plan = tck._Plan(tabs, arenas, scratch, PAGE_ROWS, EDGES, DD_GAMMA,
+                     DD_MIN, kw["dd_rows"], kw["mom_rows"], MOM_META, True)
+    fresh = tck._pfu_params(8, tabs.shape[1], PAGE_ROWS, EDGES, DD_GAMMA,
+                            DD_MIN, kw["dd_rows"], DD_NB, kw["mom_rows"],
+                            MOM_META, True)
+    # the launch block: tables, arena and scratch pointers, then PfuParams
+    assert int(re.search(r"#define PFU_MAX_ROLES (\d+)", src).group(1)) == \
+        tck.MAX_ROLES
+    assert "(1 + 2 * PFU_MAX_ROLES) * sizeof(void*)" in src
+    head = 8 * (1 + 2 * tck.MAX_ROLES)
+    assert plan.buf.raw[head:] == fresh
+    assert plan.block_bytes == head + len(fresh)
+    ptrs = struct.unpack(f"={head // 8}Q", plan.buf.raw[:head])
+    assert ptrs[0] == tabs.data_ptr()
+    assert list(ptrs[1:9]) == [a.data_ptr() for a in arenas]
+    got = struct.unpack(tck._PFU_FORMAT, fresh)
+    assert got[:9] == (8, tabs.shape[1], PAGE_SHIFT, kw["dd_rows"], DD_NB,
+                       len(EDGES), kw["mom_rows"], MOM_META[0], 1)
+    at = scratch.data_ptr()
+    for r, k in tck._scratch_roles(tabs.shape[1] * PAGE_ROWS, len(EDGES),
+                                   kw["dd_rows"], DD_NB):
+        assert ptrs[9 + r] == at, f"role {r}"
+        at += 4 * k
+    assert ptrs[9 + 3] == 0 and ptrs[9 + 7] == 0
+    assert at == scratch.data_ptr() + 4 * scratch.numel()

@@ -154,6 +154,28 @@ def test_slack_drops_and_purge_then_reuse_match():
     _compare_quantiles(jg, tg, "after reuse")
 
 
+def test_stacked_tables_refresh_in_place():
+    """The processor keeps one [R, P] page-table tensor for its life,
+    refreshed in place when pages are backed, so K1's launch plan (keyed
+    on the tensor) lives across pushes; after every push it equals the
+    planes' page maps."""
+    _, _, tg = _worlds()
+    proc = tg.processors["span-metrics"]
+    seen = []
+    for seed, n in ((0, 600), (5, 1200), (6, 600)):
+        tg.push_batch(tt.otlp_proto_to_batch(
+            _payload(seed, T0, n=n), tt.SpanBatchBuilder(tg.registry.interner)))
+        planes = proc._paged_planes()
+        want = np.full((len(planes), max(p.n_lpages for p in planes)), -1,
+                       np.int32)
+        for r, p in enumerate(planes):
+            want[r, :p.n_lpages] = p.page_map
+        np.testing.assert_array_equal(proc._tables.numpy(), want)
+        seen.append((proc._tables, proc._tables_key))
+    assert seen[1][1] != seen[0][1]                  # more pages backed
+    assert all(t is seen[0][0] for t, _ in seen)
+
+
 def test_filter_policy_and_target_info_match():
     jsm = dict(enable_target_info=True, filter_policies=(JFp(exclude=JPm(
         "regex", (JAm("name", "op-1.*"),))),))
