@@ -23,8 +23,12 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
       weights, one of no spans, and one after a logical page of two
       roles moved to a reused physical page; the persistent scratch all
       zero after each;
-   c. K2 (`fused_spanmetrics_matmul`) at the reference benchmark's shape
-      (262,144 spans, 4,096 series, 12 edges), driven over 8 batches;
+   c. K2 (`fused_spanmetrics_matmul`) at two shapes, each driven over 8
+      batches with its launches held against `k2_layout`, then a batch
+      of no spans and one of only discards (each all zero): the
+      reference benchmark's (262,144 uniform spans, 4,096 series, 12
+      edges) and the deployment's (one push of 16,384 Zipf-skewed spans
+      into 65,536 series, the 14 default edges);
 4. the main paths through the entry points, each on the card against the
    same path on the host (plain versions), with kernel launch counts
    zeroed just before and read just after: seeded OTLP payloads →
@@ -45,9 +49,10 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
    the main path makes (`ops.pages.fused_step` on the packed [4, N]
    batch) and through the wrapper with the batch sliced on each call
    (the yardstick of K1's earlier times in PERF.md); K1's host time per call (1,000 calls with no
-   synchronisation) both ways; device time (torch.profiler, by kernel);
+   synchronisation) both ways, and K2's at both shapes; device time
+   (torch.profiler: K1 by kernel, K2 every device event of the call);
    the least time the card could take, the library yardstick where one
-   exists, and end-to-end spans/s.
+   exists (`index_add_` for K2, at both shapes), and end-to-end spans/s.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -604,88 +609,150 @@ def phase_k1_compact():
     }
 
 
-def _k2_batch(rng, bad=0.0):
-    """The reference benchmark's K2 inputs (uniform slots, lognormal
-    durations, integer sizes, unit weights); `bad` is the share of slots
-    replaced by -1 or an id past the series range."""
-    slots = rng.integers(0, K2_SERIES, K2_SPANS).astype(np.int32)
-    nbad = int(bad * K2_SPANS)
-    slots[:nbad] = rng.choice([-1, K2_SERIES, K2_SERIES + 5], nbad)
-    dur = rng.lognormal(-3, 1.5, K2_SPANS).astype(np.float32)
-    sizes = rng.integers(100, 5000, K2_SPANS).astype(np.float32)
-    w = np.ones(K2_SPANS, np.float32)
+def _k2_shape(shape):
+    """(spans, series, edges) of K2's two shapes: "bench", the reference
+    benchmark's (benchmarks/bench_kernels.py:22); "deployment", one push
+    into the tenant's whole series table at the registry's defaults."""
+    from tempo_tpu_torch.registry.registry import DEFAULT_HISTOGRAM_EDGES
+
+    if shape == "bench":
+        return K2_SPANS, K2_SERIES, K2_EDGES
+    return N_SPANS, N_SERIES, tuple(DEFAULT_HISTOGRAM_EDGES)
+
+
+def _k2_batch(rng, shape, bad=0.0):
+    """K2 inputs at `shape`. bench: the reference benchmark's (uniform
+    slots, lognormal durations, integer sizes, unit weights), `bad` the
+    share of slots replaced by -1 or an id past the series range.
+    deployment: Zipf-skewed slots (a = 1.1, 5% discards), lognormal
+    durations, integer sizes, integer weights 1-3."""
+    n, n_series, _ = _k2_shape(shape)
+    if shape == "bench":
+        slots = rng.integers(0, n_series, n).astype(np.int32)
+        nbad = int(bad * n)
+        slots[:nbad] = rng.choice([-1, n_series, n_series + 5], nbad)
+        dur = rng.lognormal(-3, 1.5, n).astype(np.float32)
+        w = np.ones(n, np.float32)
+    else:
+        slots = zipf_slots(rng, n, n_series).astype(np.int32)
+        dur = rng.lognormal(-3.0, 2.0, n).astype(np.float32)
+        w = rng.integers(1, 4, n).astype(np.float32)
+    sizes = rng.integers(100, 5000, n).astype(np.float32)
     return slots, dur, sizes, w
 
 
-def phase_k2():
-    """Phase 3c (and its phase-5 times): K2 driven over 8 benchmark-shaped
-    batches (launch counts zeroed before, read after), its summed state
-    held against the plain version's; counts and histogram columns exact,
-    sums at rtol 1e-5."""
+def phase_k2(shape):
+    """Phase 3c (and its phase-5 times): K2 at `shape` driven over 8
+    batches (launch counts zeroed before, read after, held against
+    `k2_layout`), its summed state held against the plain version's:
+    count and histogram columns exact, sums at rtol 1e-5, the count total
+    equal to the kept weight; then a batch of no spans and one of only
+    discards, each all zero."""
     import torch
 
     from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops.pages import hist_bucket
 
     dev = torch.device("cuda")
+    n, n_series, edges = _k2_shape(shape)
+    f = 4 + len(edges)
     rng = np.random.default_rng(SEED + 11)
-    batches = [[torch.from_numpy(x).to(dev) for x in _k2_batch(rng, bad)]
+    batches = [[torch.from_numpy(x).to(dev) for x in _k2_batch(rng, shape, bad)]
                for bad in [0.05] + [0.0] * (N_DISPATCH - 1)]
-    kw = dict(n_series=K2_SERIES, edges=K2_EDGES)
+    kw = dict(n_series=n_series, edges=edges)
     ck.reset_launch_counts()
-    state = torch.zeros((K2_SERIES, 4 + len(K2_EDGES)), device=dev)
+    state = torch.zeros((n_series, f), device=dev)
     for b in batches:
         state += ck.fused_spanmetrics_matmul(*b, **kw)
     torch.cuda.synchronize()
     launches = ck.fused_spanmetrics_matmul.launches
+    want_launches = sum(ck.k2_layout(b[0].numel(), n_series, len(edges))
+                        .launches for b in batches)
+    if launches != want_launches:
+        raise AssertionError(f"K2 {shape}: {launches} launches for "
+                             f"{len(batches)} batches (k2_layout: "
+                             f"{want_launches})")
     plain = torch.zeros_like(state)
     for b in batches:
         plain += ck.fused_spanmetrics_scatter(*b, **kw)
-    exact = [0] + list(range(3, state.shape[1]))
+    exact = [0] + list(range(3, f))
     if not torch.equal(state[:, exact], plain[:, exact]) or not \
             torch.allclose(state[:, 1:3], plain[:, 1:3], rtol=1e-5, atol=1e-6):
-        raise AssertionError("K2 disagrees with its plain version")
-    want = sum(float(((b[0] >= 0) & (b[0] < K2_SERIES)).sum()) for b in batches)
-    if float(state[:, 0].sum()) != want:
-        raise AssertionError(f"K2 count total {float(state[:, 0].sum())} != "
-                             f"{want} kept spans")
+        raise AssertionError(f"K2 {shape} disagrees with its plain version")
+    want = sum(float(b[3][(b[0] >= 0) & (b[0] < n_series)].double().sum())
+               for b in batches)
+    if float(state[:, 0].double().sum()) != want:
+        raise AssertionError(f"K2 {shape}: count total "
+                             f"{float(state[:, 0].double().sum())} != the "
+                             f"kept weight {want}")
     max_abs = float((state - plain).abs().max())
-    print("phase 3c kernel-vs-plain: " + json.dumps({
-        "name": "fused_spanmetrics_matmul", "batches": len(batches),
-        "launches": launches, "max_abs_err": max_abs, "pass": True}))
-    b = batches[1]                                   # all slots valid
-    ms = cuda_time_ms(lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED)
+    empty = [x[:0].contiguous() for x in batches[0]]
+    discards = [x.clone() for x in batches[0]]
+    discards[0].fill_(-1)
+    for what, b in (("no spans", empty), ("only discards", discards)):
+        got = ck.fused_spanmetrics_matmul(*b, **kw)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (n_series, f) or bool(got.any()):
+            raise AssertionError(f"K2 {shape}: a batch of {what} did not "
+                                 f"give an all-zero [{n_series}, {f}] delta")
+    print(f"phase 3c kernel-vs-plain ({shape} shape): " + json.dumps({
+        "name": "fused_spanmetrics_matmul", "spans": n, "series": n_series,
+        "edges": len(edges), "batches": len(batches), "launches": launches,
+        "max_abs_err": max_abs, "empty_and_discards": "all zero",
+        "pass": True}))
+    b = batches[1]
+    call = lambda: ck.fused_spanmetrics_matmul(*b, **kw)  # noqa: E731
+    ms = cuda_time_ms(call, N_TIMED)
+    host = host_ms(call)
     plain_ms = cuda_time_ms(lambda: ck.fused_spanmetrics_scatter(*b, **kw),
                             N_TIMED)
-    device_ms = profiled_device_ms(
-        lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED,
-        ["fused_spanmetrics_kernel"])
-    # the library yardstick: one index_add_ of a prebuilt [N, 16] feature
-    # matrix (built outside the timed region) into a zeroed state
-    from tempo_tpu_torch.ops.pages import hist_bucket
+    events = {}
+    device_ms = profiled_device_ms(call, N_TIMED, by_name=events)
+    # the library yardstick: one index_add_ of a prebuilt [N, F] feature
+    # matrix (built outside the timed region; discards sent to a spare row)
+    # into a zeroed state
     slots, dur, sizes, w = b
-    feats = torch.zeros((K2_SPANS, 4 + len(K2_EDGES)), device=dev)
+    feats = torch.zeros((n, f), device=dev)
     feats[:, 0] = w
     feats[:, 1] = dur * w
     feats[:, 2] = sizes * w
-    feats[torch.arange(K2_SPANS, device=dev), 3 + hist_bucket(dur, K2_EDGES)] = w
-    idx = slots.long()
-    lib_out = torch.zeros_like(state)
+    feats[torch.arange(n, device=dev), 3 + hist_bucket(dur, edges)] = w
+    idx = torch.where((slots >= 0) & (slots < n_series), slots,
+                      n_series).long()
+    lib_out = torch.zeros((n_series + 1, f), device=dev)
     library = lambda: lib_out.index_add_(0, idx, feats)  # noqa: E731
     library_ms = cuda_time_ms(library, N_TIMED)
-    print(f"phase 5: K2 library yardstick index_add_ device time per call "
-          f"{profiled_device_ms(library, N_TIMED)} ms; K2 call device time "
-          f"(output zeroing included) "
-          f"{profiled_device_ms(lambda: ck.fused_spanmetrics_matmul(*b, **kw), N_TIMED)} ms")
-    nbytes = K2_SPANS * 16 + state.numel() * 4
-    bound_ms, bound_by = bound(nbytes, K2_SPANS * (6 + len(K2_EDGES)))
+    library_device_ms = profiled_device_ms(library, N_TIMED)
+    print(f"phase 5: K2 ({shape} shape) device time per call, every device "
+          f"event: {device_ms} ms {json.dumps(events)}; index_add_ device "
+          f"time per call {library_device_ms} ms")
+    if shape == "deployment":
+        # the same push with uniform slots (5% discards): the share of the
+        # Zipf push's time that its hot series cost
+        u = [x.clone() for x in b]
+        u[0].copy_(torch.from_numpy(np.where(
+            rng.random(n) < 0.05, -1, rng.integers(0, n_series, n)).astype(
+                np.int32)))
+        got = ck.fused_spanmetrics_matmul(*u, **kw)
+        ref = ck.fused_spanmetrics_scatter(*u, **kw)
+        if not torch.equal(got[:, exact], ref[:, exact]) or not \
+                torch.allclose(got[:, 1:3], ref[:, 1:3], rtol=1e-5, atol=1e-6):
+            raise AssertionError("K2 deployment, uniform slots: disagrees "
+                                 "with its plain version")
+        print(f"phase 5: K2 (deployment shape, uniform slots) device time "
+              f"per call, every device event: "
+              f"{profiled_device_ms(lambda: ck.fused_spanmetrics_matmul(*u, **kw), N_TIMED)} ms")
+    nbytes = n * 16 + n_series * f * 4
+    bound_ms, bound_by = bound(nbytes, n * (6 + len(edges)))
     return {
-        "name": "fused_spanmetrics_matmul", "route": "cuda",
+        "name": f"fused_spanmetrics_matmul ({shape} shape)", "route": "cuda",
         "source": "tempo_tpu_torch/csrc/fused_spanmetrics.cu",
         "replaces": "tempo_tpu/ops/pallas_kernels.py:141",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms[1], "times": {"call": (ms, None)}, "plain_ms": plain_ms[1],
+        "ms": ms[1], "times": {"call": (ms, host)}, "plain_ms": plain_ms[1],
         "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_bytes": nbytes, "library_ms": library_ms[1],
+        "library_device_ms": library_device_ms,
     }
 
 
@@ -967,7 +1034,8 @@ def main() -> int:
           f"durations land one bucket apart between K1 (CUDA logf) and the "
           f"host (torch CPU log)")
     k1c = phase_k1_compact()
-    k2 = phase_k2()
+    k2 = phase_k2("bench")
+    k2d = phase_k2("deployment")
     dd = phase_main_path("dd")
     bc = phase_main_path("both_compact")
     k1["launches"], k1c["launches"] = dd["launches"], bc["launches"]
@@ -977,7 +1045,7 @@ def main() -> int:
           f"both compact {bc['bytes_per_series']:.1f}, moments f32 "
           f"{mom_bytes:.1f}")
     floor = host_floor_ms()
-    for k in (k1, k1c, k2):
+    for k in (k1, k1c, k2, k2d):
         dms = k["device_ms"]
         lib = k["library_ms"]
         print(f"phase 5 [{card}]: {k['name']}: per call ({N_TIMED} calls, "
@@ -1010,7 +1078,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in (k1, k1c, k2)]}))
+                                  for k in (k1, k1c, k2, k2d)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

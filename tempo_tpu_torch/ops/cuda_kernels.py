@@ -19,6 +19,10 @@ K2, `fused_spanmetrics_matmul`, replaces the dense one-hot kernel of the
 same name (`pallas_kernels.py:141`, `pl.pallas_call` at :156): the
 [S, 3 + buckets] delta of a span batch (count, duration sum, size sum,
 latency histogram). Source: `tempo_tpu_torch/csrc/fused_spanmetrics.cu`.
+Two device operations a call: the output is zeroed, then one pass of one
+or four spans a thread adds each span with float4 atomics on the 16 B
+quads of the output that hold its cells (two atomic operations a span
+where four scalar ones were; `k2_layout`).
 
 Build: at first use each source is compiled with `nvcc` for `sm_90a`
 into `build/` at the repository root, keyed by a hash of the source and
@@ -44,7 +48,7 @@ import threading
 import time
 import weakref
 from pathlib import Path
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -135,7 +139,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 fn.restype = i
             else:
                 fn = lib.fused_spanmetrics_launch
-                fn.argtypes = [p, p, p, p, i, i, p, i, p, p]
+                fn.argtypes = [p, i, i, i, p, p, p, p, p, p]
                 fn.restype = i
             lib.kernel_error.argtypes = [i]
             lib.kernel_error.restype = ctypes.c_char_p
@@ -143,18 +147,10 @@ def _lib(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _ptr(t: "torch.Tensor | None") -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 def _raise_on(lib, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} launch failed: {code} "
                            f"{lib.kernel_error(code).decode()}")
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +440,43 @@ paged_fused_update.plans = 0     # launch plans built (validated sets)
 # K2: the dense fused span-metrics delta
 # ---------------------------------------------------------------------------
 
+K2_BLOCK = 256             # FSM_BLOCK in the source
+K2_VECTOR = 4              # floats in one vector atomic (a 16 B quad)
+# four spans a thread (16 B loads) from a batch that still gives each of
+# an H100's 132 SMs a block that way; below it one, so that a small batch
+# spreads over the card
+K2_SPT4_MIN_SPANS = 4 * K2_BLOCK * 132
+
+
+class K2Layout(NamedTuple):
+    """What K2's launch function does for a batch (`k2_layout`)."""
+    row_stride: int        # floats per output row, len(edges) + 4
+    vector: int            # floats per vector atomic, on 16 B quads of the
+                           # flat output (a row need not start on one)
+    spans_per_thread: int
+    block: int             # threads per block
+    blocks: int            # blocks of the span pass (0: no pass)
+    smem_bytes: int        # shared memory per block
+    launches: int          # device operations: the zeroing, the span pass
+
+
+def _k2_spans_per_thread(n: int) -> int:
+    return 4 if n >= K2_SPT4_MIN_SPANS else 1
+
+
+def k2_layout(n: int, n_series: int, n_edges: int) -> K2Layout:
+    """The choices K2 makes for `n` spans into [n_series, n_edges + 4]:
+    one zeroing of the whole output, then, when there are spans, one pass
+    of 1 or 4 spans a thread (the wrapper passes the count to
+    `fused_spanmetrics_launch`, which sizes its grid from it) that may
+    add into any row: no series tiles, so no tile split."""
+    spt = _k2_spans_per_thread(n)
+    blocks = -(-n // (spt * K2_BLOCK))
+    return K2Layout(row_stride=n_edges + 4, vector=K2_VECTOR,
+                    spans_per_thread=spt, block=K2_BLOCK, blocks=blocks,
+                    smem_bytes=0, launches=1 + (blocks > 0))
+
+
 def fused_spanmetrics_scatter(slots: torch.Tensor, dur_s: torch.Tensor,
                               sizes: torch.Tensor, weights: torch.Tensor, *,
                               n_series: int, edges: tuple) -> torch.Tensor:
@@ -465,46 +498,80 @@ def fused_spanmetrics_scatter(slots: torch.Tensor, dur_s: torch.Tensor,
     return out
 
 
+# the kernel's parameter block, `FsmParams` in the source, field by field
+_K2_FIELDS = (("n_series", "i"), ("n_edges", "i"), ("edges", f"{MAX_EDGES}f"))
+_K2_FORMAT = "=" + "".join(t for _, t in _K2_FIELDS)
+# (n_series, edges) -> (buffer, address, bytes) of a packed FsmParams
+_k2_params: dict[tuple, tuple] = {}
+
+
+def _k2_params_of(n_series: int, edges: tuple) -> tuple:
+    key = (n_series, edges)
+    got = _k2_params.get(key)
+    if got is None:
+        if n_series < 0 or len(edges) > MAX_EDGES:
+            raise ValueError(f"fused_spanmetrics_matmul: n_series {n_series} "
+                             f"and {len(edges)} histogram edges (at most "
+                             f"{MAX_EDGES})")
+        e = [float(x) for x in edges] + [0.0] * (MAX_EDGES - len(edges))
+        block = struct.pack(_K2_FORMAT, n_series, len(edges), *e)
+        buf = ctypes.create_string_buffer(block, len(block))
+        if len(_k2_params) >= 64:
+            _k2_params.clear()
+        got = _k2_params[key] = (buf, ctypes.addressof(buf), len(block))
+    return got
+
+
 def fused_spanmetrics_matmul(slots: torch.Tensor, dur_s: torch.Tensor,
                              sizes: torch.Tensor, weights: torch.Tensor, *,
                              n_series: int, edges: tuple) -> torch.Tensor:
-    """The fused span-metrics delta of one batch, [n_series, 3 +
-    len(edges) + 1] f32 (see `fused_spanmetrics_scatter`). `slots` int32
-    [N], the rest f32 [N]. CPU tensors run the plain version; CUDA
-    tensors launch the kernel into a zeroed output or raise."""
-    edges = tuple(float(e) for e in edges)
-    n = slots.shape[0]
-    tensors = (slots, dur_s, sizes, weights)
-    if slots.dtype != torch.int32 or any(
-            t.dtype != torch.float32 for t in tensors[1:]) or any(
-            tuple(t.shape) != (n,) for t in tensors):
+    """The fused span-metrics delta of one batch, a fresh [n_series, 3 +
+    len(edges) + 1] f32 tensor (see `fused_spanmetrics_scatter`). `slots`
+    int32 [N], the rest f32 [N]. CPU tensors run the plain version; CUDA
+    tensors launch K2 (the zeroing and the span pass, `k2_layout`) on the
+    current stream, with no synchronisation, or raise. The parameter
+    block is packed and checked once per (n_series, edges); the batch is
+    checked on every call."""
+    f32 = torch.float32
+    shape = slots.shape
+    if slots.dtype is not torch.int32 or dur_s.dtype is not f32 or \
+            sizes.dtype is not f32 or weights.dtype is not f32 or \
+            len(shape) != 1 or not (dur_s.shape == sizes.shape ==
+                                    weights.shape == shape):
         raise ValueError("fused_spanmetrics_matmul: int32 slots and f32 "
                          "values, all 1-D of one length")
-    if len(edges) > MAX_EDGES:
-        raise ValueError(f"{len(edges)} histogram edges (at most {MAX_EDGES})")
     dev = dur_s.device
-    if any(t.device != dev for t in tensors) or \
-            not all(t.is_contiguous() for t in tensors):
+    if slots.device != dev or sizes.device != dev or weights.device != dev \
+            or not (slots.is_contiguous() and dur_s.is_contiguous()
+                    and sizes.is_contiguous() and weights.is_contiguous()):
         raise ValueError("fused_spanmetrics_matmul: contiguous tensors on "
                          "one device")
+    edges = edges if type(edges) is tuple else tuple(edges)
     if dev.type == "cpu":
+        if len(edges) > MAX_EDGES:
+            raise ValueError(f"{len(edges)} histogram edges (at most "
+                             f"{MAX_EDGES})")
         return fused_spanmetrics_scatter(slots, dur_s, sizes, weights,
                                          n_series=n_series, edges=edges)
     if dev.type != "cuda":
         raise ValueError(f"fused_spanmetrics_matmul: unsupported device {dev}")
-    out = torch.zeros((n_series, 4 + len(edges)), dtype=torch.float32,
-                      device=dev)
-    if not n:
-        return out
+    _, params, params_bytes = _k2_params_of(n_series, edges)
+    out = torch.empty((n_series, len(edges) + 4), dtype=f32, device=dev)
     lib = _lib("fused_spanmetrics")
-    host_edges = (ctypes.c_float * max(len(edges), 1))(*edges)
-    with torch.cuda.device(dev):
+    n = shape[0]
+    args = (params, params_bytes, n, _k2_spans_per_thread(n),
+            slots.data_ptr(), dur_s.data_ptr(), sizes.data_ptr(),
+            weights.data_ptr(), out.data_ptr())
+    if dev.index == torch.cuda.current_device():
         code = lib.fused_spanmetrics_launch(
-            _ptr(slots), _ptr(dur_s), _ptr(sizes), _ptr(weights), n,
-            n_series, ctypes.cast(host_edges, ctypes.c_void_p), len(edges),
-            _ptr(out), _stream(dev))
+            *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            code = lib.fused_spanmetrics_launch(
+                *args, torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(lib, code, "fused_spanmetrics_matmul")
-    fused_spanmetrics_matmul.launches += 1
+    # k2_layout(n, ...).launches: the zeroing, and the span pass if n > 0
+    fused_spanmetrics_matmul.launches += 2 if n else 1
     return out
 
 
@@ -520,6 +587,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["paged_fused_update", "paged_fused_update_plain", "compact_scratch",
-           "fused_spanmetrics_matmul", "fused_spanmetrics_scatter", "build",
+           "fused_spanmetrics_matmul", "fused_spanmetrics_scatter", "k2_layout",
+           "K2Layout", "build",
            "build_all", "BUILD_INFO", "BUILD_DIR", "SOURCES",
            "WRAPPERS", "reset_launch_counts"]

@@ -23,6 +23,7 @@ from tempo_tpu.ops import pages as jop
 from tempo_tpu.ops import pallas_kernels as jpk
 from tempo_tpu_torch.ops import cuda_kernels as tck
 from tempo_tpu_torch.ops import pages as top
+from tempo_tpu_torch.registry.registry import DEFAULT_HISTOGRAM_EDGES
 
 EDGES = (0.002, 0.008, 0.032, 0.128, 0.512)
 PAGE_ROWS = 8
@@ -460,34 +461,61 @@ def test_wrapper_checks_compact_dtypes():
 # K2: the dense fused span-metrics delta
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k2_plain_matches_reference(seed):
+# the reference benchmark's edges (benchmarks/bench_kernels.py:22, F = 16),
+# the registry's default edges (F = 18) and none (F = 4)
+K2_EDGE_SETS = {
+    "bench": (0.002, 0.004, 0.008, 0.016, 0.032, 0.064, 0.128, 0.256, 0.512,
+              1.024, 2.048, 4.096),
+    "default": DEFAULT_HISTOGRAM_EDGES,
+    "none": (),
+}
+
+
+def _k2_batch(seed, n, s, slots_kind, edges):
+    """K2 inputs: `uniform` slots over [-2, s + 3), or `zipf` slots (a =
+    1.1 over s series, 5% discards, a few past the range); lognormal
+    durations, four of them on an edge; integer sizes and weights."""
+    rng = np.random.default_rng(seed)
+    if slots_kind == "uniform":
+        slots = rng.integers(-2, s + 3, n)
+    else:
+        p = 1.0 / np.arange(1, s + 1) ** 1.1
+        slots = rng.permutation(s)[rng.choice(s, size=n, p=p / p.sum())]
+        slots[rng.random(n) < 0.05] = -1
+        slots[:3] = (s, s + 1, -5)
+    dur = rng.lognormal(-3, 2.0, n).astype(np.float32)
+    dur[3:3 + min(4, len(edges))] = edges[:4]    # on an edge: lower bucket
+    sizes = rng.integers(100, 5000, n).astype(np.float32)
+    w = rng.integers(1, 4, n).astype(np.float32)
+    return slots.astype(np.int32), dur, sizes, w
+
+
+@pytest.mark.parametrize("slots_kind", ["uniform", "zipf"])
+@pytest.mark.parametrize("edge_set", list(K2_EDGE_SETS))
+def test_k2_plain_matches_reference(edge_set, slots_kind):
     """The port's K2 on CPU tensors (its plain version, the scatter twin)
     against the reference's Pallas kernel in interpret mode and its XLA
-    scatter twin, with negative and out-of-range slots: count and
-    histogram columns exact for integer weights, sums at rtol 1e-5."""
+    scatter twin, with negative and out-of-range slots, uniform or
+    Zipf-skewed: count and histogram columns exact for integer weights,
+    sums at rtol 1e-5."""
     from tempo_tpu.ops.pallas_kernels import (fused_spanmetrics_matmul,
                                               fused_spanmetrics_scatter)
 
-    rng = np.random.default_rng(seed)
+    edges = K2_EDGE_SETS[edge_set]
     n, s = 1024, 64
-    slots = rng.integers(-2, s + 3, n).astype(np.int32)
-    dur = rng.lognormal(-3, 1.5, n).astype(np.float32)
-    dur[:4] = EDGES[:4]                          # on an edge: lower bucket
-    sizes = rng.integers(100, 5000, n).astype(np.float32)
-    w = rng.integers(1, 4, n).astype(np.float32)
+    slots, dur, sizes, w = _k2_batch(len(edges), n, s, slots_kind, edges)
     j = [jnp.asarray(x) for x in (slots, dur, sizes, w)]
-    ref_mm = np.asarray(fused_spanmetrics_matmul(*j, n_series=s, edges=EDGES,
+    ref_mm = np.asarray(fused_spanmetrics_matmul(*j, n_series=s, edges=edges,
                                                  block=256, interpret=True))
     ref_sc = np.asarray(fused_spanmetrics_scatter(*j, n_series=s,
-                                                  edges=EDGES))
+                                                  edges=edges))
     got = tck.fused_spanmetrics_matmul(
         *(torch.from_numpy(x) for x in (slots, dur, sizes, w)), n_series=s,
-        edges=EDGES).numpy()
-    assert got.shape == (s, 4 + len(EDGES))
+        edges=edges).numpy()
+    assert got.shape == (s, 4 + len(edges))
+    exact = [0] + list(range(3, got.shape[1]))
     for ref in (ref_mm, ref_sc):
-        np.testing.assert_array_equal(got[:, [0] + list(range(3, got.shape[1]))],
-                                      ref[:, [0] + list(range(3, ref.shape[1]))])
+        np.testing.assert_array_equal(got[:, exact], ref[:, exact])
         np.testing.assert_allclose(got[:, 1:3], ref[:, 1:3], rtol=1e-5)
     keep = (slots >= 0) & (slots < s)
     assert got[:, 0].sum() == w[keep].sum()
@@ -496,11 +524,160 @@ def test_k2_plain_matches_reference(seed):
 
 def test_k2_wrapper_checks_its_inputs():
     z = torch.zeros(4)
+    i32 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32 slots"):
         tck.fused_spanmetrics_matmul(z, z, z, z, n_series=4, edges=EDGES)
     with pytest.raises(ValueError, match="int32 slots"):
-        tck.fused_spanmetrics_matmul(torch.zeros(4, dtype=torch.int32), z,
-                                     z[:3], z, n_series=4, edges=EDGES)
+        tck.fused_spanmetrics_matmul(i32, z, z[:3], z, n_series=4,
+                                     edges=EDGES)
+    with pytest.raises(ValueError, match="contiguous"):
+        tck.fused_spanmetrics_matmul(i32, torch.zeros(8)[::2], z, z,
+                                     n_series=4, edges=EDGES)
+    with pytest.raises(ValueError, match="at most 64"):
+        tck.fused_spanmetrics_matmul(i32, z, z, z, n_series=4,
+                                     edges=tuple(range(65)))
+    m = z.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tck.fused_spanmetrics_matmul(i32.to("meta"), m, m, m, n_series=4,
+                                     edges=EDGES)
+
+
+def _k2_ops(o, b, total):
+    """The atomics K2's `span_add` issues for one span whose row starts at
+    flat cell `o`, with bucket `b`, into an output of `total` cells: a
+    list of (first cell, lanes), each lane the span column it adds (0..2,
+    3 for the bucket column 3 + b) or None for +0.0. Four lanes are one
+    float4 atomic on a 16 B quad, one lane a scalar atomic."""
+    q0, q2, qh = o >> 2, (o + 2) >> 2, (o + 3 + b) >> 2
+    if 4 * q2 + 4 > total:
+        return [(o, [0]), (o + 1, [1]), (o + 2, [2]), (o + 3 + b, [3])]
+    p = o & 3
+    a, c = [None] * 4, [None] * 4
+    a[p] = 0
+    for col in (1, 2):
+        if p + col < 4:
+            a[p + col] = col
+        else:
+            c[p + col - 4] = col
+    ops = [(4 * q0, a)]
+    if q2 != q0:
+        ops.append((4 * q2, c))
+    if qh == q0:
+        a[(o + 3 + b) & 3] = 3
+    elif qh == q2:
+        c[(o + 3 + b) & 3] = 3
+    else:
+        ops.append((o + 3 + b, [3]))
+    return ops
+
+
+K2_SHAPES = [(4096, 262144, 12), (65536, 16384, 14), (4099, 1000, 13),
+             (65536, 0, 14), (4096, 4 * 256 * 132, 12),
+             (4096, 4 * 256 * 132 - 1, 12)]
+
+
+@pytest.mark.parametrize("n_series,n,n_edges", K2_SHAPES)
+def test_k2_layout(n_series, n, n_edges):
+    """K2's launch choices at the bench shape, the deployment shape, a
+    series count and row stride that leave the output's last quad
+    ragged, no spans, and either side of the spans-a-thread switch: the
+    span pass covers [0, n) once, uses no
+    shared memory beyond a block's 227 KB, and every span's cells go out
+    as vector atomics on 16 B quads of the output (the vector width
+    divides the quad grid the kernel adds on, whatever the row stride)
+    or as scalars where a quad would run past the end; every one of its
+    four cells taken exactly once."""
+    lay = tck.k2_layout(n, n_series, n_edges)
+    f = n_edges + 4
+    assert lay.row_stride == f and lay.smem_bytes <= 232448
+    per_block = lay.block * lay.spans_per_thread
+    assert lay.blocks * per_block >= n > (lay.blocks - 1) * per_block or \
+        n == lay.blocks == 0
+    assert lay.launches == (2 if n else 1)
+    # four spans a thread only while that still gives every SM a block
+    assert lay.spans_per_thread == (4 if n >= 4 * lay.block * 132 else 1)
+    total = n_series * f
+    for s in (0, 1, 2, 3, n_series - 2, n_series - 1):
+        for b in range(n_edges + 1):
+            o = s * f
+            ops = _k2_ops(o, b, total)
+            cells = [at + j for at, lanes in ops
+                     for j, col in enumerate(lanes) if col is not None]
+            assert sorted(cells) == [o, o + 1, o + 2, o + 3 + b]
+            for at, lanes in ops:
+                assert len(lanes) in (1, lay.vector)
+                if len(lanes) == lay.vector:
+                    assert at % lay.vector == 0 and at + lay.vector <= total
+            # two vector atomics and a scalar at most, or four scalars
+            assert len(ops) <= 3 or all(len(lanes) == 1 for _, lanes in ops)
+
+
+@pytest.mark.parametrize("n_series,edge_set", [(64, "bench"), (64, "default"),
+                                               (64, "none"), (63, "default"),
+                                               (61, "bench")])
+def test_k2_quad_plan_matches_scatter(n_series, edge_set):
+    """The kernel's quad plan (`_k2_ops`, adds of +0.0 included) applied
+    span by span in f32 equals the plain version on the exact columns
+    bit for bit, the sums at rtol 1e-5: the identity behind K2's float4
+    atomics, at F = 16, 18 and 4 and with the last row's quad ragged."""
+    edges = K2_EDGE_SETS[edge_set]
+    slots, dur, sizes, w = _k2_batch(7, 2048, n_series, "zipf", edges)
+    f = len(edges) + 4
+    total = n_series * f
+    buf = np.zeros(-(-total // 4) * 4, np.float32)
+    bucket = (dur[:, None] > np.asarray(edges, np.float32)[None, :]).sum(1)
+    for i in range(len(slots)):
+        if not 0 <= slots[i] < n_series:
+            continue
+        vals = (w[i], np.float32(dur[i] * w[i]), np.float32(sizes[i] * w[i]),
+                w[i])
+        for at, lanes in _k2_ops(int(slots[i]) * f, int(bucket[i]), total):
+            for j, col in enumerate(lanes):
+                buf[at + j] += np.float32(0.0) if col is None else vals[col]
+    assert not buf[total:].any()
+    got = buf[:total].reshape(n_series, f)
+    ref = tck.fused_spanmetrics_scatter(
+        *(torch.from_numpy(x) for x in (slots, dur, sizes, w)),
+        n_series=n_series, edges=edges).numpy()
+    exact = [0] + list(range(3, f))
+    np.testing.assert_array_equal(got[:, exact], ref[:, exact])
+    np.testing.assert_allclose(got[:, 1:3], ref[:, 1:3], rtol=1e-5)
+    assert not np.signbit(got).any()        # +0.0 lanes leave no -0.0
+
+
+def test_k2_params_block_matches_the_source():
+    """`FsmParams` and the launch constants in `fused_spanmetrics.cu`
+    against the wrapper's `_K2_FIELDS` and `k2_layout`'s choices; the
+    packed block holds n_series, the edge count and the padded edges."""
+    import re
+    import struct
+
+    src = (tck._CSRC / "fused_spanmetrics.cu").read_text()
+    body = re.search(r"struct FsmParams \{(.*?)\n\};", src, re.S).group(1)
+    fields = []
+    for m in re.finditer(r"^\s*(int|float)\s+(\w+)(?:\[(\w+)\])?;", body,
+                         re.M):
+        kind, name, count = m.groups()
+        n = int(re.search(rf"#define {count} (\d+)", src).group(1)) \
+            if count else 1
+        fields.append((name, f"{n}{kind[0]}" if count else kind[0]))
+    assert fields == list(tck._K2_FIELDS)
+    for macro, want in (("FSM_BLOCK", tck.K2_BLOCK),
+                        ("FSM_MAX_EDGES", tck.MAX_EDGES)):
+        assert int(re.search(rf"#define {macro} (\d+)", src).group(1)) == want
+    # the launch instantiates the pass for each spans-a-thread count the
+    # layout may pick
+    for spt in {tck.k2_layout(n, 1, 0).spans_per_thread
+                for n in (1, tck.K2_SPT4_MIN_SPANS)}:
+        assert f"fsm_span_kernel<{spt}, " in src
+    edges = K2_EDGE_SETS["default"]
+    buf, addr, nbytes = tck._k2_params_of(65536, edges)
+    assert nbytes == struct.calcsize(tck._K2_FORMAT) == 4 * (2 + tck.MAX_EDGES)
+    got = struct.unpack(tck._K2_FORMAT, buf.raw)
+    assert got[:2] == (65536, len(edges))
+    np.testing.assert_array_equal(
+        got[2:], np.float32(list(edges) + [0.0] * (tck.MAX_EDGES - len(edges))))
+    assert tck._k2_params_of(65536, edges)[1] == addr     # packed once
 
 
 # ---------------------------------------------------------------------------
