@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases, all on `cuda`, at the repository's default deployment widths
 (max_active_series 65,536, DDSketch 1,269 buckets and a 12-moment row
-over 16,384 series, 15 latency buckets, page pool of 256-row pages and
-131,072 usable rows per role arena):
+over 16,384 series, 15 latency buckets; paged state in a page pool of
+256-row pages and 131,072 usable rows per role arena, dense state in
+64-row pages, one trash page per arena):
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every kernel source in `tempo_tpu_torch/csrc`, one `nvcc`
@@ -29,6 +30,12 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
       reference benchmark's (262,144 uniform spans, 4,096 series, 12
       edges) and the deployment's (one push of 16,384 Zipf-skewed spans
       into 65,536 series, the 14 default edges);
+   d. K1 on dense state, `sketch: both` f32 (8 roles), over identity
+      page tables through the main path's call (`ops.pages.fused_step`),
+      from non-zero state: 3 Zipf-skewed pushes of 16,384 spans (slots
+      below and past the 16,384 sketch rows, 5% discards) and one of no
+      spans; launches one per push with spans; trash pages and a guard
+      page past each arena's rows left zero;
 4. the main paths through the entry points, each on the card against the
    same path on the host (plain versions), with kernel launch counts
    zeroed just before and read just after: seeded OTLP payloads →
@@ -39,11 +46,13 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
       equal, every series' moments row within the moments tolerance of
       phase 3b, moments quantiles compared and the series outside rtol
       1e-3 counted);
+   c. `sketch: dd` with f32 state and no page pool: dense state, K1 over
+      identity page tables (quantiles exactly equal);
    K1's launch plans built on each card path (one: the processor's
    tables, arenas and scratch are the same tensors at every push); then
-   device state bytes per active series of the dd-f32, both-compact and
-   moments tiers, and the compact tier's scratch bytes (working memory,
-   not state);
+   device state bytes per active series of the dd-f32, both-compact,
+   moments and dense dd-f32 tiers, and the compact tier's scratch bytes
+   (working memory, not state);
 5. times: per-dispatch kernel and plain times (CUDA events, min /
    median / max of 30); K1 timed two ways side by side, through the call
    the main path makes (`ops.pages.fused_step` on the packed [4, N]
@@ -52,7 +61,11 @@ over 16,384 series, 15 latency buckets, page pool of 256-row pages and
    synchronisation) both ways, and K2's at both shapes; device time
    (torch.profiler: K1 by kernel, K2 every device event of the call);
    the least time the card could take, the library yardstick where one
-   exists (`index_add_` for K2, at both shapes), and end-to-end spans/s.
+   exists (`index_add_` for K2, at both shapes), and end-to-end spans/s;
+   on dense state K1 (`sketch: dd`, 7 roles) and the composed twin of
+   the reference's dense step (`_fused_update_impl`) on the same push,
+   each with its device time (every device event) and its time with the
+   host.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -120,7 +133,8 @@ def _mom_meta():
     return moments_params(MOM_K, 1e-6, 1e5)
 
 
-def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0):
+def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0,
+                  page_shift=PAGE_SHIFT):
     """{role: distinct arena cells on backed pages that the batch adds
     to}; a touched moments row counts its k+3 cells."""
     import torch
@@ -133,7 +147,7 @@ def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0):
     hb = hist_bucket(dur, edges).numpy()
     ddi = dd_index(dur, gamma, minv, nb).numpy() if dd_rows else None
     zero = mat[1] <= np.float32(minv)
-    lp = slots >> PAGE_SHIFT
+    lp = slots >> page_shift
     ok = (slots >= 0) & (lp < tables.shape[1])
     n_roles = tables.shape[0]
     out = {}
@@ -146,7 +160,8 @@ def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0):
         elif r >= 5:
             keep &= slots < dd_rows
             keep &= zero if r == 5 else ~zero
-        rows = (phys.astype(np.int64) << PAGE_SHIFT) | (slots & (PAGE_ROWS - 1))
+        rows = (phys.astype(np.int64) << page_shift) | \
+            (slots & ((1 << page_shift) - 1))
         rows = rows[keep]
         if r == 4:
             rows = rows * (len(edges) + 1) + hb[keep]
@@ -156,18 +171,19 @@ def touched_cells(mat, tables, *, dd_rows, nb, edges, mom_rows=0):
     return out
 
 
-def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False):
+def bound_bytes(mat, tables, *, dd_rows, nb, edges, mom_rows=0, compact=False,
+                page_shift=PAGE_SHIFT):
     """Bytes K1 must move for this batch: the batch and the tables read
     once; every distinct touched arena cell read and written once (4 B
     each; a touched moments row is its k+3 cells); under compact, every
     row of every backed page of the latency-sum pair read and written
     (4 B), since the fold re-normalises each of them."""
     cells = touched_cells(mat, tables, dd_rows=dd_rows, nb=nb, edges=edges,
-                          mom_rows=mom_rows)
+                          mom_rows=mom_rows, page_shift=page_shift)
     nbytes = mat.nbytes + tables.nbytes + 2 * 4 * sum(
         k for r, k in cells.items() if not (compact and r == 1))
     if compact:
-        nbytes += 2 * 4 * int((tables[1] > 0).sum()) * PAGE_ROWS
+        nbytes += 2 * 4 * int((tables[1] > 0).sum()) << page_shift
     return nbytes
 
 
@@ -271,7 +287,8 @@ def _tables(rng, n_roles, dd_rows, n_pages):
     return tables
 
 
-def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx):
+def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx,
+                  page_rows=PAGE_ROWS):
     """Kernel arenas vs plain arenas: `sum_roles` at rtol 1e-5 / atol 1e-6,
     `tol_roles` {role: check(k, p) -> bool}, the rest exact; page 0 zero;
     every arena updated. Returns the max abs error."""
@@ -291,7 +308,7 @@ def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx):
         if not ok:
             raise AssertionError(f"{ctx}: K1 disagrees with its plain version "
                                  f"on arena {r} (max abs {float(diff.max())})")
-        if bool(k[:PAGE_ROWS].any()):
+        if bool(k[:page_rows].any()):
             raise AssertionError(f"{ctx}: K1 wrote the trash page of arena {r}")
         if torch.equal(k, base[r]):
             raise AssertionError(f"{ctx}: arena {r} was not updated")
@@ -380,11 +397,10 @@ def k1_calls(t_dev, b, arenas, kw, **extra):
     from tempo_tpu_torch.ops import cuda_kernels as ck
     from tempo_tpu_torch.ops import pages as op
 
-    step_kw = dict(kw, page_shift=PAGE_SHIFT)
-    del step_kw["page_rows"]
+    step_kw = dict(kw, **extra)
+    step_kw["page_shift"] = step_kw.pop("page_rows").bit_length() - 1
     return {
-        "fused_step": lambda: op.fused_step(arenas, t_dev, b, **step_kw,
-                                            **extra),
+        "fused_step": lambda: op.fused_step(arenas, t_dev, b, **step_kw),
         "sliced": lambda: ck.paged_fused_update(t_dev, b[0], b[1:4], arenas,
                                                 **kw, **extra),
     }
@@ -609,6 +625,156 @@ def phase_k1_compact():
     }
 
 
+def phase_k1_dense():
+    """Phase 3d (and the dense times of phase 5): K1 on dense state vs its
+    plain version on the card at full width, `sketch: both` f32 (8 roles,
+    so the span pass stages the [8, P] identity tables), through the main
+    path's call (`ops.pages.fused_step`). Each role's arena is a trash
+    page, its rows (65,536, or 16,384 for the sketch roles) and one guard
+    page past them. Then, on the `sketch: dd` roles (7), K1 against the
+    composed twin of the reference's dense step on the same push."""
+    import torch
+
+    from tempo_tpu_torch.generator.processors.spanmetrics import \
+        _fused_update_impl
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops import pages as op
+    from tempo_tpu_torch.ops.sketches import DDSketch
+    from tempo_tpu_torch.registry import metrics as tm
+    from tempo_tpu_torch.registry.registry import DEFAULT_HISTOGRAM_EDGES
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 13)
+    gamma, minv, nb = _dd_meta()
+    mom_meta = _mom_meta()
+    edges = tuple(DEFAULT_HISTOGRAM_EDGES)
+    pr = op.dense_page_rows(N_SERIES)
+    shift = pr.bit_length() - 1
+    rows = [N_SERIES] * 5 + [DD_ROWS] * 3
+    widths = [None] * 4 + [len(edges) + 1, None, nb, MOM_K + 3]
+    tables = op.identity_tables(rows, pr, "cpu").numpy()
+    batches = []
+    for _ in range(3):
+        mat = np.empty((4, N_SPANS), np.float32)
+        mat[0] = zipf_slots(rng, N_SPANS, N_SERIES)
+        mat[1] = rng.lognormal(-3.0, 2.0, N_SPANS)
+        mat[1, :64] = 0.0                            # DDSketch zero counts
+        mat[2] = rng.integers(100, 5000, N_SPANS)
+        mat[3] = rng.integers(1, 4, N_SPANS)
+        batches.append(mat)
+    s0 = batches[0][0]
+    print(f"phase 3d: dense page rows {pr}, tables {tables.shape}; slots < "
+          f"dd_rows: {int(((s0 >= 0) & (s0 < DD_ROWS)).sum())}, >= dd_rows: "
+          f"{int((s0 >= DD_ROWS).sum())}, discards: {int((s0 < 0).sum())}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    base = []
+    for n, w in zip(rows, widths):
+        shape = (pr + n + pr,) if w is None else (pr + n + pr, w)
+        a = torch.randint(0, 4, shape, generator=gen, device=dev).float()
+        a[:pr] = 0                                   # the trash page
+        a[pr + n:] = 0                               # the guard page
+        base.append(a)
+    t_dev = torch.from_numpy(tables).to(dev)
+    b_dev = [torch.from_numpy(m).to(dev) for m in batches]
+    skw = dict(edges=edges, gamma=gamma, min_value=minv, dd_rows=DD_ROWS,
+               mom_rows=DD_ROWS, mom_meta=mom_meta)
+    kw = dict(skw, page_rows=pr)
+
+    def step(ar, b, t=t_dev, skw=skw):
+        """The main path's call (`ops.pages.fused_step`)."""
+        op.fused_step(ar, t, b, page_shift=shift, **skw)
+
+    k_ar = [a.clone() for a in base]
+    p_ar = [a.clone() for a in base]
+    ck.reset_launch_counts()
+    for b in b_dev:
+        step(k_ar, b)
+        ck.paged_fused_update_plain(t_dev, b[0], b[1:4], p_ar, **kw)
+    launches = ck.paged_fused_update.launches
+    empty = torch.zeros((4, 0), device=dev)
+    before = [a.clone() for a in k_ar]
+    step(k_ar, empty)
+    torch.cuda.synchronize()
+    if launches != 3 or ck.paged_fused_update.launches != 3:
+        raise AssertionError(f"phase 3d: {launches} launches for 3 pushes "
+                             f"of spans (want 3), "
+                             f"{ck.paged_fused_update.launches - launches} "
+                             f"for the push of none (want 0)")
+    if any(not torch.equal(a, b) for a, b in zip(k_ar, before)):
+        raise AssertionError("phase 3d: a push of no spans changed state")
+    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {7: _moments_ok},
+                            "phase 3d", page_rows=pr)
+    for r, (a, n) in enumerate(zip(k_ar, rows)):
+        if bool(a[pr + n:].any()):
+            raise AssertionError(f"phase 3d: K1 wrote past the {n} rows of "
+                                 f"arena {r}")
+    print("phase 3d kernel-vs-plain: " + json.dumps({
+        "name": "paged_fused_update", "tier": "dense, both f32",
+        "pushes": 4, "launches": launches, "max_abs_err": max_abs,
+        "trash_and_guard_pages": "zero", "pass": True}))
+    both_ms = _device_ms(lambda: step(k_ar, b_dev[0]))
+    # sketch: dd (the dense main path's tier): 7 roles, the same push
+    t7, skw7 = t_dev[:7], dict(skw, mom_rows=0, mom_meta=None)
+    kw7 = dict(skw7, page_rows=pr)
+    b0 = b_dev[0]
+    calls = k1_calls(t7, b0, k_ar[:7], kw7)
+    times = {how: (cuda_time_ms(calls[how], N_TIMED), host_ms(calls[how]))
+             for how in ("fused_step", "sliced")}
+    plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
+        t7, b0[0], b0[1:4], p_ar[:7], **kw7), N_TIMED)
+    device_ms = _device_ms(calls["fused_step"])
+    # the composed twin on row views of a copy of the same state
+    tw = [a.clone() for a in base[:7]]
+    v = [a[pr:pr + n] for a, n in zip(tw, rows)]
+    states = (tm.CounterState(v[0]),
+              tm.HistogramState(v[4], v[1], v[2], edges),
+              tm.CounterState(v[3]), DDSketch(v[6], v[5], gamma, minv), None)
+    twin = lambda: _fused_update_impl(*states, b0[0], b0[1], b0[2],  # noqa
+                                      b0[3])
+    once = [a.clone() for a in base[:7]]
+    step(once, b0, t7, skw7)
+    twin()
+    torch.cuda.synchronize()
+    _check_planes(once, tw, base[:7], (1, 3), {}, "phase 5 twin vs K1",
+                  page_rows=pr)
+    twin_ms = cuda_time_ms(twin, N_TIMED)
+    twin_host = host_ms(twin, 200)
+    events = {}
+    twin_device_ms = _device_ms(twin, events)
+    top = dict(sorted(events.items(), key=lambda kv: -kv[1])[:6])
+    nbytes = bound_bytes(batches[0], tables[:7], dd_rows=DD_ROWS, nb=nb,
+                         edges=edges, page_shift=shift)
+    bound_ms, bound_by = bound(nbytes, N_SPANS * (40 + len(edges)))
+    print(f"phase 5: dense K1, sketch both (8 roles, tables staged): device "
+          f"time per push {both_ms} ms; the composed twin (sketch dd): "
+          f"{spread(twin_ms)} with the host, host {twin_host:.4f} ms a call "
+          f"over 200 unsynchronised calls, device time per push (every "
+          f"device event) {twin_device_ms} ms, of which the six longest "
+          f"events: {json.dumps(top)}")
+    del k_ar, p_ar, base, tw, once, states, calls
+    torch.cuda.empty_cache()
+    return {
+        "name": "paged_fused_update (dense state, identity tables, sketch "
+                "dd, f32)", "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": None, "max_abs_err": max_abs,
+        "ms": times["fused_step"][0][1], "times": times,
+        "plain_ms": plain_ms[1], "device_ms": device_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "library_ms": None, "twin_ms": twin_ms[1],
+        "twin_device_ms": twin_device_ms, "twin_host_ms": twin_host,
+    }
+
+
+def _device_ms(fn, by_name=None):
+    """`profiled_device_ms` of every device event of `fn`, profiled a
+    second time when the first trace shows no device time."""
+    got = profiled_device_ms(fn, N_TIMED, by_name=by_name)
+    return got if got is not None else \
+        profiled_device_ms(fn, N_TIMED, by_name=by_name)
+
+
 def _k2_shape(shape):
     """(spans, series, edges) of K2's two shapes: "bench", the reference
     benchmark's (benchmarks/bench_kernels.py:22); "deployment", one push
@@ -773,22 +939,25 @@ def _payloads(now, n_payloads):
     return payloads, sizes, int_w, dyadic_w
 
 
-def _instances(rx, now, sm, names):
-    """One generator instance per (name, device), each on its own pool,
-    remote-writing to `rx` under /<name>."""
+def _instances(rx, now, sm, names, paged=True):
+    """One generator instance per (name, device), each on its own pool
+    (`paged`) or on dense state, remote-writing to `rx` under /<name>."""
     import tempo_tpu_torch as tt
     from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
     from tempo_tpu_torch.registry import pages
 
     insts = {}
     for name, device in names:
-        pool = pages.PagePool(tt.PagePoolConfig(enabled=True), device=device)
+        pool = pages.PagePool(tt.PagePoolConfig(enabled=True), device=device) \
+            if paged else None
         with pages.use(pool):
             insts[name] = tt.GeneratorInstance(
                 "smoke", tt.GeneratorConfig(
                     spanmetrics=tt.SpanMetricsConfig(**sm),
                     remote_write=RemoteWriteConfig(url=f"{rx.url}/{name}")),
                 now=lambda: now, device=device)
+        if insts[name].state_layout != ("paged" if paged else "dense"):
+            raise AssertionError(f"{name}: {insts[name].state_layout} state")
     return insts
 
 
@@ -882,7 +1051,8 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
     q50/q99 exactly equal. `tier` "both_compact": `sketch: both` with
     compact state, dyadic sample weights; DDSketch q50/q99 exactly equal,
     moments q50/q99 (one solve per row for both) compared and the series
-    outside rtol 1e-3 counted. Returns a result dict."""
+    outside rtol 1e-3 counted. `tier` "dense_dd": as "dd" with no page
+    pool, on dense state. Returns a result dict."""
     import torch
 
     from tempo_tpu_torch.generator.remote_write import LocalReceiver
@@ -890,13 +1060,14 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
 
     compact = tier == "both_compact"
     sm = dict(sketch="both", compact_state=True) if compact else {}
+    paged = not tier.startswith("dense")
     now = time.time()
     payloads, sizes, int_w, dyadic_w = _payloads(now, n_payloads)
     weights = dyadic_w if compact else int_w
     res = {}
     with LocalReceiver() as rx:
         names = ((f"{tier}-card", "cuda"), (f"{tier}-host", "cpu"))
-        insts = _instances(rx, now, sm, names)
+        insts = _instances(rx, now, sm, names, paged=paged)
         for name, inst in insts.items():
             on_card = name.endswith("card")
             if on_card:
@@ -984,6 +1155,7 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
               f"outside the state bytes: {card['scratch_bytes']} bytes")
     return {"launches": launches, "push_s": card["push_s"],
             "spans_per_s": len(payloads) * N_SPANS / card["push_s"],
+            "state_bytes": card["state_bytes"],
             "bytes_per_series": card["state_bytes"] / card["series"],
             "series": card["series"], "outside": outside}
 
@@ -1034,18 +1206,23 @@ def main() -> int:
           f"durations land one bucket apart between K1 (CUDA logf) and the "
           f"host (torch CPU log)")
     k1c = phase_k1_compact()
+    k1d = phase_k1_dense()
     k2 = phase_k2("bench")
     k2d = phase_k2("deployment")
     dd = phase_main_path("dd")
     bc = phase_main_path("both_compact")
+    dn = phase_main_path("dense_dd")
     k1["launches"], k1c["launches"] = dd["launches"], bc["launches"]
+    k1d["launches"] = dn["launches"]
     mom_bytes = moments_state_bytes()
     print(f"phase 4 [{card}]: device state bytes per active series: "
           f"dd f32 {dd['bytes_per_series']:.1f} ({dd['series']} series), "
           f"both compact {bc['bytes_per_series']:.1f}, moments f32 "
-          f"{mom_bytes:.1f}")
+          f"{mom_bytes:.1f}; dense dd f32 {dn['bytes_per_series']:.1f} "
+          f"({dn['state_bytes']} bytes in all, {dn['series']} series; paged "
+          f"dd f32 {dd['state_bytes']} bytes)")
     floor = host_floor_ms()
-    for k in (k1, k1c, k2, k2d):
+    for k in (k1, k1c, k1d, k2, k2d):
         dms = k["device_ms"]
         lib = k["library_ms"]
         print(f"phase 5 [{card}]: {k['name']}: per call ({N_TIMED} calls, "
@@ -1071,14 +1248,19 @@ def main() -> int:
           f"({traffic / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s); the "
           f"scratch holds {k1c['scratch_bytes']} bytes and is never cleared "
           f"whole")
-    for tier, r in (("dd f32", dd), ("both compact", bc)):
+    print(f"phase 5 [{card}]: dense state, the same push: K1 through "
+          f"fused_step {spread(k1d['times']['fused_step'][0])} with the host, "
+          f"device {k1d['device_ms']} ms; the composed twin of the "
+          f"reference's dense step {k1d['twin_ms']:.4f} ms with the host "
+          f"(median), device {k1d['twin_device_ms']} ms")
+    for tier, r in (("dd f32", dd), ("both compact", bc), ("dense dd f32", dn)):
         print(f"phase 5 [{card}]: end to end {tier} {r['spans_per_s']:.0f} "
               f"spans/s (decode + push of {N_DISPATCH} x {N_SPANS} spans in "
               f"{r['push_s']:.3f} s)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in (k1, k1c, k2, k2d)]}))
+                                  for k in (k1, k1c, k1d, k2, k2d)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,10 +7,11 @@ filtering (`instance.go:442-473`) drops spans whose end time is outside
 [now - slack, now + slack], and a collection tick drains the registry to
 the remote-write client.
 
-This slice runs the `span-metrics` processor over the paged layout on
-the direct route: there is no scheduler and no ingest pipeline, so
-`drain()` has nothing to wait for. Other processors and the staged
-native fast paths raise `NotImplementedError`.
+The port runs the `span-metrics` processor on the direct route, over
+paged state when a page pool is active and the tenant's capacity splits
+into its pages, over dense state otherwise: there is no scheduler and no
+ingest pipeline, so `drain()` has nothing to wait for. Other processors
+and the staged native fast paths raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from tempo_tpu_torch.generator.processors.spanmetrics import (
 from tempo_tpu_torch.generator.remote_write import RemoteWriteClient, RemoteWriteConfig
 from tempo_tpu_torch.model.span_batch import SpanBatch
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
-from tempo_tpu_torch.registry import pages
 
 
 @dataclasses.dataclass
@@ -42,20 +42,18 @@ class GeneratorConfig:
 
 class GeneratorInstance:
     """One tenant's generator on `device` (`cuda` unless `"cpu"` is asked
-    for). Its state lives in the active page pool, which must be on the
-    same device."""
+    for). Its state lives in the active page pool, which must then be on
+    the same device, or with no pool (or a capacity the pool's pages do
+    not divide) in dense state on `device`."""
 
     def __init__(self, tenant: str, cfg: GeneratorConfig | None = None,
                  now=time.time, device=None):
         self.device = resolve_device(device)
-        pool = pages.active()
-        if pool is not None and pool.device != self.device:
-            raise ValueError(f"the active page pool is on {pool.device}, "
-                             f"this instance on {self.device}")
         self.tenant = tenant
         self.cfg = cfg or GeneratorConfig()
         self.now = now
-        self.registry = ManagedRegistry(tenant, self.cfg.registry, now=now)
+        self.registry = ManagedRegistry(tenant, self.cfg.registry, now=now,
+                                        device=self.device)
         self.remote_write = RemoteWriteClient(self.cfg.remote_write)
         self.processors: dict[str, SpanMetricsProcessor] = {}
         self.update_processors(self.cfg.processors)
@@ -137,11 +135,12 @@ class GeneratorInstance:
 
     @property
     def state_layout(self) -> str:
-        return "paged"
+        return "dense" if self.registry.pages is None else "paged"
 
     def device_state_bytes(self) -> int:
         """Device bytes of this tenant's metric state: registry families
-        plus the processors' sketch sidecars (backed pages only)."""
+        plus the processors' sketch sidecars (paged: backed pages only;
+        dense: whole arenas, trash pages included)."""
         total = self.registry.device_state_bytes()
         for proc in self.processors.values():
             total += proc.device_state_bytes()

@@ -14,9 +14,16 @@ spanmetrics.go`:
 
 One host staging pass builds the interned label-id rows [N, L] and
 resolves series slots; then one fused device update adds calls,
-latency histogram, size and the quantile sidecars together, in place,
-in the page pool's arenas (`ops.pages.fused_step` → the CUDA kernel on
-the card, its plain version on the host).
+latency histogram, size and the quantile sidecars together, in place
+(`ops.pages.fused_step` → the paged fused update, K1: the CUDA kernel on
+the card, its plain version on the host). Paged state (a page pool is
+active and `max_active_series` splits into its pages) is updated in the
+pool's arenas through the planes' page tables; dense state, the
+reference's default, through identity page tables over the dense
+families' and sidecars' own trash-paged arenas (`_dense_update`). The
+reference's dense step, `_fused_update_impl`, is kept here as composed
+PyTorch scatters: the tests and the chip smoke hold K1 against it, and
+no write path runs it.
 
 Quantile sidecars (`sketch`): "dd", the ~1,269-bucket DDSketch plane;
 "moments", the ~15-float moments row of `ops/moments.py`, answered by
@@ -26,11 +33,14 @@ histogram); "both", moments answers with DDSketch fallback.
 sum as a bf16 Kahan pair (the reference's documented ~1% envelope for
 that sum). The reference runs compact state only on its Pallas tier and
 otherwise warns and stays f32; the port's only paged route is its K1
-kernel, which carries the compact semantics, so compact always applies.
+kernel, which carries the compact semantics, so compact always applies
+to paged state. Dense state has no compact tier: asking for it raises
+`ValueError` (the reference warns and stays f32).
 
-This slice runs the paged layout on the direct route. The dense layout,
-the scheduler route and the staged native fast paths come with later
-slices and raise `NotImplementedError` here.
+The port runs the direct route. The scheduler route (which carries the
+reference's packed4 form of the dense step) raises `NotImplementedError`;
+the packed [3, cap] form comes with the staged native fast paths of the
+C++ host layer slice.
 """
 
 from __future__ import annotations
@@ -46,12 +56,17 @@ from tempo_tpu_torch.model.span_batch import SpanBatch
 from tempo_tpu_torch.ops import cuda_kernels, moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
+from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.pages import PagedPlane
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
-                                               ManagedRegistry, _pad_len)
+                                               ManagedRegistry, _pad_len,
+                                               _state_bytes)
 from tempo_tpu_torch.utils.spanfilter import FilterPolicy, compile_policies
 
 _LOG = logging.getLogger("tempo_tpu_torch.spanmetrics")
+
+# roles of the fused step (`_paged_planes`, `_dense_views`) the reads take
+_BUCKETS, _DD_ZEROS, _DD_COUNTS, _MOMENTS = 4, 5, 6, -1
 
 _KIND_STRS = ("SPAN_KIND_UNSPECIFIED", "SPAN_KIND_INTERNAL", "SPAN_KIND_SERVER",
               "SPAN_KIND_CLIENT", "SPAN_KIND_PRODUCER", "SPAN_KIND_CONSUMER")
@@ -91,6 +106,32 @@ class SpanMetricsConfig:
     use_scheduler: bool = False
 
 
+def _fused_update_impl(calls, latency, sizes, dd, mom, slots, dur_s,
+                       size_bytes, weights):
+    """The reference's dense step (`tempo_tpu/generator/processors/
+    spanmetrics.py:104`) as composed PyTorch scatters in its op order:
+    counter, histogram, size counter, DDSketch (masked spans to row 0 with
+    weight 0) and moments row, each updating its state in place. `dd` /
+    `mom` may be None. Slots int [N] (negative = discard), the rest f32
+    [N], on the states' device or the host."""
+    dev = calls.values.device
+    slots = torch.as_tensor(slots, device=dev).to(torch.int64)
+    dur_s, size_bytes, weights = (
+        torch.as_tensor(x, dtype=torch.float32, device=dev)
+        for x in (dur_s, size_bytes, weights))
+    m.counter_update(calls, slots, weights)
+    m.histogram_update(latency, slots, dur_s, weights)
+    m.counter_update(sizes, slots, size_bytes * weights)
+    if dd is not None:
+        keep = (slots >= 0) & (slots < dd.counts.shape[0])
+        sketches.dd_update(dd, torch.where(keep, slots, 0), dur_s, mask=keep,
+                           weights=weights)
+    if mom is not None:
+        mkeep = (slots >= 0) & (slots < mom.data.shape[0])
+        moments.moments_update(mom, slots, dur_s, mask=mkeep, weights=weights)
+    return calls, latency, sizes, dd, mom
+
+
 class SpanMetricsProcessor:
     def __init__(self, registry: ManagedRegistry,
                  config: SpanMetricsConfig | None = None):
@@ -107,7 +148,9 @@ class SpanMetricsProcessor:
             _sanitize(d) for d in cfg.dimensions]
         self._labels = tuple(dims)
         self._pool = registry.pages
-        self.device = self._pool.device
+        self._paged = self._pool is not None
+        self.device = registry.device
+        # dense families raise on compact state (no compact tier there)
         self._compact = compact = bool(cfg.compact_state)
         self.calls = registry.new_counter("traces_spanmetrics_calls_total",
                                           self._labels, compact=compact)
@@ -134,35 +177,66 @@ class SpanMetricsProcessor:
                              cfg.moments_k, mk)
             self._mom_meta = moments.moments_params(mk, cfg.sketch_min_s,
                                                     cfg.sketch_max_s)
-        self._pdd = self._pmom = None
+        # the quantile sidecars: paged planes (`_pdd`, `_pmom`) or dense
+        # states (`dd`, `mom`), over the first dd_rows slots
+        self._pdd = self._pmom = self.dd = self.mom = None
         cap = registry.overrides.max_active_series
         dd_rows = min(cap, cfg.sketch_max_series)
-        pr = self._pool.page_rows
-        plane_rows = -(-dd_rows // pr) * pr  # page-aligned cover
-        if dd_on:
-            gamma, nb = sketches.dd_params(cfg.sketch_rel_err, cfg.sketch_min_s,
-                                           cfg.sketch_max_s)
-            dd_dt = "int32" if compact else "float32"
-            ddc = PagedPlane(self._pool, dd_dt, nb, plane_rows,
-                             registry.tenant,
-                             role="traces_spanmetrics_latency/ddsketch")
-            ddz = PagedPlane(self._pool, dd_dt, 1, plane_rows,
-                             registry.tenant,
-                             role="traces_spanmetrics_latency/ddzeros")
-            self.calls.table.backing.add_plane(ddc, dd_rows)
-            self.calls.table.backing.add_plane(ddz, dd_rows)
-            self._pdd = (ddc, ddz, gamma, cfg.sketch_min_s, dd_rows)
-        if mom_on:
-            mk, mlo, mhi = self._mom_meta
-            mp = PagedPlane(self._pool, "float32", moments.n_cols(mk),
-                            plane_rows, registry.tenant,
-                            role="traces_spanmetrics_latency/moments")
-            self.calls.table.backing.add_plane(mp, dd_rows)
-            self._pmom = (mp, mk, mlo, mhi, dd_rows)
+        self._dd_on = dd_on
+        self._sketch_rows = dd_rows if dd_on or mom_on else 0
+        gamma, nb = sketches.dd_params(cfg.sketch_rel_err, cfg.sketch_min_s,
+                                       cfg.sketch_max_s)
+        if self._paged:
+            pr = self._pool.page_rows
+            plane_rows = -(-dd_rows // pr) * pr  # page-aligned cover
+            if dd_on:
+                dd_dt = "int32" if compact else "float32"
+                ddc = PagedPlane(self._pool, dd_dt, nb, plane_rows,
+                                 registry.tenant,
+                                 role="traces_spanmetrics_latency/ddsketch")
+                ddz = PagedPlane(self._pool, dd_dt, 1, plane_rows,
+                                 registry.tenant,
+                                 role="traces_spanmetrics_latency/ddzeros")
+                self.calls.table.backing.add_plane(ddc, dd_rows)
+                self.calls.table.backing.add_plane(ddz, dd_rows)
+                self._pdd = (ddc, ddz, gamma, cfg.sketch_min_s, dd_rows)
+            if mom_on:
+                mk, mlo, mhi = self._mom_meta
+                mp = PagedPlane(self._pool, "float32", moments.n_cols(mk),
+                                plane_rows, registry.tenant,
+                                role="traces_spanmetrics_latency/moments")
+                self.calls.table.backing.add_plane(mp, dd_rows)
+                self._pmom = (mp, mk, mlo, mhi, dd_rows)
+        else:
+            dense = dict(device=self.device,
+                         page_rows=registry.dense_page_rows)
+            if dd_on:
+                self.dd = sketches.dd_init(dd_rows, cfg.sketch_rel_err,
+                                           cfg.sketch_min_s, cfg.sketch_max_s,
+                                           **dense)
+            if mom_on:
+                self.mom = moments.moments_init(
+                    dd_rows, self._mom_meta[0], cfg.sketch_min_s,
+                    cfg.sketch_max_s, **dense)
+            # K1 addresses dense state through identity page tables over
+            # each view's trash-paged arena; both fixed for the
+            # processor's life, so one launch plan serves every push
+            pr = registry.dense_page_rows
+            views = self._dense_views()
+            self._dense_arenas = tuple(op.arena_of(v, pr) for v in views)
+            self._dense_tables = op.identity_tables(
+                [v.shape[0] for v in views], pr, self.device)
+            self._dense_shift = pr.bit_length() - 1
         if dd_on or mom_on:
             # eviction clears the sketch rows with the family rows: a
             # reused slot must not inherit another series' latencies
             self.calls.evict_hooks.append(self._zero_sketch_slots)
+        self._step_kw = dict(
+            edges=tuple(cfg.histogram_buckets),
+            gamma=gamma if dd_on else 1.0,
+            min_value=cfg.sketch_min_s if dd_on else 0.0,
+            dd_rows=dd_rows if dd_on else 0,
+            mom_rows=dd_rows if mom_on else 0, mom_meta=self._mom_meta)
         self.target_info = (registry.new_gauge("traces_target_info", ("service",))
                             if cfg.enable_target_info else None)
         self._policies = compile_policies(cfg.filter_policies)
@@ -177,7 +251,41 @@ class SpanMetricsProcessor:
     def name(self) -> str:
         return "span-metrics"
 
-    # -- paged route (registry/pages.py + ops/pages.py) --------------------
+    # -- the fused update ---------------------------------------------------
+
+    def _batch(self, slots, dur_s, sizes, weights):
+        """The batch as `ops.pages.fused_step` takes it: below the 2^24
+        capacity gate one packed [4, n] f32 matrix (one host-to-device
+        copy; slot ids are exact in f32), above it four vectors."""
+        if self.calls.table.capacity < (1 << 24):
+            mat = np.empty((4, len(slots)), np.float32)
+            mat[0] = slots
+            mat[1] = dur_s
+            mat[2] = sizes
+            mat[3] = weights
+            return torch.from_numpy(mat).to(self.device)
+        return (np.ascontiguousarray(slots, np.int32),
+                np.asarray(dur_s, np.float32), np.asarray(sizes, np.float32),
+                np.asarray(weights, np.float32))
+
+    def _dense_views(self) -> tuple:
+        """Dense state's role-aligned tensors, in `_paged_planes` order."""
+        lat = self.latency.state
+        views = (self.calls.state.values, lat.sums, lat.counts,
+                 self.sizes.state.values, lat.bucket_counts)
+        if self.dd is not None:
+            views += (self.dd.zeros, self.dd.counts)
+        if self.mom is not None:
+            views += (self.mom.data,)
+        return views
+
+    def _dense_update(self, slots, dur_s, sizes, weights) -> None:
+        """One fused update of dense state, in place under the registry's
+        lock: K1 over the identity tables (one launch on the card)."""
+        batch = self._batch(slots, dur_s, sizes, weights)
+        with self.registry.state_lock:
+            op.fused_step(self._dense_arenas, self._dense_tables, batch,
+                          page_shift=self._dense_shift, **self._step_kw)
 
     def _paged_planes(self):
         """Role-aligned planes of the fused step: (calls, hist_sums,
@@ -212,27 +320,9 @@ class SpanMetricsProcessor:
         return self._tables
 
     def _paged_update(self, slots, dur_s, sizes, weights) -> None:
-        """One fused paged update, in place under the pool lock. Below the
-        2^24 capacity gate the batch ships as one packed [4, n] f32
-        matrix (one host-to-device copy); above it, as four vectors."""
-        if self.calls.table.capacity < (1 << 24):
-            mat = np.empty((4, len(slots)), np.float32)
-            mat[0] = slots
-            mat[1] = dur_s
-            mat[2] = sizes
-            mat[3] = weights
-            batch = torch.from_numpy(mat).to(self.device)
-        else:
-            batch = (np.ascontiguousarray(slots, np.int32),
-                     np.asarray(dur_s, np.float32),
-                     np.asarray(sizes, np.float32),
-                     np.asarray(weights, np.float32))
+        """One fused paged update, in place under the pool lock."""
+        batch = self._batch(slots, dur_s, sizes, weights)
         planes = self._paged_planes()
-        dd_rows = self._pdd[4] if self._pdd is not None else 0
-        gamma = self._pdd[2] if self._pdd is not None else 1.0
-        minv = self._pdd[3] if self._pdd is not None else 0.0
-        mom_rows = self._pmom[4] if self._pmom is not None else 0
-        edges = tuple(self.cfg.histogram_buckets)
         with self.registry.state_lock:
             arenas = tuple(p.data for p in planes)
             tables = self._stacked_tables(planes)
@@ -240,12 +330,12 @@ class SpanMetricsProcessor:
                     and self.device.type == "cuda":
                 self._scratch = cuda_kernels.compact_scratch(
                     tables, arenas, page_rows=self._pool.page_rows,
-                    edges=edges, dd_rows=dd_rows)
-            op.fused_step(arenas, tables, batch, edges=edges, gamma=gamma,
-                          min_value=minv, dd_rows=dd_rows,
+                    edges=self._step_kw["edges"],
+                    dd_rows=self._step_kw["dd_rows"])
+            op.fused_step(arenas, tables, batch,
                           page_shift=self._pool.page_shift,
-                          mom_rows=mom_rows, mom_meta=self._mom_meta,
-                          compact=self._compact, scratch=self._scratch)
+                          compact=self._compact, scratch=self._scratch,
+                          **self._step_kw)
 
     def scratch_bytes(self) -> int:
         """Device bytes of K1's compact working memory (not state: it is
@@ -311,7 +401,8 @@ class SpanMetricsProcessor:
             sw = np.ones(sb.capacity, np.float32)
             sw[:len(sample_weights)] = sample_weights
             weights = weights * sw
-        self._paged_update(slots, dur_s, span_sizes.astype(np.float32), weights)
+        update = self._paged_update if self._paged else self._dense_update
+        update(slots, dur_s, span_sizes.astype(np.float32), weights)
         ts_ms = int(self.registry.now() * 1000)
         self.calls.note_exemplars(slots, sb.trace_id, dur_s, ts_ms)
         self.latency.exemplars = self.calls.exemplars
@@ -324,19 +415,27 @@ class SpanMetricsProcessor:
     def _zero_sketch_slots(self, padded: np.ndarray) -> None:
         """Purge hook (under the state lock): zero the evicted slots'
         sketch rows; slots past the sketch planes are ignored."""
-        limit = (self._pdd or self._pmom)[4]
-        s = np.where(padded < limit, padded, -1)
-        for plane in self._sketch_planes():
-            plane.zero_slots(s)
+        if self._paged:
+            s = np.where(padded < self._sketch_rows, padded, -1)
+            for plane in self._sketch_planes():
+                plane.zero_slots(s)
+            return
+        for state in (self.dd, self.mom):
+            if state is not None:
+                m.zero_slots(state, padded)
 
     def _sketch_planes(self) -> tuple:
         return ((self._pdd[0], self._pdd[1]) if self._pdd else ()) + \
             ((self._pmom[0],) if self._pmom else ())
 
     def device_state_bytes(self) -> int:
-        """Device bytes of the processor-owned sketch sidecars (backed
-        pages only); the registry families report their own."""
-        return sum(p.device_state_bytes() for p in self._sketch_planes())
+        """Device bytes of the processor-owned sketch sidecars (paged:
+        backed pages only; dense: whole arenas, trash pages included); the
+        registry families report their own."""
+        if self._paged:
+            return sum(p.device_state_bytes() for p in self._sketch_planes())
+        return sum(_state_bytes(st, self.registry.dense_page_rows)
+                   for st in (self.dd, self.mom) if st is not None)
 
     def quantile(self, q: float) -> dict[tuple[tuple[str, str], ...], float]:
         """Per-series latency quantile from the configured sketch tier."""
@@ -347,17 +446,30 @@ class SpanMetricsProcessor:
         sketch rows: the moments tier solves each row's CDF once for all
         q's; the DDSketch tier gathers the rows once."""
         qs = tuple(float(q) for q in qs)
-        if self._pmom is not None:
+        if self._mom_meta is not None:
             return self._moments_quantiles(qs)
         return self.dd_quantiles(qs)
 
+    def _sketch_slots(self) -> np.ndarray:
+        """Active slots that own sketch rows. Caller holds the lock."""
+        slots = self.calls.table.active_slots()
+        return slots[slots < self._sketch_rows]
+
+    def _rows(self, slots: np.ndarray, role: int) -> torch.Tensor:
+        """The slots' rows of a role of the fused step on the device:
+        indexed in dense state, gathered through a paged plane's table."""
+        if not self._paged:
+            return self._dense_views()[role][torch.from_numpy(
+                slots.astype(np.int64)).to(self.device)]
+        plane = self._paged_planes()[role]
+        return plane.gather_dev(_padded(slots))[:slots.size]
+
     def dd_quantiles(self, qs) -> list[dict]:
         """DDSketch tier: one {labels: value} map per q."""
-        if self._pdd is None:
+        if not self._dd_on:
             return [{} for _ in qs]
         with self.registry.state_lock:
-            slots = self.calls.table.active_slots()
-            slots = slots[slots < self._pdd[4]]
+            slots = self._sketch_slots()
             if not slots.size:
                 return [{} for _ in qs]
             vals = self._dd_quantiles(qs, slots)
@@ -365,31 +477,26 @@ class SpanMetricsProcessor:
                  for i, s in enumerate(slots.tolist())} for v in vals]
 
     def _dd_quantiles(self, qs, slots: np.ndarray) -> list[np.ndarray]:
-        """DDSketch quantiles of the slots' rows, gathered through the
-        page table on the device (int32 compact grids upcast there,
-        exactly). Caller holds the state lock."""
-        ddc, ddz, gamma, minv, _ = self._pdd
-        padded = np.full(_pad_len(slots.size), -1, np.int32)
-        padded[:slots.size] = slots
-        sk = sketches.DDSketch(ddc.gather_dev(padded).float(),
-                               ddz.gather_dev(padded).float(), gamma, minv)
-        return [sketches.dd_quantile(sk, q).cpu().numpy()[:slots.size]
-                for q in qs]
+        """DDSketch quantiles of the slots' rows, computed on the device
+        (int32 compact grids upcast there, exactly). Caller holds the
+        state lock."""
+        sk = sketches.DDSketch(self._rows(slots, _DD_COUNTS).float(),
+                               self._rows(slots, _DD_ZEROS).float(),
+                               self._step_kw["gamma"],
+                               self._step_kw["min_value"])
+        return [sketches.dd_quantile(sk, q).cpu().numpy() for q in qs]
 
     def _moments_quantiles(self, qs) -> list[dict]:
         """Moments tier: gather the active slots' ~15-float rows, run the
         host maxent solver once per distinct row (cached), and fill any
         row whose solve failed from the bucket sketches ("both": the
         DDSketch value; "moments": the classic latency histogram)."""
-        mp, mk, mlo, mhi, limit = self._pmom
+        mk, mlo, mhi = self._mom_meta
         with self.registry.state_lock:
-            slots = self.calls.table.active_slots()
-            slots = slots[slots < limit]
+            slots = self._sketch_slots()
             if not slots.size:
                 return [{} for _ in qs]
-            padded = np.full(_pad_len(slots.size), -1, np.int32)
-            padded[:slots.size] = slots
-            rows = mp.gather(padded)[:slots.size]
+            rows = self._rows(slots, _MOMENTS).cpu().numpy()
         vals, failed = moments.quantiles_for_rows(rows, mk, mlo, mhi, qs)
         out = []
         for j, q in enumerate(qs):
@@ -405,13 +512,11 @@ class SpanMetricsProcessor:
         """Fill failed moments solves from the bucket sketches."""
         idx = np.flatnonzero(failed)
         with self.registry.state_lock:
-            if self._pdd is not None:
+            if self._dd_on:
                 vals[idx] = self._dd_quantiles((q,), slots[idx])[0]
                 return vals
             # moments-only tier: interpolate the classic latency histogram
-            padded = np.full(_pad_len(idx.size), -1, np.int32)
-            padded[:idx.size] = slots[idx]
-            bc = self.latency.buckets.gather(padded)[:idx.size]
+            bc = self._rows(slots[idx], _BUCKETS).cpu().numpy()
         edges = np.asarray(self.cfg.histogram_buckets, np.float64)
         cum = np.cumsum(np.asarray(bc, np.float64), axis=1)
         total = cum[:, -1]
@@ -426,6 +531,13 @@ class SpanMetricsProcessor:
         hi = edges[np.minimum(b, len(edges) - 1)]
         vals[idx] = np.where(total > 0, lo + (hi - lo) * frac, 0.0)
         return vals
+
+
+def _padded(slots: np.ndarray) -> np.ndarray:
+    """Slots padded to a pow-2 length with -1 (paged gathers read 0)."""
+    out = np.full(_pad_len(slots.size), -1, np.int32)
+    out[:slots.size] = slots
+    return out
 
 
 def _sanitize(k: str) -> str:

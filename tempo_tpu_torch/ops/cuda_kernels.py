@@ -4,7 +4,8 @@ K1, `paged_fused_update`, replaces the Pallas TPU kernel of the same name
 (`tempo_tpu/ops/pallas_kernels.py:196`, `pl.pallas_call` at :404): one
 pass over a span batch updates the whole span-metrics plane family
 (calls, latency sum, latency count, size, latency histogram, DDSketch
-zeros and buckets, moments row) in the page pool's arenas, in place.
+zeros and buckets, moments row) in place, in the page pool's arenas or,
+through identity page tables, in dense state's own arenas.
 Source and design note: `tempo_tpu_torch/csrc/paged_fused_update.cu`.
 With f32 state it is one launch: one thread per span, f32 atomics into
 the arena cells. Under the compact tier (int32 counts, a bf16 Kahan pair
@@ -251,18 +252,27 @@ def _check_state(tables, arenas, page_rows, edges, dd_rows, mom_rows,
             or tables.shape[0] != n_roles:
         raise ValueError(f"tables must be int32 [{n_roles}, P], got "
                          f"{tables.dtype} {tuple(tables.shape)}")
-    rows = arenas[0].shape[0]
     nb_dd = arenas[6].shape[-1] if dd_rows else 0
     mom_w = mom_meta[0] + 3 if mom_rows else 0
+    # each role's arena may have its own row count (dense state sizes the
+    # sketch arenas to dd_rows); its table must name only its own pages
+    last = tables.cpu().amax(dim=1).tolist() if tables.shape[1] else \
+        [-1] * n_roles
     for r, a in enumerate(arenas):
         dt, width = _arena_spec(r, bool(dd_rows), bool(mom_rows), compact,
                                 len(edges) + 1, nb_dd, mom_w)
+        rows = a.shape[0] if a.ndim else 0
         shape = (rows,) if width is None else (rows, width)
         if a.dtype != dt or tuple(a.shape) != shape:
             raise ValueError(f"arena {r}: want {dt} {shape}, got {a.dtype} "
                              f"{tuple(a.shape)}")
-    if rows % page_rows:
-        raise ValueError(f"arena rows {rows} not a multiple of {page_rows}")
+        if rows % page_rows:
+            raise ValueError(f"arena {r}: rows {rows} not a multiple of "
+                             f"{page_rows}")
+        if last[r] >= rows // page_rows:
+            raise ValueError(f"table of role {r} names physical page "
+                             f"{last[r]}, past its arena's last page "
+                             f"{rows // page_rows - 1}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_fused_update: tensors must be contiguous")
     if compact and scratch is not None:
@@ -360,9 +370,11 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
       slots   [N] int32, or f32 (a row of the packed [4, N] batch);
               negative = discard.
       vals    [3, N] f32 — dur_s, size, weight.
-      arenas  the role arenas; all share one row count. f32, or under
-              `compact` int32 counts, the latency sum as a bf16 [rows, 2]
-              Kahan pair, sizes and moments f32.
+      arenas  the role arenas, each a whole number of pages (its own row
+              count: the pool's arenas share one, dense state's sketch
+              arenas cover only dd_rows) that holds every page its table
+              row names. f32, or under `compact` int32 counts, the latency
+              sum as a bf16 [rows, 2] Kahan pair, sizes and moments f32.
       scratch under `compact` on the card: the caller's all-zero working
               memory from `compact_scratch`, left all zero (checked when
               given; the plain version needs none).
@@ -371,7 +383,10 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
     kernels on the current stream (no synchronisation) or raise. The
     tables, arenas and scratch are validated once per set of tensor
     objects (the port never changes a tensor's storage, dtype or shape in
-    place); the batch on every call."""
+    place), the tables' entries against the arenas on a host copy of the
+    tables as they are then (a caller that rewrites its tables in place,
+    as the page pool's processors do, keeps them within the arenas); the
+    batch on every call."""
     edges = edges if type(edges) is tuple else tuple(edges)
     dev = arenas[0].device
     if dev.type == "cpu":

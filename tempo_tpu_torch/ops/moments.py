@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.ops.pages import DENSE_PAGE_ROWS, dense_zeros
 
 DEFAULT_K = 12
 
@@ -70,11 +71,13 @@ def moments_params(k: int = DEFAULT_K, min_value: float = 1e-6,
 
 
 def moments_init(num_series: int, k: int = DEFAULT_K, min_value: float = 1e-6,
-                 max_value: float = 1e5, device=None) -> MomentsSketch:
-    """Empty rows on `device` (`cuda` unless `"cpu"` is asked for)."""
+                 max_value: float = 1e5, device=None,
+                 page_rows: int = DENSE_PAGE_ROWS) -> MomentsSketch:
+    """Empty rows on `device` (`cuda` unless `"cpu"` is asked for), a row
+    view of a trash-paged arena (`ops.pages.dense_zeros`)."""
     k, lo, hi = moments_params(k, min_value, max_value)
     return MomentsSketch(
-        data=torch.zeros((num_series, n_cols(k)), dtype=torch.float32,
+        data=dense_zeros(num_series, n_cols(k), page_rows=page_rows,
                          device=resolve_device(device)), k=k, lo=lo, hi=hi)
 
 

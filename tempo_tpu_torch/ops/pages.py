@@ -27,6 +27,10 @@ backed pages under each arena's storage rule (`fold_deltas`).
 
 Arenas are f32, or under the compact-state tier int32 (counts and bucket
 grids) and bf16 [rows, 2] (the latency sum's Kahan pair).
+
+Dense state (no page pool) uses the same step: each dense tensor is a
+row view of its own arena behind one leading trash page (`dense_zeros`),
+and `identity_tables` maps logical page p to physical page p + 1.
 """
 
 from __future__ import annotations
@@ -168,6 +172,67 @@ def zero_pages_step(arena, pages, *, page_rows: int) -> None:
     rows = (p[:, None] * page_rows
             + torch.arange(page_rows, device=arena.device)[None, :])
     arena[rows.reshape(-1)] = 0
+
+
+# ---------------------------------------------------------------------------
+# dense state: row views of trash-paged arenas, identity page tables
+# ---------------------------------------------------------------------------
+
+# Rows per page of dense state. Each dense arena carries one trash page,
+# so the page costs every role `page_rows` rows of padding, and the
+# stacked [8, P] identity table (P = capacity / page_rows) must fit the
+# shared memory K1 stages it in (`cuda_kernels.MAX_TABLE_BYTES`). At the
+# default deployment (65,536 series, DDSketch over 16,384) 64 rows give
+# 329,984 B of trash pages, 0.37% of the 88.2 MB of state, and a 32 KB
+# table; larger capacities double the page until the table fits.
+DENSE_PAGE_ROWS = 64
+
+
+def dense_page_rows(capacity: int) -> int:
+    """Rows per page of a dense tenant of `capacity` series."""
+    from tempo_tpu_torch.ops.cuda_kernels import MAX_ROLES, MAX_TABLE_BYTES
+
+    pr = DENSE_PAGE_ROWS
+    while MAX_ROLES * 4 * -(-capacity // pr) > MAX_TABLE_BYTES:
+        pr <<= 1
+    return pr
+
+
+def dense_zeros(rows: int, width: "int | None", *, page_rows: int, device,
+                dtype=torch.float32) -> torch.Tensor:
+    """Zero state [rows] (width None) or [rows, width]: rows [page_rows,
+    page_rows + rows) of an arena whose first page is the trash page and
+    whose row count is a whole number of pages, so K1 can address it
+    through an identity table (`arena_of` recovers the arena)."""
+    n = page_rows + -(-rows // page_rows) * page_rows
+    arena = torch.zeros((n,) if width is None else (n, width), dtype=dtype,
+                        device=device)
+    return arena[page_rows:page_rows + rows]
+
+
+def arena_of(view: torch.Tensor, page_rows: int) -> torch.Tensor:
+    """The arena a `dense_zeros` view lies in; raises if `view` is not
+    such a view."""
+    base = view._base
+    if base is None or base.dtype != view.dtype or \
+            base.shape[1:] != view.shape[1:] or base.shape[0] % page_rows or \
+            view.data_ptr() != base.data_ptr() + page_rows * base.stride(0) \
+            * base.element_size():
+        raise ValueError("not a row view of a trash-paged arena "
+                         f"(page_rows {page_rows})")
+    return base
+
+
+def identity_tables(rows: Sequence[int], page_rows: int,
+                    device) -> torch.Tensor:
+    """The stacked [R, P] int32 page tables of dense state: role r maps
+    logical page p < ceil(rows[r] / page_rows) to physical page p + 1
+    (page 0 is the trash page), the rest is -1."""
+    pages = [-(-r // page_rows) for r in rows]
+    t = torch.full((len(rows), max(pages)), -1, dtype=torch.int32)
+    for r, n in enumerate(pages):
+        t[r, :n] = torch.arange(1, n + 1, dtype=torch.int32)
+    return t.to(device)
 
 
 # ---------------------------------------------------------------------------

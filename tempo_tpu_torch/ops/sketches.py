@@ -14,6 +14,10 @@ host with the C library's `powf` and the same f32 op order, and the
 device only gathers from it. The answer is then the same on the CPU and
 on the card, and bit-identical to the reference on the CPU.
 
+`dd_init` / `dd_update` are the dense layout's sketch plane and the
+update its composed twin runs; on the write path the paged fused update
+(K1) adds into the same rows.
+
 Log2, HyperLogLog and Count-Min sketches come with later slices.
 """
 
@@ -27,6 +31,9 @@ import math
 
 import numpy as np
 import torch
+
+from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.ops.pages import DENSE_PAGE_ROWS, dd_index, dense_zeros
 
 
 @dataclasses.dataclass
@@ -45,6 +52,47 @@ def dd_params(rel_err: float = 0.01, min_value: float = 1e-9,
     gamma = (1.0 + rel_err) / (1.0 - rel_err)
     nbuckets = int(math.ceil(math.log(max_value / min_value) / math.log(gamma))) + 2
     return gamma, nbuckets
+
+
+def dd_init(num_series: int, rel_err: float = 0.01, min_value: float = 1e-9,
+            max_value: float = 1e12, device=None,
+            page_rows: int = DENSE_PAGE_ROWS) -> DDSketch:
+    """Empty rows on `device` (`cuda` unless `"cpu"` is asked for), each
+    tensor a row view of a trash-paged arena (`ops.pages.dense_zeros`)."""
+    gamma, nb = dd_params(rel_err, min_value, max_value)
+    dev = resolve_device(device)
+    return DDSketch(
+        counts=dense_zeros(num_series, nb, page_rows=page_rows, device=dev),
+        zeros=dense_zeros(num_series, None, page_rows=page_rows, device=dev),
+        gamma=gamma, min_value=min_value)
+
+
+def dd_update(state: DDSketch, series_ids, values, mask=None,
+              weights=None) -> DDSketch:
+    """Add a batch of observations into the series' rows, in place. As in
+    the reference, a masked span goes to row 0 with weight 0; ids outside
+    [0, S) drop. The bucket is `ops.pages.dd_index` (the reference's f32
+    op order)."""
+    counts = state.counts
+    dev = counts.device
+    sids = torch.as_tensor(series_ids, device=dev).to(torch.int64)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = torch.ones_like(v) if weights is None \
+        else torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if mask is not None:
+        m = torch.as_tensor(mask, device=dev)
+        w = torch.where(m, w, zero)
+        sids = torch.where(m, sids, 0)
+    is_zero = v <= torch.tensor(state.min_value, dtype=torch.float32,
+                                device=dev)
+    idx = dd_index(v, state.gamma, state.min_value, counts.shape[-1])
+    keep = (sids >= 0) & (sids < counts.shape[0])
+    counts.index_put_((sids[keep], idx[keep]),
+                      torch.where(is_zero, zero, w)[keep], accumulate=True)
+    state.zeros.index_put_((sids[keep],), torch.where(is_zero, w, zero)[keep],
+                           accumulate=True)
+    return state
 
 
 def _merge_check(kind: str, a_meta: tuple, b_meta: tuple,
@@ -106,5 +154,5 @@ def dd_quantile(state: DDSketch, q: float) -> torch.Tensor:
     return torch.where(total > 0, val, zero)
 
 
-__all__ = ["DDSketch", "dd_params", "dd_merge", "dd_quantile",
-           "dd_value_table", "_merge_check"]
+__all__ = ["DDSketch", "dd_params", "dd_init", "dd_update", "dd_merge",
+           "dd_quantile", "dd_value_table", "_merge_check"]

@@ -2,13 +2,18 @@
 
 One row per series slot. These are the composable device halves of the
 reference registry's metric types (`modules/generator/registry/
-{counter,histogram}.go`), counterparts of `tempo_tpu/registry/metrics.py`.
+{counter,gauge,histogram}.go`), counterparts of
+`tempo_tpu/registry/metrics.py`.
 
 All updates accept slot ids with -1 = "discard" (series-limited or
 padding): `_mask_slots` redirects discards to `capacity`, one past the
 last row, and the scatters drop every out-of-range row. The JAX
 reference returns new states; these update the state's tensors in place
 (PyTorch has no donation) and return the same state object.
+
+Every state tensor is a row view of an arena with one leading trash page
+(`ops.pages.dense_zeros`), so the span-metrics processor can hand the
+dense families to the paged fused update (K1) over identity page tables.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import dataclasses
 import torch
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.ops.pages import hist_bucket
+from tempo_tpu_torch.ops.pages import DENSE_PAGE_ROWS, dense_zeros, hist_bucket
 
 
 def _mask_slots(slots: torch.Tensor, mask: "torch.Tensor | None",
@@ -41,10 +46,11 @@ class CounterState:
     values: torch.Tensor  # [S] f32
 
 
-def counter_init(capacity: int, device=None) -> CounterState:
+def counter_init(capacity: int, device=None,
+                 page_rows: int = DENSE_PAGE_ROWS) -> CounterState:
     """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
-    return CounterState(values=torch.zeros(capacity, dtype=torch.float32,
-                                           device=resolve_device(device)))
+    return CounterState(values=dense_zeros(
+        capacity, None, page_rows=page_rows, device=resolve_device(device)))
 
 
 def counter_update(state: CounterState, slots, weights=None,
@@ -55,6 +61,30 @@ def counter_update(state: CounterState, slots, weights=None,
     w = _weights(weights, s, dev)
     keep = s < cap
     state.values.index_put_((s[keep],), w[keep], accumulate=True)
+    return state
+
+
+@dataclasses.dataclass
+class GaugeState:
+    values: torch.Tensor  # [S] f32
+
+
+def gauge_init(capacity: int, device=None,
+               page_rows: int = DENSE_PAGE_ROWS) -> GaugeState:
+    """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
+    return GaugeState(values=dense_zeros(
+        capacity, None, page_rows=page_rows, device=resolve_device(device)))
+
+
+def gauge_set(state: GaugeState, slots, values, mask=None) -> GaugeState:
+    """Set semantics; the host stages at most one row per slot per batch
+    (last-wins resolved during staging)."""
+    dev = state.values.device
+    cap = state.values.shape[0]
+    s = _mask_slots(torch.as_tensor(slots, device=dev), mask, cap)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    keep = s < cap
+    state.values[s[keep]] = v[keep]
     return state
 
 
@@ -70,16 +100,16 @@ class HistogramState:
     edges: tuple
 
 
-def histogram_init(capacity: int, edges: tuple, device=None) -> HistogramState:
+def histogram_init(capacity: int, edges: tuple, device=None,
+                   page_rows: int = DENSE_PAGE_ROWS) -> HistogramState:
     """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
     dev = resolve_device(device)
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    def z(width=None):
+        return dense_zeros(capacity, width, page_rows=page_rows, device=dev)
 
-    return HistogramState(bucket_counts=z(capacity, len(edges) + 1),
-                          sums=z(capacity), counts=z(capacity),
-                          edges=tuple(edges))
+    return HistogramState(bucket_counts=z(len(edges) + 1), sums=z(),
+                          counts=z(), edges=tuple(edges))
 
 
 def histogram_update(state: HistogramState, slots, values, weights=None,

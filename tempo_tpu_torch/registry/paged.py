@@ -38,7 +38,9 @@ class _PagedBase(_MetricBase):
     """Shared paged plumbing: planes + backing + gather snapshots."""
 
     def __init__(self, registry, name, label_names, capacity) -> None:
-        super().__init__(registry, name, label_names, capacity)
+        # the host half only: the dense families' own __init__ would
+        # allocate dense state
+        _MetricBase.__init__(self, registry, name, label_names, capacity)
         self.pool = registry.pages
         self.planes: dict[str, PagedPlane] = {}
         self.table.backing = PageBacking(self.pool)

@@ -26,7 +26,9 @@ Arenas are f32, or for the compact-state tier int32 (counts) and
 bfloat16 (the latency sum's [rows, 2] Kahan pair).
 
 The reference's `configure` logs a bad config and falls back to the dense
-layout; the port has no dense layout yet, so it raises.
+layout; the port raises instead (it has no warn-and-fall-back paths). A
+tenant whose capacity the pool's pages do not divide stays dense, as in
+the reference (`registry/registry.py`).
 """
 
 from __future__ import annotations

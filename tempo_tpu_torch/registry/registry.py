@@ -12,25 +12,35 @@ reference's `modules/generator/registry/registry.go`:
   zeroes their device rows and queues one NaN staleness marker each;
 - per-tenant external labels join every series.
 
-The classes here are the host halves (series tables, exemplars,
-staleness markers, collect formatting). Their device halves live in the
-page pool (`registry/paged.py`): this slice of the port runs the paged
-layout only, so a registry needs an active pool.
+The families here are the dense layout: each holds its rows in a
+`registry/metrics.py` state on the registry's device. With a page pool
+active and a capacity that splits into whole pages, the registry builds
+the paged families of `registry/paged.py` instead, which keep these
+classes' host halves (series tables, exemplars, staleness markers,
+collect formatting) and swap the device half. Native histograms come
+with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import threading
 import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
-from tempo_tpu_torch.device import bucket_rows
+from tempo_tpu_torch.device import bucket_rows, resolve_device
 from tempo_tpu_torch.model.interner import StringInterner
+from tempo_tpu_torch.ops.pages import arena_of, dense_page_rows
+from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.series import Exemplar, Sample, SeriesBudget, SeriesTable
 
 STALE_NAN = float("nan")
+
+_LOG = logging.getLogger("tempo_tpu_torch.registry")
 
 DEFAULT_HISTOGRAM_EDGES = (0.002, 0.004, 0.008, 0.016, 0.032, 0.064, 0.128,
                            0.256, 0.512, 1.024, 2.048, 4.096, 8.192, 16.384)
@@ -121,9 +131,54 @@ class _MetricBase:
             other.table.backing.adopt(mine.backing)
         self.table = other.table
 
+    # -- the dense device half (paged families override) --------------------
+
+    def _dense(self, compact: bool) -> dict:
+        """Keyword arguments of the dense state inits; dense state has no
+        compact tier."""
+        if compact:
+            raise ValueError(
+                f"{self.name}: compact state needs the paged layout (a page "
+                "pool whose page_rows divides max_active_series)")
+        return dict(device=self.registry.device,
+                    page_rows=self.registry.dense_page_rows)
+
+    def zero_evicted(self, padded_slots: np.ndarray) -> None:
+        """Zero the device rows of evicted slots (the registry pads the
+        batch with `capacity`, which drops)."""
+        m.zero_slots(self.state, padded_slots)
+
+    def device_state_bytes(self) -> int:
+        """Device bytes of this family's arenas, trash pages included."""
+        return _state_bytes(self.state, self.registry.dense_page_rows)
+
+
+def _state_bytes(state, page_rows: int) -> int:
+    """Bytes of the arenas behind a dense state's tensors."""
+    total = 0
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if isinstance(t, torch.Tensor):
+            a = arena_of(t, page_rows)
+            total += a.numel() * a.element_size()
+    return total
+
+
+def _host(t) -> np.ndarray:
+    """A host copy of a state tensor (never a view of live CPU state)."""
+    return t.cpu().numpy().copy()
+
 
 class Counter(_MetricBase):
-    """Counter host half; `_snap()` returns (values,)."""
+    """Counter: `_snap()` returns (values,)."""
+
+    def __init__(self, registry, name, label_names, capacity,
+                 compact: bool = False):
+        super().__init__(registry, name, label_names, capacity)
+        self.state = m.counter_init(capacity, **self._dense(compact))
+
+    def _snap(self) -> tuple:
+        return (_host(self.state.values),)
 
     def collect(self, ts_ms: int, snap: tuple | None = None) -> list[Sample]:
         (vals,) = snap if snap is not None else self._snap()
@@ -134,7 +189,19 @@ class Counter(_MetricBase):
 
 
 class Gauge(_MetricBase):
-    """Gauge host half; `_device_set` is the device half."""
+    """Gauge: `set_batch` resolves last-wins on the host, `_device_set`
+    writes the rows."""
+
+    def __init__(self, registry, name, label_names, capacity):
+        super().__init__(registry, name, label_names, capacity)
+        self.state = m.gauge_init(capacity, **self._dense(False))
+
+    def _device_set(self, slots: np.ndarray, values: np.ndarray) -> None:
+        with self.registry.state_lock:
+            m.gauge_set(self.state, slots, values)
+
+    def _snap(self) -> tuple:
+        return (_host(self.state.values),)
 
     def set_batch(self, label_rows: np.ndarray, values: np.ndarray,
                   valid: np.ndarray | None = None) -> None:
@@ -158,8 +225,20 @@ class Gauge(_MetricBase):
 
 
 class Histogram(_MetricBase):
-    """Classic histogram host half → `_count`/`_sum`/`_bucket{le=...}`;
-    `_snap()` returns (bucket_counts, sums, counts)."""
+    """Classic histogram → `_count`/`_sum`/`_bucket{le=...}`; `_snap()`
+    returns (bucket_counts, sums, counts)."""
+
+    def __init__(self, registry, name, label_names, capacity,
+                 edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES,
+                 compact: bool = False):
+        super().__init__(registry, name, label_names, capacity)
+        self.edges = tuple(edges)
+        self.state = m.histogram_init(capacity, self.edges,
+                                      **self._dense(compact))
+
+    def _snap(self) -> tuple:
+        st = self.state
+        return (_host(st.bucket_counts), _host(st.sums), _host(st.counts))
 
     def hist_edges(self) -> tuple:
         return self.edges
@@ -188,12 +267,19 @@ def _fmt_le(e: float) -> str:
 
 
 class ManagedRegistry:
-    """Per-tenant registry: metric families + limits + collection."""
+    """Per-tenant registry: metric families + limits + collection.
+
+    Its families are paged when a page pool is active and the tenant's
+    `max_active_series` splits into whole pages, dense otherwise (with
+    the reference's warning when a pool is active). Paged state lives on
+    the pool's device and serialises on the pool's lock; dense state on
+    `device` (`cuda` unless `"cpu"` is asked for; the pool's device when
+    a pool is active) under the registry's own lock."""
 
     def __init__(self, tenant: str = "single-tenant",
                  overrides: RegistryOverrides | None = None,
                  interner: StringInterner | None = None,
-                 now: Callable[[], float] = time.time):
+                 now: Callable[[], float] = time.time, device=None):
         from tempo_tpu_torch.registry import pages as pages_mod
 
         self.tenant = tenant
@@ -202,47 +288,63 @@ class ManagedRegistry:
         self.now = now
         self.budget = SeriesBudget(self.overrides.max_active_series)
         self._metrics: dict[str, _MetricBase] = {}
-        self.pages = pages_mod.active()
-        if self.pages is None:
-            raise NotImplementedError(
-                "the dense state layout (no page pool) comes with a later "
-                "slice of the port; configure a pool with "
-                "registry.pages.configure(PagePoolConfig(enabled=True))")
-        if self.overrides.max_active_series % self.pages.page_rows:
-            raise NotImplementedError(
-                f"max_active_series {self.overrides.max_active_series} is "
-                f"not a multiple of page_rows {self.pages.page_rows}: such "
-                "a tenant needs the dense layout, which comes with a later "
-                "slice of the port")
-        # arenas are cross-tenant state updated in place: every tenant
-        # serializes its device reads and updates on the pool's lock
-        self.state_lock = self.pages.lock
+        pool = self.pages = pages_mod.active()
+        cap = self.overrides.max_active_series
+        if pool is not None and cap % pool.page_rows:
+            _LOG.warning(
+                "registry %s: max_active_series %d not divisible by "
+                "pages.page_rows %d — tenant stays on the dense layout",
+                tenant, cap, pool.page_rows)
+            self.pages = None
+        if device is None and pool is not None:
+            device = pool.device
+        self.device = resolve_device(device)
+        if self.pages is not None:
+            if self.device != self.pages.device:
+                raise ValueError(f"the active page pool is on "
+                                 f"{self.pages.device}, this registry on "
+                                 f"{self.device}")
+            # arenas are cross-tenant state updated in place: every tenant
+            # serializes its device reads and updates on the pool's lock
+            self.state_lock = self.pages.lock
+            self.dense_page_rows = None
+        else:
+            self.state_lock = threading.RLock()
+            self.dense_page_rows = dense_page_rows(cap)
+
+    def _family_types(self) -> tuple:
+        if self.pages is not None:
+            from tempo_tpu_torch.registry import paged
+            return paged.PagedCounter, paged.PagedGauge, paged.PagedHistogram
+        return Counter, Gauge, Histogram
 
     def new_counter(self, name: str, label_names: Sequence[str],
-                    compact: bool = False):
-        """A paged counter; `compact` keeps its rows as int32."""
-        from tempo_tpu_torch.registry.paged import PagedCounter
-        c = self._metrics[name] = PagedCounter(
+                    compact: bool = False) -> Counter:
+        """A counter; `compact` (paged only) keeps its rows as int32."""
+        c = self._metrics[name] = self._family_types()[0](
             self, name, label_names, self.overrides.max_active_series,
             compact=compact)
         return c
 
-    def new_gauge(self, name: str, label_names: Sequence[str]):
-        from tempo_tpu_torch.registry.paged import PagedGauge
-        g = self._metrics[name] = PagedGauge(
+    def new_gauge(self, name: str, label_names: Sequence[str]) -> Gauge:
+        g = self._metrics[name] = self._family_types()[1](
             self, name, label_names, self.overrides.max_active_series)
         return g
 
     def new_histogram(self, name: str, label_names: Sequence[str],
                       edges: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES,
-                      compact: bool = False):
-        """A paged classic histogram; `compact` keeps int32 buckets and
-        counts and the sum as a bf16 Kahan pair."""
-        from tempo_tpu_torch.registry.paged import PagedHistogram
-        h = self._metrics[name] = PagedHistogram(
+                      compact: bool = False) -> Histogram:
+        """A classic histogram; `compact` (paged only) keeps int32 buckets
+        and counts and the sum as a bf16 Kahan pair."""
+        h = self._metrics[name] = self._family_types()[2](
             self, name, label_names, self.overrides.max_active_series, edges,
             compact=compact)
         return h
+
+    def new_native_histogram(self, name: str, label_names: Sequence[str]):
+        raise NotImplementedError(
+            "native histograms come with a later slice of the port (the "
+            "processors that use them)")
 
     @property
     def active_series(self) -> int:
@@ -299,7 +401,8 @@ class ManagedRegistry:
         return total
 
     def device_state_bytes(self) -> int:
-        """Device bytes of this registry's families (backed pages only)."""
+        """Device bytes of this registry's families (dense: whole arenas,
+        trash pages included; paged: backed pages only)."""
         return sum(mt.device_state_bytes() for mt in self._metrics.values())
 
     def metric(self, name: str) -> _MetricBase:

@@ -2,7 +2,8 @@
 
 - A fresh interpreter imports `tempo_tpu_torch`, pushes, collects and
   reads a quantile on the CPU under the `sketch: dd` f32 tier and under
-  `sketch: both` with compact state, and ends with neither `jax` nor any
+  `sketch: both` with compact state on paged state, and under `sketch:
+  dd` on dense state (no pool), and ends with neither `jax` nor any
   `tempo_tpu` module loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
   the string "tempo_tpu", so a module counts as the reference only when
   its name is `tempo_tpu` or starts with `tempo_tpu.`.
@@ -48,12 +49,14 @@ from tempo_tpu_torch.registry import pages
 pool = pages.PagePool(tt.PagePoolConfig(enabled=True, page_rows=64,
                                         arena_slots=1024), device="cpu")
 data = encode_spans_otlp(synthetic_spans(300, seed=0, now_ns=int(1.7e18)))
-for sm in (dict(), dict(sketch="both", compact_state=True)):
-    with pages.use(pool):
+for p, sm in ((pool, dict()), (pool, dict(sketch="both", compact_state=True)),
+              (None, dict())):
+    with pages.use(p):
         g = tt.GeneratorInstance(f"t{len(sm)}", tt.GeneratorConfig(
             registry=tt.RegistryOverrides(max_active_series=512),
             spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128, **sm)),
             now=lambda: 1.7e9, device="cpu")
+    assert g.state_layout == ("paged" if p else "dense")
     g.push_batch(tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(g.registry.interner)))
     assert g.collect_and_push() > 0
     assert g.processors["span-metrics"].quantile(0.5)
@@ -100,6 +103,8 @@ def test_cuda_without_a_device_raises(monkeypatch):
         pages.configure(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tt.GeneratorInstance("t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.ManagedRegistry("t")
     assert pages.active() is None
 
 
@@ -135,19 +140,22 @@ def test_moments_and_compact_tiers_build(sm):
 
 
 def test_dense_layout_and_other_entry_points_raise():
+    """No pool, or a capacity the pool's pages do not divide, builds dense
+    state (no longer raising); every entry point of a later slice raises."""
     import tempo_tpu_torch as tt
     from tempo_tpu_torch.registry import pages
 
     with pages.use(None):
-        with pytest.raises(NotImplementedError, match="dense"):
-            tt.GeneratorInstance("t", device="cpu")
+        assert tt.GeneratorInstance("t", device="cpu").state_layout == "dense"
     pool = pages.PagePool(tt.PagePoolConfig(enabled=True, page_rows=64,
                                             arena_slots=1024), device="cpu")
     with pages.use(pool):
-        with pytest.raises(NotImplementedError, match="dense"):
-            tt.GeneratorInstance("t", tt.GeneratorConfig(
-                registry=tt.RegistryOverrides(max_active_series=1000)),
-                device="cpu")
+        g = tt.GeneratorInstance("t", tt.GeneratorConfig(
+            registry=tt.RegistryOverrides(max_active_series=1000)),
+            device="cpu")
+        assert g.state_layout == "dense"
+        with pytest.raises(NotImplementedError, match="later slice"):
+            g.registry.new_native_histogram("h", ("a",))
         for proc in ("service-graphs", "local-blocks", "trace-analytics"):
             with pytest.raises(NotImplementedError, match="later slice"):
                 tt.GeneratorInstance("t", tt.GeneratorConfig(

@@ -186,6 +186,38 @@ def test_wrapper_checks_its_inputs():
                                **dict(kw, page_rows=6))
 
 
+def test_wrapper_takes_arenas_of_their_own_row_counts():
+    """Each role's arena may have its own row count (dense state sizes the
+    sketch arenas to dd_rows) as long as its table names only its pages:
+    arenas cut to the pages their tables name give the rows the uniform
+    arenas give. The uniform (paged) case validates as before."""
+    arenas, tabs = _arenas(0), _tables(7)
+    last = [max(t) + 1 for t in tabs]                 # pages each table needs
+    mat = _batch(1)
+    slots, vals = mat[0].astype(np.int32), mat[1:]
+    want = _port_update(arenas, tabs, slots, vals, 2 * PAGE_ROWS)
+    cut = [a[:n * PAGE_ROWS] for a, n in zip(arenas, last)]
+    assert len({a.shape[0] for a in cut}) > 1
+    got = _port_update(cut, tabs, slots, vals, 2 * PAGE_ROWS)
+    for r, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w[:g.shape[0]], err_msg=f"role {r}")
+
+
+def test_wrapper_refuses_a_table_past_its_arena():
+    """A table entry past its own arena's last page raises `ValueError`,
+    whatever the other arenas' row counts."""
+    arenas, tabs = _arenas(0), _tables(7)
+    cut = [a if r != 6 else a[:3 * PAGE_ROWS] for r, a in enumerate(arenas)]
+    tabs[6] = np.array([1, 3], np.int32)              # page 3 of a 3-page arena
+    with pytest.raises(ValueError, match="role 6 names physical page 3"):
+        _port_update(cut, tabs, np.zeros(4, np.int32),
+                     np.zeros((3, 4), np.float32), 2 * PAGE_ROWS)
+    with pytest.raises(ValueError, match="not a multiple"):
+        _port_update([a[:-1] if r == 6 else a for r, a in enumerate(arenas)],
+                     _tables(7), np.zeros(4, np.int32),
+                     np.zeros((3, 4), np.float32), 2 * PAGE_ROWS)
+
+
 # ---------------------------------------------------------------------------
 # DDSketch bucket index at the default deployment's widths
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from tempo_tpu.generator.processors.spanmetrics import SpanMetricsConfig as JSmC
 from tempo_tpu.generator.remote_write import RemoteWriteConfig as JRwCfg
 from tempo_tpu.model.otlp import spans_from_otlp_proto as j_spans
 from tempo_tpu.model.span_batch import SpanBatchBuilder as JBuilder
+from tempo_tpu.ops import sketches as jsk
 from tempo_tpu.registry import pages as jpages
 from tempo_tpu.registry.registry import RegistryOverrides as JOv
 from tempo_tpu.utils.spanfilter import (AttributeMatch as JAm,
@@ -50,12 +51,14 @@ def receiver():
         yield rx
 
 
-def _worlds(url="", clock=None, jsm=None, tsm=None):
+def _worlds(url="", clock=None, jsm=None, tsm=None, pool=POOL, series=SERIES):
+    """(clock, reference instance, port instance), both with a page pool
+    of `pool`'s config, or none (dense state) when `pool` is None."""
     clock = clock if clock is not None else [T0]
     now = lambda: clock[0]  # noqa: E731
-    with jpages.use(jpages.PagePool(jpages.PagePoolConfig(**POOL))):
+    with jpages.use(pool and jpages.PagePool(jpages.PagePoolConfig(**pool))):
         jg = JGen("t", JGenCfg(
-            processors=("span-metrics",), registry=JOv(max_active_series=SERIES),
+            processors=("span-metrics",), registry=JOv(max_active_series=series),
             spanmetrics=JSmCfg(**dict(dict(use_scheduler=False, kernel="xla",
                                            **SM), **(jsm or {}))),
             remote_write=JRwCfg(url=url and url + "/jax")), now=now)
@@ -65,10 +68,10 @@ def _worlds(url="", clock=None, jsm=None, tsm=None):
     # label order, so the reference is held on its numpy path here
     for mt in jg.registry._metrics.values():
         mt.table._nat = None
-    with tpages.use(tpages.PagePool(tpages.PagePoolConfig(**POOL),
-                                    device="cpu")):
+    with tpages.use(pool and tpages.PagePool(tpages.PagePoolConfig(**pool),
+                                             device="cpu")):
         tg = tt.GeneratorInstance("t", tt.GeneratorConfig(
-            registry=tt.RegistryOverrides(max_active_series=SERIES),
+            registry=tt.RegistryOverrides(max_active_series=series),
             spanmetrics=tt.SpanMetricsConfig(**SM, **(tsm or {})),
             remote_write=RemoteWriteConfig(url=url and url + "/torch")),
             now=now, device="cpu")
@@ -232,15 +235,32 @@ def _tier_worlds(tier):
 
 
 def _moment_rows(proc):
-    """{labels: moments row} of the active slots inside the sketch plane."""
-    mp, limit = proc._pmom[0], proc._pmom[4]
+    """{labels: moments row} of the active slots inside the sketch plane,
+    paged (either package's `_pmom`) or dense (its `mom`)."""
     slots = proc.calls.table.active_slots()
-    slots = slots[slots < limit]
-    padded = np.full(max(16, slots.size), -1, np.int32)
-    padded[:slots.size] = slots
-    rows = np.asarray(mp.gather(padded), np.float32)[:slots.size]
+    if proc._pmom is not None:
+        mp, limit = proc._pmom[0], proc._pmom[4]
+        slots = slots[slots < limit]
+        padded = np.full(max(16, slots.size), -1, np.int32)
+        padded[:slots.size] = slots
+        rows = np.asarray(mp.gather(padded), np.float32)[:slots.size]
+    else:
+        data = np.asarray(proc.mom.data, np.float32)
+        slots = slots[slots < data.shape[0]]
+        rows = data[slots]
     return {proc.calls.labels_of(int(s)): rows[i]
             for i, s in enumerate(slots.tolist())}
+
+
+def _ref_dd_quantile(jp, q):
+    """The reference's DDSketch quantile map, paged or dense, whatever
+    its sketch tier."""
+    if jp._pdd is not None:
+        return jp._paged_quantile(q)
+    vals = np.asarray(jsk.dd_quantile(jp.dd, q))
+    slots = jp.calls.table.active_slots()
+    return {jp.calls.labels_of(int(s)): float(vals[int(s)])
+            for s in slots[slots < vals.shape[0]]}
 
 
 def _compare_tier(jg, tg, ctx, compact):
@@ -275,21 +295,21 @@ def _compare_tier(jg, tg, ctx, compact):
     jp, tp = jg.processors["span-metrics"], tg.processors["span-metrics"]
     jr, tr = _moment_rows(jp), _moment_rows(tp)
     assert jr.keys() == tr.keys() and jr, ctx
-    k = jp._pmom[1]
+    k, lo, hi = tp._mom_meta
+    assert jp._mom_meta == (k, lo, hi)
     for key, x in jr.items():
         y = tr[key]
         assert y[0] == x[0], f"{ctx}: {key} count"
         assert (np.abs(y[1:k + 1] - x[1:k + 1])
                 <= 1e-5 * np.abs(x[1:k + 1]) + 2e-5 * x[0]).all(), key
         np.testing.assert_allclose(y[k + 1:], x[k + 1:], rtol=0, atol=2e-6)
-    _, k, lo, hi, _ = tp._pmom
     keys = list(tr)
     _, failed = tmom.quantiles_for_rows(np.stack([tr[key] for key in keys]),
                                         k, lo, hi, [0.5])
     outside = {}
     for q in (0.5, 0.99):
-        if jp._pdd is not None:
-            assert tp.dd_quantiles((q,))[0] == jp._paged_quantile(q), \
+        if jp._pdd is not None or jp.dd is not None:
+            assert tp.dd_quantiles((q,))[0] == _ref_dd_quantile(jp, q), \
                 f"{ctx}: DDSketch quantile({q})"
         jq, tq = jp.quantile(q), tp.quantile(q)
         assert jq.keys() == tq.keys() == jr.keys()
