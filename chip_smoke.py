@@ -36,11 +36,13 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       below and past the 16,384 sketch rows, 5% discards) and one of no
       spans; launches one per push with spans; trash pages and a guard
       page past each arena's rows left zero;
-4. the main paths through the entry points, each on the card against the
-   same path on the host (plain versions), with kernel launch counts
-   zeroed just before and read just after: seeded OTLP payloads →
-   `otlp_proto_to_batch` → `GeneratorInstance.push_batch` →
-   `collect_and_push()` to a local remote-write receiver → quantiles;
+4. the span-metrics main paths on the direct route through the entry
+   points, each on the card against the same path on the host (plain
+   versions), with kernel launch counts zeroed just before and read just
+   after: seeded OTLP payloads of 16,384 spans (4 on the two paged paths,
+   8 on the dense one) → `otlp_proto_to_batch` →
+   `GeneratorInstance.push_batch` → `collect_and_push()` to a local
+   remote-write receiver → quantiles;
    a. `sketch: dd` with f32 state (quantiles exactly equal);
    b. `sketch: both` with compact state (DDSketch quantiles exactly
       equal, every series' moments row within the moments tolerance of
@@ -65,7 +67,26 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    on dense state K1 (`sketch: dd`, 7 roles) and the composed twin of
    the reference's dense step (`_fused_update_impl`) on the same push,
    each with its device time (every device event) and its time with the
-   host.
+   host;
+6. the reference's default deployment, on dense state and then on paged
+   state (one page pool of the default config): the process device
+   scheduler at its default config (`sched.configure(SchedConfig())`,
+   worker thread, 2 ms windows) and 8 tenants of the default generator
+   (span metrics and service graphs, 65,536 series, DDSketch over 16,384),
+   each sent 16 pushes of 1,024 seeded trace-tree spans (client/server
+   pairs, 1/16 db clients with no server side; 32 services x 32
+   operations) by 2 producer threads, then the clock stepped past the
+   service graphs' wait and one empty push each; the same pushes through
+   direct-route twins (`use_scheduler=False`). Checks: every family's
+   rows and the DDSketch rows equal between the routes (counts exact,
+   sums within rtol 1e-5), more pushes than merged dispatches, K1
+   launches equal to dispatches, one launch plan per processor, nothing
+   shed, no dispatch or job error, and a tenant on a 60 s window whose
+   pushes `collect_and_push` flushes. Printed: spans/s on both routes,
+   occupancy and pushes per dispatch, the devtime ledger's host wall per
+   dispatch, K1 at a merged window's shape against its plain version with
+   its device time (torch.profiler), and the service-graphs emit's host
+   and device time.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -89,6 +110,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 N_SPANS = 16384
 N_DISPATCH = 8
+N_PAGED_PUSHES = 4               # the two paged main paths (phase 4a, 4b)
 N_TIMED = 30
 SEED = 20261016
 PAGE_ROWS, PAGE_SHIFT = 256, 8
@@ -939,6 +961,45 @@ def _payloads(now, n_payloads):
     return payloads, sizes, int_w, dyadic_w
 
 
+DB_SYSTEMS = ("postgresql", "redis", "mysql", "mongodb")
+
+
+def trace_tree_spans(n, *, seed, now_ns, n_services=32, n_ops=32,
+                     db_share=1 / 16):
+    """`n` span dicts of seeded two-span trace trees, in shuffled order: a
+    CLIENT span in service A and a SERVER span in service B whose
+    `parent_span_id` is the client's `span_id`; a `db_share` of the
+    client spans instead carry `db.system` and have no server side (they
+    become virtual-node edges when they expire). Durations lognormal
+    around 24 ms (the server's inside the client's), statuses uniform
+    over unset / ok / error, end times within 10 s before `now_ns`."""
+    rng = np.random.default_rng(seed)
+    spans = []
+    while len(spans) < n:
+        tid, cid = rng.bytes(16), rng.bytes(8)
+        a, b, x, y, sc, ss, db = rng.integers(0, 1 << 30, 7)
+        end = now_ns - int(rng.random() * 10e9)
+        dur = max(int(rng.lognormal(17.0, 1.5)), 2)
+        client = {"trace_id": tid, "span_id": cid,
+                  "service": f"service-{a % n_services}",
+                  "name": f"op-{x % n_ops}", "kind": 3,
+                  "status_code": int(sc % 3),
+                  "start_unix_nano": end - dur, "end_unix_nano": end}
+        if len(spans) == n - 1 or rng.random() < db_share:
+            client["attrs"] = {"db.system": DB_SYSTEMS[db % len(DB_SYSTEMS)]}
+            spans.append(client)
+            continue
+        sdur = max(int(dur * rng.uniform(0.3, 0.95)), 1)
+        start = end - dur + (dur - sdur) // 2
+        spans += [client, {
+            "trace_id": tid, "span_id": rng.bytes(8), "parent_span_id": cid,
+            "service": f"service-{b % n_services}", "name": f"op-{y % n_ops}",
+            "kind": 2, "status_code": int(ss % 3),
+            "start_unix_nano": start, "end_unix_nano": start + sdur}]
+    order = rng.permutation(len(spans))
+    return [spans[i] for i in order]
+
+
 def _instances(rx, now, sm, names, paged=True):
     """One generator instance per (name, device), each on its own pool
     (`paged`) or on dense state, remote-writing to `rx` under /<name>."""
@@ -953,6 +1014,7 @@ def _instances(rx, now, sm, names, paged=True):
         with pages.use(pool):
             insts[name] = tt.GeneratorInstance(
                 "smoke", tt.GeneratorConfig(
+                    processors=("span-metrics",),
                     spanmetrics=tt.SpanMetricsConfig(**sm),
                     remote_write=RemoteWriteConfig(url=f"{rx.url}/{name}")),
                 now=lambda: now, device=device)
@@ -1154,10 +1216,485 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
         print(f"phase 4 {tier}-card: K1's compact scratch, working memory "
               f"outside the state bytes: {card['scratch_bytes']} bytes")
     return {"launches": launches, "push_s": card["push_s"],
+            "pushes": len(payloads),
             "spans_per_s": len(payloads) * N_SPANS / card["push_s"],
             "state_bytes": card["state_bytes"],
             "bytes_per_series": card["state_bytes"] / card["series"],
             "series": card["series"], "outside": outside}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the reference's default deployment through the device scheduler
+# ---------------------------------------------------------------------------
+
+N_TENANTS, N_TREE_PUSHES, N_TREE_SPANS, N_PRODUCERS = 8, 16, 1024, 2
+SCHED_KERNEL = "spanmetrics_fused_update"
+
+
+def _tree_traffic(now_ns):
+    """Per tenant, 16 OTLP payloads of 1,024 trace-tree spans (32 services
+    x 32 operations), with per-span sizes of 200-2,000 B and integer
+    sample weights 1-3."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    rng = np.random.default_rng(SEED + 6)
+    return [[(encode_spans_otlp(trace_tree_spans(
+        N_TREE_SPANS, seed=SEED + 100 * t + k, now_ns=now_ns)),
+        rng.integers(200, 2001, N_TREE_SPANS).astype(np.float32),
+        rng.integers(1, 4, N_TREE_SPANS).astype(np.float32))
+        for k in range(N_TREE_PUSHES)] for t in range(N_TENANTS)]
+
+
+def _tree_set(traffic, clock, paged, use_scheduler):
+    """The 8 tenants of one run on the card, default `GeneratorConfig`
+    (span metrics and service graphs; `use_scheduler` as given), in one
+    page pool of the default config when `paged`, else on dense state;
+    and every push decoded with its tenant's interner, before any is
+    timed."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.registry import pages
+
+    pool = pages.PagePool(tt.PagePoolConfig(enabled=True), device="cuda") \
+        if paged else None
+    insts = []
+    with pages.use(pool):
+        for t in range(N_TENANTS):
+            insts.append(tt.GeneratorInstance(f"tenant-{t}", tt.GeneratorConfig(
+                spanmetrics=tt.SpanMetricsConfig(use_scheduler=use_scheduler)),
+                now=lambda: clock[0], device="cuda"))
+    for g in insts:
+        if g.state_layout != ("paged" if paged else "dense") or \
+                tuple(g.processors) != ("span-metrics", "service-graphs"):
+            raise AssertionError(f"{g.tenant}: {g.state_layout} state, "
+                                 f"processors {tuple(g.processors)}")
+    batches = [[(tt.otlp_proto_to_batch(
+        data, tt.SpanBatchBuilder(g.registry.interner)), size, w)
+        for data, size, w in pushes] for g, pushes in zip(insts, traffic)]
+    return insts, batches
+
+
+def _drive(insts, batches):
+    """Two producer threads, thread j owning tenants j, j+2, ...: each
+    pushes runs of 4 consecutive pushes of a tenant, tenant after tenant.
+    Returns the seconds until every push has landed on the card (the
+    scheduler flushed, the card synchronised)."""
+    import threading
+
+    import torch
+
+    from tempo_tpu_torch import sched
+
+    errors = []
+
+    def producer(j):
+        try:
+            for k0 in range(0, N_TREE_PUSHES, 4):
+                for t in range(j, N_TENANTS, N_PRODUCERS):
+                    for sb, size, w in batches[t][k0:k0 + 4]:
+                        sizes = np.zeros(sb.capacity, np.float32)
+                        sizes[:sb.n] = size[:sb.n]
+                        insts[t].push_batch(sb, sizes, sample_weights=w[:sb.n])
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(j,))
+               for j in range(N_PRODUCERS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    sched.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return secs
+
+
+def _expire_all(insts, clock):
+    """Step the clock past the service graphs' `wait_s` and push one empty
+    batch a tenant: the unmatched db clients become virtual-node edges."""
+    import torch
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    clock[0] += insts[0].cfg.servicegraphs.wait_s + 1.0
+    for g in insts:
+        g.push_batch(tt.otlp_proto_to_batch(
+            encode_spans_otlp([]), tt.SpanBatchBuilder(g.registry.interner)))
+    sched.flush()
+    torch.cuda.synchronize()
+
+
+def _timed_emits(insts):
+    """Wrap each service-graphs processor's `_emit` to sum its host time
+    (no synchronisation) and keep the last edge list and the original."""
+    import threading
+
+    acc = {"s": 0.0, "calls": 0, "edges": 0, "last": None, "inner": None}
+    lock = threading.Lock()
+    for g in insts:
+        sg = g.processors["service-graphs"]
+
+        def timed(edges, inner=sg._emit):
+            t0 = time.perf_counter()
+            inner(edges)
+            dt = time.perf_counter() - t0
+            with lock:
+                acc["s"] += dt
+                acc["calls"] += 1
+                acc["edges"] += len(edges)
+                acc["last"], acc["inner"] = list(edges), inner
+        sg._emit = timed
+    return acc
+
+
+def _compare_sets(sched_insts, direct_insts, ctx):
+    """Tenant by tenant, the scheduler route's state against its direct
+    twin's on the card: the same series in the same slots, every family's
+    rows (span metrics and service graphs) with counts and buckets exact
+    and sums (latency and edge `_sum`, size) at rtol 1e-5, and the
+    DDSketch rows exact. Returns (families, series, max relative sum
+    error)."""
+    from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
+                                                                  _DD_ZEROS)
+
+    n_fams = n_series = 0
+    max_rel = 0.0
+    for ga, gb in zip(sched_insts, direct_insts):
+        for name, fa in ga.registry._metrics.items():
+            fb = gb.registry._metrics[name]
+            if not (np.array_equal(fa.table.active, fb.table.active) and
+                    np.array_equal(fa.table.slot_keys, fb.table.slot_keys)):
+                raise AssertionError(f"{ctx} {ga.tenant} {name}: the series "
+                                     f"tables differ")
+            with ga.registry.state_lock:
+                sa = fa._snap()
+            with gb.registry.state_lock:
+                sb = fb._snap()
+            for i, (x, y) in enumerate(zip(sa, sb)):
+                is_sum = name == "traces_spanmetrics_size_total" or \
+                    (len(sa) == 3 and i == 1)
+                if is_sum:
+                    ok = np.allclose(x, y, rtol=1e-5, atol=1e-6)
+                    rel = np.abs(x - y) / np.maximum(np.abs(y), 1e-30)
+                    max_rel = max(max_rel, float(rel.max()))
+                else:
+                    ok = np.array_equal(x, y)
+                if not ok:
+                    raise AssertionError(f"{ctx} {ga.tenant} {name}[{i}]: the "
+                                         f"scheduler route disagrees with the "
+                                         f"direct route")
+            n_fams += 1
+        n_series += ga.registry.active_series
+        pa = ga.processors["span-metrics"]
+        pb = gb.processors["span-metrics"]
+        with ga.registry.state_lock:
+            slots = pa._sketch_slots()
+            rows = [pa._rows(slots, r).cpu() for r in (_DD_COUNTS, _DD_ZEROS)]
+        with gb.registry.state_lock:
+            twin = [pb._rows(slots, r).cpu() for r in (_DD_COUNTS, _DD_ZEROS)]
+        if not all(bool((x == y).all()) for x, y in zip(rows, twin)):
+            raise AssertionError(f"{ctx} {ga.tenant}: DDSketch rows differ")
+    return n_fams, n_series, max_rel
+
+
+def _merged_window(proc, rows, bucket, seed):
+    """A packed [4, bucket] window like the coalescer's: `rows` spans on
+    the processor's active series (a few at zero duration), lognormal
+    durations around 24 ms, sizes 200-2,000, weights 1-3, pad rows -1."""
+    rng = np.random.default_rng(seed)
+    live = proc.calls.table.active_slots()
+    mat = np.zeros((4, bucket), np.float32)
+    mat[0] = -1.0
+    mat[0, :rows] = rng.choice(live, rows)
+    mat[1, :rows] = rng.lognormal(np.log(0.024), 1.5, rows)
+    mat[1, :8] = 0.0
+    mat[2, :rows] = rng.integers(200, 2001, rows)
+    mat[3, :rows] = rng.integers(1, 4, rows)
+    return mat
+
+
+def _k1_on_window(proc, mat, ctx):
+    """K1 at a merged window's shape on a copy of the processor's state:
+    held against its plain version on the card, timed through the main
+    path's call (`ops.pages.fused_step`, the window already on the card)
+    and as the scheduler's dispatch makes it (host matrix → card, then
+    K1), with device times from torch.profiler and its bound."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops import pages as op
+
+    skw = proc._step_kw
+    with proc.registry.state_lock:
+        if proc._paged:
+            planes = proc._paged_planes()
+            arenas = tuple(p.data for p in planes)
+            tables = proc._stacked_tables(planes).clone()
+            pr = proc._pool.page_rows
+        else:
+            arenas, tables = proc._dense_arenas, proc._dense_tables
+            pr = proc.registry.dense_page_rows
+        base = [a.clone() for a in arenas]
+    shift = pr.bit_length() - 1
+    k_ar = [a.clone() for a in base]
+    p_ar = [a.clone() for a in base]
+    b = torch.from_numpy(mat).cuda()
+    kw = dict(skw, page_rows=pr)
+    op.fused_step(k_ar, tables, b, page_shift=shift, **skw)
+    ck.paged_fused_update_plain(tables, b[0], b[1:4], p_ar, **kw)
+    torch.cuda.synchronize()
+    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, ctx, page_rows=pr)
+
+    def k1():
+        op.fused_step(k_ar, tables, b, page_shift=shift, **skw)
+
+    def dispatch():
+        op.fused_step(k_ar, tables, torch.from_numpy(mat).to("cuda"),
+                      page_shift=shift, **skw)
+
+    ms = cuda_time_ms(k1, N_TIMED)
+    dispatch_ms = cuda_time_ms(dispatch, N_TIMED)
+    plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
+        tables, b[0], b[1:4], p_ar, **kw), N_TIMED)
+    # one trace of the dispatch gives both: every device event (the copy
+    # and K1) and K1's own
+    events = {}
+    dispatch_device_ms = _device_ms(dispatch, events)
+    device_ms = sum(t for name, t in events.items()
+                    if "pfu_span_kernel" in name) or None
+    gamma, minv, nb = _dd_meta()
+    nbytes = bound_bytes(mat, tables.cpu().numpy(), dd_rows=skw["dd_rows"],
+                         nb=nb, edges=skw["edges"], page_shift=shift)
+    rows = int((mat[0] >= 0).sum())
+    bound_ms, bound_by = bound(nbytes, rows * (40 + len(skw["edges"])))
+    del k_ar, p_ar, base
+    torch.cuda.empty_cache()
+    return dict(max_abs=max_abs, ms=ms, dispatch_ms=dispatch_ms,
+                plain_ms=plain_ms, device_ms=device_ms,
+                dispatch_device_ms=dispatch_device_ms, events=events,
+                bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes)
+
+
+def _far_window_collect(pool, traffic, now):
+    """A tenant on a scheduler with a far window (60 s): two pushes stay
+    queued until `collect_and_push`, whose drain flushes them; the
+    remote-written calls total is every weighted span pushed."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.generator.remote_write import (LocalReceiver,
+                                                        RemoteWriteConfig,
+                                                        decode_write_request)
+    from tempo_tpu_torch.registry import pages
+
+    sc = sched.configure(sched.SchedConfig(batch_window_ms=60_000.0))
+    try:
+        with LocalReceiver() as rx:
+            with pages.use(pool):
+                g = tt.GeneratorInstance("far", tt.GeneratorConfig(
+                    remote_write=RemoteWriteConfig(url=f"{rx.url}/far")),
+                    now=lambda: now, device="cuda")
+            want = 0.0
+            for data, size, w in traffic[0][:2]:
+                sb = tt.otlp_proto_to_batch(
+                    data, tt.SpanBatchBuilder(g.registry.interner))
+                g.push_batch(sb, sample_weights=w[:sb.n])
+                want += float(w[:sb.n].sum())
+            queued = sc.pending()
+            n = g.collect_and_push()
+            left = sc.pending()
+            body = decode_write_request(rx.bodies["/far"])
+        total = sum(v[0] for k, v in body.items()
+                    if dict(k)["__name__"] == "traces_spanmetrics_calls_total")
+        if queued != 2 or left != 0 or total != want:
+            raise AssertionError(f"far window: {queued} queued before the "
+                                 f"collection (want 2), {left} after (want "
+                                 f"0), calls total {total} (want {want})")
+        return n, total
+    finally:
+        sched.configure(sched.SchedConfig())
+
+
+def _latency_ms(before, after):
+    """(p50, p99) in ms of the ingest-visible latency histogram's
+    observations between two snapshots of one series."""
+    from tempo_tpu_torch.obs import devtime
+
+    counts = [b - a for a, b in zip(
+        before["buckets"] if before else [0] * len(after["buckets"]),
+        after["buckets"])]
+    edges = devtime.INGEST_LATENCY.edges
+    return tuple(devtime.quantile_from_counts(edges, counts, q) * 1e3
+                 for q in (0.5, 0.99))
+
+
+def _sched_counts(sc):
+    """(K1 launches, merged dispatches, pushes dispatched, mean occupancy,
+    {ledger key: cell}) of the span-metrics kernel so far."""
+    from tempo_tpu_torch.obs import devtime
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    return (ck.paged_fused_update.launches,
+            sc.batches_total.get(SCHED_KERNEL, 0),
+            sc.coalesced_total.get(SCHED_KERNEL, 0),
+            sc.mean_occupancy(SCHED_KERNEL),
+            {k: c for k, c in devtime.LEDGER.snapshot().items()
+             if k[0] == SCHED_KERNEL})
+
+
+def phase_default_deployment(paged, card):
+    """Phase 6: the reference's default deployment on the card, through
+    the device scheduler (default `SchedConfig`) and through direct-route
+    twins, on dense (`paged` False) or paged state. Returns a result dict
+    with K1's kernel entry on this route."""
+    import torch
+
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.obs import devtime
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    layout = "paged" if paged else "dense"
+    now = time.time()
+    traffic = _tree_traffic(int(now * 1e9))
+    sched.reset()
+    sc = sched.configure(sched.SchedConfig())
+    if sc._worker is None or not sc.cfg.enabled or sc.cfg.pipeline_depth != 2:
+        raise AssertionError(f"phase 6: scheduler {sc.cfg}")
+    clock_s, clock_d = [now], [now]
+    s_insts, s_batches = _tree_set(traffic, clock_s, paged, True)
+    d_insts, d_batches = _tree_set(traffic, clock_d, paged, False)
+    emits = _timed_emits(s_insts)
+    jobs = []
+    submit = sc.submit_rows
+    sc.submit_rows = lambda *a, **k: jobs.append(submit(*a, **k)) or jobs[-1]
+    ck.reset_launch_counts()
+    plans0 = ck.paged_fused_update.plans
+    lat0 = devtime.INGEST_LATENCY.snapshot((SCHED_KERNEL,))
+    try:
+        sched_s = _drive(s_insts, s_batches)
+        _expire_all(s_insts, clock_s)
+        sched_counts = _sched_counts(sc)
+        lat = _latency_ms(lat0, devtime.INGEST_LATENCY.snapshot(
+            (SCHED_KERNEL,)))
+        plans = ck.paged_fused_update.plans - plans0
+        # a tenant on a 60 s window: its pushes wait for the collection's
+        # flush, which dispatches them as one merged window
+        n_far, far_total = _far_window_collect(
+            s_insts[0].registry.pages, traffic, clock_s[0])
+    finally:
+        del sc.submit_rows
+    launches, batches, coalesced, occupancy, cells = sched_counts
+    wall_ns = sum(c["wall_ns"] for c in cells.values())
+    rows = sum(c["rows"] for c in cells.values())
+    # the bucket that carried the most rows, and its mean rows a window
+    top = max(cells, key=lambda k: cells[k]["rows"])
+    top_bucket = top[1]
+    top_rows = cells[top]["rows"] // cells[top]["batches"]
+    all_launches, all_batches, all_coalesced, _, _ = _sched_counts(sc)
+    shed, errors = sum(sc.shed_total.values()), sc.dispatch_errors
+    failed = [j.error for j in jobs if j.error is not None]
+    ck.reset_launch_counts()
+    direct_s = _drive(d_insts, d_batches)
+    _expire_all(d_insts, clock_d)
+    direct_launches = ck.paged_fused_update.launches
+    n_fams, n_series, max_rel = _compare_sets(s_insts, d_insts, layout)
+    n_pushes = N_TENANTS * N_TREE_PUSHES
+    spans = n_pushes * N_TREE_SPANS
+    print(f"phase 6 {layout} [{card}]: {N_TENANTS} tenants x "
+          f"{N_TREE_PUSHES} pushes of {N_TREE_SPANS} trace-tree spans "
+          f"({spans} spans) from {N_PRODUCERS} producer threads: scheduler "
+          f"route {spans / sched_s:.0f} spans/s ({sched_s:.3f} s), direct "
+          f"route {spans / direct_s:.0f} spans/s ({direct_s:.3f} s); "
+          f"{batches} merged dispatches of {coalesced} pushes "
+          f"({coalesced / max(batches, 1):.3f} pushes per dispatch), mean "
+          f"occupancy {occupancy:.4f}, the bucket with the most rows "
+          f"{top_bucket} ({top_rows} rows a window); "
+          f"devtime ledger host wall per dispatch "
+          f"{wall_ns / max(batches, 1) / 1e6:.4f} ms ({rows} rows); "
+          f"ingest-visible latency a push (enqueue to its dispatch call "
+          f"returned, host clock) p50 {lat[0]:.3f} ms, p99 {lat[1]:.3f} "
+          f"ms; K1 "
+          f"launches {launches} (direct route {direct_launches}), launch "
+          f"plans built {plans} for {N_TENANTS} processors; shed {shed}, "
+          f"dispatch errors {errors}, job errors {len(failed)}")
+    print(f"phase 6 {layout} checks: a tenant on a 60 s window kept its 2 "
+          f"pushes queued until collect_and_push flushed them as one "
+          f"dispatch: {n_far} samples, calls total {far_total}; the phase's "
+          f"scheduler: {all_coalesced} pushes in {all_batches} merged "
+          f"dispatches, {all_launches} K1 launches")
+    if not all_coalesced > all_batches:
+        raise AssertionError(f"phase 6 {layout}: no coalescing "
+                             f"({all_coalesced} pushes in {all_batches} "
+                             f"dispatches)")
+    if launches != batches or all_launches != all_batches:
+        raise AssertionError(f"phase 6 {layout}: K1 launched {launches} / "
+                             f"{all_launches} times for {batches} / "
+                             f"{all_batches} merged dispatches")
+    if plans != N_TENANTS:
+        raise AssertionError(f"phase 6 {layout}: {plans} K1 launch plans for "
+                             f"{N_TENANTS} span-metrics processors")
+    if shed or errors or failed or all_coalesced != len(jobs):
+        raise AssertionError(f"phase 6 {layout}: shed {shed}, dispatch errors "
+                             f"{errors}, job errors {failed[:3]}, "
+                             f"{all_coalesced} of {len(jobs)} jobs dispatched")
+    if direct_launches != n_pushes + N_TENANTS:
+        raise AssertionError(f"phase 6 {layout}: the direct route launched K1 "
+                             f"{direct_launches} times for "
+                             f"{n_pushes + N_TENANTS} pushes")
+    virtual = sum(g.processors["service-graphs"].expired for g in s_insts)
+    print(f"phase 6 {layout} checks: {n_fams} families of {n_series} series "
+          f"over {N_TENANTS} tenants equal between the scheduler route and "
+          f"its direct twins (counts and buckets exact, sums within rtol 1e-5, "
+          f"max relative {max_rel:.3g}), DDSketch rows exact; "
+          f"{virtual} expired half-edges; K1 launches == merged dispatches; "
+          f"one launch plan per processor")
+    proc = s_insts[0].processors["span-metrics"]
+    mat = _merged_window(proc, top_rows, top_bucket,
+                         SEED + 60 + paged)
+    k1 = _k1_on_window(proc, mat, f"phase 6 {layout} merged window")
+    sg = s_insts[0].processors["service-graphs"]
+    edges = emits["last"]
+    sg_events = {}
+    sg_device_ms = _device_ms(lambda: emits["inner"](edges), sg_events)
+    print(f"phase 6 {layout} [{card}]: K1 at a merged window of "
+          f"{int((mat[0] >= 0).sum())} spans in a {top_bucket} bucket: "
+          f"{spread(k1['ms'])} with the host (window on the card), "
+          f"{spread(k1['dispatch_ms'])} as the scheduler dispatches it (host "
+          f"matrix to the card, then K1); device time per merged dispatch "
+          f"(torch.profiler) K1 {k1['device_ms']} ms, with the copy "
+          f"{k1['dispatch_device_ms']} ms ({json.dumps(k1['events'])}); plain "
+          f"version {k1['plain_ms'][1]:.4f} ms; bound {k1['bound_ms']:.6f} ms "
+          f"by {k1['bound_by']}; max abs err against the plain version "
+          f"{k1['max_abs']}")
+    print(f"phase 6 {layout} [{card}]: service-graphs emit: "
+          f"{emits['s'] / (n_pushes + N_TENANTS) * 1e3:.4f} ms of host a push "
+          f"({emits['calls']} emits of {emits['edges']} edges, "
+          f"{emits['s']:.3f} s in all, no synchronisation); device time of "
+          f"one emit of {len(edges)} edges (torch.profiler, every device "
+          f"event) {sg_device_ms} ms")
+    sched.reset()
+    del s_insts, d_insts, s_batches, d_batches, proc, sg
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"phase 6 {layout}: {secs:.1f} s")
+    return {
+        "name": f"paged_fused_update (scheduler route, merged windows, "
+                f"{layout} state, sketch dd, f32)", "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": launches, "max_abs_err": k1["max_abs"],
+        "ms": k1["ms"][1], "plain_ms": k1["plain_ms"][1],
+        "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "sched_spans_per_s": spans / sched_s,
+        "direct_spans_per_s": spans / direct_s, "seconds": secs,
+    }
 
 
 def moments_state_bytes(n_payloads=N_DISPATCH):
@@ -1209,8 +1746,8 @@ def main() -> int:
     k1d = phase_k1_dense()
     k2 = phase_k2("bench")
     k2d = phase_k2("deployment")
-    dd = phase_main_path("dd")
-    bc = phase_main_path("both_compact")
+    dd = phase_main_path("dd", N_PAGED_PUSHES)
+    bc = phase_main_path("both_compact", N_PAGED_PUSHES)
     dn = phase_main_path("dense_dd")
     k1["launches"], k1c["launches"] = dd["launches"], bc["launches"]
     k1d["launches"] = dn["launches"]
@@ -1255,12 +1792,21 @@ def main() -> int:
           f"(median), device {k1d['twin_device_ms']} ms")
     for tier, r in (("dd f32", dd), ("both compact", bc), ("dense dd f32", dn)):
         print(f"phase 5 [{card}]: end to end {tier} {r['spans_per_s']:.0f} "
-              f"spans/s (decode + push of {N_DISPATCH} x {N_SPANS} spans in "
+              f"spans/s (decode + push of {r['pushes']} x {N_SPANS} spans in "
               f"{r['push_s']:.3f} s)")
+    s6 = [phase_default_deployment(paged, card) for paged in (False, True)]
+    for r in s6:
+        print(f"phase 6 [{card}]: {r['name']}: scheduler route "
+              f"{r['sched_spans_per_s']:.0f} spans/s, direct route "
+              f"{r['direct_spans_per_s']:.0f} spans/s; K1 per merged window "
+              f"{r['ms']:.4f} ms with the host, device {r['device_ms']} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']}; launches {r['launches']}; phase "
+              f"{r['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in (k1, k1c, k1d, k2, k2d)]}))
+                                  for k in (k1, k1c, k1d, k2, k2d, *s6)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

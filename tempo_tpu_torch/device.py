@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import torch
 
+# one definition of the pow-2 shape bucket: the scheduler's
+from tempo_tpu_torch.sched.scheduler import bucket_rows  # noqa: F401
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -30,17 +33,6 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
-
-
-def bucket_rows(n: int, lo: int = 64, hi: "int | None" = None) -> int:
-    """Power-of-two shape bucket for a row count: next pow2 >= max(n, lo),
-    capped at `hi` when given."""
-    b = max(int(lo), 1)
-    while b < n:
-        b <<= 1
-    if hi is not None:
-        b = min(b, hi)
-    return b
 
 
 __all__ = ["resolve_device", "bucket_rows"]

@@ -7,11 +7,18 @@ filtering (`instance.go:442-473`) drops spans whose end time is outside
 [now - slack, now + slack], and a collection tick drains the registry to
 the remote-write client.
 
-The port runs the `span-metrics` processor on the direct route, over
-paged state when a page pool is active and the tenant's capacity splits
-into its pages, over dense state otherwise: there is no scheduler and no
-ingest pipeline, so `drain()` has nothing to wait for. Other processors
-and the staged native fast paths raise `NotImplementedError`.
+The port runs the reference's default processors, `span-metrics` and
+`service-graphs`, over paged state when a page pool is active and the
+tenant's capacity splits into its pages, over dense state otherwise.
+Span-metrics updates ride the process device scheduler when one is
+configured and enabled (`tempo_tpu_torch.sched.configure`; the
+processor's `use_scheduler`, on by default) and the direct route
+otherwise; `drain()` flushes the scheduler, so a collection sees every
+push accepted before it. There is no staging pipeline (it serves the
+staged native push paths): with the scheduler on, the port behaves as
+the reference does at `pipeline_depth: 0`. The `local-blocks` and
+`trace-analytics` processors and the staged native fast paths raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,7 +28,12 @@ import time
 
 import numpy as np
 
+from tempo_tpu_torch import sched
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.generator.processors.servicegraphs import (
+    ServiceGraphsConfig,
+    ServiceGraphsProcessor,
+)
 from tempo_tpu_torch.generator.processors.spanmetrics import (
     SpanMetricsConfig,
     SpanMetricsProcessor,
@@ -33,9 +45,11 @@ from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
 
 @dataclasses.dataclass
 class GeneratorConfig:
-    processors: tuple[str, ...] = ("span-metrics",)
+    processors: tuple[str, ...] = ("span-metrics", "service-graphs")
     registry: RegistryOverrides = dataclasses.field(default_factory=RegistryOverrides)
     spanmetrics: SpanMetricsConfig = dataclasses.field(default_factory=SpanMetricsConfig)
+    servicegraphs: ServiceGraphsConfig = dataclasses.field(
+        default_factory=ServiceGraphsConfig)
     remote_write: RemoteWriteConfig = dataclasses.field(default_factory=RemoteWriteConfig)
     ingestion_time_range_slack_s: float = 30.0
 
@@ -55,15 +69,16 @@ class GeneratorInstance:
         self.registry = ManagedRegistry(tenant, self.cfg.registry, now=now,
                                         device=self.device)
         self.remote_write = RemoteWriteClient(self.cfg.remote_write)
-        self.processors: dict[str, SpanMetricsProcessor] = {}
+        self.processors: dict[str, object] = {}
         self.update_processors(self.cfg.processors)
         self.spans_received = 0
         self.spans_filtered_slack = 0
         self._last_purge = 0.0
 
     def drain(self) -> None:
-        """The collection barrier. Every push of this slice lands in device
-        state before it returns, so there is nothing to flush."""
+        """The collection barrier: flush the device scheduler, so every
+        update accepted before this call is in device state."""
+        sched.flush()
 
     def update_processors(self, desired: tuple[str, ...]) -> None:
         for name in list(self.processors):
@@ -75,7 +90,10 @@ class GeneratorInstance:
             if name == "span-metrics":
                 self.processors[name] = SpanMetricsProcessor(
                     self.registry, self.cfg.spanmetrics)
-            elif name in ("service-graphs", "trace-analytics", "local-blocks"):
+            elif name == "service-graphs":
+                self.processors[name] = ServiceGraphsProcessor(
+                    self.registry, self.cfg.servicegraphs)
+            elif name in ("trace-analytics", "local-blocks"):
                 raise NotImplementedError(
                     f"processor {name} comes with a later slice of the port")
             else:
@@ -103,7 +121,10 @@ class GeneratorInstance:
         self.spans_received += sb.n
         sb = self._apply_slack(sb, now_s)
         for proc in self.processors.values():
-            proc.push_batch(sb, span_sizes, sample_weights=sample_weights)
+            if isinstance(proc, SpanMetricsProcessor):
+                proc.push_batch(sb, span_sizes, sample_weights=sample_weights)
+            else:
+                proc.push_batch(sb)
 
     def _apply_slack(self, sb: SpanBatch,
                      now_s: "float | None" = None) -> SpanBatch:
@@ -143,5 +164,7 @@ class GeneratorInstance:
         dense: whole arenas, trash pages included)."""
         total = self.registry.device_state_bytes()
         for proc in self.processors.values():
-            total += proc.device_state_bytes()
+            fn = getattr(proc, "device_state_bytes", None)
+            if fn is not None:
+                total += fn()
         return total

@@ -20,7 +20,7 @@ the card, its plain version on the host). Paged state (a page pool is
 active and `max_active_series` splits into its pages) is updated in the
 pool's arenas through the planes' page tables; dense state, the
 reference's default, through identity page tables over the dense
-families' and sidecars' own trash-paged arenas (`_dense_update`). The
+families' and sidecars' own trash-paged arenas (`_dense_fused`). The
 reference's dense step, `_fused_update_impl`, is kept here as composed
 PyTorch scatters: the tests and the chip smoke hold K1 against it, and
 no write path runs it.
@@ -37,10 +37,18 @@ kernel, which carries the compact semantics, so compact always applies
 to paged state. Dense state has no compact tier: asking for it raises
 `ValueError` (the reference warns and stays f32).
 
-The port runs the direct route. The scheduler route (which carries the
-reference's packed4 form of the dense step) raises `NotImplementedError`;
-the packed [3, cap] form comes with the staged native fast paths of the
-C++ host layer slice.
+Routes (`use_scheduler`, on by default as in the reference): with a
+process device scheduler configured and enabled (`tempo_tpu_torch.sched.
+configure`), a push resolves its slots on the host and submits its rows
+to the scheduler (`_submit_rows`), whose coalescer merges the pushes of a
+batch window into one packed [4, bucket] matrix per processor (pad rows
+carry slot -1, which K1 drops) and dispatches it on its worker thread:
+one host-to-device copy and one K1 launch per merged window, on dense
+and paged state alike. With the flag off, or no scheduler configured or
+a disabled one, the push takes the direct route unchanged: one packed
+batch and one K1 launch per push. Quantile reads flush the scheduler
+first. The packed [3, cap] form comes with the staged native fast paths
+of the C++ host layer slice.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import logging
 import numpy as np
 import torch
 
+from tempo_tpu_torch import sched as sched_mod
 from tempo_tpu_torch.model.interner import INVALID_ID
 from tempo_tpu_torch.model.span_batch import SpanBatch
 from tempo_tpu_torch.ops import cuda_kernels, moments
@@ -101,9 +110,11 @@ class SpanMetricsConfig:
     sketch_max_s: float = 1e5
     sketch_max_series: int = 16384            # device bound for the sketch plane
     subprocessors: tuple[str, ...] = ("count", "latency", "size")
-    # the device-scheduler route comes with a later slice; asking for it
-    # raises instead of quietly taking the direct route
-    use_scheduler: bool = False
+    # route fused updates through the process device scheduler
+    # (tempo_tpu_torch.sched): many small pushes coalesce into one padded
+    # pow-2 dispatch. The direct route is taken whenever this is off or
+    # no scheduler is configured.
+    use_scheduler: bool = True
 
 
 def _fused_update_impl(calls, latency, sizes, dd, mom, slots, dur_s,
@@ -139,10 +150,6 @@ class SpanMetricsProcessor:
         if cfg.sketch not in ("dd", "moments", "both"):
             raise ValueError(f"unknown sketch tier {cfg.sketch!r} (use dd | "
                              "moments | both)")
-        if cfg.use_scheduler:
-            raise NotImplementedError(
-                "the device-scheduler route comes with a later slice of the "
-                "port; use the direct route (use_scheduler=False)")
         self.registry = registry
         dims = [d for d in cfg.intrinsic_dimensions] + [
             _sanitize(d) for d in cfg.dimensions]
@@ -241,6 +248,11 @@ class SpanMetricsProcessor:
                             if cfg.enable_target_info else None)
         self._policies = compile_policies(cfg.filter_policies)
         self.spans_discarded = 0
+        # the one fused update of this layout, and its devtime ledger /
+        # coalescer kernel name (K1 is the port's only tier)
+        self._update = self._paged_fused if self._paged \
+            else self._dense_fused
+        self._sched_kernel = "spanmetrics_fused_update"
         self._tables_key: "tuple | None" = None
         self._tables: "torch.Tensor | None" = None
         # K1's compact working memory on the card, made once (all zero
@@ -253,20 +265,67 @@ class SpanMetricsProcessor:
 
     # -- the fused update ---------------------------------------------------
 
-    def _batch(self, slots, dur_s, sizes, weights):
-        """The batch as `ops.pages.fused_step` takes it: below the 2^24
-        capacity gate one packed [4, n] f32 matrix (one host-to-device
-        copy; slot ids are exact in f32), above it four vectors."""
-        if self.calls.table.capacity < (1 << 24):
+    def _packed(self) -> bool:
+        """Slot ids ride the f32 packed matrix exactly below 2^24."""
+        return self.calls.table.capacity < (1 << 24)
+
+    def _direct_update(self, slots, dur_s, sizes, weights) -> None:
+        """The direct route's fused update of one push, with the batch as
+        `ops.pages.fused_step` takes it: below the 2^24 capacity gate one
+        packed [4, n] f32 matrix (one host-to-device copy), above it four
+        vectors."""
+        if self._packed():
             mat = np.empty((4, len(slots)), np.float32)
             mat[0] = slots
             mat[1] = dur_s
             mat[2] = sizes
             mat[3] = weights
-            return torch.from_numpy(mat).to(self.device)
-        return (np.ascontiguousarray(slots, np.int32),
-                np.asarray(dur_s, np.float32), np.asarray(sizes, np.float32),
-                np.asarray(weights, np.float32))
+            self._dispatch_packed(mat)
+        else:
+            self._update((np.ascontiguousarray(slots, np.int32),
+                          np.asarray(dur_s, np.float32),
+                          np.asarray(sizes, np.float32),
+                          np.asarray(weights, np.float32)))
+
+    def _dispatch_packed(self, mat: np.ndarray) -> None:
+        """One fused update from a packed [4, n] f32 host matrix: a direct
+        push's, or the coalescer's merged window on the scheduler's
+        thread. The copy from pageable memory has read `mat` when `.to`
+        returns, and it is ordered before K1's launch on this thread's
+        current stream."""
+        self._update(torch.from_numpy(mat).to(self.device))
+
+    def _dispatch_vec(self, slots, dur_s, sizes, weights) -> None:
+        """The merged window as four vectors (capacity >= 2^24)."""
+        self._update((slots, dur_s, sizes, weights))
+
+    # -- device-scheduler route (tempo_tpu_torch.sched) ---------------------
+
+    def _sched(self):
+        """The process scheduler when this processor's fused updates
+        should ride it (config flag, default on), else None: the caller
+        then takes the direct route unchanged."""
+        if not self.cfg.use_scheduler:
+            return None
+        sc = sched_mod.scheduler()
+        return sc if sc is not None and sc.cfg.enabled else None
+
+    def _submit_rows(self, sc, slots: np.ndarray, dur_s: np.ndarray,
+                     sizes: np.ndarray, weights: np.ndarray):
+        """Enqueue one push's rows; the merge key is this processor (its
+        state), so one merged window is one fused update. Below the 2^24
+        gate the window ships as the coalescer's one packed [4, bucket]
+        f32 matrix."""
+        packed = self._packed()
+        arrays = (np.asarray(slots, np.float32 if packed else np.int32),
+                  np.asarray(dur_s, np.float32),
+                  np.asarray(sizes, np.float32),
+                  np.asarray(weights, np.float32))
+        return sc.submit_rows(
+            self._sched_kernel, self, arrays, len(slots),
+            self._dispatch_packed if packed else self._dispatch_vec,
+            pads=(-1.0, 0.0, 0.0, 0.0) if packed else (-1, 0.0, 0.0, 0.0),
+            tenant=self.registry.tenant, pack=packed)
 
     def _dense_views(self) -> tuple:
         """Dense state's role-aligned tensors, in `_paged_planes` order."""
@@ -279,10 +338,9 @@ class SpanMetricsProcessor:
             views += (self.mom.data,)
         return views
 
-    def _dense_update(self, slots, dur_s, sizes, weights) -> None:
+    def _dense_fused(self, batch) -> None:
         """One fused update of dense state, in place under the registry's
         lock: K1 over the identity tables (one launch on the card)."""
-        batch = self._batch(slots, dur_s, sizes, weights)
         with self.registry.state_lock:
             op.fused_step(self._dense_arenas, self._dense_tables, batch,
                           page_shift=self._dense_shift, **self._step_kw)
@@ -319,9 +377,8 @@ class SpanMetricsProcessor:
             self._tables_key = key
         return self._tables
 
-    def _paged_update(self, slots, dur_s, sizes, weights) -> None:
+    def _paged_fused(self, batch) -> None:
         """One fused paged update, in place under the pool lock."""
-        batch = self._batch(slots, dur_s, sizes, weights)
         planes = self._paged_planes()
         with self.registry.state_lock:
             arenas = tuple(p.data for p in planes)
@@ -401,8 +458,13 @@ class SpanMetricsProcessor:
             sw = np.ones(sb.capacity, np.float32)
             sw[:len(sample_weights)] = sample_weights
             weights = weights * sw
-        update = self._paged_update if self._paged else self._dense_update
-        update(slots, dur_s, span_sizes.astype(np.float32), weights)
+        sc = self._sched()
+        if sc is not None:
+            self._submit_rows(sc, slots, dur_s,
+                              span_sizes.astype(np.float32), weights)
+        else:
+            self._direct_update(slots, dur_s, span_sizes.astype(np.float32),
+                                weights)
         ts_ms = int(self.registry.now() * 1000)
         self.calls.note_exemplars(slots, sb.trace_id, dur_s, ts_ms)
         self.latency.exemplars = self.calls.exemplars
@@ -466,6 +528,8 @@ class SpanMetricsProcessor:
 
     def dd_quantiles(self, qs) -> list[dict]:
         """DDSketch tier: one {labels: value} map per q."""
+        # a quantile read must see every update accepted before it
+        sched_mod.flush()
         if not self._dd_on:
             return [{} for _ in qs]
         with self.registry.state_lock:
@@ -492,6 +556,7 @@ class SpanMetricsProcessor:
         row whose solve failed from the bucket sketches ("both": the
         DDSketch value; "moments": the classic latency histogram)."""
         mk, mlo, mhi = self._mom_meta
+        sched_mod.flush()
         with self.registry.state_lock:
             slots = self._sketch_slots()
             if not slots.size:

@@ -68,7 +68,7 @@ MAX_ROLES = 8
 MAX_TABLE_BYTES = 232448
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
 # name -> {"path", "seconds", "log"} of builds made by this process
 BUILD_INFO: dict[str, dict] = {}
 
@@ -125,14 +125,19 @@ def build(name: str) -> Path:
     return build_all((name,))[name]
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def _lib(name: str) -> ctypes.PyDLL:
     lib = _libs.get(name)        # the hot path: loaded, no lock
     if lib is not None:
         return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            # PyDLL: a launch function returns in microseconds, so it runs
+            # holding the interpreter lock; releasing it (CDLL) costs the
+            # caller a reacquisition, which waits up to a switch interval
+            # while another thread runs Python (the scheduler's worker
+            # beside producer threads)
+            lib = ctypes.PyDLL(str(build(name)))
             p, i = ctypes.c_void_p, ctypes.c_int
             if name == "paged_fused_update":
                 fn = lib.paged_fused_update_launch
@@ -352,6 +357,37 @@ class _Plan:
 
 
 _plans: dict[tuple, _Plan] = {}
+# guards `_plans` and the wrappers' `launches` / `plans` counts: the
+# scheduler's worker and a shedding producer can launch K1 at once
+_plans_lock = threading.Lock()
+
+
+def _plan_for(key: tuple, tensors: tuple, build) -> _Plan:
+    """The launch plan of `key`, built by `build()` (and counted) when
+    there is none or its tensors died. At 64 plans, those whose tensors
+    died are dropped first, and the cache is cleared only if that frees
+    nothing."""
+    with _plans_lock:
+        plan = _plans.get(key)
+        if plan is not None and all(r() is t
+                                    for r, t in zip(plan.refs, tensors)):
+            return plan
+        if len(_plans) >= 64:
+            for k in [k for k, p in _plans.items()
+                      if any(r() is None for r in p.refs)]:
+                del _plans[k]
+            if len(_plans) >= 64:
+                _plans.clear()
+        plan = _plans[key] = build()
+        plan.refs = [weakref.ref(t) for t in tensors]
+        paged_fused_update.plans += 1
+        return plan
+
+
+def _count(wrapper, n: int) -> None:
+    """Add `n` to a wrapper's launch count."""
+    with _plans_lock:
+        wrapper.launches += n
 
 
 def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
@@ -404,10 +440,10 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
         (tables, *arenas, scratch)
     key = (page_rows, edges, gamma, min_value, dd_rows, mom_rows, mom_meta,
            compact, *map(id, tensors))
-    plan = _plans.get(key)
-    if plan is None or not all(r() is t for r, t in zip(plan.refs, tensors)):
-        if dev.type != "cuda":
-            raise ValueError(f"paged_fused_update: unsupported device {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"paged_fused_update: unsupported device {dev}")
+
+    def build() -> _Plan:
         _check_state(tables, arenas, page_rows, edges, dd_rows, mom_rows,
                      mom_meta, compact, scratch)
         if compact and scratch is None:
@@ -417,13 +453,10 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
             raise ValueError(f"tables {tuple(tables.shape)} take "
                              f"{tables.numel() * 4} B of shared memory (at "
                              f"most {MAX_TABLE_BYTES} with the moments row)")
-        if len(_plans) >= 64:
-            _plans.clear()
-        plan = _plans[key] = _Plan(tables, arenas, scratch, page_rows, edges,
-                                   gamma, min_value, dd_rows, mom_rows,
-                                   mom_meta, compact)
-        plan.refs = [weakref.ref(t) for t in tensors]
-        paged_fused_update.plans += 1
+        return _Plan(tables, arenas, scratch, page_rows, edges, gamma,
+                     min_value, dd_rows, mom_rows, mom_meta, compact)
+
+    plan = _plan_for(key, tensors, build)
     _check_batch(slots, vals, dev)
     n = slots.shape[0]
     if not n and not compact:
@@ -444,7 +477,7 @@ def paged_fused_update(tables: torch.Tensor, slots: torch.Tensor,
         if compact:   # a pass may have run: restore the all-zero invariant
             scratch.zero_()
         _raise_on(lib, code, "paged_fused_update")
-    paged_fused_update.launches += (1 if n else 0) + (1 if compact else 0)
+    _count(paged_fused_update, (1 if n else 0) + (1 if compact else 0))
 
 
 paged_fused_update.launches = 0
@@ -586,7 +619,7 @@ def fused_spanmetrics_matmul(slots: torch.Tensor, dur_s: torch.Tensor,
                 *args, torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(lib, code, "fused_spanmetrics_matmul")
     # k2_layout(n, ...).launches: the zeroing, and the span pass if n > 0
-    fused_spanmetrics_matmul.launches += 2 if n else 1
+    _count(fused_spanmetrics_matmul, 2 if n else 1)
     return out
 
 

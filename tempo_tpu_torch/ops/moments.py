@@ -126,21 +126,33 @@ def moments_update(state: MomentsSketch, series_ids, values, mask=None,
     v = torch.as_tensor(values, dtype=torch.float32, device=dev)
     w = torch.ones_like(v) if weights is None \
         else torch.as_tensor(weights, dtype=torch.float32, device=dev)
-    if mask is not None:
-        sids = torch.where(torch.as_tensor(mask, device=dev), sids, -1)
     keep = (sids >= 0) & (sids < data.shape[0])
-    z, basis = moments_basis(v, k, state.lo, state.hi)
-    r = sids[keep]
-    cols = torch.arange(k + 1, device=dev)
-    data.index_put_((r[:, None], cols[None, :]), (basis * w[:, None])[keep],
-                    accumulate=True)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    lo = torch.tensor(state.lo, dtype=torch.float32, device=dev)
-    hi = torch.tensor(state.hi, dtype=torch.float32, device=dev)
-    zk = z[keep]
-    data[:, k + 1].scatter_reduce_(0, r, torch.maximum(zk - lo, zero), "amax")
-    data[:, k + 2].scatter_reduce_(0, r, torch.maximum(hi - zk, zero), "amax")
+    if mask is not None:
+        keep &= torch.as_tensor(mask, device=dev)
+    moments_scatter(data, sids, keep, v, w, k, state.lo, state.hi)
     return state
+
+
+def moments_scatter(data: torch.Tensor, rows: torch.Tensor,
+                    keep: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    k: int, lo: float, hi: float) -> None:
+    """Add the observations `v` (weights `w`) of the kept spans into the
+    moments rows `rows` of `data` [R, k+3], in place: the count and the
+    Chebyshev log-moment sums add into columns 0..k, the two shifted
+    bound columns take the max, unweighted. No boolean selection: a
+    dropped span adds and maxes zero into row 0."""
+    from tempo_tpu_torch.ops.pages import add_cells, max_rows
+
+    dev = data.device
+    z, basis = moments_basis(v, k, lo, hi)
+    add_cells(data, rows, torch.arange(k + 1, device=dev), keep,
+              basis * w[:, None])
+    f32 = dict(dtype=torch.float32, device=dev)
+    zero = torch.zeros((), **f32)
+    max_rows(data[:, k + 1], rows, keep,
+             torch.maximum(z - torch.tensor(lo, **f32), zero))
+    max_rows(data[:, k + 2], rows, keep,
+             torch.maximum(torch.tensor(hi, **f32) - z, zero))
 
 
 def merge_meta_check(a: MomentsSketch, b: MomentsSketch) -> None:

@@ -10,7 +10,12 @@ indirection table before it scatters:
 
 Discards keep the dense -1 semantics: a negative slot or an unbacked
 page (table entry -1) translates to `arena_rows`, one past the last row,
-and every update drops such rows.
+and every update drops such rows. The adds drop them without selecting
+them out: each add is one `index_add_` over all the spans, a dropped
+span aimed at row 0 with a zero addend (`add_rows`, `add_cells`) — in a
+pool arena row 0 is the trash page, which stays zero. A boolean
+selection would sync with the host and PyTorch's accumulating
+`index_put_` sorts its indices on the card; neither is used.
 
 The reference builds memoized jitted steps that take and return
 (donated) arenas. PyTorch runs eagerly and has no donation, so each
@@ -35,6 +40,7 @@ and `identity_tables` maps logical page p to physical page p + 1.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -54,23 +60,51 @@ def translate(page_table: torch.Tensor, slots: torch.Tensor, page_shift: int,
     return torch.where(bad, arena_rows, row)
 
 
+def add_rows(t: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
+             vals: torch.Tensor) -> None:
+    """t[rows] += vals for the kept spans, in place, as one `index_add_`
+    over every span: a dropped span adds zero to row 0. `rows` int64
+    (any value where not kept), `vals` of t's dtype."""
+    t.index_add_(0, torch.where(keep, rows, 0),
+                 torch.where(keep, vals, vals.new_zeros(())))
+
+
+def add_cells(t: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+              keep: torch.Tensor, vals: torch.Tensor) -> None:
+    """t[rows, cols] += vals for the kept spans of a contiguous 2-D t, in
+    place, as one `index_add_` on its flat view (int64 flat indices, so
+    `rows * width` cannot overflow): a dropped span adds zero to row 0.
+    `vals` [N] with `cols` [N] in [0, width), or [N, C] with `cols` [C]."""
+    if vals.dim() == 2:
+        rows, keep, cols = rows[:, None], keep[:, None], cols[None, :]
+    flat = torch.where(keep, rows, 0) * t.shape[1] + cols
+    t.view(-1).index_add_(0, flat.reshape(-1), torch.where(
+        keep, vals, vals.new_zeros(())).reshape(-1))
+
+
+def max_rows(t: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor,
+             vals: torch.Tensor) -> None:
+    """t[rows] = max(t[rows], vals) for the kept spans, in place; a dropped
+    span maxes zero into row 0, so `t` and `vals` must be non-negative."""
+    t.scatter_reduce_(0, torch.where(keep, rows, 0),
+                      torch.where(keep, vals, vals.new_zeros(())), "amax")
+
+
 def _kept(arena: torch.Tensor, table, slots, page_shift):
-    """(rows, keep) for an add: rows of the kept spans and their mask."""
+    """(rows, keep): the slots' arena rows and which of them are backed
+    (discards and unbacked pages translate past the last row)."""
     r = translate(table, slots, page_shift, arena.shape[0])
-    keep = r < arena.shape[0]
-    return r[keep], keep
+    return r, r < arena.shape[0]
 
 
 def _add1(arena, table, slots, vals, page_shift) -> None:
-    r, keep = _kept(arena, table, slots, page_shift)
-    arena.index_put_((r,), vals[keep], accumulate=True)
+    add_rows(arena, *_kept(arena, table, slots, page_shift), vals)
 
 
 def _hist_scatter(arena2d, table, slots, buckets, w, page_shift) -> None:
-    """Add weights into a wide arena at (row(slot), bucket) — a 2-D
-    scatter, since `rows * width` overflows int32 at large arenas."""
+    """Add weights into a wide arena at (row(slot), bucket)."""
     r, keep = _kept(arena2d, table, slots, page_shift)
-    arena2d.index_put_((r, buckets[keep]), w[keep], accumulate=True)
+    add_cells(arena2d, r, buckets, keep, w)
 
 
 def round_i32(x: torch.Tensor) -> torch.Tensor:
@@ -88,17 +122,7 @@ def _moments_scatter(am, table, slots, dur_s, w, mom_meta: tuple,
 
     mk, mlo, mhi = mom_meta
     r, keep = _kept(am, table, slots, page_shift)
-    z, basis = msk.moments_basis(dur_s, mk, mlo, mhi)
-    cols = torch.arange(mk + 1, device=am.device)
-    am.index_put_((r[:, None], cols[None, :]), (basis * w[:, None])[keep],
-                  accumulate=True)
-    f32 = dict(dtype=torch.float32, device=am.device)
-    zero = torch.zeros((), **f32)
-    zk = z[keep]
-    am[:, mk + 1].scatter_reduce_(
-        0, r, torch.maximum(zk - torch.tensor(mlo, **f32), zero), "amax")
-    am[:, mk + 2].scatter_reduce_(
-        0, r, torch.maximum(torch.tensor(mhi, **f32) - zk, zero), "amax")
+    msk.moments_scatter(am, r, keep, dur_s, w, mk, mlo, mhi)
 
 
 # ---------------------------------------------------------------------------
@@ -117,15 +141,24 @@ def gauge_set_step(arena, table, slots, vals, *, page_shift: int) -> None:
     per slot)."""
     r, keep = _kept(arena, table, slots, page_shift)
     v = torch.as_tensor(vals, dtype=torch.float32, device=arena.device)
-    arena[r] = v[keep]
+    # a dropped span sets zero into row 0, the trash page (the host
+    # resolved one row per slot, so the kept rows are distinct)
+    arena.index_put_((torch.where(keep, r, 0),),
+                     torch.where(keep, v, v.new_zeros(())))
 
 
 def hist_bucket(v: torch.Tensor, edges: tuple) -> torch.Tensor:
     """Latency histogram bucket Σ(v > e) over the f32 edges —
     `searchsorted(side="left")`: a value equal to an edge falls in that
     edge's bucket."""
-    e = torch.tensor(edges, dtype=torch.float32, device=v.device)
+    e = _edges_on(tuple(edges), v.device)
     return (v[:, None] > e[None, :]).sum(dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _edges_on(edges: tuple, device: torch.device) -> torch.Tensor:
+    """The f32 edges on `device`, copied there once (callers only read)."""
+    return torch.tensor(edges, dtype=torch.float32, device=device)
 
 
 def histogram_observe_step(a_sums, a_counts, ab, t_bucket, t_sums, t_counts,

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.ops.pages import DENSE_PAGE_ROWS, dd_index, dense_zeros
+from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, add_cells, add_rows,
+                                      dd_index, dense_zeros)
 
 
 @dataclasses.dataclass
@@ -88,10 +89,8 @@ def dd_update(state: DDSketch, series_ids, values, mask=None,
                                 device=dev)
     idx = dd_index(v, state.gamma, state.min_value, counts.shape[-1])
     keep = (sids >= 0) & (sids < counts.shape[0])
-    counts.index_put_((sids[keep], idx[keep]),
-                      torch.where(is_zero, zero, w)[keep], accumulate=True)
-    state.zeros.index_put_((sids[keep],), torch.where(is_zero, w, zero)[keep],
-                           accumulate=True)
+    add_cells(counts, sids, idx, keep, torch.where(is_zero, zero, w))
+    add_rows(state.zeros, sids, keep, torch.where(is_zero, w, zero))
     return state
 
 

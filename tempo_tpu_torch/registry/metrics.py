@@ -6,8 +6,12 @@ reference registry's metric types (`modules/generator/registry/
 `tempo_tpu/registry/metrics.py`.
 
 All updates accept slot ids with -1 = "discard" (series-limited or
-padding): `_mask_slots` redirects discards to `capacity`, one past the
-last row, and the scatters drop every out-of-range row. The JAX
+padding); slots outside [0, capacity) and masked spans drop. The JAX
+reference drops them with `mode="drop"` scatters. Here each add is one
+`index_add_` over every span with the dropped spans aimed at row 0 and
+a zero addend (`ops.pages.add_rows` / `add_cells`), and a gauge set
+writes the dropped spans' zero into the trash row just before the
+state's rows: no boolean selection, no `nonzero`, no host sync. The JAX
 reference returns new states; these update the state's tensors in place
 (PyTorch has no donation) and return the same state object.
 
@@ -23,16 +27,17 @@ import dataclasses
 import torch
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.ops.pages import DENSE_PAGE_ROWS, dense_zeros, hist_bucket
+from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, add_cells, add_rows,
+                                      dense_zeros, hist_bucket)
 
 
-def _mask_slots(slots: torch.Tensor, mask: "torch.Tensor | None",
-                capacity: int) -> torch.Tensor:
-    """Slot ids with discards redirected out of range (== capacity)."""
-    s = torch.as_tensor(slots).to(torch.int64)
+def _kept_slots(slots, mask, capacity: int, device):
+    """(slots int64, keep): which spans land in [0, capacity), unmasked."""
+    s = torch.as_tensor(slots, device=device).to(torch.int64)
+    keep = (s >= 0) & (s < capacity)
     if mask is not None:
-        s = torch.where(torch.as_tensor(mask, device=s.device), s, -1)
-    return torch.where(s < 0, capacity, s)
+        keep &= torch.as_tensor(mask, device=device)
+    return s, keep
 
 
 def _weights(weights, like: torch.Tensor, device) -> torch.Tensor:
@@ -56,11 +61,8 @@ def counter_init(capacity: int, device=None,
 def counter_update(state: CounterState, slots, weights=None,
                    mask=None) -> CounterState:
     dev = state.values.device
-    cap = state.values.shape[0]
-    s = _mask_slots(torch.as_tensor(slots, device=dev), mask, cap)
-    w = _weights(weights, s, dev)
-    keep = s < cap
-    state.values.index_put_((s[keep],), w[keep], accumulate=True)
+    s, keep = _kept_slots(slots, mask, state.values.shape[0], dev)
+    add_rows(state.values, s, keep, _weights(weights, s, dev))
     return state
 
 
@@ -78,14 +80,30 @@ def gauge_init(capacity: int, device=None,
 
 def gauge_set(state: GaugeState, slots, values, mask=None) -> GaugeState:
     """Set semantics; the host stages at most one row per slot per batch
-    (last-wins resolved during staging)."""
-    dev = state.values.device
-    cap = state.values.shape[0]
-    s = _mask_slots(torch.as_tensor(slots, device=dev), mask, cap)
+    (last-wins resolved during staging), so the kept rows are distinct.
+    The set runs on the arena behind the state's rows: a dropped span
+    sets zero into its trash page, which stays zero."""
+    vals = state.values
+    dev = vals.device
+    s, keep = _kept_slots(slots, mask, vals.shape[0], dev)
     v = torch.as_tensor(values, dtype=torch.float32, device=dev)
-    keep = s < cap
-    state.values[s[keep]] = v[keep]
+    arena, off = _arena_rows(vals)
+    arena.index_put_((torch.where(keep, s + off, 0),),
+                     torch.where(keep, v, v.new_zeros(())))
     return state
+
+
+def _arena_rows(view: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(arena, row offset) of a 1-D row view of a trash-paged arena: rows
+    [0, offset) of the arena are trash. Raises for any other tensor."""
+    base = view._base
+    if base is None or base.dim() != 1 or base.dtype != view.dtype:
+        raise ValueError("gauge state must be a row view of a trash-paged "
+                         "arena (gauge_init)")
+    off = (view.data_ptr() - base.data_ptr()) // base.element_size()
+    if off < 1:
+        raise ValueError("gauge state has no trash row before its rows")
+    return base, off
 
 
 @dataclasses.dataclass
@@ -115,16 +133,12 @@ def histogram_init(capacity: int, edges: tuple, device=None,
 def histogram_update(state: HistogramState, slots, values, weights=None,
                      mask=None) -> HistogramState:
     dev = state.sums.device
-    cap = state.sums.shape[0]
-    s = _mask_slots(torch.as_tensor(slots, device=dev), mask, cap)
+    s, keep = _kept_slots(slots, mask, state.sums.shape[0], dev)
     v = torch.as_tensor(values, dtype=torch.float32, device=dev)
     w = _weights(weights, s, dev)
-    b = hist_bucket(v, state.edges)
-    keep = s < cap
-    s, v, w, b = s[keep], v[keep], w[keep], b[keep]
-    state.bucket_counts.index_put_((s, b), w, accumulate=True)
-    state.sums.index_put_((s,), v * w, accumulate=True)
-    state.counts.index_put_((s,), w, accumulate=True)
+    add_cells(state.bucket_counts, s, hist_bucket(v, state.edges), keep, w)
+    add_rows(state.sums, s, keep, v * w)
+    add_rows(state.counts, s, keep, w)
     return state
 
 

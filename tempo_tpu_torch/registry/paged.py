@@ -82,6 +82,9 @@ class _PagedBase(_MetricBase):
         return sum(p.device_state_bytes() for p in self.planes.values())
 
     def _dev(self, a, dtype) -> torch.Tensor:
+        """`a` (host array or tensor) as `dtype` on the pool's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.pool.device, dtype=dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.pool.device)
 
 
@@ -104,7 +107,8 @@ class PagedCounter(_PagedBase, Counter):
                   weights: np.ndarray | None = None) -> None:
         if self.compact:
             _compact_write(self.name)
-        w = np.ones(len(slots), np.float32) if weights is None else weights
+        w = torch.ones(len(slots), device=self.pool.device) \
+            if weights is None else weights
         with self.registry.state_lock:
             op.counter_add_step(self.values.data, self.values.device_map(),
                                 self._dev(slots, torch.int32),
@@ -148,7 +152,8 @@ class PagedHistogram(_PagedBase, Histogram):
                       weights: np.ndarray | None = None) -> None:
         if self.compact:
             _compact_write(self.name)
-        w = np.ones(len(slots), np.float32) if weights is None else weights
+        w = torch.ones(len(slots), device=self.pool.device) \
+            if weights is None else weights
         with self.registry.state_lock:
             op.histogram_observe_step(
                 self.sums.data, self.counts.data, self.buckets.data,

@@ -173,6 +173,18 @@ class PagePool:
         with self.lock:
             return sum(len(a.free) for a in self.arenas.values())
 
+    def tenant_bytes(self) -> dict[str, int]:
+        """Arena bytes held per tenant (page ownership × page bytes), what
+        the device-time ledger's status shows next to device-seconds."""
+        out: dict[str, int] = {}
+        with self.lock:
+            for a in self.arenas.values():
+                pb = a.page_bytes
+                for owner in a.owners:
+                    if owner is not None:
+                        out[owner] = out.get(owner, 0) + pb
+        return out
+
 
 class PagedPlane:
     """One family plane's logical slot space over a pooled arena."""

@@ -177,6 +177,24 @@ class Counter(_MetricBase):
         super().__init__(registry, name, label_names, capacity)
         self.state = m.counter_init(capacity, **self._dense(compact))
 
+    def inc_batch(self, label_rows: np.ndarray,
+                  weights: np.ndarray | None = None,
+                  valid: np.ndarray | None = None) -> np.ndarray:
+        slots = self.resolve_slots(label_rows, valid)
+        self.add_slots(slots, weights)
+        return slots
+
+    def add_slots(self, slots: np.ndarray,
+                  weights: np.ndarray | None = None) -> None:
+        """Device half with slots already resolved (processors that share
+        one resolve across families: service graphs); -1 drops."""
+        with self.registry.state_lock:
+            m.counter_update(self.state, slots, weights)
+
+    def inc(self, label_values: Sequence[str], value: float = 1.0) -> None:
+        row = self.registry.interner.intern_many(label_values)[None, :]
+        self.inc_batch(row, np.array([value], np.float32))
+
     def _snap(self) -> tuple:
         return (_host(self.state.values),)
 
@@ -214,8 +232,18 @@ class Gauge(_MetricBase):
         if not keep:
             return
         idx = np.fromiter(keep.values(), int)
-        self._device_set(slots[idx].astype(np.int32),
-                         np.asarray(values, np.float32)[idx])
+        # padded to a pow-2 bucket as in the reference (padding slots -1
+        # drop on the device)
+        n = len(idx)
+        s = np.full(_pad_len(n), -1, np.int32)
+        s[:n] = slots[idx]
+        v = np.zeros(s.size, np.float32)
+        v[:n] = np.asarray(values, np.float32)[idx]
+        self._device_set(s, v)
+
+    def set(self, label_values: Sequence[str], value: float) -> None:
+        row = self.registry.interner.intern_many(label_values)[None, :]
+        self.set_batch(row, np.array([value], np.float32))
 
     def collect(self, ts_ms: int, snap: tuple | None = None) -> list[Sample]:
         (vals,) = snap if snap is not None else self._snap()
@@ -235,6 +263,23 @@ class Histogram(_MetricBase):
         self.edges = tuple(edges)
         self.state = m.histogram_init(capacity, self.edges,
                                       **self._dense(compact))
+
+    def observe_batch(self, label_rows: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None,
+                      valid: np.ndarray | None = None) -> np.ndarray:
+        slots = self.resolve_slots(label_rows, valid)
+        self.observe_slots(slots, values, weights)
+        return slots
+
+    def observe_slots(self, slots: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None) -> None:
+        """Device half with slots already resolved; -1 drops."""
+        with self.registry.state_lock:
+            m.histogram_update(self.state, slots, values, weights)
+
+    def observe(self, label_values: Sequence[str], value: float) -> None:
+        row = self.registry.interner.intern_many(label_values)[None, :]
+        self.observe_batch(row, np.array([value], np.float32))
 
     def _snap(self) -> tuple:
         st = self.state
@@ -407,6 +452,36 @@ class ManagedRegistry:
 
     def metric(self, name: str) -> _MetricBase:
         return self._metrics[name]
+
+    def load_reference_state(self, states: dict) -> None:
+        """Install dense family state taken from the JAX reference.
+
+        `states` maps a family name to {field: numpy array}, the fields of
+        the reference family's state (`values`, or `bucket_counts`,
+        `sums`, `counts`), e.g. `np.asarray(family.state.values)`. Each
+        array is copied into the rows of this registry's family of that
+        name (trash pages untouched). The series tables are not carried:
+        the caller aligns them (the same label rows resolved in the same
+        order give the same slots). Paged state carries through
+        `registry.pages.load_reference_state`. Raises on an unknown
+        family or field, or a shape or dtype mismatch."""
+        if self.pages is not None:
+            raise ValueError("paged families carry through "
+                             "registry.pages.load_reference_state")
+        with self.state_lock:
+            for name, fields in states.items():
+                state = self._metrics[name].state
+                for field, data in fields.items():
+                    dst = getattr(state, field, None)
+                    if not isinstance(dst, torch.Tensor):
+                        raise ValueError(f"{name}: no state tensor {field!r}")
+                    src = torch.from_numpy(np.array(data, copy=True))
+                    if src.dtype != dst.dtype or src.shape != dst.shape:
+                        raise ValueError(
+                            f"{name}.{field}: reference {src.dtype} "
+                            f"{tuple(src.shape)} vs {dst.dtype} "
+                            f"{tuple(dst.shape)}")
+                    dst.copy_(src)
 
 
 def _pad_len(n: int) -> int:

@@ -3,8 +3,10 @@
 - A fresh interpreter imports `tempo_tpu_torch`, pushes, collects and
   reads a quantile on the CPU under the `sketch: dd` f32 tier and under
   `sketch: both` with compact state on paged state, and under `sketch:
-  dd` on dense state (no pool), and ends with neither `jax` nor any
-  `tempo_tpu` module loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
+  dd` on dense state (no pool), then pushes trace trees through a
+  configured device scheduler into the default processors (span metrics
+  and service graphs) on dense and paged state, and ends with neither
+  `jax` nor any `tempo_tpu` module loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
   the string "tempo_tpu", so a module counts as the reference only when
   its name is `tempo_tpu` or starts with `tempo_tpu.`.
 - No source file of the port, nor `chip_smoke.py`, imports either.
@@ -60,6 +62,24 @@ for p, sm in ((pool, dict()), (pool, dict(sketch="both", compact_state=True)),
     g.push_batch(tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(g.registry.interner)))
     assert g.collect_and_push() > 0
     assert g.processors["span-metrics"].quantile(0.5)
+from chip_smoke import trace_tree_spans
+sc = tt.sched.configure(tt.SchedConfig(batch_window_ms=60_000.0))
+for p in (None, pool):
+    with pages.use(p):
+        g = tt.GeneratorInstance("s", tt.GeneratorConfig(
+            registry=tt.RegistryOverrides(max_active_series=512),
+            spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
+            now=lambda: 1.7e9, device="cpu")
+    assert set(g.processors) == {"span-metrics", "service-graphs"}
+    tree = encode_spans_otlp(trace_tree_spans(200, seed=1, now_ns=int(1.7e18)))
+    g.push_batch(tt.otlp_proto_to_batch(tree, tt.SpanBatchBuilder(g.registry.interner)))
+    assert sc.pending() == 1
+    assert g.collect_and_push() > 0
+    assert sc.pending() == 0 and sc.batches_total
+    names = {s.name for s in g.registry.collect(1)}
+    assert "traces_service_graph_request_total" in names
+    assert "traces_spanmetrics_calls_total" in names
+tt.sched.reset()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu") or m.startswith(("jax.", "tempo_tpu.")))
 print("LOADED", bad)
@@ -124,9 +144,28 @@ def _instance(**sm):
 @pytest.mark.parametrize("sm", [dict(sketch="moments"), dict(sketch="both"),
                                 dict(compact_state=True), dict()])
 def test_unsupported_spanmetrics_configs_raise(sm):
-    """The scheduler route raises under every sketch and state tier."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _instance(use_scheduler=True, **sm)
+    """Under every sketch and state tier the scheduler route (the
+    default) builds and queues a push, and the options of a later slice
+    raise: the scheduler's serving-mesh `align` / `shards`."""
+    import numpy as np
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+    g = _instance(**sm)
+    proc = g.processors["span-metrics"]
+    assert proc.cfg.use_scheduler
+    sc = tt.DeviceScheduler(tt.SchedConfig(), start_worker=False)
+    with tt.sched.use(sc):
+        data = encode_spans_otlp(synthetic_spans(50, seed=0, now_ns=10**18))
+        proc.push_batch(tt.otlp_proto_to_batch(
+            data, tt.SpanBatchBuilder(g.registry.interner)))
+        assert sc.pending() == 1
+        sc.flush()
+        for kw in (dict(align=2), dict(shards=2)):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                sc.submit_rows("k", "m", (np.zeros(4, np.int32),), 4,
+                               lambda s: None, **kw)
 
 
 @pytest.mark.parametrize("sm", [dict(sketch="moments"), dict(sketch="both"),
@@ -156,7 +195,7 @@ def test_dense_layout_and_other_entry_points_raise():
         assert g.state_layout == "dense"
         with pytest.raises(NotImplementedError, match="later slice"):
             g.registry.new_native_histogram("h", ("a",))
-        for proc in ("service-graphs", "local-blocks", "trace-analytics"):
+        for proc in ("local-blocks", "trace-analytics"):
             with pytest.raises(NotImplementedError, match="later slice"):
                 tt.GeneratorInstance("t", tt.GeneratorConfig(
                     processors=("span-metrics", proc),

@@ -259,7 +259,7 @@ def test_load_reference_state_round_trip():
     mat[2] = rng.integers(100, 5000, 256)
     mat[3] = 1.0
     jproc._paged_dispatch_packed4(mat)
-    tproc._paged_update(mat[0], mat[1], mat[2], mat[3])
+    tproc._direct_update(mat[0], mat[1], mat[2], mat[3])
     for r, (jp, tp) in enumerate(zip(jplanes, tplanes)):
         ref, got = np.asarray(jp.data), tp.data.numpy()
         if r in (1, 3):
@@ -375,7 +375,7 @@ def test_load_reference_state_compact_round_trip():
     mat[2] = rng.integers(100, 5000, 128)
     mat[3] = rng.integers(1, 3, 128)
     jproc._paged_dispatch_packed4(mat)
-    tproc._paged_update(mat[0], mat[1], mat[2], mat[3])
+    tproc._direct_update(mat[0], mat[1], mat[2], mat[3])
     tplanes = tproc._paged_planes()
     k = sm["moments_k"]
     for r, (jp, tp) in enumerate(zip(jplanes, tplanes)):

@@ -71,6 +71,7 @@ def _worlds(url="", clock=None, jsm=None, tsm=None, pool=POOL, series=SERIES):
     with tpages.use(pool and tpages.PagePool(tpages.PagePoolConfig(**pool),
                                              device="cpu")):
         tg = tt.GeneratorInstance("t", tt.GeneratorConfig(
+            processors=("span-metrics",),
             registry=tt.RegistryOverrides(max_active_series=series),
             spanmetrics=tt.SpanMetricsConfig(**SM, **(tsm or {})),
             remote_write=RemoteWriteConfig(url=url and url + "/torch")),
