@@ -39,8 +39,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 4. the span-metrics main paths on the direct route through the entry
    points, each on the card against the same path on the host (plain
    versions), with kernel launch counts zeroed just before and read just
-   after: seeded OTLP payloads of 16,384 spans (4 on the two paged paths,
-   8 on the dense one) → `otlp_proto_to_batch` →
+   after: 4 seeded OTLP payloads of 16,384 spans → `otlp_proto_to_batch` →
    `GeneratorInstance.push_batch` → `collect_and_push()` to a local
    remote-write receiver → quantiles;
    a. `sketch: dd` with f32 state (quantiles exactly equal);
@@ -86,7 +85,37 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    occupancy and pushes per dispatch, the devtime ledger's host wall per
    dispatch, K1 at a merged window's shape against its plain version with
    its device time (torch.profiler), and the service-graphs emit's host
-   and device time.
+   and device time;
+7. the staged main path, the reference's default ingest: OTLP wire bytes
+   staged by the C++ host layer (`tempo_tpu_torch.native`, built with
+   g++ at import) into interned columns, at the widths above, on the
+   card against a CPU twin taking the same path on the plain versions:
+   a. the span-metrics fast route, on dense and on paged state, on the
+      direct route and under the default `SchedConfig` (pipeline depth
+      2): 4 seeded payloads of 16,384 spans, pushed twice (every series
+      new, then every series known) → `stage_otlp` →
+      `StagedIngest` (its `sample_weight` integer weights 1-3) → `view()`
+      → `push_staged_view` → `push_staged` → C++ resolve → K1. Checks:
+      every family's rows equal the twin's (counts and buckets exact,
+      sums within rtol 1e-5), DDSketch rows and q50/q99 exact, K1
+      launched once a push on the direct route and once a merged window
+      under the scheduler, one launch plan a processor, the pipeline's
+      staging buffers reused; K1 held against its plain version and timed
+      at the direct route's last push;
+   b. the recs route: `push_otlp_recs` with `native.otlp_scan` records,
+      whole and a sharded third, against the payload route
+      (`push_otlp_staged` of the payload, and of `slice_otlp_payload` of
+      the same third) on every plane (dense state, direct route);
+   c. the default instance (span metrics and service graphs) under the
+      default scheduler, on phase 6's trace-tree traffic as OTLP:
+      `push_staged_view` → `batch_slice` → `push_batch`, against the same
+      payloads through `otlp_proto_to_batch` + `push_batch`, every
+      collected sample compared by label set (counts exact, sums within
+      rtol 1e-5);
+   printed: staging seconds a payload, resolve seconds a push, spans/s
+   from wire bytes on each route beside phase 4's Python-decode spans/s,
+   the pipeline's overlap ratio and stall seconds, K1's device time a
+   staged push.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -110,7 +139,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 N_SPANS = 16384
 N_DISPATCH = 8
-N_PAGED_PUSHES = 4               # the two paged main paths (phase 4a, 4b)
+N_MAIN_PUSHES = 4                # each main path of phases 4 and 7
 N_TIMED = 30
 SEED = 20261016
 PAGE_ROWS, PAGE_SHIFT = 256, 8
@@ -310,10 +339,10 @@ def _tables(rng, n_roles, dd_rows, n_pages):
 
 
 def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx,
-                  page_rows=PAGE_ROWS):
+                  page_rows=PAGE_ROWS, idle_roles=()):
     """Kernel arenas vs plain arenas: `sum_roles` at rtol 1e-5 / atol 1e-6,
     `tol_roles` {role: check(k, p) -> bool}, the rest exact; page 0 zero;
-    every arena updated. Returns the max abs error."""
+    every arena but `idle_roles` updated. Returns the max abs error."""
     import torch
 
     max_abs = 0.0
@@ -332,7 +361,7 @@ def _check_planes(k_ar, p_ar, base, sum_roles, tol_roles, ctx,
                                  f"on arena {r} (max abs {float(diff.max())})")
         if bool(k[:page_rows].any()):
             raise AssertionError(f"{ctx}: K1 wrote the trash page of arena {r}")
-        if torch.equal(k, base[r]):
+        if torch.equal(k, base[r]) and r not in idle_roles:
             raise AssertionError(f"{ctx}: arena {r} was not updated")
     return max_abs
 
@@ -767,8 +796,13 @@ def phase_k1_dense():
     nbytes = bound_bytes(batches[0], tables[:7], dd_rows=DD_ROWS, nb=nb,
                          edges=edges, page_shift=shift)
     bound_ms, bound_by = bound(nbytes, N_SPANS * (40 + len(edges)))
+    both_bytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
+                             edges=edges, mom_rows=DD_ROWS, page_shift=shift)
+    both_bound = bound(both_bytes, N_SPANS * (80 + len(edges)))
     print(f"phase 5: dense K1, sketch both (8 roles, tables staged): device "
-          f"time per push {both_ms} ms; the composed twin (sketch dd): "
+          f"time per push {both_ms} ms, bound {both_bound[0]:.6f} ms by "
+          f"{both_bound[1]} ({both_bytes} bytes); the composed twin (sketch "
+          f"dd): "
           f"{spread(twin_ms)} with the host, host {twin_host:.4f} ms a call "
           f"over 200 unsynchronised calls, device time per push (every "
           f"device event) {twin_device_ms} ms, of which the six longest "
@@ -1448,7 +1482,14 @@ def _k1_on_window(proc, mat, ctx):
     op.fused_step(k_ar, tables, b, page_shift=shift, **skw)
     ck.paged_fused_update_plain(tables, b[0], b[1:4], p_ar, **kw)
     torch.cuda.synchronize()
-    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, ctx, page_rows=pr)
+    # a batch with no duration at or below the sketch's minimum leaves the
+    # DDSketch zeros alone (both versions; equality is still held)
+    live = mat[0] >= 0
+    idle = (5,) if skw["dd_rows"] and not (
+        mat[1][live & (mat[0] < skw["dd_rows"])] <= skw["min_value"]).any() \
+        else ()
+    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, ctx, page_rows=pr,
+                            idle_roles=idle)
 
     def k1():
         op.fused_step(k_ar, tables, b, page_shift=shift, **skw)
@@ -1697,6 +1738,427 @@ def phase_default_deployment(paged, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the staged main path (C++ staging, the native resolve, pipeline)
+# ---------------------------------------------------------------------------
+
+
+def _fast_inst(device, paged, now, name="staged"):
+    """A span-metrics-only instance of the default config (eligible for
+    the staged fast route) on `device`, on its own pool of the default
+    config when `paged`, else on dense state."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.registry import pages
+
+    pool = pages.PagePool(tt.PagePoolConfig(enabled=True), device=device) \
+        if paged else None
+    with pages.use(pool):
+        g = tt.GeneratorInstance(name, tt.GeneratorConfig(
+            processors=("span-metrics",)), now=lambda: now, device=device)
+    if g.state_layout != ("paged" if paged else "dense") or \
+            g._fast_spanmetrics() is None:
+        raise AssertionError(f"{name}: {g.state_layout} state, fast route "
+                             f"{g._fast_spanmetrics()}")
+    return g
+
+
+def _staged_push_all(inst, payloads, weights):
+    """Every payload from wire bytes: `stage_otlp` (span attributes
+    skipped, as the default config reads none) → `StagedIngest` with its
+    sample weights → `push_staged_view` of the full view. Returns
+    (seconds until every push has landed: the drain and, on the card, a
+    synchronize; staging seconds)."""
+    import torch
+
+    import tempo_tpu_torch as tt
+
+    t0 = time.perf_counter()
+    stage_s = 0.0
+    for data, w in zip(payloads, weights):
+        ts = time.perf_counter()
+        st = tt.stage_otlp(data, inst.registry.interner,
+                           include_span_attrs=False)
+        stage_s += time.perf_counter() - ts
+        st.sample_weight = w[:st.n]
+        if inst.push_staged_view(st.view()) != st.n:
+            raise AssertionError(f"{inst.tenant}: push_staged_view refused")
+    inst.drain()
+    if inst.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, stage_s
+
+
+def _timed_resolve():
+    """Wrap `native.spanmetrics_resolve` to sum its seconds and calls;
+    returns (the sums, the original to restore)."""
+    from tempo_tpu_torch import native
+
+    acc = {"s": 0.0, "calls": 0}
+    inner = native.spanmetrics_resolve
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return out
+
+    native.spanmetrics_resolve = timed
+    return acc, inner
+
+
+def _same_dd_quantiles(card, host, ctx):
+    qa = card.processors["span-metrics"].dd_quantiles((0.5, 0.99))
+    qb = host.processors["span-metrics"].dd_quantiles((0.5, 0.99))
+    for q, a, b in zip((0.5, 0.99), qa, qb):
+        if a != b or not a:
+            bad = sum(a.get(k) != b.get(k) for k in a.keys() | b.keys())
+            raise AssertionError(f"{ctx}: DDSketch q{q}: {bad} series differ")
+    return len(qa[0])
+
+
+def phase_staged_fast(paged, card):
+    """Phase 7a on `paged` (else dense) state: the fast route on the
+    direct route and under the default scheduler, each on the card
+    against a CPU twin; then K1 at the direct route's last push. Returns
+    a result dict with K1's kernel entry."""
+    import torch
+
+    from tempo_tpu_torch import native, sched
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    layout = "paged" if paged else "dense"
+    now = time.time()
+    payloads, _, int_w, _ = _payloads(now, N_MAIN_PUSHES)
+    spans = N_MAIN_PUSHES * N_SPANS
+    runs, k1 = {}, None
+    for route in ("direct", "sched"):
+        ctx = f"phase 7a {layout} {route}"
+        sched.reset()
+        sc = sched.configure(sched.SchedConfig()) if route == "sched" \
+            else None
+        if sc is not None and sc.cfg.pipeline_depth != 2:
+            raise AssertionError(f"{ctx}: scheduler {sc.cfg}")
+        g = _fast_inst("cuda", paged, now)
+        twin = _fast_inst("cpu", paged, now)
+        proc = g.processors["span-metrics"]
+        mats = []
+        inner_dispatch = proc._dispatch_packed
+        proc._dispatch_packed = lambda mat: (mats.append(mat.copy()),
+                                             inner_dispatch(mat))[1]
+        acc, inner_resolve = _timed_resolve()
+        b0 = sc.batches_total.get(SCHED_KERNEL, 0) if sc else 0
+        ck.reset_launch_counts()
+        plans0 = ck.paged_fused_update.plans
+        try:
+            # cold: every series new; warm: the same payloads again
+            secs, stage_s = _staged_push_all(g, payloads, int_w)
+            warm_s, warm_stage_s = _staged_push_all(g, payloads, int_w)
+            launches = ck.paged_fused_update.launches
+            plans = ck.paged_fused_update.plans - plans0
+        finally:
+            native.spanmetrics_resolve = inner_resolve
+            del proc._dispatch_packed
+        dispatches = (sc.batches_total.get(SCHED_KERNEL, 0) - b0) if sc \
+            else len(mats)
+        resolve_s, n_resolve = acc["s"], acc["calls"]
+        for _ in range(2):
+            _staged_push_all(twin, payloads, int_w)
+        n_fams, n_series, max_rel = _compare_sets([g], [twin], ctx)
+        n_q = _same_dd_quantiles(g, twin, ctx)
+        want = 2.0 * float(sum(w.sum() for w in int_w))
+        with g.registry.state_lock:
+            (calls,) = proc.calls._snap()
+        total = float(calls[proc.calls.table.active_slots()].sum())
+        pipe = proc._pipe
+        if total != want:
+            raise AssertionError(f"{ctx}: calls total {total} != {want}")
+        pushes = 2 * N_MAIN_PUSHES
+        if n_resolve != pushes:
+            raise AssertionError(f"{ctx}: {n_resolve} resolves")
+        if launches != dispatches or plans != 1 or \
+                (route == "direct" and launches != pushes):
+            raise AssertionError(f"{ctx}: K1 launched {launches} times for "
+                                 f"{dispatches} dispatches of {pushes} "
+                                 f"pushes, {plans} plans")
+        if (route == "sched") != (pipe is not None) or \
+                (pipe is not None and (pipe.reuse_total < 1
+                                       or pipe.in_flight())):
+            raise AssertionError(f"{ctx}: pipeline {pipe and vars(pipe)}")
+        runs[route] = dict(
+            spans_per_s=spans / secs, secs=secs,
+            warm_spans_per_s=spans / warm_s,
+            stage_s=(stage_s + warm_stage_s) / pushes,
+            resolve_s=resolve_s / n_resolve, launches=launches,
+            dispatches=dispatches,
+            pipe=None if pipe is None else dict(
+                submitted=pipe.submitted_total, reuse=pipe.reuse_total,
+                alloc=pipe.alloc_total, overlap=pipe.overlap_ratio(),
+                stall_s=pipe.stall_ns / 1e9, decode_s=pipe.decode_ns / 1e9))
+        print(f"phase 7a {layout} {route} [{card}]: {N_MAIN_PUSHES} payloads "
+              f"of {N_SPANS} spans from wire bytes in {secs:.3f} s "
+              f"({spans / secs:.0f} spans/s, every series new), again in "
+              f"{warm_s:.3f} s ({spans / warm_s:.0f} spans/s, every series "
+              f"known): staging "
+              f"{(stage_s + warm_stage_s) / pushes * 1e3:.3f} ms a payload "
+              f"(stage_otlp), "
+              f"resolve {resolve_s / n_resolve * 1e3:.3f} ms a push "
+              f"(native.spanmetrics_resolve); {n_series} series; K1 launches "
+              f"{launches} for {dispatches} dispatches, {plans} launch plan"
+              + ("" if pipe is None else
+                 f"; pipeline: {pipe.submitted_total} batches, buffer sets "
+                 f"reused {pipe.reuse_total} / fresh {pipe.alloc_total}, "
+                 f"decode {pipe.decode_ns / 1e9:.4f} s, overlap ratio "
+                 f"{pipe.overlap_ratio():.4f}, stall "
+                 f"{pipe.stall_ns / 1e9:.4f} s"))
+        print(f"phase 7a {layout} {route} checks: {n_fams} families of "
+              f"{n_series} series equal the CPU twin's (counts and buckets "
+              f"exact, sums within rtol 1e-5, max relative {max_rel:.3g}), "
+              f"DDSketch rows and q50/q99 of {n_q} series exact; calls total "
+              f"{total} (weighted spans {want})")
+        if route == "direct":
+            k1 = _k1_on_window(proc, mats[-1], f"{ctx} push")
+        sched.reset()
+        del g, twin, proc, mats
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 7a {layout} [{card}]: K1 at a staged push of "
+          f"{N_SPANS} spans: {spread(k1['ms'])} with the host (batch on the "
+          f"card), {spread(k1['dispatch_ms'])} as the direct route makes it "
+          f"(host matrix to the card, then K1); device time (torch.profiler) "
+          f"K1 {k1['device_ms']} ms, with the copy {k1['dispatch_device_ms']} "
+          f"ms; plain version {k1['plain_ms'][1]:.4f} ms; bound "
+          f"{k1['bound_ms']:.6f} ms by {k1['bound_by']}; max abs err against "
+          f"the plain version {k1['max_abs']}")
+    return {
+        "name": f"paged_fused_update (staged fast route, {layout} state, "
+                f"sketch dd, f32)", "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": runs["direct"]["launches"], "max_abs_err": k1["max_abs"],
+        "ms": k1["ms"][1], "plain_ms": k1["plain_ms"][1],
+        "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None, "runs": runs,
+    }
+
+
+def phase_recs_route(card):
+    """Phase 7b: `push_otlp_recs` with scan records, whole and a sharded
+    third, against the payload route (`push_otlp_staged`, of the payload
+    and of `slice_otlp_payload` of the third), on the card, dense state,
+    direct route. Returns {route: spans/s from wire bytes}."""
+    import torch
+
+    from tempo_tpu_torch import native, sched
+    from tempo_tpu_torch.model.otlp import slice_otlp_payload
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    sched.reset()
+    now = time.time()
+    payloads = _payloads(now, N_MAIN_PUSHES)[0]
+    recs = [native.otlp_scan(d) for d in payloads]
+    picks = [np.flatnonzero(np.arange(len(r)) % 3 == 0) for r in recs]
+    sliced = [slice_otlp_payload(d, r, p.tolist())
+              for d, r, p in zip(payloads, recs, picks)]
+    out = {}
+
+    def timed(g, push):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = sum(push(g, k) for k in range(len(payloads)))
+        g.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if ck.paged_fused_update.launches != len(payloads):
+            raise AssertionError(f"phase 7b: K1 launched "
+                                 f"{ck.paged_fused_update.launches} times "
+                                 f"for {len(payloads)} pushes")
+        return n, secs
+
+    for sharded in (False, True):
+        ctx = f"phase 7b {'sharded' if sharded else 'whole'}"
+        ga, gb = (_fast_inst("cuda", False, now, name) for name in
+                  ("recs", "payload"))
+        na, sa = timed(ga, lambda g, k: g.push_otlp_recs(
+            payloads[k], native.otlp_scan(payloads[k])[picks[k]] if sharded
+            else native.otlp_scan(payloads[k])))
+        nb, sb = timed(gb, lambda g, k: g.push_otlp_staged(
+            sliced[k] if sharded else payloads[k]))
+        if na != nb or na != sum(len(p) if sharded else len(r)
+                                 for p, r in zip(picks, recs)):
+            raise AssertionError(f"{ctx}: {na} / {nb} spans")
+        # the two routes intern the payload's strings in different orders
+        n_fams, n_series, max_rel = _compare_by_labels(ga, gb, ctx)
+        n_q = _same_dd_quantiles(ga, gb, ctx)
+        key = "sharded" if sharded else "whole"
+        out[f"recs_{key}"], out[f"payload_{key}"] = na / sa, nb / sb
+        print(f"{ctx} [{card}]: {na} spans from wire bytes: recs route "
+              f"(otlp_scan + push_otlp_recs) {na / sa:.0f} spans/s, payload "
+              f"route (push_otlp_staged{' of the sliced payload' if sharded else ''}) "
+              f"{nb / sb:.0f} spans/s; {n_fams} families and the DDSketch "
+              f"rows of {n_series} series equal by label set (counts exact, "
+              f"sums within rtol 1e-5, max relative {max_rel:.3g}), DDSketch "
+              f"q50/q99 of {n_q} series exact")
+        del ga, gb
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_by_labels(ga, gb, ctx):
+    """Two instances whose interners gave out ids in different orders:
+    every family's rows and the DDSketch rows compared series by series
+    through the label sets, counts and buckets exact, sums (a histogram's
+    sums, the size counter) at rtol 1e-5. Returns (families, series, max
+    relative sum error)."""
+    from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
+                                                                  _DD_ZEROS)
+
+    def rows(g):
+        out = {}
+        for name, fam in g.registry._metrics.items():
+            with g.registry.state_lock:
+                snap = fam._snap()
+            out[name] = {fam.labels_of(int(s)): tuple(np.asarray(x)[s]
+                                                       for x in snap)
+                         for s in fam.table.active_slots()}
+        proc = g.processors["span-metrics"]
+        with g.registry.state_lock:
+            slots = proc._sketch_slots()
+            dd = [proc._rows(slots, r).cpu().numpy()
+                  for r in (_DD_COUNTS, _DD_ZEROS)]
+        out["ddsketch"] = {proc.calls.labels_of(int(s)): (dd[0][i], dd[1][i])
+                           for i, s in enumerate(slots)}
+        return out
+
+    ra, rb = rows(ga), rows(gb)
+    max_rel, n_series = 0.0, 0
+    for name, fa in ra.items():
+        fb = rb[name]
+        if fa.keys() != fb.keys():
+            raise AssertionError(f"{ctx} {name}: series differ")
+        for labels, xs in fa.items():
+            for i, (x, y) in enumerate(zip(xs, fb[labels], strict=True)):
+                if name == "traces_spanmetrics_size_total" or (
+                        len(xs) == 3 and i == 1):
+                    rel = float(np.max(np.abs(x - y) / np.maximum(
+                        np.abs(y), 1e-30)))
+                    max_rel = max(max_rel, rel)
+                    ok = np.allclose(x, y, rtol=1e-5, atol=1e-6)
+                else:
+                    ok = np.array_equal(x, y)
+                if not ok:
+                    raise AssertionError(f"{ctx} {name} {labels}[{i}]: "
+                                         f"{x} vs {y}")
+        n_series = max(n_series, len(fa))
+    return len(ra) - 1, n_series, max_rel
+
+
+def _durations_differ(payload):
+    """Spans whose f32 duration differs between the C++ resolve's
+    `(float)((double)(end - start) * 1e-9)` and `push_batch`'s
+    `(duration_ns / 1e9).astype(float32)`."""
+    from tempo_tpu_torch import native
+
+    r = native.otlp_scan(payload)
+    ns = r["end_ns"].astype(np.int64) - r["start_ns"].astype(np.int64)
+    cxx = (ns.astype(np.float64) * 1e-9).astype(np.float32)
+    py = (ns / 1e9).astype(np.float32)
+    return int((cxx != py).sum())
+
+
+def phase_staged_default(card):
+    """Phase 7c: the default instance (span metrics and service graphs)
+    under the default scheduler, on phase 6's trace-tree traffic of one
+    tenant: staged views through `push_staged_view` (the SpanBatch route)
+    against the same payloads through `otlp_proto_to_batch` + `push_batch`,
+    every collected sample compared by label set. Returns spans/s."""
+    import torch
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch import native, sched
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    sched.reset()
+    sched.configure(sched.SchedConfig())
+    now = time.time()
+    traffic = _tree_traffic(int(now * 1e9))[0]
+    clock = [now]
+    gs, gp = (tt.GeneratorInstance(name, tt.GeneratorConfig(),
+                                   now=lambda: clock[0], device="cuda")
+              for name in ("staged", "python"))
+    if tuple(gs.processors) != ("span-metrics", "service-graphs") or \
+            gs._fast_spanmetrics() is not None:
+        raise AssertionError(f"phase 7c: processors {tuple(gs.processors)}")
+    t0 = time.perf_counter()
+    for data, _, w in traffic:
+        st = tt.stage_otlp(data, gs.registry.interner)
+        st.sample_weight = w[:st.n]
+        if gs.push_staged_view(st.view()) != st.n:
+            raise AssertionError("phase 7c: push_staged_view refused")
+    gs.drain()
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    # the staged route's per-span sizes are the wire bytes of each span
+    wire = [native.otlp_scan(data)["span_len"] for data, _, _ in traffic]
+    t0 = time.perf_counter()
+    for (data, _, w), span_len in zip(traffic, wire):
+        sb = tt.otlp_proto_to_batch(data, tt.SpanBatchBuilder(
+            gp.registry.interner))
+        sizes = np.zeros(sb.capacity, np.float32)
+        sizes[:sb.n] = span_len
+        gp.push_batch(sb, sizes, sample_weights=w[:sb.n])
+    gp.drain()
+    torch.cuda.synchronize()
+    python_s = time.perf_counter() - t0
+    clock[0] += gs.cfg.servicegraphs.wait_s + 1.0
+    gs.push_staged_view(tt.stage_otlp(encode_spans_otlp([]),
+                                      gs.registry.interner).view())
+    gp.push_batch(tt.otlp_proto_to_batch(encode_spans_otlp([]),
+                                         tt.SpanBatchBuilder(gp.registry.interner)))
+    samples = []
+    for g in (gs, gp):
+        g.drain()
+        samples.append({(s.name, s.labels): s.value
+                        for s in g.registry.collect(1)})
+    a, b = samples
+    if a.keys() != b.keys() or not a:
+        raise AssertionError(f"phase 7c: label sets differ "
+                             f"({len(a)} / {len(b)})")
+    max_rel = 0.0
+    for k, v in a.items():
+        is_sum = k[0].endswith("_sum") or k[0] == "traces_spanmetrics_size_total"
+        if is_sum:
+            rel = abs(v - b[k]) / max(abs(b[k]), 1e-30)
+            max_rel = max(max_rel, rel)
+            ok = abs(v - b[k]) <= 1e-5 * abs(b[k]) + 1e-6
+        else:
+            ok = v == b[k]
+        if not ok:
+            raise AssertionError(f"phase 7c {k}: staged {v} vs python {b[k]}")
+    families = {k[0] for k in a}
+    if not {"traces_spanmetrics_calls_total",
+            "traces_service_graph_request_total"} <= families:
+        raise AssertionError(f"phase 7c: families {sorted(families)}")
+    spans = sum(len(w) for _, _, w in traffic)
+    ulp = sum(_durations_differ(data) for data, _, _ in traffic)
+    print(f"phase 7c [{card}]: default instance, {len(traffic)} trace-tree "
+          f"payloads of {N_TREE_SPANS} spans under the default scheduler: "
+          f"staged route (stage_otlp → push_staged_view → push_batch) "
+          f"{spans / staged_s:.0f} spans/s, Python decode "
+          f"(otlp_proto_to_batch → push_batch) {spans / python_s:.0f} "
+          f"spans/s; {len(a)} samples of {len(families)} families equal by "
+          f"label set (counts exact, sums within rtol 1e-5, max relative "
+          f"{max_rel:.3g}); spans whose f32 duration differs between the C++ "
+          f"resolve and push_batch (off this route): {ulp} of {spans}")
+    sched.reset()
+    del gs, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"staged_spans_per_s": spans / staged_s,
+            "python_spans_per_s": spans / python_s}
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -1735,6 +2197,11 @@ def main() -> int:
     for what, info in ck.BUILD_INFO.items():
         print(f"build: {what} in {info['seconds']:.2f} s -> "
               f"{os.path.relpath(info['path'], ROOT)}\n{info['log']}")
+    from tempo_tpu_torch import native
+    print(f"build: the C++ host layer at import "
+          + (f"in {native.BUILD_INFO['seconds']:.2f} s" if native.BUILD_INFO
+             else "(found built)")
+          + f" -> {os.path.relpath(native.library_path(), ROOT)}")
     print(f"build: {len(ck.BUILD_INFO)} builds in {build_s:.2f} s (one nvcc "
           f"each, together)")
     k1 = phase_k1_dd()
@@ -1746,9 +2213,9 @@ def main() -> int:
     k1d = phase_k1_dense()
     k2 = phase_k2("bench")
     k2d = phase_k2("deployment")
-    dd = phase_main_path("dd", N_PAGED_PUSHES)
-    bc = phase_main_path("both_compact", N_PAGED_PUSHES)
-    dn = phase_main_path("dense_dd")
+    dd = phase_main_path("dd", N_MAIN_PUSHES)
+    bc = phase_main_path("both_compact", N_MAIN_PUSHES)
+    dn = phase_main_path("dense_dd", N_MAIN_PUSHES)
     k1["launches"], k1c["launches"] = dd["launches"], bc["launches"]
     k1d["launches"] = dn["launches"]
     mom_bytes = moments_state_bytes()
@@ -1803,10 +2270,31 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
               f"{r['bound_by']}; launches {r['launches']}; phase "
               f"{r['seconds']:.1f} s")
+    t7 = time.perf_counter()
+    s7 = [phase_staged_fast(paged, card) for paged in (False, True)]
+    recs = phase_recs_route(card)
+    s7c = phase_staged_default(card)
+    for r, py in zip(s7, (dn, dd)):
+        d, sc = r["runs"]["direct"], r["runs"]["sched"]
+        print(f"phase 7 [{card}]: {r['name']}: spans/s from wire bytes, "
+              f"direct route {d['spans_per_s']:.0f} (series known: "
+              f"{d['warm_spans_per_s']:.0f}), scheduler route "
+              f"{sc['spans_per_s']:.0f} ({sc['warm_spans_per_s']:.0f}) "
+              f"(phase 4's Python decode + push_batch "
+              f"on this state: {py['spans_per_s']:.0f}); staging "
+              f"{d['stage_s'] * 1e3:.3f} / {sc['stage_s'] * 1e3:.3f} ms a "
+              f"payload, resolve {d['resolve_s'] * 1e3:.3f} / "
+              f"{sc['resolve_s'] * 1e3:.3f} ms a push; pipeline overlap ratio "
+              f"{sc['pipe']['overlap']:.4f}, stall {sc['pipe']['stall_s']:.4f} "
+              f"s; K1 device time a staged push {r['device_ms']} ms")
+    print(f"phase 7 [{card}]: recs route spans/s {json.dumps(recs)}; default "
+          f"instance staged {s7c['staged_spans_per_s']:.0f} spans/s against "
+          f"Python decode {s7c['python_spans_per_s']:.0f}; phase 7 "
+          f"{time.perf_counter() - t7:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in (k1, k1c, k1d, k2, k2d, *s6)]}))
+                                  for k in (k1, k1c, k1d, k2, k2d, *s6, *s7)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,16 @@ and over paged state, with the DDSketch and moments quantile tiers and,
 on paged state, the compact state tier; span-metrics updates ride the
 process device scheduler when one is configured (`sched.configure`):
 
-    otlp_proto_to_batch(bytes) → GeneratorInstance.push_batch(SpanBatch)
+    OTLP bytes → stage_otlp (C++ staging, `native`) → StagedIngest.view()
+      → GeneratorInstance.push_staged_view
+      → span metrics alone: SpanMetricsProcessor.push_staged (C++ resolve
+        in the native row table; the ingest pipeline's buffer ring on the
+        scheduler route) → K1 as below
+      → any other processor mix: the staged SpanBatch → push_batch
+    (also push_otlp_staged(bytes), push_otlp_recs(bytes, otlp_scan records),
+    and the Python decoder's otlp_proto_to_batch(bytes) → push_batch)
+
+    GeneratorInstance.push_batch(SpanBatch)
       → SpanMetricsProcessor → sched.DeviceScheduler.submit_rows (merged
         [4, bucket] windows; the direct route without a scheduler)
       → ops.pages.fused_step
@@ -27,13 +36,15 @@ kernel no path of the system runs.
 """
 
 from tempo_tpu_torch import device  # noqa: F401  (sets the TF32 policy)
-from tempo_tpu_torch import sched
+from tempo_tpu_torch import native, sched
 from tempo_tpu_torch.generator import GeneratorConfig, GeneratorInstance
 from tempo_tpu_torch.generator.processors.servicegraphs import (
     ServiceGraphsConfig, ServiceGraphsProcessor)
 from tempo_tpu_torch.generator.processors.spanmetrics import (
     SpanMetricsConfig, SpanMetricsProcessor)
 from tempo_tpu_torch.model import SpanBatchBuilder, otlp_proto_to_batch
+from tempo_tpu_torch.model.otlp_batch import (StagedIngest, batch_from_otlp,
+                                              stage_otlp)
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
 from tempo_tpu_torch.registry.pages import PagePoolConfig
 from tempo_tpu_torch.sched import DeviceScheduler, SchedConfig
@@ -42,4 +53,5 @@ __all__ = ["GeneratorConfig", "GeneratorInstance", "SpanMetricsConfig",
            "SpanMetricsProcessor", "SpanBatchBuilder", "otlp_proto_to_batch",
            "ManagedRegistry", "RegistryOverrides", "PagePoolConfig",
            "sched", "SchedConfig", "DeviceScheduler", "ServiceGraphsConfig",
-           "ServiceGraphsProcessor"]
+           "ServiceGraphsProcessor", "native", "stage_otlp",
+           "batch_from_otlp", "StagedIngest"]

@@ -13,12 +13,21 @@ tenant's capacity splits into its pages, over dense state otherwise.
 Span-metrics updates ride the process device scheduler when one is
 configured and enabled (`tempo_tpu_torch.sched.configure`; the
 processor's `use_scheduler`, on by default) and the direct route
-otherwise; `drain()` flushes the scheduler, so a collection sees every
-push accepted before it. There is no staging pipeline (it serves the
-staged native push paths): with the scheduler on, the port behaves as
-the reference does at `pipeline_depth: 0`. The `local-blocks` and
-`trace-analytics` processors and the staged native fast paths raise
-`NotImplementedError`.
+otherwise; `drain()` flushes the scheduler and reaps every processor's
+staging pipeline behind it, so a collection sees every push accepted
+before it.
+
+Wire bytes enter through the C++ staging layer (`tempo_tpu_torch.native`,
+`model/otlp_batch.py`), as in the reference: `push_otlp_staged` (OTLP
+bytes → `native.otlp_stage` → the span-metrics fast route),
+`push_staged_view` (a row view of a decode-once `StagedIngest`: the fast
+route for a span-metrics-only instance, the staged SpanBatch columns
+through `push_batch` for any other processor mix) and `push_otlp_recs`
+(`native.otlp_scan` records with their payload). The reference also
+sends a tenant with materialized query grids down the SpanBatch route;
+the port has no materialized grids yet (ROADMAP section 1, item 8), so
+its fast route has no such check. The `local-blocks` and
+`trace-analytics` processors raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from tempo_tpu_torch.generator.processors.spanmetrics import (
     SpanMetricsProcessor,
 )
 from tempo_tpu_torch.generator.remote_write import RemoteWriteClient, RemoteWriteConfig
+from tempo_tpu_torch.model.otlp_batch import stage_otlp
 from tempo_tpu_torch.model.span_batch import SpanBatch
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
 
@@ -76,9 +86,14 @@ class GeneratorInstance:
         self._last_purge = 0.0
 
     def drain(self) -> None:
-        """The collection barrier: flush the device scheduler, so every
-        update accepted before this call is in device state."""
+        """The collection barrier: flush the device scheduler and reap
+        every processor's ingest pipeline, so every update accepted
+        before this call is in device state."""
         sched.flush()
+        for proc in list(self.processors.values()):
+            fn = getattr(proc, "drain_pipeline", None)
+            if fn is not None:
+                fn()
 
     def update_processors(self, desired: tuple[str, ...]) -> None:
         for name in list(self.processors):
@@ -101,12 +116,77 @@ class GeneratorInstance:
 
     # -- ingest ------------------------------------------------------------
 
-    def push_otlp_staged(self, data: bytes, trusted: bool = False):
-        """The reference's staged native fast route (OTLP bytes → C++ stage
-        → fused resolve) comes with the port's C++ host layer."""
-        raise NotImplementedError(
-            "the staged native fast paths come with a later slice of the "
-            "port (the C++ host layer); use otlp_proto_to_batch + push_batch")
+    def _fast_spanmetrics(self) -> "SpanMetricsProcessor | None":
+        """The single eligible span-metrics processor for the staged fast
+        routes, or None when the SpanBatch route is required. (The
+        reference also returns None for a tenant with materialized query
+        grids, which the port does not have yet.)"""
+        procs = list(self.processors.values())
+        if len(procs) != 1 or not isinstance(procs[0], SpanMetricsProcessor):
+            return None
+        return procs[0] if procs[0].supports_staged_fast_path() else None
+
+    def push_otlp_recs(self, raw: bytes, recs: np.ndarray) -> "int | None":
+        """In-process tee fast route: `native.otlp_scan` records and the
+        original payload → fused resolve → device. Returns the span
+        count, or None when ineligible (the caller takes the payload
+        route)."""
+        proc = self._fast_spanmetrics()
+        if proc is None:
+            return None
+        lo, hi = self._slack_bounds()
+        got = proc.push_from_recs(raw, recs, lo, hi)
+        if got is None:
+            return None
+        self.spans_received += len(recs)
+        self.spans_filtered_slack += got[1]
+        return len(recs)
+
+    def push_staged_view(self, view, now_s: "float | None" = None
+                         ) -> "int | None":
+        """Decode-once consumption: a row view over a shared staging. A
+        span-metrics-only instance feeds the StageRec rows straight to
+        the fused resolve (no SpanBatch); any other processor mix, or a
+        payload whose service.name needs the Python fixup, rides the
+        staged SpanBatch columns (`batch_slice`: a gather for a sharded
+        view, the shared batch for a full one). None when the staging
+        was not made with this tenant's interner.
+
+        Views of an overload-sampled push carry Horvitz-Thompson weights
+        (`view.weights()`): span metrics upscale with them, so the
+        sampled stream reports the true stream's rates."""
+        st = view.staged
+        if st.interner is not self.registry.interner:
+            return None
+        w = view.weights()
+        proc = self._fast_spanmetrics()
+        if proc is not None and not st.needs_service_fixup:
+            spans = view.stage_rows()
+            lo, hi = self._slack_bounds(now_s)
+            _n_valid, n_filtered = proc.push_staged(spans, lo, hi, weights=w)
+            self.spans_received += len(spans)
+            self.spans_filtered_slack += n_filtered
+            return len(spans)
+        sb, sizes = view.batch_slice()
+        self.push_batch(sb, span_sizes=sizes, sample_weights=w, now_s=now_s)
+        return view.n
+
+    def push_otlp_staged(self, data: bytes, trusted: bool = False
+                         ) -> "int | None":
+        """Dedicated span-metrics fast route: OTLP bytes → C++ stage →
+        fused resolve → device, with no SpanBatch. Returns the span
+        count, or None when this instance is not eligible (the caller
+        takes the full staging route). Eligibility is checked before any
+        row-table change, so a fallback leaves no pending entries."""
+        if self._fast_spanmetrics() is None:
+            return None
+        st = stage_otlp(data, self.registry.interner, trusted=trusted,
+                        include_span_attrs=False)
+        # a non-string service.name needs the Python stringify fixup
+        # (`_batch_from_staged`): such payloads take the full route
+        if st.needs_service_fixup:
+            return None
+        return self.push_staged_view(st.view())
 
     def _slack_bounds(self, now_s: "float | None" = None) -> tuple[int, int]:
         slack = self.cfg.ingestion_time_range_slack_s

@@ -47,8 +47,22 @@ one host-to-device copy and one K1 launch per merged window, on dense
 and paged state alike. With the flag off, or no scheduler configured or
 a disabled one, the push takes the direct route unchanged: one packed
 batch and one K1 launch per push. Quantile reads flush the scheduler
-first. The packed [3, cap] form comes with the staged native fast paths
-of the C++ host layer slice.
+first.
+
+The staged fast route (`push_staged`, `push_from_recs`; the default
+config's intrinsic dimensions only, see `supports_staged_fast_path`)
+skips the SpanBatch: the C++ resolve (`native.spanmetrics_resolve` over
+`otlp_stage` records, or `native.spanmetrics_from_recs` over `otlp_scan`
+records and the payload) builds the label rows, resolves them in the
+native row table, applies the ingestion-slack filter and stamps
+`last_seen` in one pass, leaving slots and the packed [3, cap] rows of
+durations and sizes; only new series come back to Python
+(`SeriesTable.apply_misses`). On the direct route a push is then one
+host [4, cap] matrix (those rows and the weight row: ones, or the
+sampled Horvitz-Thompson weights), one copy and one K1 launch; on the
+scheduler route the trimmed rows are submitted as above, staged in the
+buffer ring of the ingest pipeline (`generator/pipeline.py`) when
+`SchedConfig.pipeline_depth` > 0.
 """
 
 from __future__ import annotations
@@ -59,9 +73,11 @@ import logging
 import numpy as np
 import torch
 
+from tempo_tpu_torch import native
 from tempo_tpu_torch import sched as sched_mod
+from tempo_tpu_torch.generator.pipeline import IngestPipeline
 from tempo_tpu_torch.model.interner import INVALID_ID
-from tempo_tpu_torch.model.span_batch import SpanBatch
+from tempo_tpu_torch.model.span_batch import SpanBatch, _pad_rows
 from tempo_tpu_torch.ops import cuda_kernels, moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
@@ -86,9 +102,12 @@ _STATUS_STRS = ("STATUS_CODE_UNSET", "STATUS_CODE_OK", "STATUS_CODE_ERROR")
 class SpanMetricsConfig:
     """Subset of `modules/generator/processor/spanmetrics/config.go`.
 
-    The reference's `kernel` / `pallas_interpret` knobs have no
-    counterpart: the port runs its CUDA kernel for state on the card and
-    the plain version for state on the host, with no tier to pick."""
+    `kernel` ("xla" | "pallas") and `pallas_interpret` are the reference's
+    update-tier knobs, accepted with the values its tier resolver takes
+    so reference configs load unchanged; any other value raises. They
+    select nothing here: on the card every value runs K1 (the CUDA
+    kernel `ops.cuda_kernels.paged_fused_update`), and state on the host
+    runs K1's plain PyTorch version."""
 
     histogram_buckets: tuple[float, ...] = DEFAULT_HISTOGRAM_EDGES
     intrinsic_dimensions: tuple[str, ...] = ("service", "span_name", "span_kind",
@@ -103,6 +122,8 @@ class SpanMetricsConfig:
     # DDSketch fallback)
     sketch: str = "dd"
     moments_k: int = 12                       # moment count (2..16)
+    kernel: str = "xla"                       # the reference's update tier
+    pallas_interpret: bool = False            # the reference's parity switch
     # int32 counts and bucket grids, bf16 Kahan-pair latency sums
     compact_state: bool = False
     sketch_rel_err: float = 0.01              # DDSketch relative-error budget
@@ -150,6 +171,12 @@ class SpanMetricsProcessor:
         if cfg.sketch not in ("dd", "moments", "both"):
             raise ValueError(f"unknown sketch tier {cfg.sketch!r} (use dd | "
                              "moments | both)")
+        if cfg.kernel not in ("xla", "pallas"):
+            raise ValueError(f"unknown kernel tier {cfg.kernel!r} (use xla | "
+                             "pallas)")
+        if not isinstance(cfg.pallas_interpret, bool):
+            raise ValueError(f"pallas_interpret must be a bool, not "
+                             f"{cfg.pallas_interpret!r}")
         self.registry = registry
         dims = [d for d in cfg.intrinsic_dimensions] + [
             _sanitize(d) for d in cfg.dimensions]
@@ -259,6 +286,12 @@ class SpanMetricsProcessor:
         # between dispatches; logical-row indexed, so page-map changes
         # need nothing); the host's plain version needs none
         self._scratch: "torch.Tensor | None" = None
+        # the staged route's label-code and LUT arrays, made at first use
+        self._dims_arr: "np.ndarray | None" = None
+        self._kind_lut = self._status_lut = None
+        # the staging-buffer ring (generator/pipeline.py), made at first
+        # use on the scheduler route
+        self._pipe = None
 
     def name(self) -> str:
         return "span-metrics"
@@ -326,6 +359,22 @@ class SpanMetricsProcessor:
             self._dispatch_packed if packed else self._dispatch_vec,
             pads=(-1.0, 0.0, 0.0, 0.0) if packed else (-1, 0.0, 0.0, 0.0),
             tenant=self.registry.tenant, pack=packed)
+
+    def _pipeline(self, sc):
+        """The staging pipeline riding scheduler `sc`, or None when the
+        decode/update overlap ring is off (no scheduler, or
+        `pipeline_depth` 0: every push then allocates fresh staging)."""
+        if sc is None or sc.cfg.pipeline_depth <= 0:
+            return None
+        if self._pipe is None or self._pipe.depth != sc.cfg.pipeline_depth:
+            self._pipe = IngestPipeline(sc.cfg.pipeline_depth)
+        return self._pipe
+
+    def drain_pipeline(self, timeout_s: float = 30.0) -> None:
+        """Reap the staging ring behind the `sched.flush()` barrier (the
+        collection tick's drain before it collects)."""
+        if self._pipe is not None:
+            self._pipe.drain(timeout_s)
 
     def _dense_views(self) -> tuple:
         """Dense state's role-aligned tensors, in `_paged_planes` order."""
@@ -399,6 +448,120 @@ class SpanMetricsProcessor:
         all zero between dispatches)."""
         return 0 if self._scratch is None else \
             self._scratch.numel() * self._scratch.element_size()
+
+    # -- the staged fast route (dedicated span-metrics generators) --------
+
+    _DIM_CODES = {"service": 0, "span_name": 1, "span_kind": 2,
+                  "status_code": 3}
+
+    def supports_staged_fast_path(self) -> bool:
+        """True when a push can go StageRec → device directly: intrinsic
+        dimensions only (the default config), no policies, multiplier or
+        target_info. Anything else needs the SpanBatch route."""
+        c = self.cfg
+        return (not c.dimensions and not c.filter_policies
+                and not c.span_multiplier_key and not c.enable_target_info
+                and all(d in self._DIM_CODES for d in c.intrinsic_dimensions))
+
+    def _staged_dims(self):
+        if self._dims_arr is None:
+            it = self.registry.interner
+            self._dims_arr = np.asarray(
+                [self._DIM_CODES[d] for d in self.cfg.intrinsic_dimensions],
+                np.int32)
+            self._kind_lut = np.asarray(it.intern_many(_KIND_STRS), np.int32)
+            self._status_lut = np.asarray(it.intern_many(_STATUS_STRS),
+                                          np.int32)
+        return self._dims_arr, self._kind_lut, self._status_lut
+
+    def push_staged(self, spans: np.ndarray, slack_lo: int, slack_hi: int,
+                    weights: "np.ndarray | None" = None) -> tuple[int, int]:
+        """One fused pass: staged StageRec[:n] → slots, durations and sizes
+        in C++ (label build, row-table resolve, slack filter, last_seen
+        stamp) → one device update. `weights` (len n) are sampling
+        upscale factors. Returns (n_valid, n_filtered)."""
+        n = len(spans)
+        cap = _pad_rows(max(n, 1))
+        dims, klut, slut = self._staged_dims()
+        now = self.registry.now()
+        sc = self._sched()
+        pipe = self._pipeline(sc)
+        bufs = pipe.acquire(cap, len(dims)) if pipe is not None else None
+        got = native.spanmetrics_resolve(
+            self.calls.table._nat, spans, dims, klut, slut,
+            slack_lo, slack_hi, now, self.calls.table.last_seen, cap,
+            out=bufs)
+        return self._push_resolved(got, spans["trace_id"], n, now,
+                                   sc=sc, pipe=pipe, bufs=bufs,
+                                   weights=weights)
+
+    def push_from_recs(self, raw: bytes, recs: np.ndarray, slack_lo: int,
+                       slack_hi: int) -> "tuple[int, int] | None":
+        """The in-process tee route: `native.otlp_scan` records and the
+        ORIGINAL payload bytes go straight to slots, with no second
+        protobuf walk and no payload re-encode for sharded subsets. None
+        when the payload needs the Python service.name fixup."""
+        n = len(recs)
+        cap = _pad_rows(max(n, 1))
+        dims, klut, slut = self._staged_dims()
+        now = self.registry.now()
+        sc = self._sched()
+        pipe = self._pipeline(sc)
+        bufs = pipe.acquire(cap, len(dims)) if pipe is not None else None
+        got = native.spanmetrics_from_recs(
+            self.calls.table._nat, self.registry.interner.native_handle()._h,
+            raw, recs, dims, klut, slut, slack_lo, slack_hi, now,
+            self.calls.table.last_seen, cap, out=bufs)
+        if got is None:
+            if pipe is not None:
+                pipe.release(bufs)   # fixup bail: the full route re-stages
+            return None
+        return self._push_resolved(got, recs["trace_id"], n, now,
+                                   sc=sc, pipe=pipe, bufs=bufs)
+
+    def _push_resolved(self, got, trace_ids, n: int, now: float,
+                       sc=None, pipe=None, bufs=None,
+                       weights=None) -> tuple[int, int]:
+        """Land one resolved push. `weights` (len n, optional) are
+        per-span Horvitz-Thompson upscale factors from the distributor's
+        overload sampling: they multiply calls and sizes and weight the
+        histogram and sketches, so rates and quantiles describe the true
+        stream; None means weight 1."""
+        slots, packed, rows, valid, miss, n_valid, n_filtered = got
+        if miss.size:
+            self.calls.table.apply_misses(rows, slots, miss, valid, now)
+        ts_ms = int(now * 1000)
+        if sc is not None:
+            # trimmed to the real rows (filtered rows carry slot -1 and
+            # drop on the card; the coalescer pads the merged window to
+            # its pow-2 bucket) and enqueued for the next window
+            job = None
+            if n:
+                w = np.ones(n, np.float32) if weights is None \
+                    else np.asarray(weights[:n], np.float32)
+                job = self._submit_rows(sc, slots[:n], packed[1][:n],
+                                        packed[2][:n], w)
+            # exemplars read slots/packed BEFORE the buffers go to the
+            # ring: track() makes them reclaimable once the job lands
+            # (inline on the shed path), and a concurrent push's
+            # acquire() could overwrite them mid-read
+            self.calls.note_exemplars(slots[:n], trace_ids, packed[1], ts_ms)
+            self.latency.exemplars = self.calls.exemplars
+            if pipe is not None:
+                if job is not None:
+                    pipe.track(job, bufs)
+                else:
+                    pipe.release(bufs)
+            return n_valid, n_filtered
+        # direct route: one host matrix (slots, the packed rows, the
+        # weight row), one copy to the device, one K1 launch
+        wfull = np.ones(len(slots), np.float32)
+        if weights is not None:
+            wfull[:n] = weights[:n]
+        self._direct_update(slots, packed[1], packed[2], wfull)
+        self.calls.note_exemplars(slots[:n], trace_ids, packed[1], ts_ms)
+        self.latency.exemplars = self.calls.exemplars
+        return n_valid, n_filtered
 
     # -- staging -----------------------------------------------------------
 

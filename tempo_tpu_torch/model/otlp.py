@@ -4,8 +4,11 @@ The receiver-side conversion of the reference's OTel receiver shim
 (`modules/distributor/receiver/shim.go:165`), collapsed into one decode
 straight into span tensors over the public opentelemetry-proto trace.proto
 v1 field numbers. `encode_spans_otlp` is its inverse; tests and the chip
-smoke use it to make payloads. The OTLP/JSON route and the payload
-slicer of the reference come with later slices.
+smoke use it to make payloads. `slice_otlp_payload` cuts a payload down
+to a subset of its spans from the native scan's wire offsets. The C++
+staging route (`model/otlp_batch.py`) is the generator's main path; this
+Python decoder is its reference and the route of `otlp_proto_to_batch`.
+The OTLP/JSON route of the reference comes with a later slice.
 """
 
 from __future__ import annotations
@@ -232,4 +235,36 @@ def encode_spans_otlp(spans: Iterable[dict]) -> bytes:
         rs = (pw.enc_field_msg(1, _enc_attrs(1, ra)) +
               pw.enc_field_msg(2, b"".join(span_bufs)))
         out.append(pw.enc_field_msg(1, rs))
+    return b"".join(out)
+
+
+def slice_otlp_payload(raw: bytes, recs, wire_indices) -> bytes:
+    """Rebuild an OTLP payload containing only `wire_indices` spans, by
+    concatenating raw wire slices (no re-encoding). `recs` is the native
+    scan's SpanRec array over `raw` (span_off/span_len + res_off/res_len
+    byte ranges). The per-instance splitter of the generator tee, the
+    analog of the per-trace proto re-marshal in `sendToGenerators`."""
+    out = []
+    cur_res: tuple[int, int] | None = None
+    span_bufs: list[bytes] = []
+
+    def flush() -> None:
+        if not span_bufs:
+            return
+        ro, rl = cur_res
+        rs = b""
+        if ro >= 0:
+            rs += pw.enc_field_msg(1, raw[ro:ro + rl])
+        rs += pw.enc_field_msg(2, b"".join(span_bufs))
+        out.append(pw.enc_field_msg(1, rs))
+        span_bufs.clear()
+
+    for i in sorted(wire_indices):
+        res = (int(recs["res_off"][i]), int(recs["res_len"][i]))
+        if res != cur_res:
+            flush()
+            cur_res = res
+        o, ln = int(recs["span_off"][i]), int(recs["span_len"][i])
+        span_bufs.append(pw.enc_field_msg(2, raw[o:o + ln]))
+    flush()
     return b"".join(out)

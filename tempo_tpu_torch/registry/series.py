@@ -1,16 +1,18 @@
 """Host-side series tables: label combos → dense device slot ids.
 
 Replaces the reference's per-series hash map (`modules/generator/registry/
-registry.go:139-144`) with a vectorized staging step: a batch of label-id
-rows is uniqued once (numpy), unseen combos get slots from a free list,
-and every span row resolves to a dense int32 slot usable as a device
-scatter index.
+registry.go:139-144`) with the C++ row table of `tempo_tpu_torch.native`
+(`NativeRowTable`), as `tempo_tpu/registry/series.py` does when its
+library loads: one native pass resolves every known label row of a batch
+to its slot, and only the first occurrence of each new combo crosses back
+into Python for slot allocation and budget accounting, so slots are
+handed out in first-seen order.
 
 Slot lifecycle mirrors the reference's active-series accounting
 (`registry.go:184-197`) and staleness purge (`registry.go:258-277`): a
-full table rejects new combos (slot -1, counted as discarded); idle
-series are evicted and their device rows zeroed. This is the numpy path
-only; the C++ row table of the reference comes with a later slice.
+full table, a spent budget or an exhausted page pool rejects new combos
+(slot -1, counted as discarded, the pending row removed from the native
+table); idle series are evicted and their device rows zeroed.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from tempo_tpu_torch import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +71,12 @@ class SeriesTable:
         # pages before the slot is handed out; pool exhaustion rejects the
         # combo exactly like a spent budget
         self.backing = backing
-        self._slots: dict[bytes, int] = {}
         self._free: list[int] = list(range(capacity - 1, -1, -1))
         self.slot_keys = np.full((capacity, n_labels), -1, np.int32)
         self.active = np.zeros(capacity, bool)
         self.last_seen = np.zeros(capacity, np.float64)
         self.discarded = 0  # combos rejected because the table was full
+        self._nat = native.NativeRowTable(n_labels)
 
     @property
     def active_count(self) -> int:
@@ -83,47 +87,70 @@ class SeriesTable:
         """Resolve [n, n_labels] int32 label rows to [n] int32 slots.
         Rows that cannot be allocated resolve to -1."""
         n = rows.shape[0]
-        out = np.full(n, -1, np.int32)
         if n == 0:
-            return out
+            return np.full(0, -1, np.int32)
         if valid is None:
             valid = np.ones(n, bool)
-        uniq, inverse = np.unique(rows, axis=0, return_inverse=True)
-        inverse = inverse.reshape(-1)
-        uslots = np.full(uniq.shape[0], -1, np.int32)
-        # only unique rows that appear in valid positions allocate
-        used = np.zeros(uniq.shape[0], bool)
-        np.logical_or.at(used, inverse, valid)
-        for i in np.flatnonzero(used).tolist():
-            key = uniq[i].tobytes()
-            slot = self._slots.get(key)
-            if slot is None:
-                if not self._free or (self.budget is not None
-                                      and not self.budget.take()):
-                    self.discarded += 1
-                    continue
-                slot = self._free.pop()
-                if self.backing is not None and \
-                        not self.backing.ensure_slot(slot):
-                    self._free.append(slot)
-                    if self.budget is not None:
-                        self.budget.release()
-                    self.discarded += 1
-                    continue
-                self._slots[key] = slot
-                self.slot_keys[slot] = uniq[i]
-                self.active[slot] = True
-            self.last_seen[slot] = now
-            uslots[i] = slot
-        out = uslots[inverse]
-        out[~valid] = -1
+        return self._lookup_native(rows, now, valid)
+
+    def _lookup_native(self, rows: np.ndarray, now: float,
+                       valid: np.ndarray) -> np.ndarray:
+        """One native pass resolves every known combo; only new combos
+        (first occurrence per batch) come back for `apply_misses`."""
+        rows = np.ascontiguousarray(rows, np.int32)
+        out, miss = self._nat.lookup(rows, valid)
+        if miss.size:
+            self.apply_misses(rows, out, miss, valid, now)
+        live = out[out >= 0]
+        if live.size:
+            self.last_seen[live] = now
         return out
+
+    def apply_misses(self, rows: np.ndarray, out: np.ndarray,
+                     miss: np.ndarray, valid: np.ndarray,
+                     now: float) -> None:
+        """Resolve the PENDING entries a native lookup reported: allocate
+        slots (budget- and page-gated) for first occurrences, then fix
+        in-batch duplicates on the host. `out` is updated in place;
+        `rows`/`valid` cover out[:len(rows)] (out may be padded longer).
+        A rejected combo's pending entry is removed, so none lingers."""
+        n = len(rows)
+        pend: dict[bytes, int] = {}
+        for i in miss.tolist():
+            row = rows[i]
+            key = row.tobytes()
+            if not self._free or (self.budget is not None
+                                  and not self.budget.take()):
+                self.discarded += 1
+                self._nat.remove(row)
+                pend[key] = -1
+                continue
+            slot = self._free.pop()
+            if self.backing is not None and \
+                    not self.backing.ensure_slot(slot):
+                self._free.append(slot)
+                if self.budget is not None:
+                    self.budget.release()
+                self.discarded += 1
+                self._nat.remove(row)
+                pend[key] = -1
+                continue
+            self._nat.insert(row, slot)
+            self.slot_keys[slot] = row
+            self.active[slot] = True
+            self.last_seen[slot] = now
+            pend[key] = slot
+            out[i] = slot
+        # duplicates of new combos within this batch, resolved here
+        unres = np.flatnonzero((out[:n] < 0) & valid[:n])
+        for i in unres.tolist():
+            out[i] = pend.get(rows[i].tobytes(), -1)
 
     def purge_stale(self, older_than: float) -> np.ndarray:
         """Evict series idle since before `older_than`; returns evicted slots."""
         stale = np.flatnonzero(self.active & (self.last_seen < older_than))
         for slot in stale.tolist():
-            self._slots.pop(self.slot_keys[slot].tobytes(), None)
+            self._nat.remove(self.slot_keys[slot])
             self.active[slot] = False
             self.slot_keys[slot] = -1
             self._free.append(slot)

@@ -4,8 +4,8 @@ With no page pool, both packages keep a tenant's state dense: the
 reference in jitted composed scatters (`_fused_update_impl`, `kernel="xla"`,
 direct route), the port in row views of trash-paged arenas that its
 paged fused update (K1, the plain version here on the CPU) reaches
-through identity page tables. The reference keeps its series table on
-its numpy path (see tests/test_torch_spanmetrics.py). Small widths:
+through identity page tables. Both resolve series in their C++ row
+tables (first-seen slot order). Small widths:
 `max_active_series` 1,024, sketches over 256 series.
 
 Tolerances: calls, bucket and count samples and the DDSketch grid exact;

@@ -9,6 +9,9 @@
   `jax` nor any `tempo_tpu` module loaded. The test is exact-prefix: `tempo_tpu_torch` itself starts with
   the string "tempo_tpu", so a module counts as the reference only when
   its name is `tempo_tpu` or starts with `tempo_tpu.`.
+- A fresh interpreter drives the staged routes (`stage_otlp`,
+  `push_staged_view`, `push_otlp_staged`) and maps only the port's
+  native library, the one built under `build/`.
 - No source file of the port, nor `chip_smoke.py`, imports either.
 - Asking for `cuda` without a CUDA device raises.
 - Every configuration this slice does not carry raises
@@ -84,6 +87,57 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu") or m.startswith(("jax.", "tempo_tpu.")))
 print("LOADED", bad)
 """
+
+
+_STAGED_DRIVE = """
+import sys
+import numpy as np
+import tempo_tpu_torch as tt
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.registry import pages
+data = encode_spans_otlp(synthetic_spans(300, seed=0, now_ns=int(1.7e18)))
+pool = pages.PagePool(tt.PagePoolConfig(enabled=True, page_rows=64,
+                                        arena_slots=1024), device="cpu")
+for p in (None, pool):
+    with pages.use(p):
+        g = tt.GeneratorInstance("t", tt.GeneratorConfig(
+            processors=("span-metrics",),
+            registry=tt.RegistryOverrides(max_active_series=512),
+            spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
+            now=lambda: 1.7e9, device="cpu")
+    st = tt.stage_otlp(data, g.registry.interner, include_span_attrs=False)
+    st.sample_weight = np.full(st.n, 2.0, np.float32)
+    assert g.push_staged_view(st.view()) == 300
+    assert g.push_staged_view(st.view(np.arange(0, 300, 3))) == 100
+    assert g.push_otlp_staged(data) == 300
+    assert g.collect_and_push() > 0 and g.spans_received == 700
+    assert g.processors["span-metrics"].quantile(0.5)
+maps = open("/proc/self/maps").read().splitlines()
+print("LIBS", sorted({l.split()[-1] for l in maps if "native" in l and ".so" in l}))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu") or m.startswith(("jax.", "tempo_tpu.")))
+print("LOADED", bad)
+"""
+
+
+def test_staged_routes_load_only_the_ports_native_library():
+    """`stage_otlp` + `push_staged_view` + `push_otlp_staged` in a fresh
+    interpreter, on dense and paged state: no `jax` or `tempo_tpu.*`
+    module loads, and the one native library mapped is the port's build
+    under `build/`, not the reference's (`_tempo_native_*.so` in its
+    user cache)."""
+    import tempo_tpu_torch as tt
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _STAGED_DRIVE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    libs = [line for line in out.stdout.splitlines()
+            if line.startswith("LIBS")]
+    assert libs == [f"LIBS {[tt.native.library_path()]}"], out.stdout
+    assert Path(tt.native.library_path()).parent == ROOT / "build"
+    assert "_tempo_native_" not in out.stdout
 
 
 def test_push_and_collect_load_no_reference_module():
@@ -202,8 +256,13 @@ def test_dense_layout_and_other_entry_points_raise():
                     registry=tt.RegistryOverrides(max_active_series=512)),
                     device="cpu")
     g = _instance()
-    with pytest.raises(NotImplementedError, match="staged native"):
-        g.push_otlp_staged(b"")
     with pytest.raises(ValueError, match="unknown sketch"):
         _instance(sketch="hll")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        _instance(kernel="mosaic")
+    with pytest.raises(ValueError, match="pallas_interpret"):
+        _instance(pallas_interpret="yes")
+    for kernel in ("xla", "pallas"):
+        for interpret in (False, True):
+            _instance(kernel=kernel, pallas_interpret=interpret)
     assert g.device_state_bytes() == 0    # no series yet: no pages backed

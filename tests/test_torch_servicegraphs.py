@@ -8,8 +8,8 @@ collected samples are compared by label set: counts (`_total`,
 `_count`, `_bucket`) exact, `_sum` samples at rtol 1e-5. Seeded trace
 trees (`chip_smoke.trace_tree_spans`) also go through whole default
 generator instances of both packages (span metrics and service graphs),
-on the direct route and on the scheduler route. The reference keeps its
-series tables on its numpy path (see tests/test_torch_spanmetrics.py).
+on the direct route and on the scheduler route. Both packages resolve
+series in their C++ row tables (first-seen slot order).
 
 The registry writes (`registry/metrics.py`) are held against the
 reference's on negative, out-of-range, duplicate and hot slots, and a
@@ -71,12 +71,6 @@ class Clock:
         return self.t
 
 
-def _numpy_tables(reg):
-    """Hold the reference's series tables on their numpy path."""
-    for mt in reg._metrics.values():
-        mt.table._nat = None
-
-
 def _regs(layout, clock):
     """(reference registry, port registry), each with its own pool when
     `layout` is "paged"."""
@@ -96,7 +90,6 @@ def _sg(layout, clock, **cfg):
         jp = JSg(jreg, JSgCfg(**cfg))
     with tpages.use(treg.pages):
         tp = tt.ServiceGraphsProcessor(treg, tt.ServiceGraphsConfig(**cfg))
-    _numpy_tables(jreg)
     assert (jreg.pages is None) == (treg.pages is None) == (layout == "dense")
     return jp, tp
 
@@ -228,7 +221,6 @@ def _instances(layout, clock, scheduled):
             registry=tt.RegistryOverrides(max_active_series=SERIES),
             spanmetrics=tt.SpanMetricsConfig(sketch_max_series=256)),
             now=clock, device="cpu")
-    _numpy_tables(jg.registry)
     assert tuple(jg.processors) == tuple(tg.processors) == \
         ("span-metrics", "service-graphs")
     assert jg.cfg.spanmetrics.use_scheduler and tg.cfg.spanmetrics.use_scheduler
@@ -430,8 +422,9 @@ def _defaults(cls):
 
 def test_default_configs_match_reference():
     """The generator's processors, and every default of SpanMetricsConfig,
-    SchedConfig and ServiceGraphsConfig that both packages have, equal the
-    reference's; span metrics ride the scheduler by default."""
+    SchedConfig and ServiceGraphsConfig, equal the reference's (the two
+    packages' configs have the same fields); span metrics ride the
+    scheduler by default."""
     assert tt.GeneratorConfig().processors == JGenCfg().processors == \
         ("span-metrics", "service-graphs")
     assert tt.SpanMetricsConfig().use_scheduler is True
@@ -446,8 +439,9 @@ def test_default_configs_match_reference():
                 assert pd[k] == rd[k] == ()
                 continue
             assert pd[k] == rd[k], f"{port.__name__}.{k}: {pd[k]} vs {rd[k]}"
-    # the port lacks only the reference's tier knobs (ROADMAP section 3)
-    assert _defaults(JSmCfg).keys() - _defaults(tt.SpanMetricsConfig).keys() \
-        == {"kernel", "pallas_interpret"}
+    # the reference's tier knobs too, with their defaults
+    assert _defaults(JSmCfg).keys() == _defaults(tt.SpanMetricsConfig).keys()
+    assert (tt.SpanMetricsConfig().kernel, tt.SpanMetricsConfig().pallas_interpret) \
+        == (JSmCfg().kernel, JSmCfg().pallas_interpret) == ("xla", False)
     assert _defaults(JSchedCfg).keys() == _defaults(tt.SchedConfig).keys()
     assert _defaults(JSgCfg).keys() == _defaults(tt.ServiceGraphsConfig).keys()

@@ -3,7 +3,10 @@
 The same OTLP payloads and a pinned clock go into two generator
 instances with the page pool on and only the span-metrics processor: the
 reference's (`kernel="xla"`, direct route) and the port's on the CPU.
-Series are matched by label set, not slot id. Tolerances: calls, bucket
+Both packages resolve series in their C++ row tables, which hand slots
+out in first-seen order, so the same series own the same slots and the
+same DDSketch rows (slot < `sketch_max_series`). Series are matched by
+label set, not slot id. Tolerances: calls, bucket
 and count samples exact; sums (latency `_sum`, size) at rtol=1e-5;
 `quantile(0.5)` / `quantile(0.99)` equal; the decoded remote-write
 samples equal under the same rules. Compared before and after a
@@ -62,12 +65,6 @@ def _worlds(url="", clock=None, jsm=None, tsm=None, pool=POOL, series=SERIES):
             spanmetrics=JSmCfg(**dict(dict(use_scheduler=False, kernel="xla",
                                            **SM), **(jsm or {}))),
             remote_write=JRwCfg(url=url and url + "/jax")), now=now)
-    # which series own a DDSketch row (slot < sketch_max_series) depends on
-    # the order slots are handed out: the reference's C++ row table gives
-    # them in first-seen order, its numpy path (the port's) in sorted
-    # label order, so the reference is held on its numpy path here
-    for mt in jg.registry._metrics.values():
-        mt.table._nat = None
     with tpages.use(pool and tpages.PagePool(tpages.PagePoolConfig(**pool),
                                              device="cpu")):
         tg = tt.GeneratorInstance("t", tt.GeneratorConfig(
