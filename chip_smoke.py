@@ -1388,7 +1388,10 @@ def _timed_emits(insts):
 
 def _compare_sets(sched_insts, direct_insts, ctx):
     """Tenant by tenant, the scheduler route's state against its direct
-    twin's on the card: the same series in the same slots, every family's
+    twin's on the card: the same series in the same slots, compared by
+    their label strings (each instance has its own interner, and the
+    threaded staging of a large payload hands out ids in the order its
+    threads reach new strings), every family's
     rows (span metrics and service graphs) with counts and buckets exact
     and sums (latency and edge `_sum`, size) at rtol 1e-5, and the
     DDSketch rows exact. Returns (families, series, max relative sum
@@ -1401,8 +1404,10 @@ def _compare_sets(sched_insts, direct_insts, ctx):
     for ga, gb in zip(sched_insts, direct_insts):
         for name, fa in ga.registry._metrics.items():
             fb = gb.registry._metrics[name]
+            live = fa.table.active_slots().tolist()
             if not (np.array_equal(fa.table.active, fb.table.active) and
-                    np.array_equal(fa.table.slot_keys, fb.table.slot_keys)):
+                    [fa.labels_of(s) for s in live] ==
+                    [fb.labels_of(s) for s in live]):
                 raise AssertionError(f"{ctx} {ga.tenant} {name}: the series "
                                      f"tables differ")
             with ga.registry.state_lock:
