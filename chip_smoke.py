@@ -72,7 +72,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    scheduler at its default config (`sched.configure(SchedConfig())`,
    worker thread, 2 ms windows) and 8 tenants of the default generator
    (span metrics and service graphs, 65,536 series, DDSketch over 16,384),
-   each sent 16 pushes of 1,024 seeded trace-tree spans (client/server
+   each sent 8 pushes of 1,024 seeded trace-tree spans (client/server
    pairs, 1/16 db clients with no server side; 32 services x 32
    operations) by 2 producer threads, then the clock stepped past the
    service graphs' wait and one empty push each; the same pushes through
@@ -115,7 +115,41 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    printed: staging seconds a payload, resolve seconds a push, spans/s
    from wire bytes on each route beside phase 4's Python-decode spans/s,
    the pipeline's overlap ratio and stall seconds, K1's device time a
-   staged push.
+   staged push;
+8. the distributor main path, where the reference's users enter:
+   `Distributor.push_otlp` with OTLP wire bytes → admission, validation,
+   grouping by trace, ring replication to 3 stub ingesters (staged-capable,
+   at the default rf=3) → the generator tee → the multi-tenant
+   `Generator` → the scheduler (default `SchedConfig`) → K1 → state, at
+   the widths above on dense state (the reference's default), for 4
+   tenants: 2 span-metrics-only tenants sent phase 7's 4 payloads of
+   16,384 spans twice (every series new, then known) and 2 of the default
+   processors sent phase 6's trace-tree payloads of one tenant each; each
+   run against a CPU twin (the same `Distributor` config feeding
+   `Generator(device="cpu")`):
+   a. the decode-once staged tee into one generator on the card: errs
+      empty, every span to all 3 ingesters, the distributor's
+      spans-received family equal to the spans sent, every family of
+      every tenant equal to the twin's by label strings (counts and
+      buckets exact, sums within rtol 1e-5), DDSketch q50/q99 exact, K1
+      launches equal to merged dispatches, one launch plan a processor;
+      K1 at a captured merged window against its plain version;
+   b. the columnar tee into two generators on the card (two interners, so
+      no shared staging): the span-metrics tenants take `push_otlp_recs`,
+      the default ones payload slices; every span reaches exactly one
+      generator, each generator's spans equal its twin's, and every
+      family summed over the two generators by label set equals 8a's;
+   c. overload: one span-metrics tenant with sampling floor 0.25 and tail
+      protection off under a keep fraction of 0.5: spans discarded as
+      `sampled`, hash-kept weights exactly 2.0 (error spans 1.0), the
+      HT-weighted calls within 5% of the spans sent, the state equal to
+      the twin's; then an injected backpressure of 2 s: `RateLimited`
+      with reason `sched_backpressure` and `retry_after_s` 2.0, and the
+      tenant's interner unchanged;
+   printed: spans/s through `Distributor.push_otlp` (series new and
+   known) on 8a and 8b beside phase 7a's on the same payloads, the
+   distributor's host ms a push (its `push_duration` histogram), K1's
+   device time a push.
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -1261,12 +1295,12 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
 # phase 6: the reference's default deployment through the device scheduler
 # ---------------------------------------------------------------------------
 
-N_TENANTS, N_TREE_PUSHES, N_TREE_SPANS, N_PRODUCERS = 8, 16, 1024, 2
+N_TENANTS, N_TREE_PUSHES, N_TREE_SPANS, N_PRODUCERS = 8, 8, 1024, 2
 SCHED_KERNEL = "spanmetrics_fused_update"
 
 
-def _tree_traffic(now_ns):
-    """Per tenant, 16 OTLP payloads of 1,024 trace-tree spans (32 services
+def _tree_traffic(now_ns, n_tenants=N_TENANTS):
+    """Per tenant, 8 OTLP payloads of 1,024 trace-tree spans (32 services
     x 32 operations), with per-span sizes of 200-2,000 B and integer
     sample weights 1-3."""
     from tempo_tpu_torch.model.otlp import encode_spans_otlp
@@ -1276,7 +1310,7 @@ def _tree_traffic(now_ns):
         N_TREE_SPANS, seed=SEED + 100 * t + k, now_ns=now_ns)),
         rng.integers(200, 2001, N_TREE_SPANS).astype(np.float32),
         rng.integers(1, 4, N_TREE_SPANS).astype(np.float32))
-        for k in range(N_TREE_PUSHES)] for t in range(N_TENANTS)]
+        for k in range(N_TREE_PUSHES)] for t in range(n_tenants)]
 
 
 def _tree_set(traffic, clock, paged, use_scheduler):
@@ -2010,53 +2044,78 @@ def phase_recs_route(card):
     return out
 
 
-def _compare_by_labels(ga, gb, ctx):
-    """Two instances whose interners gave out ids in different orders:
-    every family's rows and the DDSketch rows compared series by series
-    through the label sets, counts and buckets exact, sums (a histogram's
-    sums, the size counter) at rtol 1e-5. Returns (families, series, max
-    relative sum error)."""
-    from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
-                                                                  _DD_ZEROS)
+def _family_rows(insts):
+    """Every registry family's rows by label set, summed over `insts`
+    (each tenant's instances on the generator ring)."""
+    out = {}
+    for inst in insts:
+        for name, fam in inst.registry._metrics.items():
+            with inst.registry.state_lock:
+                snap = [np.asarray(x) for x in fam._snap()]
+            rows = out.setdefault(name, {})
+            for s in fam.table.active_slots().tolist():
+                key = fam.labels_of(s)
+                vals = [x[s].astype(np.float64) for x in snap]
+                if key in rows:
+                    vals = [a + b for a, b in zip(rows[key], vals)]
+                rows[key] = vals
+    return out
 
-    def rows(g):
-        out = {}
-        for name, fam in g.registry._metrics.items():
-            with g.registry.state_lock:
-                snap = fam._snap()
-            out[name] = {fam.labels_of(int(s)): tuple(np.asarray(x)[s]
-                                                       for x in snap)
-                         for s in fam.table.active_slots()}
-        proc = g.processors["span-metrics"]
-        with g.registry.state_lock:
-            slots = proc._sketch_slots()
-            dd = [proc._rows(slots, r).cpu().numpy()
-                  for r in (_DD_COUNTS, _DD_ZEROS)]
-        out["ddsketch"] = {proc.calls.labels_of(int(s)): (dd[0][i], dd[1][i])
-                           for i, s in enumerate(slots)}
-        return out
 
-    ra, rb = rows(ga), rows(gb)
-    max_rel, n_series = 0.0, 0
-    for name, fa in ra.items():
-        fb = rb[name]
-        if fa.keys() != fb.keys():
-            raise AssertionError(f"{ctx} {name}: series differ")
-        for labels, xs in fa.items():
-            for i, (x, y) in enumerate(zip(xs, fb[labels], strict=True)):
+def _compare_rows(got, want, ctx):
+    """Family rows by label set: counts and buckets exact, sums (a
+    histogram's sums, the size counter) within rtol 1e-5. Returns (series
+    of the largest family, max relative sum error)."""
+    max_rel, n = 0.0, 0
+    if got.keys() != want.keys():
+        raise AssertionError(f"{ctx}: families {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for name, rows in got.items():
+        if rows.keys() != want[name].keys():
+            raise AssertionError(f"{ctx} {name}: label sets differ "
+                                 f"({len(rows)} / {len(want[name])})")
+        for key, xs in rows.items():
+            for i, (x, y) in enumerate(zip(xs, want[name][key], strict=True)):
                 if name == "traces_spanmetrics_size_total" or (
                         len(xs) == 3 and i == 1):
-                    rel = float(np.max(np.abs(x - y) / np.maximum(
-                        np.abs(y), 1e-30)))
-                    max_rel = max(max_rel, rel)
+                    max_rel = max(max_rel, float(np.max(
+                        np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
                     ok = np.allclose(x, y, rtol=1e-5, atol=1e-6)
                 else:
                     ok = np.array_equal(x, y)
                 if not ok:
-                    raise AssertionError(f"{ctx} {name} {labels}[{i}]: "
-                                         f"{x} vs {y}")
-        n_series = max(n_series, len(fa))
-    return len(ra) - 1, n_series, max_rel
+                    raise AssertionError(f"{ctx} {name} {key}[{i}]: {x} vs "
+                                         f"{y}")
+        n = max(n, len(rows))
+    return n, max_rel
+
+
+def _compare_by_labels(ga, gb, ctx):
+    """Two instances whose interners gave out ids in different orders:
+    every family's rows and the DDSketch rows compared series by series
+    through the label sets, counts and buckets exact, sums (a
+    histogram's sums, the size counter) at rtol 1e-5. Returns (families,
+    series, max relative sum error)."""
+    from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
+                                                                  _DD_ZEROS)
+
+    def dd(g):
+        proc = g.processors["span-metrics"]
+        with g.registry.state_lock:
+            slots = proc._sketch_slots()
+            rows = [proc._rows(slots, r).cpu().numpy()
+                    for r in (_DD_COUNTS, _DD_ZEROS)]
+        return {proc.calls.labels_of(int(s)): (rows[0][i], rows[1][i])
+                for i, s in enumerate(slots)}
+
+    fa = _family_rows([ga])
+    n_series, max_rel = _compare_rows(fa, _family_rows([gb]), ctx)
+    da, db = dd(ga), dd(gb)
+    if da.keys() != db.keys() or not all(
+            np.array_equal(x, y) for k, xs in da.items()
+            for x, y in zip(xs, db[k])):
+        raise AssertionError(f"{ctx}: DDSketch rows differ")
+    return len(fa), n_series, max_rel
 
 
 def _durations_differ(payload):
@@ -2087,7 +2146,7 @@ def phase_staged_default(card):
     sched.reset()
     sched.configure(sched.SchedConfig())
     now = time.time()
-    traffic = _tree_traffic(int(now * 1e9))[0]
+    traffic = _tree_traffic(int(now * 1e9), 1)[0]
     clock = [now]
     gs, gp = (tt.GeneratorInstance(name, tt.GeneratorConfig(),
                                    now=lambda: clock[0], device="cuda")
@@ -2162,6 +2221,460 @@ def phase_staged_default(card):
     torch.cuda.empty_cache()
     return {"staged_spans_per_s": spans / staged_s,
             "python_spans_per_s": spans / python_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the distributor main path (Distributor.push_otlp → Generator)
+# ---------------------------------------------------------------------------
+
+SM_TENANTS = ("sm-0", "sm-1")
+DEFAULT_TENANTS = ("default-0", "default-1")
+UNLIMITED = {"rate_limit_bytes": 1 << 40, "burst_size_bytes": 1 << 40}
+
+
+class _StubIngester:
+    """A staged-capable stub ingester, as the reference's own tests rig
+    them (`tests/test_ingest_pipeline.py:53-70`): counts the spans of
+    every staged view and the bytes of every payload slice it takes, and
+    keeps the last view. It copies nothing, so the distributor's host
+    time is not the stub's."""
+
+    staged_needs_attrs = False
+
+    def __init__(self):
+        self.spans = 0
+        self.bytes = 0
+        self.last = None
+
+    def push(self, tenant, traces):
+        raise AssertionError("phase 8: the dict route reached an ingester")
+
+    def push_otlp(self, tenant, data):
+        self.bytes += len(data)
+        return {}
+
+    def push_staged(self, tenant, view):
+        self.spans += view.n
+        self.last = view
+        return {}
+
+
+def _dist_rig(device, n_gen, now, patches=None):
+    """The distributor of the default deployment: 3 stub ingesters at the
+    default rf=3, a generator ring of `n_gen` `Generator`s of the default
+    config on `device` (dense state), 2 span-metrics-only tenants and 2 of
+    the default processors, every tenant unlimited in rate."""
+    from tempo_tpu_torch.distributor import Distributor
+    from tempo_tpu_torch.generator import Generator
+    from tempo_tpu_torch.overrides import Overrides
+    from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
+    from tempo_tpu_torch.ring.ring import _instance_tokens
+
+    ov = Overrides()
+    for t in SM_TENANTS + DEFAULT_TENANTS:
+        procs = ["span-metrics"] if t in SM_TENANTS else \
+            ["span-metrics", "service-graphs"]
+        ov.set_tenant_patch(t, {"generator": {"processors": procs},
+                                "ingestion": dict(UNLIMITED),
+                                **(patches or {}).get(t, {})})
+
+    def ring(ids, rf):
+        r = Ring(replication_factor=rf, now=lambda: now)
+        for iid in ids:
+            r.register(InstanceDesc(id=iid, state=ACTIVE,
+                                    tokens=_instance_tokens(iid, 128),
+                                    heartbeat_ts=now))
+        return r
+
+    gens = {f"generator-{k}": Generator(overrides=ov,
+                                         instance_id=f"generator-{k}",
+                                         now=lambda: now, device=device)
+            for k in range(n_gen)}
+    ings = {f"ingester-{k}": _StubIngester() for k in range(3)}
+    dist = Distributor(ring(ings, 3), ings, overrides=ov,
+                       generator_ring=ring(gens, 1), generator_clients=gens,
+                       now=lambda: now)
+    for g in gens.values():
+        for t in SM_TENANTS + DEFAULT_TENANTS:
+            inst = g.instance(t)
+            if inst.state_layout != "dense" or \
+                    inst.registry.budget.limit != N_SERIES:
+                raise AssertionError(f"phase 8: {t}: {inst.state_layout} "
+                                     f"state, {inst.registry.budget.limit} "
+                                     f"series")
+    return dist, gens, ings
+
+
+def _settle(gens):
+    """Every push landed: the scheduler flushed, the pipelines reaped, the
+    card synchronised."""
+    import torch
+
+    for g in gens.values():
+        for inst in g.instances.values():
+            inst.drain()
+        if g.device.type == "cuda":
+            torch.cuda.synchronize()
+
+
+def _capture_windows(proc):
+    """Keep a copy of every packed [4, bucket] window the processor
+    dispatches (the scheduler's merged windows)."""
+    mats = []
+    inner = proc._dispatch_packed
+    proc._dispatch_packed = lambda mat: (mats.append(mat.copy()),
+                                         inner(mat))[1]
+    return mats
+
+
+def _timed(obj, name, acc):
+    """Wrap `obj.name` to add its seconds to `acc[name]`; returns the
+    original, for `setattr(obj, name, original)`."""
+    inner = getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+    setattr(obj, name, timed)
+    return inner
+
+
+def _dist_drive(dist, gens, traffic, ctx, acc=None):
+    """Every tenant's payloads through `Distributor.push_otlp`: the
+    span-metrics tenants' twice (every series new, then every series
+    known), the default tenants' once, payload by payload across the
+    tenants. Returns ({pass: seconds, each pass ending settled}, {pass:
+    {"push": the distributor's host ms a push from its `push_duration`
+    histogram, and per key of `acc` (seconds that wrappers add up) its
+    ms a push}})."""
+    acc = {} if acc is None else acc
+    secs, ms = {}, {}
+    for what, tenants in (("new", SM_TENANTS), ("known", SM_TENANTS),
+                          ("default", DEFAULT_TENANTS)):
+        h0 = dist.push_duration.snapshot() or {"sum": 0.0, "count": 0}
+        a0 = dict(acc)
+        t0 = time.perf_counter()
+        for k in range(max(len(traffic[t]) for t in tenants)):
+            for t in tenants:
+                errs = dist.push_otlp(t, traffic[t][k])
+                if errs:
+                    raise AssertionError(f"{ctx}: {t} push {k}: {errs}")
+        _settle(gens)
+        secs[what] = time.perf_counter() - t0
+        h1 = dist.push_duration.snapshot()
+        n = h1["count"] - h0["count"]
+        ms[what] = {"push": (h1["sum"] - h0["sum"]) / n * 1e3}
+        ms[what].update({k: (v - a0.get(k, 0.0)) / n * 1e3
+                         for k, v in acc.items()})
+    return secs, ms
+
+
+def _dist_k1_row(name, proc, mat, launches, ctx):
+    k1 = _k1_on_window(proc, mat, ctx)
+    return k1, {
+        "name": name, "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": launches, "max_abs_err": k1["max_abs"],
+        "ms": k1["ms"][1], "plain_ms": k1["plain_ms"][1],
+        "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+    }
+
+
+def phase_distributor(card):
+    """Phase 8: the distributor main path at the default deployment's
+    widths under the default scheduler, on the card against CPU twins
+    (the same `Distributor` config feeding `Generator(device="cpu")`):
+    8a the decode-once staged tee into one generator, 8b the columnar tee
+    into two, 8c overload sampling and backpressure. Returns (results,
+    K1's kernel entries)."""
+    import torch
+
+    from tempo_tpu_torch import native, sched
+    from tempo_tpu_torch.distributor.distributor import (REASON_BACKPRESSURE,
+                                                         REASON_SAMPLED,
+                                                         RateLimited)
+    from tempo_tpu_torch.distributor.limiter import IngestBackpressure
+    from tempo_tpu_torch.distributor.sampler import SpanSampler
+    from tempo_tpu_torch.model import otlp_batch
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.registry import pages
+
+    t_phase = time.perf_counter()
+    if pages.active() is not None:
+        raise AssertionError("phase 8: a page pool is active")
+    sched.reset()
+    sc = sched.configure(sched.SchedConfig())
+    now = time.time()
+    sm_payloads = _payloads(now, N_MAIN_PUSHES)[0]
+    trees = _tree_traffic(int(now * 1e9), len(DEFAULT_TENANTS))
+    traffic = {t: sm_payloads for t in SM_TENANTS}
+    traffic.update({t: [p for p, _, _ in trees[i]]
+                    for i, t in enumerate(DEFAULT_TENANTS)})
+    sent = {t: sum(N_SPANS if t in SM_TENANTS else N_TREE_SPANS
+                   for _ in traffic[t]) * (2 if t in SM_TENANTS else 1)
+            for t in traffic}
+    n_sent = sum(sent.values())
+    out, rows = {}, []
+
+    # -- 8a: the decode-once staged tee into one generator ---------------
+    ctx = "phase 8a"
+    dist, gens, ings = _dist_rig("cuda", 1, now)
+    (g,) = gens.values()
+    if any(dist._staging_plan(t, dist.overrides.for_tenant(t)) is None
+           for t in traffic):
+        raise AssertionError(f"{ctx}: the staged tee does not engage")
+    mats = _capture_windows(g.instance("sm-0").processors["span-metrics"])
+    # host time split: staging (before `push_duration` starts) and the
+    # generator tee (inside it: the resolve and the scheduler submit)
+    acc = {}
+    inner_stage = _timed(otlp_batch, "stage_otlp", acc)
+    _timed(g, "push_staged_view", acc)
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    ck.reset_launch_counts()
+    plans0 = ck.paged_fused_update.plans
+    try:
+        secs, push_ms = _dist_drive(dist, gens, traffic, ctx, acc)
+    finally:
+        otlp_batch.stage_otlp = inner_stage
+    launches = ck.paged_fused_update.launches
+    plans = ck.paged_fused_update.plans - plans0
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches != dispatches or plans != len(traffic) or not launches:
+        raise AssertionError(f"{ctx}: K1 launched {launches} times for "
+                             f"{dispatches} merged dispatches, {plans} "
+                             f"plans for {len(traffic)} processors")
+    if dist.discarded or any(i.spans != n_sent for i in ings.values()):
+        raise AssertionError(f"{ctx}: discarded {dist.discarded}, ingesters "
+                             f"took {[i.spans for i in ings.values()]} of "
+                             f"{n_sent} spans")
+    text = dist.obs.render()
+    line = f"tempo_distributor_spans_received_total {n_sent}"
+    if line not in text.splitlines():
+        raise AssertionError(f"{ctx}: no '{line}' in the exposition")
+    twin, tgens, _ = _dist_rig("cpu", 1, now)
+    _dist_drive(twin, tgens, traffic, f"{ctx} twin")
+    (tg,) = tgens.values()
+    n_fams = n_series = n_q = 0
+    max_rel = 0.0
+    single = {}
+    for t in traffic:
+        a, b = g.instance(t), tg.instance(t)
+        if a.spans_received != sent[t] or b.spans_received != sent[t]:
+            raise AssertionError(f"{ctx} {t}: {a.spans_received} / "
+                                 f"{b.spans_received} of {sent[t]} spans")
+        f, n, r = _compare_by_labels(a, b, f"{ctx} {t}")
+        n_q += _same_dd_quantiles(a, b, f"{ctx} {t}")
+        n_fams, n_series, max_rel = n_fams + f, n_series + n, max(max_rel, r)
+        single[t] = _family_rows([a])
+    k1, row = _dist_k1_row(
+        "paged_fused_update (distributor staged tee, scheduler route, dense "
+        "state, sketch dd, f32)", g.instance("sm-0").processors["span-metrics"],
+        mats[-1], launches, f"{ctx} window")
+    rows.append(row)
+    out["8a"] = dict(secs=secs, push_ms=push_ms, launches=launches,
+                     dispatches=dispatches, device_ms=k1["device_ms"])
+    spans_sm = N_MAIN_PUSHES * N_SPANS * len(SM_TENANTS)
+    print(f"phase 8a [{card}]: Distributor.push_otlp → staged tee → one "
+          f"Generator on the card, default SchedConfig: "
+          f"{len(SM_TENANTS)} span-metrics tenants x {N_MAIN_PUSHES} "
+          f"payloads of {N_SPANS} spans {spans_sm / secs['new']:.0f} spans/s "
+          f"(every series new), {spans_sm / secs['known']:.0f} spans/s "
+          f"(every series known); {len(DEFAULT_TENANTS)} default tenants x "
+          f"{N_TREE_PUSHES} trace-tree payloads of {N_TREE_SPANS} spans "
+          f"{len(DEFAULT_TENANTS) * N_TREE_PUSHES * N_TREE_SPANS / secs['default']:.0f} "
+          f"spans/s; host ms a push by pass, "
+          + "; ".join(f"{k}: staging {v['stage_otlp']:.3f} (before "
+                      f"push_duration), push_duration {v['push']:.3f} of which "
+                      f"the generator tee {v['push_staged_view']:.3f}"
+                      for k, v in push_ms.items())
+          + f"; K1 launches {launches} for "
+          f"{dispatches} merged dispatches, {plans} launch plans")
+    print(f"phase 8a checks: errs {{}} on every push, nothing discarded; each "
+          f"of 3 stub ingesters took all {n_sent} spans (rf=3); "
+          f"tempo_distributor_spans_received_total {n_sent}; {n_fams} "
+          f"families of {n_series} series over {len(traffic)} tenants equal "
+          f"the CPU twin's by label strings (counts and buckets exact, sums "
+          f"within rtol 1e-5, max relative {max_rel:.3g}), DDSketch rows and "
+          f"q50/q99 of {n_q} series exact")
+    print(f"phase 8a [{card}]: K1 at a merged window of "
+          f"{int((mats[-1][0] >= 0).sum())} spans: {spread(k1['ms'])} with "
+          f"the host, {spread(k1['dispatch_ms'])} as dispatched; device time "
+          f"(torch.profiler) {k1['device_ms']} ms, with the copy "
+          f"{k1['dispatch_device_ms']} ms; plain {k1['plain_ms'][1]:.4f} ms; "
+          f"bound {k1['bound_ms']:.6f} ms by {k1['bound_by']}; max abs err "
+          f"{k1['max_abs']}")
+    del dist, gens, g, twin, tgens, tg, mats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8b: the columnar tee into two generators ------------------------
+    ctx = "phase 8b"
+    dist, gens, ings = _dist_rig("cuda", 2, now)
+    if any(dist._staging_plan(t, dist.overrides.for_tenant(t)) is not None
+           for t in traffic):
+        raise AssertionError(f"{ctx}: the staged tee engaged")
+    took = {t: {"recs": 0, "payload": 0} for t in traffic}
+    for gg in gens.values():
+        recs_fn, otlp_fn = gg.push_otlp_recs, gg.push_otlp
+
+        def recs(t, raw, rr, inner=recs_fn):
+            got = inner(t, raw, rr)
+            took[t]["recs"] += got is not None
+            return got
+
+        def otlp(t, data, trusted=False, inner=otlp_fn):
+            took[t]["payload"] += 1
+            return inner(t, data, trusted=trusted)
+        gg.push_otlp_recs, gg.push_otlp = recs, otlp
+    mats = _capture_windows(
+        gens["generator-0"].instance("sm-0").processors["span-metrics"])
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    ck.reset_launch_counts()
+    acc = {}
+    inner_scan = _timed(native, "otlp_scan", acc)
+    for gg in gens.values():
+        _timed(gg, "push_otlp_recs", acc)
+        _timed(gg, "push_otlp", acc)
+    try:
+        secs_b, push_ms_b = _dist_drive(dist, gens, traffic, ctx, acc)
+    finally:
+        native.otlp_scan = inner_scan
+    launches_b = ck.paged_fused_update.launches
+    dispatches_b = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches_b != dispatches_b or not launches_b:
+        raise AssertionError(f"{ctx}: K1 launched {launches_b} times for "
+                             f"{dispatches_b} merged dispatches")
+    n_push_t = {t: len(traffic[t]) * (2 if t in SM_TENANTS else 1)
+                for t in traffic}
+    n_bytes = sum(len(d) * (2 if t in SM_TENANTS else 1)
+                  for t in traffic for d in traffic[t])
+    if dist.discarded or any(i.bytes != n_bytes for i in ings.values()):
+        raise AssertionError(f"{ctx}: discarded {dist.discarded}, ingesters "
+                             f"took {[i.bytes for i in ings.values()]} of "
+                             f"{n_bytes} bytes")
+    for t, c in took.items():
+        want = {"recs": 2 * n_push_t[t], "payload": 0} if t in SM_TENANTS \
+            else {"recs": 0, "payload": 2 * n_push_t[t]}
+        if c != want:
+            raise AssertionError(f"{ctx}: {t} took {c}, want {want}")
+    twin, tgens, _ = _dist_rig("cpu", 2, now)
+    _dist_drive(twin, tgens, traffic, f"{ctx} twin")
+    n_b = 0
+    max_rel_b = 0.0
+    for t in traffic:
+        got = [gens[k].instance(t).spans_received for k in gens]
+        want = [tgens[k].instance(t).spans_received for k in gens]
+        if got != want or sum(got) != sent[t] or min(got) == 0:
+            raise AssertionError(f"{ctx} {t}: spans by generator {got}, "
+                                 f"twins {want}, sent {sent[t]}")
+        n, r = _compare_rows(_family_rows([gg.instance(t) for gg in
+                                           gens.values()]), single[t],
+                             f"{ctx} {t} against 8a")
+        n_b, max_rel_b = n_b + n, max(max_rel_b, r)
+    k1b, row = _dist_k1_row(
+        "paged_fused_update (distributor columnar tee, scheduler route, dense "
+        "state, sketch dd, f32)",
+        gens["generator-0"].instance("sm-0").processors["span-metrics"],
+        mats[-1], launches_b, f"{ctx} window")
+    rows.append(row)
+    out["8b"] = dict(secs=secs_b, push_ms=push_ms_b, launches=launches_b)
+    print(f"phase 8b [{card}]: Distributor.push_otlp → columnar tee → two "
+          f"Generators on the card: span-metrics tenants "
+          f"{spans_sm / secs_b['new']:.0f} spans/s (series new), "
+          f"{spans_sm / secs_b['known']:.0f} spans/s (series known), default "
+          f"tenants "
+          f"{len(DEFAULT_TENANTS) * N_TREE_PUSHES * N_TREE_SPANS / secs_b['default']:.0f} "
+          f"spans/s; host ms a push by pass, "
+          + "; ".join(f"{k}: push_duration {v['push']:.3f} of which the "
+                      f"scan {v.get('otlp_scan', 0.0):.3f}, the generator "
+                      f"tee {v.get('push_otlp_recs', 0.0) + v.get('push_otlp', 0.0):.3f}"
+                      for k, v in push_ms_b.items())
+          + f"; K1 "
+          f"launches {launches_b} for {dispatches_b} merged dispatches; K1 at "
+          f"a window device time {k1b['device_ms']} ms, max abs err "
+          f"{k1b['max_abs']}")
+    print(f"phase 8b checks: nothing discarded, each of 3 stub ingesters took "
+          f"every payload whole ({n_bytes} bytes); span-metrics tenants took "
+          f"push_otlp_recs and "
+          f"default tenants payload slices on every push; every span reached "
+          f"exactly one generator, spans_received per generator equal to the "
+          f"CPU twins'; {n_b} series of every family, summed over the two "
+          f"generators by label set, equal phase 8a's one generator (counts "
+          f"exact, sums within rtol 1e-5, max relative {max_rel_b:.3g})")
+    del dist, gens, twin, tgens, mats, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8c: overload sampling, then backpressure -------------------------
+    ctx = "phase 8c"
+    samp = {"sm-0": {"sampling": {"floor": 0.25, "tail_quantile": 0.0}}}
+    runs = []
+    for device in ("cuda", "cpu"):
+        dist, gens, ings = _dist_rig(device, 1, now, samp)
+        dist.sampler = SpanSampler(fraction_source=lambda: 0.5,
+                                   now=lambda: now)
+        (gg,) = gens.values()
+        for data in sm_payloads:
+            if dist.push_otlp("sm-0", data):
+                raise AssertionError(f"{ctx}: errs on a sampled push")
+        _settle(gens)
+        runs.append((dist, gg, ings))
+    (dist, gg, ings), (tdist, tgg, _) = runs
+    truth = N_MAIN_PUSHES * N_SPANS
+    dropped = dist.discarded.get(REASON_SAMPLED, 0)
+    if not dropped or tdist.discarded != dist.discarded:
+        raise AssertionError(f"{ctx}: discarded {dist.discarded} / twin "
+                             f"{tdist.discarded}")
+    last = ings["ingester-0"].last
+    w, status = last.weights(), last.stage_rows()["status_code"]
+    if not ((w[status != 2] == 2.0).all() and (w[status == 2] == 1.0).all()):
+        raise AssertionError(f"{ctx}: weights {np.unique(w)}")
+    f, n, r = _compare_by_labels(gg.instance("sm-0"), tgg.instance("sm-0"),
+                                 ctx)
+    _same_dd_quantiles(gg.instance("sm-0"), tgg.instance("sm-0"), ctx)
+    proc = gg.instance("sm-0").processors["span-metrics"]
+    with gg.instance("sm-0").registry.state_lock:
+        (calls,) = proc.calls._snap()
+    total = float(calls[proc.calls.table.active_slots()].sum())
+    if abs(total - truth) > 0.05 * truth:
+        raise AssertionError(f"{ctx}: HT-weighted calls {total} against "
+                             f"{truth} spans")
+    dist.backpressure = IngestBackpressure(retry_after_fn=lambda: 2.0)
+    fresh = synthetic_spans(1024, seed=SEED + 8, now_ns=int(now * 1e9))
+    for s in fresh:
+        s["service"] = "backpressure-" + s["service"]
+    interner = gg.instance("sm-0").registry.interner
+    before = len(interner)
+    try:
+        dist.push_otlp("sm-0", encode_spans_otlp(fresh))
+        raise AssertionError(f"{ctx}: the push was admitted")
+    except RateLimited as e:
+        if e.reason != REASON_BACKPRESSURE or e.retry_after_s != 2.0:
+            raise AssertionError(f"{ctx}: {e.reason}, {e.retry_after_s}")
+    if len(interner) != before:
+        raise AssertionError(f"{ctx}: the interner grew on a rejected push")
+    out["8c"] = dict(dropped=dropped, total=total)
+    print(f"phase 8c checks: keep fraction 0.5 (floor 0.25, tail off): "
+          f"{dropped} of {truth} spans discarded as sampled (the twin the "
+          f"same), hash-kept weights exactly 2.0 and error spans 1.0, "
+          f"HT-weighted calls {total:.0f} against {truth} spans "
+          f"({(total - truth) / truth * 100:+.2f}%), {f} families of {n} "
+          f"series equal the CPU twin's (max relative {r:.3g}); backpressure: "
+          f"RateLimited reason {REASON_BACKPRESSURE} retry_after_s 2.0, the "
+          f"interner unchanged at {before} strings")
+    sched.reset()
+    del runs, dist, gens, tdist, gg, tgg, proc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: {out['seconds']:.1f} s")
+    return out, rows
 
 
 def moments_state_bytes(n_payloads=N_DISPATCH):
@@ -2296,10 +2809,28 @@ def main() -> int:
           f"instance staged {s7c['staged_spans_per_s']:.0f} spans/s against "
           f"Python decode {s7c['python_spans_per_s']:.0f}; phase 7 "
           f"{time.perf_counter() - t7:.1f} s")
+    s8, k8 = phase_distributor(card)
+    sm_spans = N_MAIN_PUSHES * N_SPANS * len(SM_TENANTS)
+    sc7 = s7[0]["runs"]["sched"]
+    print(f"phase 8 [{card}]: span-metrics tenants through "
+          f"Distributor.push_otlp, spans/s with every series new / known: "
+          + "; ".join(f"{k} {sm_spans / s8[k]['secs']['new']:.0f} / "
+                      f"{sm_spans / s8[k]['secs']['known']:.0f}"
+                      for k in ("8a", "8b"))
+          + f"; phase 7a's staged fast route on the same payloads (dense, "
+          f"scheduler, no distributor) {sc7['spans_per_s']:.0f} / "
+          f"{sc7['warm_spans_per_s']:.0f}; distributor host time a "
+          f"16,384-span push, series new / known: "
+          + "; ".join(f"{k} {s8[k]['push_ms']['new']['push']:.3f} / "
+                      f"{s8[k]['push_ms']['known']['push']:.3f} ms"
+                      for k in ("8a", "8b"))
+          + f"; K1 device time a push {s8['8a']['device_ms']} ms; phase 8 "
+          f"{s8['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in (k1, k1c, k1d, k2, k2d, *s6, *s7)]}))
+                                  for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
+                                            *k8)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,18 @@ The port carries the reference's default generator, span metrics and
 service graphs, over dense state (the reference's default: no page pool)
 and over paged state, with the DDSketch and moments quantile tiers and,
 on paged state, the compact state tier; span-metrics updates ride the
-process device scheduler when one is configured (`sched.configure`):
+process device scheduler when one is configured (`sched.configure`).
+The main path starts where the reference's users enter:
+
+    distributor.Distributor.push_otlp(tenant, OTLP bytes)
+      → admission (scheduler backpressure, the tenant's rate limit),
+        validation, overload sampling, grouping by trace, ring
+        replication to the ingesters
+      → the generator tee: one decode-once staging shared by row views
+        when every generator is in process with one interner, else scan
+        records or payload slices per generator
+      → generator.Generator (tenants under their overrides) → the
+        tenant's GeneratorInstance, as below
 
     OTLP bytes → stage_otlp (C++ staging, `native`) → StagedIngest.view()
       → GeneratorInstance.push_staged_view

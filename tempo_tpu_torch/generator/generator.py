@@ -1,0 +1,425 @@
+"""The metrics-generator service: tenants, ticks, and the push entry.
+
+Counterpart of `tempo_tpu/generator/generator.py`, the analog of
+`modules/generator/generator.go`: `push_spans` (the
+`MetricsGenerator.PushSpans` RPC, `generator.go:275`) creates or loads
+the tenant instance under the tenant's overrides, stages the span dicts
+into a SpanBatch built on the tenant registry's interner, and hands it
+to the processors; `push_otlp`, `push_otlp_recs` and `push_staged_view`
+are the distributor's in-process tee routes (OTLP bytes, scan records
+with their payload, and a row view of a decode-once staging); a
+collection loop drives every instance's collection tick.
+
+Every instance runs on the generator's `device` (`cuda` unless `"cpu"`
+is asked for). Not carried yet, and raising `NotImplementedError` naming
+their ROADMAP item: the ingest WAL (`wal=`, `replay_wal*`,
+`truncate_wal`; item 12), the Kafka consumer group of `consume_bus`
+(item 14) and the metrics summary for a tenant with no instance
+(`traceql.metrics_summary`, item 6).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import threading
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+
+from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.generator.instance import GeneratorConfig, GeneratorInstance
+from tempo_tpu_torch.model.otlp_batch import batch_from_otlp
+from tempo_tpu_torch.model.span_batch import SpanBatchBuilder
+from tempo_tpu_torch.obs import Registry
+from tempo_tpu_torch.overrides import Overrides
+from tempo_tpu_torch.utils import tracing
+
+_LOG = logging.getLogger("tempo_tpu_torch.generator")
+_WAL_LATER = ("the ingest WAL comes with durability and fleet (ROADMAP "
+              "section 1, item 12)")
+
+
+class Generator:
+    # the distributor's in-process tee may pass trusted=True to push_otlp
+    # (bytes validated by its own scan); see GeneratorClient protocol
+    accepts_local_trust = True
+
+    def __init__(self, cfg: GeneratorConfig | None = None,
+                 overrides: Overrides | None = None,
+                 instance_id: str = "generator-0",
+                 registry: Registry | None = None,
+                 now: Callable[[], float] = time.time,
+                 wal=None, device=None) -> None:
+        if wal is not None:
+            raise NotImplementedError(_WAL_LATER)
+        self.device = resolve_device(device)
+        self.base_cfg = cfg or GeneratorConfig()
+        self.overrides = overrides or Overrides()
+        self.id = instance_id
+        self.now = now
+        self.instances: dict[str, GeneratorInstance] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self.obs = registry if registry is not None else Registry()
+        self._register_obs(self.obs)
+
+    def _register_obs(self, reg: Registry) -> None:
+        def insts():
+            with self._lock:
+                return dict(self.instances)
+
+        reg.counter_func(
+            "tempo_metrics_generator_spans_received_total",
+            lambda: [((t,), gi.spans_received) for t, gi in insts().items()],
+            help="Spans received by the metrics-generator, per tenant",
+            labels=("tenant",))
+        reg.gauge_func(
+            "tempo_metrics_generator_registry_active_series",
+            lambda: [((t,), gi.registry.budget.used)
+                     for t, gi in insts().items()],
+            help="Active series in the tenant registry vs its budget",
+            labels=("tenant",))
+        reg.gauge_func(
+            "tempo_registry_state_bytes",
+            lambda: [((t, gi.state_layout), gi.device_state_bytes())
+                     for t, gi in insts().items()],
+            help="Device bytes of per-tenant metric state (registry "
+                 "families + sketch planes): dense tenants report full "
+                 "pre-sized planes, paged tenants only backed pages — "
+                 "the paging win, visible without a heap dump",
+            labels=("tenant", "layout"))
+        self.collect_duration = reg.histogram(
+            "tempo_metrics_generator_collect_duration_seconds",
+            "One tenant collection tick: device-state gather through "
+            "remote-write send")
+
+    def instance(self, tenant: str) -> GeneratorInstance:
+        """The tenant's instance, created on first use with the tenant's
+        overrides applied to the base config: processors, series budget,
+        collection interval and switch, ingestion slack, and the
+        span-metrics sketch tier, moments count and kernel tier. (The
+        reference also applies the `ta_*` limits to the trace-analytics
+        config; that processor raises in the port.)"""
+        with self._lock:
+            inst = self.instances.get(tenant)
+            if inst is None:
+                lim = self.overrides.for_tenant(tenant)
+                cfg = dataclasses.replace(self.base_cfg)
+                if lim.generator.processors:
+                    cfg.processors = tuple(lim.generator.processors)
+                cfg.registry = dataclasses.replace(
+                    cfg.registry,
+                    max_active_series=lim.generator.max_active_series,
+                    collection_interval_s=lim.generator.collection_interval_s,
+                    disable_collection=lim.generator.disable_collection)
+                cfg.ingestion_time_range_slack_s = \
+                    lim.generator.ingestion_time_range_slack_s
+                sm_patch = {}
+                if lim.generator.sketch:
+                    sm_patch["sketch"] = lim.generator.sketch
+                if lim.generator.sketch_moments_k:
+                    sm_patch["moments_k"] = lim.generator.sketch_moments_k
+                if lim.generator.kernel:
+                    sm_patch["kernel"] = lim.generator.kernel
+                if sm_patch:
+                    cfg.spanmetrics = dataclasses.replace(
+                        cfg.spanmetrics, **sm_patch)
+                inst = GeneratorInstance(tenant, cfg, now=self.now,
+                                         device=self.device)
+                self.instances[tenant] = inst
+            return inst
+
+    def tenants(self) -> list[str]:
+        """Tenants with a live instance in this process."""
+        with self._lock:
+            return list(self.instances)
+
+    def peek_instance(self, tenant: str) -> "GeneratorInstance | None":
+        """The tenant's live instance, or None; never creates one."""
+        with self._lock:
+            return self.instances.get(tenant)
+
+    def pop_instance(self, tenant: str) -> "GeneratorInstance | None":
+        """Detach a tenant instance WITHOUT releasing its device state
+        (fleet handoff step 1: later pushes create a fresh instance
+        while the popped one is fenced + checkpointed; call
+        `release_instance_pages` once the snapshot is cut). Marks the
+        instance detached under its push lock so `_tracked_push` entries
+        that resolved it but have not yet registered in-flight re-route
+        to a fresh instance instead of scattering into the snapshot."""
+        with self._lock:
+            inst = self.instances.pop(tenant, None)
+        if inst is not None:
+            with inst._push_cv:
+                inst.detached = True
+        return inst
+
+    def reattach_instance(self, tenant: str,
+                          inst: "GeneratorInstance") -> bool:
+        """Undo `pop_instance` after a failed handoff checkpoint: put the
+        instance back and lift its detached fence — unless a straggler
+        push already built a replacement (then the caller keeps the
+        popped instance; two live instances for one tenant would fork the
+        series space). The fence lifts only AFTER the instance is back in
+        the map, so a handler spinning in `_tracked_push` never scatters
+        into an instance that stays detached."""
+        with self._lock:
+            if tenant in self.instances:
+                return False
+            self.instances[tenant] = inst
+        with inst._push_cv:
+            inst.detached = False
+            inst._push_cv.notify_all()
+        return True
+
+    @contextlib.contextmanager
+    def _tracked_push(self, tenant: str):
+        """Atomic instance-resolve + in-flight registration against
+        `pop_instance`: a detached instance is re-resolved, so an acked
+        push never scatters into an instance a handoff already fenced."""
+        while True:
+            inst = self.instance(tenant)
+            if inst.try_track():
+                break
+        try:
+            yield inst
+        finally:
+            inst.untrack()
+
+    def release_instance_pages(self, inst: "GeneratorInstance") -> None:
+        """Release a popped instance's device state. Dense planes are
+        per-instance garbage once unreferenced; paged tenants return
+        their pages to the pool, or the arena leaks the tenant forever
+        (pages are zeroed on free, so slot reuse starts clean)."""
+        if inst.registry.pages is None:
+            return
+        reg = inst.registry
+        with reg.state_lock:
+            seen: dict[int, object] = {}
+            for mt in reg._metrics.values():
+                seen[id(mt.table)] = mt.table
+            for table in seen.values():
+                if table.backing is None:
+                    continue
+                for plane, _limit in table.backing.planes:
+                    plane.free_lpages(np.flatnonzero(plane.page_map >= 0))
+
+    def remove_instance(self, tenant: str) -> "GeneratorInstance | None":
+        """pop + release in one step."""
+        inst = self.pop_instance(tenant)
+        if inst is not None:
+            self.release_instance_pages(inst)
+        return inst
+
+    # -- write (PushSpans RPC analog; the distributor's GeneratorClient) ---
+
+    def push_spans(self, tenant: str, spans: Sequence[dict]) -> None:
+        # tenant-aware span: for the reserved self-tracing tenant it
+        # suppresses the whole ingest call tree
+        with tracing.span_for_tenant("generator.Push", tenant,
+                                     n_spans=len(spans)):
+            with self._tracked_push(tenant) as inst:
+                self._push_spans(inst, spans)
+
+    def _push_spans(self, inst: GeneratorInstance,
+                    spans: Sequence[dict]) -> None:
+        b = SpanBatchBuilder(inst.registry.interner)
+        for s in spans:
+            b.append(
+                trace_id=s.get("trace_id", b""),
+                span_id=s.get("span_id", b""),
+                parent_span_id=s.get("parent_span_id", b""),
+                name=s.get("name", ""),
+                service=s.get("service", ""),
+                kind=int(s.get("kind", 0)),
+                status_code=int(s.get("status_code", 0)),
+                status_message=s.get("status_message", ""),
+                start_unix_nano=int(s.get("start_unix_nano", 0)),
+                end_unix_nano=int(s.get("end_unix_nano", 0)),
+                attrs=s.get("attrs"),
+                res_attrs=s.get("res_attrs"))
+        inst.push_batch(b.build())
+
+    def push_otlp(self, tenant: str, data: bytes, trusted: bool = False,
+                  push_id: str | None = None) -> int:
+        """OTLP ExportTraceServiceRequest bytes → series state: the
+        span-metrics fast route when the instance is eligible, else the
+        staged SpanBatch. Returns the span count. `trusted` marks bytes
+        already validated in this process (the distributor's tee): the
+        stage may skip re-validating attribute bytes; never set it for
+        wire input. `push_id` makes retries idempotent: a recently acked
+        id returns its count without scattering again."""
+        with tracing.span_for_tenant("generator.Push", tenant,
+                                     n_bytes=len(data)), \
+                self._tracked_push(tenant) as inst:
+            if push_id is not None:
+                seen = inst.seen_push(push_id)
+                if seen is not None:
+                    return seen
+            got = inst.push_otlp_staged(data, trusted=trusted)
+            if got is None:
+                need_span, need_res = inst.needs_attr_columns()
+                sb, sizes = batch_from_otlp(
+                    data, inst.registry.interner, return_sizes=True,
+                    include_span_attrs=need_span,
+                    include_res_attrs=need_res, trusted=trusted)
+                inst.push_batch(sb, span_sizes=sizes)
+                got = sb.n
+            if push_id is not None:
+                inst.note_push(push_id, got)
+            return got
+
+    def push_otlp_recs(self, tenant: str, raw: bytes, recs) -> int | None:
+        """In-process distributor tee: scan records (any ring-sharded
+        subset) + the ORIGINAL payload — no re-parse, no re-encode.
+        Returns span count or None when this tenant needs the full
+        staging path (caller sends payload bytes instead)."""
+        with self._tracked_push(tenant) as inst:
+            return inst.push_otlp_recs(raw, recs)
+
+    # -- decode-once staged tee (distributor StagedIngest views) -----------
+
+    def staging_interner(self, tenant: str):
+        """The interner the distributor must stage against for this
+        tenant's decode-once tee (id spaces are shared between staging
+        and series labels)."""
+        return self.instance(tenant).registry.interner
+
+    def staging_profile(self, tenant: str):
+        """(interner, need_span_attrs, need_res_attrs) — what a
+        decode-once staging destined for this tenant must include."""
+        inst = self.instance(tenant)
+        need_span, need_res = inst.needs_attr_columns()
+        return inst.registry.interner, need_span, need_res
+
+    def push_staged_view(self, tenant: str, view) -> int | None:
+        """The zero-copy distributor tee: a row-index view over a shared
+        decode-once staging (`model.otlp_batch.StagedView`). Returns the
+        span count, or None when this instance cannot consume the view
+        (foreign interner) — the caller falls back to payload bytes."""
+        with self._tracked_push(tenant) as inst:
+            return inst.push_staged_view(view)
+
+    # -- ingest WAL (ROADMAP section 1, item 12) ---------------------------
+
+    def replay_wal(self, tenant: str, past_seq: "int | None" = None) -> dict:
+        raise NotImplementedError(_WAL_LATER)
+
+    def replay_wal_all(self) -> dict:
+        raise NotImplementedError(_WAL_LATER)
+
+    def truncate_wal(self, tenant: str, upto_seq: "int | None") -> None:
+        raise NotImplementedError(_WAL_LATER)
+
+    # -- reads (frontend generator_query_range hook) -----------------------
+
+    def query_range(self, tenant: str, req, clip_start_ns: int | None = None):
+        with self._lock:
+            if tenant not in self.instances:
+                return []
+        return self.instance(tenant).query_range(req, clip_start_ns=clip_start_ns)
+
+    def get_metrics(self, tenant: str, query: str, group_by,
+                    max_series: int = 1000):
+        with self._lock:
+            if tenant not in self.instances:
+                raise NotImplementedError(
+                    "an empty metrics summary needs traceql.metrics_summary, "
+                    "which comes with the read side (ROADMAP section 1, "
+                    "item 6)")
+        return self.instance(tenant).get_metrics(query, group_by,
+                                                 max_series=max_series)
+
+    # -- bus consumption (generator_kafka.go:25-110 analog) ----------------
+
+    def consume_bus(self, bus, partitions=None,
+                    group: str = "metrics-generator",
+                    max_records: int = 1000) -> int:
+        """Drain owned partitions from the last committed offset into the
+        tenant instances; commit AFTER processing (replayable). Spans batch
+        per tenant across the fetched records, and tenants with metrics
+        generation disabled are skipped — the same gate the direct RPC tee
+        applies (`distributor.go:563` + overrides), since the bus carries
+        every trace for the blockbuilder's sake.
+
+        A static bus reads `partitions` (all of them when None). The
+        reference's consumer-group mode (a Kafka bus with
+        `partitions=None`) comes with the Kafka ingest item."""
+        from tempo_tpu_torch.ingest.encoding import decode_push
+
+        if partitions is None:
+            if hasattr(bus, "group_request"):
+                raise NotImplementedError(
+                    "consumer-group consumption of a Kafka bus comes with "
+                    "the Kafka ingest item (ROADMAP section 1, item 14)")
+            partitions = range(getattr(bus, "n_partitions", 1))
+        total = 0
+        skip: set[str] = set()
+        for p in partitions:
+            start = bus.committed(group, p)
+            recs = bus.fetch(p, start, max_records)
+            if not recs:
+                continue
+            by_tenant: dict[str, list[dict]] = {}
+            for rec in recs:
+                if rec.tenant in skip:
+                    continue
+                if rec.tenant not in by_tenant:
+                    lim = self.overrides.for_tenant(rec.tenant)
+                    if not lim.generator.processors and \
+                            rec.tenant not in self.instances:
+                        skip.add(rec.tenant)
+                        continue
+                for _tid, spans in decode_push(rec.value):
+                    by_tenant.setdefault(rec.tenant, []).extend(spans)
+            for tenant, spans in by_tenant.items():
+                self.push_spans(tenant, spans)
+            bus.commit(group, p, recs[-1].offset + 1)
+            total += len(recs)
+        return total
+
+    # -- loops -------------------------------------------------------------
+
+    def collect_all(self) -> int:
+        """One collection tick for every tenant (registry → remote write)."""
+        with self._lock:
+            insts = list(self.instances.values())
+        total = 0
+        for inst in insts:
+            # in-flight fence against a fleet handoff: a detached
+            # instance is not collected
+            if not inst.try_track():
+                continue
+            try:
+                if not inst.registry.overrides.disable_collection:
+                    t0 = time.perf_counter()
+                    total += inst.collect_and_push()
+                    self.collect_duration.observe(time.perf_counter() - t0)
+                inst.tick()
+            finally:
+                inst.untrack()
+        return total
+
+    def start(self) -> None:
+        def loop():
+            interval = self.base_cfg.registry.collection_interval_s
+            while not self._stop.wait(interval):
+                try:
+                    self.collect_all()
+                except Exception:
+                    # the loop must outlive one failed tick
+                    _LOG.exception("generator %s: collection tick failed",
+                                   self.id)
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2)
+        self.collect_all()

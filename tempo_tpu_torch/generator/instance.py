@@ -28,11 +28,19 @@ sends a tenant with materialized query grids down the SpanBatch route;
 the port has no materialized grids yet (ROADMAP section 1, item 8), so
 its fast route has no such check. The `local-blocks` and
 `trace-analytics` processors raise `NotImplementedError`.
+
+The multi-tenant `Generator` (`generator.py`) drives instances through
+the reference's push fence (`try_track` / `untrack`, the `detached` flag
+a fleet handoff sets, `wait_pushes_idle`) and its idempotent-push window
+(`seen_push` / `note_push`, bounded at 512 ids); `needs_attr_columns`
+tells the distributor's decode-once staging which attribute matrices the
+instance's processors read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -80,10 +88,23 @@ class GeneratorInstance:
                                         device=self.device)
         self.remote_write = RemoteWriteClient(self.cfg.remote_write)
         self.processors: dict[str, object] = {}
+        self._lock = threading.Lock()
         self.update_processors(self.cfg.processors)
         self.spans_received = 0
         self.spans_filtered_slack = 0
         self._last_purge = 0.0
+        # idempotent push dedupe: push id -> span count of recently
+        # acked pushes, so a retried push whose response was lost does
+        # not scatter twice
+        self._push_ids: "dict[str, int]" = {}
+        # in-flight pushes and collections (the fleet handoff barrier):
+        # a checkpoint cut must not race a push that is still scattering
+        self._pushes_inflight = 0
+        self._push_cv = threading.Condition()
+        # set under _push_cv by Generator.pop_instance: a handler that
+        # resolved this instance but has not yet registered in flight
+        # re-resolves instead of scattering into a fenced instance
+        self.detached = False
 
     def drain(self) -> None:
         """The collection barrier: flush the device scheduler and reap
@@ -95,26 +116,78 @@ class GeneratorInstance:
             if fn is not None:
                 fn()
 
+    def try_track(self) -> bool:
+        """Register an in-flight push or collection unless this instance
+        is detached (the fleet handoff fence). A True return must be
+        paired with `untrack()`."""
+        with self._push_cv:
+            if self.detached:
+                return False
+            self._pushes_inflight += 1
+        return True
+
+    def untrack(self) -> None:
+        with self._push_cv:
+            self._pushes_inflight -= 1
+            self._push_cv.notify_all()
+
+    def seen_push(self, push_id: str) -> "int | None":
+        """The span count of a recently acked push id, or None."""
+        with self._lock:
+            return self._push_ids.get(push_id)
+
+    def note_push(self, push_id: str, result: int) -> None:
+        with self._lock:
+            self._push_ids[push_id] = result
+            while len(self._push_ids) > 512:   # bounded: FIFO eviction
+                self._push_ids.pop(next(iter(self._push_ids)))
+
+    def wait_pushes_idle(self, timeout_s: float = 5.0) -> bool:
+        """Block until no push is in flight, at most `timeout_s`; False
+        on timeout."""
+        deadline = time.monotonic() + timeout_s
+        with self._push_cv:
+            while self._pushes_inflight > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._push_cv.wait(left)
+        return True
+
     def update_processors(self, desired: tuple[str, ...]) -> None:
-        for name in list(self.processors):
-            if name not in desired:
-                del self.processors[name]
-        for name in desired:
-            if name in self.processors:
-                continue
-            if name == "span-metrics":
-                self.processors[name] = SpanMetricsProcessor(
-                    self.registry, self.cfg.spanmetrics)
-            elif name == "service-graphs":
-                self.processors[name] = ServiceGraphsProcessor(
-                    self.registry, self.cfg.servicegraphs)
-            elif name in ("trace-analytics", "local-blocks"):
-                raise NotImplementedError(
-                    f"processor {name} comes with a later slice of the port")
-            else:
-                raise ValueError(f"unknown processor {name}")
+        with self._lock:
+            for name in list(self.processors):
+                if name not in desired:
+                    del self.processors[name]
+            for name in desired:
+                if name in self.processors:
+                    continue
+                if name == "span-metrics":
+                    self.processors[name] = SpanMetricsProcessor(
+                        self.registry, self.cfg.spanmetrics)
+                elif name == "service-graphs":
+                    self.processors[name] = ServiceGraphsProcessor(
+                        self.registry, self.cfg.servicegraphs)
+                elif name in ("trace-analytics", "local-blocks"):
+                    raise NotImplementedError(
+                        f"processor {name} comes with a later slice of the "
+                        f"port")
+                else:
+                    raise ValueError(f"unknown processor {name}")
 
     # -- ingest ------------------------------------------------------------
+
+    def needs_attr_columns(self) -> tuple[bool, bool]:
+        """(span_attrs, res_attrs) the enabled processors read: staging
+        skips the matrices no processor asks for. A processor without the
+        hook (service graphs: peer attributes) needs both."""
+        need_span = need_res = False
+        for proc in self.processors.values():
+            fn = getattr(proc, "needs_attr_columns", None)
+            s, r = fn() if fn is not None else (True, True)
+            need_span |= s
+            need_res |= r
+        return need_span, need_res
 
     def _fast_spanmetrics(self) -> "SpanMetricsProcessor | None":
         """The single eligible span-metrics processor for the staged fast
@@ -248,3 +321,35 @@ class GeneratorInstance:
             if fn is not None:
                 total += fn()
         return total
+
+    # -- maintenance -------------------------------------------------------
+
+    def tick(self, immediate: bool = False) -> None:
+        """Background maintenance: each processor's cut pass. In the
+        reference these are the local-blocks cut and the trace-analytics
+        idle-trace cut (ROADMAP section 1, items 7 and 10); the port's
+        span metrics and service graphs have none."""
+        for proc in list(self.processors.values()):
+            fn = getattr(proc, "cut_tick", None)
+            if fn is not None:
+                fn(immediate=immediate)
+
+    # -- reads (recent-data query entry points) ----------------------------
+
+    def query_range(self, req, clip_start_ns: "int | None" = None):
+        """TraceQL metrics over this tenant's local blocks (`QueryRange`
+        `instance.go:487-556`); raises, as the reference does, when the
+        local-blocks processor is not enabled, which it cannot be in the
+        port yet (ROADMAP section 1, item 7)."""
+        lb = self.processors.get("local-blocks")
+        if lb is None:
+            raise RuntimeError("local-blocks processor not enabled")
+        return lb.query_range(req, clip_start_ns=clip_start_ns)
+
+    def get_metrics(self, query: str, group_by, max_series: int = 1000):
+        """Span-metrics summary (`GetMetrics` `instance.go:475`); raises
+        as `query_range` does without local blocks."""
+        lb = self.processors.get("local-blocks")
+        if lb is None:
+            raise RuntimeError("local-blocks processor not enabled")
+        return lb.get_metrics(query, group_by, max_series=max_series)

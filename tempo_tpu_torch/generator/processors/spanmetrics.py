@@ -454,6 +454,15 @@ class SpanMetricsProcessor:
     _DIM_CODES = {"service": 0, "span_name": 1, "span_kind": 2,
                   "status_code": 3}
 
+    def needs_attr_columns(self) -> tuple[bool, bool]:
+        """(span_attrs, res_attrs) this processor reads: custom
+        dimensions, filter policies and the span multiplier read
+        attributes; intrinsic dimensions do not."""
+        c = self.cfg
+        need = bool(c.dimensions or c.filter_policies
+                    or c.span_multiplier_key)
+        return need, need
+
     def supports_staged_fast_path(self) -> bool:
         """True when a push can go StageRec → device directly: intrinsic
         dimensions only (the default config), no policies, multiplier or

@@ -12,6 +12,11 @@
 - A fresh interpreter drives the staged routes (`stage_otlp`,
   `push_staged_view`, `push_otlp_staged`) and maps only the port's
   native library, the one built under `build/`.
+- A fresh interpreter drives `Distributor.push_otlp` into port
+  `Generator`s (the staged tee, the columnar tee and the dict route) and
+  ends with no `jax`, no `tempo_tpu` module and no `yaml` loaded; an
+  `Overrides()` without a runtime-config path needs no PyYAML, and no
+  port module imports `yaml` outside a function.
 - No source file of the port, nor `chip_smoke.py`, imports either.
 - Asking for `cuda` without a CUDA device raises.
 - Every configuration this slice does not carry raises
@@ -118,6 +123,73 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu") or m.startswith(("jax.", "tempo_tpu.")))
 print("LOADED", bad)
 """
+
+
+_DIST_DRIVE = """
+import sys
+import time
+import tempo_tpu_torch as tt
+from tempo_tpu_torch.distributor import Distributor
+from tempo_tpu_torch.generator import Generator
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.overrides import Overrides
+from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
+from tempo_tpu_torch.ring.ring import _instance_tokens
+
+def ring(ids, rf):
+    r = Ring(replication_factor=rf)
+    for i in ids:
+        r.register(InstanceDesc(id=i, state=ACTIVE,
+                                tokens=_instance_tokens(i, 64)))
+    return r
+
+class Ing:
+    staged_needs_attrs = False
+    def push(self, t, traces): return [None] * len(traces)
+    def push_otlp(self, t, data): return {}
+    def push_staged(self, t, view): return {}
+
+ov = Overrides()
+assert "yaml" not in sys.modules
+for t, procs in (("a", ["span-metrics"]), ("b", ["span-metrics", "service-graphs"])):
+    ov.set_tenant_patch(t, {"generator": {"processors": procs,
+                                          "max_active_series": 512},
+                            "ingestion": {"max_attribute_bytes": 64 if t == "b" else 0}})
+ings = {f"i{k}": Ing() for k in range(3)}
+data = encode_spans_otlp(synthetic_spans(300, seed=0, now_ns=time.time_ns()))
+for n_gen in (1, 2):
+    gens = {f"g{k}": Generator(tt.GeneratorConfig(
+        spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
+        overrides=ov, instance_id=f"g{k}", device="cpu") for k in range(n_gen)}
+    d = Distributor(ring(ings, 3), ings, overrides=ov,
+                    generator_ring=ring(gens, 1), generator_clients=gens)
+    for t in ("a", "b"):
+        assert d.push_otlp(t, data) == {}
+    assert sum(g.instance("a").spans_received for g in gens.values()) == 300
+    assert sum(g.collect_all() for g in gens.values()) > 0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.")))
+print("LOADED", bad)
+"""
+
+
+def test_distributor_into_generator_loads_no_reference_and_no_yaml():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _DIST_DRIVE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_yaml_is_imported_only_inside_functions():
+    for f in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(f.read_text(), str(f))
+        for node in tree.body:
+            names = [a.name for a in node.names] if isinstance(
+                node, ast.Import) else [node.module] if isinstance(
+                node, ast.ImportFrom) else []
+            assert "yaml" not in names, f"{f.relative_to(ROOT)} imports yaml"
 
 
 def test_staged_routes_load_only_the_ports_native_library():
