@@ -92,7 +92,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    card against a CPU twin taking the same path on the plain versions:
    a. the span-metrics fast route, on dense and on paged state, on the
       direct route and under the default `SchedConfig` (pipeline depth
-      2): 4 seeded payloads of 16,384 spans, pushed twice (every series
+      2): 2 seeded payloads of 16,384 spans, pushed twice (every series
       new, then every series known) → `stage_otlp` →
       `StagedIngest` (its `sample_weight` integer weights 1-3) → `view()`
       → `push_staged_view` → `push_staged` → C++ resolve → K1. Checks:
@@ -118,25 +118,32 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    staged push;
 8. the distributor main path, where the reference's users enter:
    `Distributor.push_otlp` with OTLP wire bytes → admission, validation,
-   grouping by trace, ring replication to 3 stub ingesters (staged-capable,
-   at the default rf=3) → the generator tee → the multi-tenant
+   grouping by trace, ring replication to 3 real `Ingester`s (each with
+   its own data directory, at the default rf=3; the tenants' live-trace
+   limit raised above the traces sent) → the generator tee → the multi-tenant
    `Generator` → the scheduler (default `SchedConfig`) → K1 → state, at
    the widths above on dense state (the reference's default), for 4
-   tenants: 2 span-metrics-only tenants sent phase 7's 4 payloads of
+   tenants: 2 span-metrics-only tenants sent phase 7a's 2 payloads of
    16,384 spans twice (every series new, then known) and 2 of the default
    processors sent phase 6's trace-tree payloads of one tenant each; each
    run against a CPU twin (the same `Distributor` config feeding
    `Generator(device="cpu")`):
    a. the decode-once staged tee into one generator on the card: errs
-      empty, every span to all 3 ingesters, the distributor's
+      empty, every trace live on all 3 ingesters (the staging now carries
+      span attributes, which real ingesters keep), `find_trace_by_id` on
+      each ingester for 256 seeded trace ids equal to the host decode of
+      the payloads (`spans_from_otlp_proto_native`, combined and sorted),
+      no ingester discard, the distributor's
       spans-received family equal to the spans sent, every family of
       every tenant equal to the twin's by label strings (counts and
       buckets exact, sums within rtol 1e-5), DDSketch q50/q99 exact, K1
       launches equal to merged dispatches, one launch plan a processor;
       K1 at a captured merged window against its plain version;
    b. the columnar tee into two generators on the card (two interners, so
-      no shared staging): the span-metrics tenants take `push_otlp_recs`,
-      the default ones payload slices; every span reaches exactly one
+      no shared staging; the ingesters take payload slices through
+      `Ingester.push_otlp`, with 8a's ingester checks): the span-metrics
+      tenants take `push_otlp_recs`, the default ones payload slices;
+      every span reaches exactly one
       generator, each generator's spans equal its twin's, and every
       family summed over the two generators by label set equals 8a's;
    c. overload: one span-metrics tenant with sampling floor 0.25 and tail
@@ -146,10 +153,40 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       the twin's; then an injected backpressure of 2 s: `RateLimited`
       with reason `sched_backpressure` and `retry_after_s` 2.0, and the
       tenant's interner unchanged;
-   printed: spans/s through `Distributor.push_otlp` (series new and
-   known) on 8a and 8b beside phase 7a's on the same payloads, the
-   distributor's host ms a push (its `push_duration` histogram), K1's
-   device time a push.
+   the CPU twins' ingesters are stubs that keep nothing (they check the
+   generators); printed: spans/s through `Distributor.push_otlp` (series
+   new and known) on 8a and 8b beside phase 7a's on the same payloads,
+   the distributor's host ms a push (its `push_duration` histogram) with
+   the ingester leg's share, K1's device time a push;
+9. the ingester's own cycle at the reference's default `IngesterConfig`
+   and `InstanceConfig`: one tenant through one `Distributor` into 3 real
+   ingesters (rf=3, no generator tee), 4 payloads of 16,384 spans of
+   seeded trace trees of 32 spans (512 traces a payload, 2,048 in all;
+   span and resource attributes of every type, events and links), then
+   `sweep_all(immediate=True)` (cut: one fsynced WAL segment a trace,
+   then seal) and `flush_tick()` (complete: the WAL read back, combined
+   and written as a gzip Parquet block of 2 row groups; flush: the
+   block's files copied to a `LocalBackend` playing the object store).
+   Checks: `find_trace_by_id` for 256 seeded ids at each stage (live, WAL,
+   complete local block, the flushed copy through `BackendBlock`) equal
+   to the host decode; every span of a flushed block read back through
+   the port's reader equal to what was sent, by trace; an ingester
+   abandoned with one head WAL block (payload 1) and one complete
+   unflushed block (payload 0), then a fresh `Ingester` over its data
+   directory: `replay()` and
+   `flush_tick()` find the same traces and flush each block once; 10,001
+   one-span traces to a fresh tenant at the default limits: each
+   ingester holds 10,000 live and counts one `live_traces_exceeded`
+   discard, which the distributor counts once. Printed: push spans/s and
+   `push_duration`, cut seconds and WAL segments/s with fsync ms, complete
+   seconds and spans/s of block writing, block bytes a span (gzip, and
+   uncompressed on the same input), flush seconds, `find_trace_by_id` ms
+   at each stage, replay seconds.
+
+Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
+can be imported on the machine; nothing branches on it (the port reads
+and writes Parquet with its own codec and loads PyYAML only for a
+runtime-config file).
 
 The last line is `{"ok": true, "device": {...}}`; any failed check
 raises and the script exits non-zero without it. Without a CUDA device,
@@ -164,6 +201,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -173,7 +211,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 N_SPANS = 16384
 N_DISPATCH = 8
-N_MAIN_PUSHES = 4                # each main path of phases 4 and 7
+N_MAIN_PUSHES = 4                # each main path of phase 4 and of 7b
+N_7A_PUSHES = 2                  # phase 7a (phase 8 drives the same traffic)
+N_DIST_PUSHES = 2                # phase 8's span-metrics tenants, a pass
 N_TIMED = 30
 SEED = 20261016
 PAGE_ROWS, PAGE_SHIFT = 256, 8
@@ -1868,8 +1908,8 @@ def phase_staged_fast(paged, card):
 
     layout = "paged" if paged else "dense"
     now = time.time()
-    payloads, _, int_w, _ = _payloads(now, N_MAIN_PUSHES)
-    spans = N_MAIN_PUSHES * N_SPANS
+    payloads, _, int_w, _ = _payloads(now, N_7A_PUSHES)
+    spans = N_7A_PUSHES * N_SPANS
     runs, k1 = {}, None
     for route in ("direct", "sched"):
         ctx = f"phase 7a {layout} {route}"
@@ -1912,7 +1952,7 @@ def phase_staged_fast(paged, card):
         pipe = proc._pipe
         if total != want:
             raise AssertionError(f"{ctx}: calls total {total} != {want}")
-        pushes = 2 * N_MAIN_PUSHES
+        pushes = 2 * N_7A_PUSHES
         if n_resolve != pushes:
             raise AssertionError(f"{ctx}: {n_resolve} resolves")
         if launches != dispatches or plans != 1 or \
@@ -1934,7 +1974,7 @@ def phase_staged_fast(paged, card):
                 submitted=pipe.submitted_total, reuse=pipe.reuse_total,
                 alloc=pipe.alloc_total, overlap=pipe.overlap_ratio(),
                 stall_s=pipe.stall_ns / 1e9, decode_s=pipe.decode_ns / 1e9))
-        print(f"phase 7a {layout} {route} [{card}]: {N_MAIN_PUSHES} payloads "
+        print(f"phase 7a {layout} {route} [{card}]: {N_7A_PUSHES} payloads "
               f"of {N_SPANS} spans from wire bytes in {secs:.3f} s "
               f"({spans / secs:.0f} spans/s, every series new), again in "
               f"{warm_s:.3f} s ({spans / warm_s:.0f} spans/s, every series "
@@ -2229,43 +2269,38 @@ def phase_staged_default(card):
 
 SM_TENANTS = ("sm-0", "sm-1")
 DEFAULT_TENANTS = ("default-0", "default-1")
+N_FIND = 256                     # trace ids found at each ingester check
 UNLIMITED = {"rate_limit_bytes": 1 << 40, "burst_size_bytes": 1 << 40}
 
 
-class _StubIngester:
-    """A staged-capable stub ingester, as the reference's own tests rig
-    them (`tests/test_ingest_pipeline.py:53-70`): counts the spans of
-    every staged view and the bytes of every payload slice it takes, and
-    keeps the last view. It copies nothing, so the distributor's host
-    time is not the stub's."""
+class _TwinIngester:
+    """The CPU twins' ingesters: they take every push and keep nothing
+    (the twins check the generators). They want span attributes staged,
+    as real ingesters do, so the twin's distributor stages as the card's
+    does."""
 
-    staged_needs_attrs = False
-
-    def __init__(self):
-        self.spans = 0
-        self.bytes = 0
-        self.last = None
+    staged_needs_attrs = True
 
     def push(self, tenant, traces):
         raise AssertionError("phase 8: the dict route reached an ingester")
 
     def push_otlp(self, tenant, data):
-        self.bytes += len(data)
         return {}
 
     def push_staged(self, tenant, view):
-        self.spans += view.n
-        self.last = view
         return {}
 
 
-def _dist_rig(device, n_gen, now, patches=None):
-    """The distributor of the default deployment: 3 stub ingesters at the
-    default rf=3, a generator ring of `n_gen` `Generator`s of the default
-    config on `device` (dense state), 2 span-metrics-only tenants and 2 of
-    the default processors, every tenant unlimited in rate."""
+def _dist_rig(device, n_gen, now, patches=None, data_dir=None):
+    """The distributor of the default deployment: 3 ingesters at the
+    default rf=3 (real `Ingester`s, each with its own directory under
+    `data_dir`; the twins' stubs without one), a generator ring of `n_gen`
+    `Generator`s of the default config on `device` (dense state), 2
+    span-metrics-only tenants and 2 of the default processors, every
+    tenant unlimited in rate and in live traces."""
     from tempo_tpu_torch.distributor import Distributor
     from tempo_tpu_torch.generator import Generator
+    from tempo_tpu_torch.ingester import Ingester
     from tempo_tpu_torch.overrides import Overrides
     from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
     from tempo_tpu_torch.ring.ring import _instance_tokens
@@ -2275,7 +2310,8 @@ def _dist_rig(device, n_gen, now, patches=None):
         procs = ["span-metrics"] if t in SM_TENANTS else \
             ["span-metrics", "service-graphs"]
         ov.set_tenant_patch(t, {"generator": {"processors": procs},
-                                "ingestion": dict(UNLIMITED),
+                                "ingestion": dict(UNLIMITED,
+                                                  max_traces_per_user=1 << 20),
                                 **(patches or {}).get(t, {})})
 
     def ring(ids, rf):
@@ -2290,7 +2326,10 @@ def _dist_rig(device, n_gen, now, patches=None):
                                          instance_id=f"generator-{k}",
                                          now=lambda: now, device=device)
             for k in range(n_gen)}
-    ings = {f"ingester-{k}": _StubIngester() for k in range(3)}
+    ings = {f"ingester-{k}": _TwinIngester() if data_dir is None else
+            Ingester(os.path.join(data_dir, f"ingester-{k}"), overrides=ov,
+                     now=lambda: now, instance_id=f"ingester-{k}")
+            for k in range(3)}
     dist = Distributor(ring(ings, 3), ings, overrides=ov,
                        generator_ring=ring(gens, 1), generator_clients=gens,
                        now=lambda: now)
@@ -2303,6 +2342,54 @@ def _dist_rig(device, n_gen, now, patches=None):
                                      f"state, {inst.registry.budget.limit} "
                                      f"series")
     return dist, gens, ings
+
+
+def _host_traces(payloads):
+    """{trace id: spans} of OTLP payloads as the host decodes them
+    (`spans_from_otlp_proto_native`), each trace's spans combined and
+    sorted as an ingester's `find_trace_by_id` returns them."""
+    from tempo_tpu_torch import native
+    from tempo_tpu_torch.model.combine import combine_spans, sort_spans
+
+    by: dict = {}
+    for data in payloads:
+        for sp in native.spans_from_otlp_proto_native(data):
+            by.setdefault(sp["trace_id"], []).append(sp)
+    return {t: sort_spans(combine_spans(v)) for t, v in by.items()}
+
+
+def _check_ingesters(ings, host, ctx, n_find=N_FIND):
+    """Every trace of `host` ({tenant: {trace id: spans}}) live on every
+    ingester, no discard, and `find_trace_by_id` for `n_find` seeded ids
+    (spread over the tenants) equal to the host decode. Returns the ms a
+    find."""
+    rng = np.random.default_rng(SEED + 9)
+    picks = []
+    per = max(1, n_find // len(host))
+    for t, traces in host.items():
+        tids = sorted(traces)
+        picks += [(t, tids[int(i)]) for i in
+                  rng.choice(len(tids), min(per, len(tids)), replace=False)]
+    secs = 0.0
+    for iid, ing in ings.items():
+        for t, traces in host.items():
+            inst = ing.instance(t)
+            if len(inst.live) != len(traces) or inst.discarded:
+                raise AssertionError(f"{ctx}: {iid} holds {len(inst.live)} "
+                                     f"live traces of {t}'s {len(traces)}, "
+                                     f"discarded {inst.discarded}")
+        text = ing.obs.render()
+        if "tempo_ingester_discarded_traces_total{" in text:
+            raise AssertionError(f"{ctx}: {iid} discarded traces")
+        t0 = time.perf_counter()
+        got = [ing.find_trace_by_id(t, tid) for t, tid in picks]
+        secs += time.perf_counter() - t0
+        for (t, tid), g in zip(picks, got):
+            if g != host[t][tid]:
+                raise AssertionError(f"{ctx}: {iid} {t} trace {tid.hex()}: "
+                                     f"find_trace_by_id differs from the "
+                                     f"host decode")
+    return secs / (len(ings) * len(picks)) * 1e3, len(picks)
 
 
 def _settle(gens):
@@ -2390,8 +2477,21 @@ def phase_distributor(card):
     widths under the default scheduler, on the card against CPU twins
     (the same `Distributor` config feeding `Generator(device="cpu")`):
     8a the decode-once staged tee into one generator, 8b the columnar tee
-    into two, 8c overload sampling and backpressure. Returns (results,
-    K1's kernel entries)."""
+    into two, 8c overload sampling and backpressure; the ingesters' data
+    directories live under `build/` for the phase. Returns (results, K1's
+    kernel entries)."""
+    from tempo_tpu_torch.registry import pages
+
+    t_phase = time.perf_counter()
+    if pages.active() is not None:
+        raise AssertionError("phase 8: a page pool is active")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase8-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_distributor(card, root, t_phase)
+
+
+def _phase_distributor(card, root, t_phase):
     import torch
 
     from tempo_tpu_torch import native, sched
@@ -2403,15 +2503,11 @@ def phase_distributor(card):
     from tempo_tpu_torch.model import otlp_batch
     from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
     from tempo_tpu_torch.ops import cuda_kernels as ck
-    from tempo_tpu_torch.registry import pages
 
-    t_phase = time.perf_counter()
-    if pages.active() is not None:
-        raise AssertionError("phase 8: a page pool is active")
     sched.reset()
     sc = sched.configure(sched.SchedConfig())
     now = time.time()
-    sm_payloads = _payloads(now, N_MAIN_PUSHES)[0]
+    sm_payloads = _payloads(now, N_DIST_PUSHES)[0]
     trees = _tree_traffic(int(now * 1e9), len(DEFAULT_TENANTS))
     traffic = {t: sm_payloads for t in SM_TENANTS}
     traffic.update({t: [p for p, _, _ in trees[i]]
@@ -2421,10 +2517,12 @@ def phase_distributor(card):
             for t in traffic}
     n_sent = sum(sent.values())
     out, rows = {}, []
+    host = {t: _host_traces(traffic[t]) for t in traffic}
 
     # -- 8a: the decode-once staged tee into one generator ---------------
     ctx = "phase 8a"
-    dist, gens, ings = _dist_rig("cuda", 1, now)
+    dist, gens, ings = _dist_rig("cuda", 1, now,
+                                 data_dir=os.path.join(root, "8a"))
     (g,) = gens.values()
     if any(dist._staging_plan(t, dist.overrides.for_tenant(t)) is None
            for t in traffic):
@@ -2435,6 +2533,8 @@ def phase_distributor(card):
     acc = {}
     inner_stage = _timed(otlp_batch, "stage_otlp", acc)
     _timed(g, "push_staged_view", acc)
+    for ing in ings.values():            # the ingester leg: all three
+        _timed(ing, "push_staged", acc)
     b0 = sc.batches_total.get(SCHED_KERNEL, 0)
     ck.reset_launch_counts()
     plans0 = ck.paged_fused_update.plans
@@ -2449,10 +2549,10 @@ def phase_distributor(card):
         raise AssertionError(f"{ctx}: K1 launched {launches} times for "
                              f"{dispatches} merged dispatches, {plans} "
                              f"plans for {len(traffic)} processors")
-    if dist.discarded or any(i.spans != n_sent for i in ings.values()):
-        raise AssertionError(f"{ctx}: discarded {dist.discarded}, ingesters "
-                             f"took {[i.spans for i in ings.values()]} of "
-                             f"{n_sent} spans")
+    if dist.discarded or dist.metrics.get("push_failures_total"):
+        raise AssertionError(f"{ctx}: discarded {dist.discarded}, "
+                             f"{dist.metrics}")
+    find_ms, n_find = _check_ingesters(ings, host, ctx)
     text = dist.obs.render()
     line = f"tempo_distributor_spans_received_total {n_sent}"
     if line not in text.splitlines():
@@ -2478,11 +2578,12 @@ def phase_distributor(card):
         mats[-1], launches, f"{ctx} window")
     rows.append(row)
     out["8a"] = dict(secs=secs, push_ms=push_ms, launches=launches,
-                     dispatches=dispatches, device_ms=k1["device_ms"])
-    spans_sm = N_MAIN_PUSHES * N_SPANS * len(SM_TENANTS)
+                     dispatches=dispatches, device_ms=k1["device_ms"],
+                     find_ms=find_ms)
+    spans_sm = N_DIST_PUSHES * N_SPANS * len(SM_TENANTS)
     print(f"phase 8a [{card}]: Distributor.push_otlp → staged tee → one "
           f"Generator on the card, default SchedConfig: "
-          f"{len(SM_TENANTS)} span-metrics tenants x {N_MAIN_PUSHES} "
+          f"{len(SM_TENANTS)} span-metrics tenants x {N_DIST_PUSHES} "
           f"payloads of {N_SPANS} spans {spans_sm / secs['new']:.0f} spans/s "
           f"(every series new), {spans_sm / secs['known']:.0f} spans/s "
           f"(every series known); {len(DEFAULT_TENANTS)} default tenants x "
@@ -2491,12 +2592,16 @@ def phase_distributor(card):
           f"spans/s; host ms a push by pass, "
           + "; ".join(f"{k}: staging {v['stage_otlp']:.3f} (before "
                       f"push_duration), push_duration {v['push']:.3f} of which "
-                      f"the generator tee {v['push_staged_view']:.3f}"
+                      f"the generator tee {v['push_staged_view']:.3f}, the "
+                      f"ingester leg (3 Ingester.push_staged) "
+                      f"{v['push_staged']:.3f}"
                       for k, v in push_ms.items())
           + f"; K1 launches {launches} for "
           f"{dispatches} merged dispatches, {plans} launch plans")
     print(f"phase 8a checks: errs {{}} on every push, nothing discarded; each "
-          f"of 3 stub ingesters took all {n_sent} spans (rf=3); "
+          f"of 3 ingesters holds every trace sent live (rf=3), no ingester "
+          f"discard, find_trace_by_id of {n_find} seeded ids on each equal "
+          f"to the host decode ({find_ms:.3f} ms a find); "
           f"tempo_distributor_spans_received_total {n_sent}; {n_fams} "
           f"families of {n_series} series over {len(traffic)} tenants equal "
           f"the CPU twin's by label strings (counts and buckets exact, sums "
@@ -2515,7 +2620,8 @@ def phase_distributor(card):
 
     # -- 8b: the columnar tee into two generators ------------------------
     ctx = "phase 8b"
-    dist, gens, ings = _dist_rig("cuda", 2, now)
+    dist, gens, ings = _dist_rig("cuda", 2, now,
+                                 data_dir=os.path.join(root, "8b"))
     if any(dist._staging_plan(t, dist.overrides.for_tenant(t)) is not None
            for t in traffic):
         raise AssertionError(f"{ctx}: the staged tee engaged")
@@ -2541,6 +2647,9 @@ def phase_distributor(card):
     for gg in gens.values():
         _timed(gg, "push_otlp_recs", acc)
         _timed(gg, "push_otlp", acc)
+    ing_acc = {}
+    for ing in ings.values():            # the ingester leg: all three
+        _timed(ing, "push_otlp", ing_acc)
     try:
         secs_b, push_ms_b = _dist_drive(dist, gens, traffic, ctx, acc)
     finally:
@@ -2552,12 +2661,12 @@ def phase_distributor(card):
                              f"{dispatches_b} merged dispatches")
     n_push_t = {t: len(traffic[t]) * (2 if t in SM_TENANTS else 1)
                 for t in traffic}
-    n_bytes = sum(len(d) * (2 if t in SM_TENANTS else 1)
-                  for t in traffic for d in traffic[t])
-    if dist.discarded or any(i.bytes != n_bytes for i in ings.values()):
-        raise AssertionError(f"{ctx}: discarded {dist.discarded}, ingesters "
-                             f"took {[i.bytes for i in ings.values()]} of "
-                             f"{n_bytes} bytes")
+    if dist.discarded or dist.metrics.get("push_failures_total"):
+        raise AssertionError(f"{ctx}: discarded {dist.discarded}, "
+                             f"{dist.metrics}")
+    find_ms_b, _ = _check_ingesters(ings, host, ctx)
+    n_pushes_b = sum(n_push_t.values())
+    ing_ms_b = ing_acc["push_otlp"] / n_pushes_b * 1e3
     for t, c in took.items():
         want = {"recs": 2 * n_push_t[t], "payload": 0} if t in SM_TENANTS \
             else {"recs": 0, "payload": 2 * n_push_t[t]}
@@ -2583,7 +2692,8 @@ def phase_distributor(card):
         gens["generator-0"].instance("sm-0").processors["span-metrics"],
         mats[-1], launches_b, f"{ctx} window")
     rows.append(row)
-    out["8b"] = dict(secs=secs_b, push_ms=push_ms_b, launches=launches_b)
+    out["8b"] = dict(secs=secs_b, push_ms=push_ms_b, launches=launches_b,
+                     ingester_ms=ing_ms_b, find_ms=find_ms_b)
     print(f"phase 8b [{card}]: Distributor.push_otlp → columnar tee → two "
           f"Generators on the card: span-metrics tenants "
           f"{spans_sm / secs_b['new']:.0f} spans/s (series new), "
@@ -2595,12 +2705,16 @@ def phase_distributor(card):
                       f"scan {v.get('otlp_scan', 0.0):.3f}, the generator "
                       f"tee {v.get('push_otlp_recs', 0.0) + v.get('push_otlp', 0.0):.3f}"
                       for k, v in push_ms_b.items())
+          + f"; the ingester leg (3 Ingester.push_otlp of payload slices) "
+          f"{ing_ms_b:.3f} ms a push over every pass"
           + f"; K1 "
           f"launches {launches_b} for {dispatches_b} merged dispatches; K1 at "
           f"a window device time {k1b['device_ms']} ms, max abs err "
           f"{k1b['max_abs']}")
-    print(f"phase 8b checks: nothing discarded, each of 3 stub ingesters took "
-          f"every payload whole ({n_bytes} bytes); span-metrics tenants took "
+    print(f"phase 8b checks: nothing discarded, each of 3 ingesters holds "
+          f"every trace sent live, find_trace_by_id of {n_find} seeded ids "
+          f"on each equal to the host decode ({find_ms_b:.3f} ms a find); "
+          f"span-metrics tenants took "
           f"push_otlp_recs and "
           f"default tenants payload slices on every push; every span reached "
           f"exactly one generator, spans_received per generator equal to the "
@@ -2615,10 +2729,18 @@ def phase_distributor(card):
     ctx = "phase 8c"
     samp = {"sm-0": {"sampling": {"floor": 0.25, "tail_quantile": 0.0}}}
     runs = []
+    views = []
     for device in ("cuda", "cpu"):
-        dist, gens, ings = _dist_rig(device, 1, now, samp)
+        dist, gens, ings = _dist_rig(
+            device, 1, now, samp,
+            data_dir=os.path.join(root, "8c") if device == "cuda" else None)
         dist.sampler = SpanSampler(fraction_source=lambda: 0.5,
                                    now=lambda: now)
+        if device == "cuda":
+            ing0 = ings["ingester-0"]
+            inner_push = ing0.push_staged
+            ing0.push_staged = lambda t, v: (views.append(v),
+                                             inner_push(t, v))[1]
         (gg,) = gens.values()
         for data in sm_payloads:
             if dist.push_otlp("sm-0", data):
@@ -2626,13 +2748,19 @@ def phase_distributor(card):
         _settle(gens)
         runs.append((dist, gg, ings))
     (dist, gg, ings), (tdist, tgg, _) = runs
-    truth = N_MAIN_PUSHES * N_SPANS
+    truth = N_DIST_PUSHES * N_SPANS
     dropped = dist.discarded.get(REASON_SAMPLED, 0)
     if not dropped or tdist.discarded != dist.discarded:
         raise AssertionError(f"{ctx}: discarded {dist.discarded} / twin "
                              f"{tdist.discarded}")
-    last = ings["ingester-0"].last
+    last = views[-1]
     w, status = last.weights(), last.stage_rows()["status_code"]
+    n_kept = sum(len(v.trace_groups()) for v in views)
+    live = [len(i.instance("sm-0").live) for i in ings.values()]
+    if live != [n_kept] * 3 or any(i.instance("sm-0").discarded
+                                   for i in ings.values()):
+        raise AssertionError(f"{ctx}: ingesters hold {live} live traces of "
+                             f"the {n_kept} kept")
     if not ((w[status != 2] == 2.0).all() and (w[status == 2] == 1.0).all()):
         raise AssertionError(f"{ctx}: weights {np.unique(w)}")
     f, n, r = _compare_by_labels(gg.instance("sm-0"), tgg.instance("sm-0"),
@@ -2677,6 +2805,392 @@ def phase_distributor(card):
     return out, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the ingester's cycle (live traces → WAL → complete block → flush)
+# ---------------------------------------------------------------------------
+
+N_INGEST_PAYLOADS = 4
+SPANS_PER_TRACE = 32
+INGEST_TENANT = "ingest-0"
+LIMIT_TENANT = "ingest-limits"
+
+
+def deep_trace_spans(n, *, seed, now_ns, spans_per_trace=SPANS_PER_TRACE,
+                     n_services=16, n_ops=32):
+    """`n` span dicts of seeded trace trees of `spans_per_trace` spans:
+    each span's parent an earlier span of its trace (the first the root),
+    each child inside its parent's interval; services and operations
+    uniform; span attributes of every type (string, int, double, bool),
+    resource attributes per service, an event on every 4th span and a
+    link on every 8th; ends within 10 s before `now_ns`."""
+    rng = np.random.default_rng(seed)
+    spans = []
+    while len(spans) < n:
+        tid = rng.bytes(16)
+        k = min(spans_per_trace, n - len(spans))
+        sids = [rng.bytes(8) for _ in range(k)]
+        parent = [-1] + [int(rng.integers(0, j)) for j in range(1, k)]
+        end = now_ns - int(rng.random() * 10e9)
+        dur = max(int(rng.lognormal(18.0, 1.0)), k * 4)
+        ivals = [(end - dur, end)]
+        for j in range(1, k):
+            lo, hi = ivals[parent[j]]
+            a = lo + int((hi - lo) * rng.uniform(0.0, 0.5))
+            ivals.append((a, a + max(int((hi - a) * rng.uniform(0.1, 0.9)), 1)))
+        for j in range(k):
+            svc = int(rng.integers(0, n_services))
+            sp = {
+                "trace_id": tid, "span_id": sids[j],
+                "parent_span_id": b"" if j == 0 else sids[parent[j]],
+                "name": f"op-{int(rng.integers(0, n_ops))}",
+                "service": f"service-{svc}",
+                "kind": int(rng.integers(1, 6)),
+                "status_code": int(rng.integers(0, 3)),
+                "start_unix_nano": ivals[j][0], "end_unix_nano": ivals[j][1],
+                "attrs": {"http.method": ("GET", "POST", "PUT")[j % 3],
+                          "http.status_code": int(rng.integers(200, 600)),
+                          "retry.ratio": float(rng.random()),
+                          "cache.hit": bool(j % 2)},
+                "res_attrs": {"service.name": f"service-{svc}",
+                              "host.name": f"host-{svc % 4}",
+                              "process.pid": svc},
+            }
+            if j % 4 == 3:
+                sp["events"] = [{"time_unix_nano": ivals[j][0] + 1,
+                                 "name": "retry"}]
+            if j % 8 == 7:
+                sp["links"] = [{"trace_id": rng.bytes(16),
+                                "span_id": rng.bytes(8)}]
+            spans.append(sp)
+    return spans
+
+
+def _ingest_rig(root, now_fn):
+    """One `Distributor` (no generator tee) over 3 `Ingester`s of the
+    reference's default `IngesterConfig`, each in its own data directory
+    under `root`, flushing to one `LocalBackend` store under `root`."""
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.distributor import Distributor
+    from tempo_tpu_torch.ingester import Ingester, IngesterConfig
+    from tempo_tpu_torch.overrides import Overrides
+    from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
+    from tempo_tpu_torch.ring.ring import _instance_tokens
+
+    ov = Overrides()
+    ov.set_tenant_patch(INGEST_TENANT, {"ingestion": dict(UNLIMITED)})
+    store = LocalBackend(os.path.join(root, "store"))
+    ring = Ring(replication_factor=3, now=now_fn)
+    ings = {}
+    for k in range(3):
+        iid = f"ingester-{k}"
+        ings[iid] = Ingester(os.path.join(root, iid), flush_writer=store,
+                             cfg=IngesterConfig(), overrides=ov, now=now_fn,
+                             instance_id=iid)
+        ring.register(InstanceDesc(id=iid, state=ACTIVE,
+                                   tokens=_instance_tokens(iid, 128),
+                                   heartbeat_ts=now_fn()))
+    return Distributor(ring, ings, overrides=ov, now=now_fn), ings, store, ov
+
+
+def _find_all(fn, picks, want, ctx):
+    """`fn(tid)` for every picked id equal to `want[tid]`; ms a find, and
+    the first find's ms."""
+    times = []
+    for tid in picks:
+        t0 = time.perf_counter()
+        got = fn(tid)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if got != want[tid]:
+            raise AssertionError(f"{ctx}: trace {tid.hex()} differs from the "
+                                 f"host decode")
+    return statistics.median(times), times[0]
+
+
+def _as_read(spans):
+    """Span dicts as a block or WAL read returns them: ids padded to their
+    column widths, every key present."""
+    return [{**s,
+             "trace_id": s["trace_id"].ljust(16, b"\0"),
+             "span_id": s["span_id"].ljust(8, b"\0"),
+             "parent_span_id": (s.get("parent_span_id") or b"").ljust(
+                 8, b"\0"),
+             "events": [{"time_unix_nano": e["time_unix_nano"],
+                         "name": e["name"]} for e in s.get("events") or []],
+             "links": [{"trace_id": ln["trace_id"].ljust(16, b"\0"),
+                        "span_id": ln["span_id"].ljust(8, b"\0")}
+                       for ln in s.get("links") or []]}
+            for s in spans]
+
+
+def phase_ingester(card):
+    """Phase 9: the ingester's cycle at the reference's default config,
+    on real ingesters behind the distributor; the data directories and
+    the object store live under `build/` for the phase. Returns the
+    results."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase9-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_ingester(card, root)
+
+
+def _phase_ingester(card, root):
+    from tempo_tpu_torch.backend import MemBackend, read_block_meta
+    from tempo_tpu_torch.block import BackendBlock, write_block
+    from tempo_tpu_torch.block import reader as block_reader
+    from tempo_tpu_torch.ingester import Ingester, IngesterConfig
+    from tempo_tpu_torch.ingester import instance as inst_mod
+    from tempo_tpu_torch.model.combine import sort_spans
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    t_phase = time.perf_counter()
+    ctx = "phase 9"
+    now_ns = time.time_ns()
+    payloads = [encode_spans_otlp(deep_trace_spans(
+        N_SPANS, seed=SEED + 90 + k, now_ns=now_ns))
+        for k in range(N_INGEST_PAYLOADS)]
+    host = _host_traces(payloads)
+    n_traces = len(host)
+    n_spans = N_INGEST_PAYLOADS * N_SPANS
+    if n_traces != n_spans // SPANS_PER_TRACE:
+        raise AssertionError(f"{ctx}: {n_traces} traces")
+    rng = np.random.default_rng(SEED + 91)
+    ids = sorted(host)
+    picks = [ids[int(i)] for i in rng.choice(n_traces, min(N_FIND, n_traces),
+                                             replace=False)]
+    n_groups = -(-n_spans // IngesterConfig().instance.row_group_rows)
+    read_want = {t: _as_read(v) for t, v in host.items()}
+    out = {}
+    clock = [time.time()]
+    now_fn = lambda: clock[0]  # noqa: E731
+    dist, ings, store, ov = _ingest_rig(root, now_fn)
+    t = INGEST_TENANT
+
+    # 1. push
+    h0 = dist.push_duration.snapshot() or {"sum": 0.0, "count": 0}
+    t0 = time.perf_counter()
+    for data in payloads:
+        errs = dist.push_otlp(t, data)
+        if errs:
+            raise AssertionError(f"{ctx}: push: {errs}")
+    push_s = time.perf_counter() - t0
+    h1 = dist.push_duration.snapshot()
+    out["push_spans_per_s"] = n_spans / push_s
+    out["push_duration_ms"] = (h1["sum"] - h0["sum"]) / (
+        h1["count"] - h0["count"]) * 1e3
+    if dist.discarded or dist.metrics.get("push_failures_total"):
+        raise AssertionError(f"{ctx}: {dist.discarded} {dist.metrics}")
+    out["find_live_ms"], _ = _check_ingesters(ings, {t: host}, f"{ctx} live")
+
+    # 2. cut: every trace to the head WAL block, one segment a trace; seal
+    fs = {"s": 0.0, "calls": 0}
+    inner_fsync = os.fsync
+
+    def fsync(fd):
+        t1 = time.perf_counter()
+        try:
+            return inner_fsync(fd)
+        finally:
+            fs["s"] += time.perf_counter() - t1
+            fs["calls"] += 1
+    os.fsync = fsync
+    t0 = time.perf_counter()
+    try:
+        for ing in ings.values():
+            ing.sweep_all(immediate=True)
+    finally:
+        os.fsync = inner_fsync
+    cut_s = time.perf_counter() - t0
+    segs = 0
+    for iid, ing in ings.items():
+        inst = ing.instance(t)
+        (wb,) = inst.completing
+        segs += len(wb.segments())
+        if len(inst.live) or inst.head is not None or \
+                len(wb.segments()) != n_traces or len(ing.queues) != 1:
+            raise AssertionError(f"{ctx}: {iid} after the cut: "
+                                 f"{len(inst.live)} live, "
+                                 f"{len(wb.segments())} segments")
+    out.update(cut_s=cut_s, segments_per_s=segs / cut_s,
+               fsync_ms=fs["s"] / fs["calls"] * 1e3, fsync_calls=fs["calls"])
+    wal_ms = []
+    for iid, ing in ings.items():
+        wal_ms.append(_find_all(lambda tid: ing.find_trace_by_id(t, tid),
+                                picks, read_want, f"{ctx} {iid} WAL")[0])
+    out["find_wal_ms"] = statistics.median(wal_ms)
+
+    # 3. complete + flush
+    acc = {}
+    inner_write = _timed(inst_mod, "write_block", acc)
+    flush_ms = {}
+    t0 = time.perf_counter()
+    try:
+        for iid, ing in ings.items():
+            c0 = {op: (ing.flush_duration.snapshot((op,)) or {"sum": 0.0})
+                  ["sum"] for op in ("complete", "flush")}
+            if ing.flush_tick() != 2 or len(ing.queues):
+                raise AssertionError(f"{ctx}: {iid} flush_tick left "
+                                     f"{len(ing.queues)} ops")
+            for op in ("complete", "flush"):
+                flush_ms[op] = flush_ms.get(op, 0.0) + \
+                    ing.flush_duration.snapshot((op,))["sum"] - c0[op]
+    finally:
+        inst_mod.write_block = inner_write
+    out.update(tick_s=time.perf_counter() - t0,
+               complete_s=flush_ms["complete"] / 3,
+               flush_s=flush_ms["flush"] / 3,
+               write_spans_per_s=3 * n_spans / acc["write_block"])
+    blocks = []
+    for iid, ing in ings.items():
+        inst = ing.instance(t)
+        (entry,) = inst.complete.values()
+        m = entry.meta
+        if inst.completing or not entry.flushed_ts or \
+                m.row_group_count != n_groups or m.total_spans != n_spans or \
+                m.total_objects != n_traces or m.encoding != "gzip":
+            raise AssertionError(f"{ctx}: {iid} block {m.to_json()}")
+        flushed = read_block_meta(store, m.block_id, t)
+        if flushed.to_json() != m.to_json():
+            raise AssertionError(f"{ctx}: {iid} flushed meta differs")
+        blocks.append(BackendBlock(store, flushed))
+        ms, first = _find_all(lambda tid: ing.find_trace_by_id(t, tid),
+                              picks, read_want, f"{ctx} {iid} complete block")
+        out.setdefault("find_block_ms", []).append((ms, first))
+    out["bytes_per_span"] = blocks[0].meta.size_bytes / n_spans
+    sorted_traces = [(tid, host[tid]) for tid in ids]
+    plain = write_block(MemBackend(), t, sorted_traces, compression="none")
+    out["bytes_per_span_none"] = plain.size_bytes / n_spans
+    out["find_flushed_ms"] = _find_all(
+        lambda tid: blocks[0].find_trace_by_id(tid), picks, read_want,
+        f"{ctx} flushed copy")
+
+    # 4. every span of a flushed block, read back through the port's reader
+    pf = blocks[0].parquet_file()
+    got: dict = {}
+    for rg in range(pf.num_row_groups):
+        tbl = pf.read_row_group(rg)
+        for sp in block_reader._rows_to_spans(tbl, np.arange(tbl.num_rows)):
+            got.setdefault(sp["trace_id"], []).append(sp)
+    if len(got) != n_traces or sum(map(len, got.values())) != n_spans:
+        raise AssertionError(f"{ctx}: the block holds {len(got)} traces")
+    for tid in ids:
+        if sort_spans(got[tid]) != read_want[tid]:
+            raise AssertionError(f"{ctx}: block trace {tid.hex()} differs")
+    del got, pf
+
+    # 5. an ingester abandoned mid-cycle, then replayed
+    rdir = os.path.join(root, "abandoned")
+    counts = {}
+
+    class CountingStore:
+        def write(self, name, keypath, data):
+            if name == "data.parquet":
+                counts[keypath.parts[-1]] = counts.get(
+                    keypath.parts[-1], 0) + 1
+            return store.write(name, keypath, data)
+
+    # payload 0 ends in a complete block, payload 1 in the head WAL block
+    taken = _host_traces(payloads[:2])
+    r_picks = [tid for tid in picks if tid in taken]
+    late = next(tid for tid in ids if tid not in taken)
+    ing = Ingester(rdir, flush_writer=CountingStore(), cfg=IngesterConfig(),
+                   overrides=ov, now=now_fn, instance_id="ingester-r")
+    if ing.push_otlp(t, payloads[0]):
+        raise AssertionError(f"{ctx}: abandoned ingester push")
+    inst = ing.instance(t)
+    inst.cut_complete_traces(immediate=True)
+    inst.complete_block(inst.cut_block_if_ready(immediate=True))
+    if ing.push_otlp(t, payloads[1]):
+        raise AssertionError(f"{ctx}: abandoned ingester push")
+    inst.cut_complete_traces(immediate=True)       # the head WAL block
+    if len(inst.complete) != 1 or inst.head is None:
+        raise AssertionError(f"{ctx}: abandoned ingester state")
+    del ing, inst                                  # no shutdown
+    gc.collect()
+    t0 = time.perf_counter()
+    ing = Ingester(rdir, flush_writer=CountingStore(), cfg=IngesterConfig(),
+                   overrides=ov, now=now_fn, instance_id="ingester-r")
+    replay_s = time.perf_counter() - t0
+    inst = ing.instance(t)
+    if len(inst.completing) != 1 or len(inst.complete) != 1 or \
+            len(ing.queues) != 2:
+        raise AssertionError(f"{ctx}: replay adopted {len(inst.completing)} "
+                             f"WAL / {len(inst.complete)} complete blocks")
+    _find_all(lambda tid: ing.find_trace_by_id(t, tid), r_picks, read_want,
+              f"{ctx} replayed")
+    t0 = time.perf_counter()
+    ing.flush_tick()
+    out["replay_s"] = replay_s
+    out["replay_flush_s"] = time.perf_counter() - t0
+    if len(ing.queues) or len(inst.complete) != 2 or \
+            sorted(counts.values()) != [1, 1] or \
+            set(counts) != set(inst.complete) or \
+            any(not e.flushed_ts for e in inst.complete.values()):
+        raise AssertionError(f"{ctx}: after replay: flushed {counts}, "
+                             f"{len(inst.complete)} blocks")
+    _find_all(lambda tid: ing.find_trace_by_id(t, tid), r_picks, read_want,
+              f"{ctx} replayed and flushed")
+    if not r_picks or ing.find_trace_by_id(t, late) is not None:
+        raise AssertionError(f"{ctx}: replayed ingester finds "
+                             f"{len(r_picks)} picks, or a trace it never took")
+    del ing, inst
+
+    # 6. the live-trace limit at the default limits, on a fresh tenant
+    from tempo_tpu_torch.model.otlp import synthetic_spans
+    one = synthetic_spans(10_001, seed=SEED + 92, now_ns=now_ns)
+    errs = dist.push_otlp(LIMIT_TENANT, encode_spans_otlp(one))
+    if errs != {"live_traces_exceeded": 1} or \
+            dist.discarded.get("live_traces_exceeded") != 1:
+        raise AssertionError(f"{ctx}: limits: errs {errs}, distributor "
+                             f"discarded {dist.discarded}")
+    for iid, ing in ings.items():
+        inst = ing.instance(LIMIT_TENANT)
+        line = (f'tempo_ingester_discarded_traces_total{{tenant='
+                f'"{LIMIT_TENANT}",reason="live_traces_exceeded"}} 1')
+        if len(inst.live) != 10_000 or \
+                inst.discarded != {"live_traces_exceeded": 1} or \
+                line not in ing.obs.render().splitlines():
+            raise AssertionError(f"{ctx}: {iid} limits: {len(inst.live)} "
+                                 f"live, discarded {inst.discarded}")
+    out["seconds"] = time.perf_counter() - t_phase
+    fb = out["find_block_ms"]
+    print(f"phase 9 [{card}]: {N_INGEST_PAYLOADS} payloads of {N_SPANS} spans "
+          f"({n_traces} traces of {SPANS_PER_TRACE}) through "
+          f"Distributor.push_otlp into 3 ingesters (rf=3, default "
+          f"IngesterConfig): push {out['push_spans_per_s']:.0f} spans/s, "
+          f"push_duration {out['push_duration_ms']:.3f} ms a push; cut "
+          f"(sweep_all immediate, 3 ingesters) {cut_s:.3f} s, "
+          f"{out['segments_per_s']:.1f} WAL segments/s, fsync "
+          f"{out['fsync_ms']:.3f} ms a call over {fs['calls']} calls (a "
+          f"file and its directory a segment); flush_tick {out['tick_s']:.3f} s: complete "
+          f"{out['complete_s']:.3f} s an ingester, block writing "
+          f"{out['write_spans_per_s']:.0f} spans/s, flush "
+          f"{out['flush_s']:.4f} s an ingester; block "
+          f"{blocks[0].meta.size_bytes} bytes, "
+          f"{out['bytes_per_span']:.2f} bytes a span gzip, "
+          f"{out['bytes_per_span_none']:.2f} uncompressed on the same input; "
+          f"find_trace_by_id ms (median of {N_FIND}): live "
+          f"{out['find_live_ms']:.4f}, WAL {out['find_wal_ms']:.4f}, "
+          f"complete block "
+          + ", ".join(f"{m:.4f} (first {f:.1f})" for m, f in fb)
+          + f", flushed copy {out['find_flushed_ms'][0]:.4f} (first "
+          f"{out['find_flushed_ms'][1]:.1f}); replay {replay_s:.3f} s, then "
+          f"flush_tick {out['replay_flush_s']:.3f} s; phase "
+          f"{out['seconds']:.1f} s")
+    print(f"phase 9 checks: every trace live on each ingester and no discard; "
+          f"find_trace_by_id of {N_FIND} seeded ids equal to the host decode "
+          f"live, in the WAL ({n_traces} segments an ingester), in each "
+          f"complete block ({n_groups} row groups, {n_spans} spans, gzip) "
+          f"and in its "
+          f"flushed copy through BackendBlock; every span of a flushed block "
+          f"read back equal to what was sent, by trace; an abandoned "
+          f"ingester (one head WAL block, one complete unflushed block) "
+          f"replayed: both blocks flushed once, the same traces found; "
+          f"10,001 one-span traces at the default limits: 10,000 live on "
+          f"each ingester, one live_traces_exceeded discard each, counted "
+          f"once by the distributor")
+    return out
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -2707,6 +3221,10 @@ def main() -> int:
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    import importlib.util
+    print("modules on this machine (reported only): " + ", ".join(
+        f"{m} {'importable' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("pyarrow", "zstandard", "yaml")))
     t0 = time.perf_counter()
     ck.build_all()                  # one nvcc per source, all together
     for src in ck.SOURCES:
@@ -2810,7 +3328,7 @@ def main() -> int:
           f"Python decode {s7c['python_spans_per_s']:.0f}; phase 7 "
           f"{time.perf_counter() - t7:.1f} s")
     s8, k8 = phase_distributor(card)
-    sm_spans = N_MAIN_PUSHES * N_SPANS * len(SM_TENANTS)
+    sm_spans = N_DIST_PUSHES * N_SPANS * len(SM_TENANTS)
     sc7 = s7[0]["runs"]["sched"]
     print(f"phase 8 [{card}]: span-metrics tenants through "
           f"Distributor.push_otlp, spans/s with every series new / known: "
@@ -2824,8 +3342,19 @@ def main() -> int:
           + "; ".join(f"{k} {s8[k]['push_ms']['new']['push']:.3f} / "
                       f"{s8[k]['push_ms']['known']['push']:.3f} ms"
                       for k in ("8a", "8b"))
-          + f"; K1 device time a push {s8['8a']['device_ms']} ms; phase 8 "
+          + f"; of it the ingester leg (3 real ingesters), series new / "
+          f"known: 8a {s8['8a']['push_ms']['new']['push_staged']:.3f} / "
+          f"{s8['8a']['push_ms']['known']['push_staged']:.3f} ms, 8b "
+          f"{s8['8b']['ingester_ms']:.3f} ms over every pass; K1 device time "
+          f"a push {s8['8a']['device_ms']} ms; phase 8 "
           f"{s8['seconds']:.1f} s")
+    s9 = phase_ingester(card)
+    print(f"phase 9 [{card}]: push {s9['push_spans_per_s']:.0f} spans/s, cut "
+          f"{s9['segments_per_s']:.1f} WAL segments/s (fsync "
+          f"{s9['fsync_ms']:.3f} ms), complete {s9['complete_s']:.3f} s an "
+          f"ingester, {s9['bytes_per_span']:.2f} bytes a span; phase 9 "
+          f"{s9['seconds']:.1f} s; the whole smoke "
+          f"{time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -14,7 +14,10 @@ The main path starts where the reference's users enter:
     distributor.Distributor.push_otlp(tenant, OTLP bytes)
       → admission (scheduler backpressure, the tenant's rate limit),
         validation, overload sampling, grouping by trace, ring
-        replication to the ingesters
+        replication to the ingesters (ingester.Ingester: live traces →
+        a fsynced WAL segment a trace → a complete Parquet block written
+        by the port's own codec, block/parquet.py → flush to the object
+        store; find_trace_by_id over all three)
       → the generator tee: one decode-once staging shared by row views
         when every generator is in process with one interner, else scan
         records or payload slices per generator

@@ -1,14 +1,29 @@
 """Object-storage plane: raw interfaces and the in-memory store.
 
-Counterpart of `tempo_tpu/backend/`. This slice of the port carries
-`raw.py` (the `RawReader`/`RawWriter` interfaces and keypaths) and
-`mem.py` (the in-memory store), which the user-configurable overrides
-read and write through. The local, cloud and cache backends and the block
-metadata come with the write side of storage (ROADMAP section 1, item 5):
-their names raise `NotImplementedError` until then.
+Counterpart of `tempo_tpu/backend/`. The port carries `raw.py` (the
+`RawReader`/`RawWriter` interfaces and keypaths), `mem.py` (the in-memory
+store), `local.py` (the filesystem store the ingesters write their blocks
+to) and `meta.py` (block metadata and the tenant index). The cloud and
+cache backends come with the rest of the storage layer (ROADMAP section
+1, item 5b): their names raise `NotImplementedError` until then.
 """
 
+from tempo_tpu_torch.backend.local import LocalBackend
 from tempo_tpu_torch.backend.mem import MemBackend
+from tempo_tpu_torch.backend.meta import (
+    BlockMeta,
+    CompactedBlockMeta,
+    DedicatedColumn,
+    TenantIndex,
+    clear_block,
+    has_meta,
+    mark_block_compacted,
+    read_block_meta,
+    read_compacted_block_meta,
+    read_tenant_index,
+    write_block_meta,
+    write_tenant_index,
+)
 from tempo_tpu_torch.backend.raw import (
     AlreadyExists,
     CompactedMetaName,
@@ -24,25 +39,23 @@ from tempo_tpu_torch.backend.raw import (
     tenants,
 )
 
-_LATER = {
-    "BlockMeta", "CacheProvider", "CachingReader", "CompactedBlockMeta",
-    "DedicatedColumn", "LRUCache", "LocalBackend", "TenantIndex",
-    "clear_block", "has_meta", "mark_block_compacted", "open_backend",
-    "read_block_meta", "read_compacted_block_meta", "read_tenant_index",
-    "write_block_meta", "write_tenant_index",
-}
+_LATER = {"CacheProvider", "CachingReader", "LRUCache", "open_backend"}
 
 
 def __getattr__(name: str):
     if name in _LATER:
         raise NotImplementedError(
-            f"tempo_tpu_torch.backend.{name} comes with the write side of "
-            f"storage (ROADMAP section 1, item 5)")
+            f"tempo_tpu_torch.backend.{name} comes with the rest of the "
+            f"storage layer (ROADMAP section 1, item 5b)")
     raise AttributeError(name)
 
 
 __all__ = [
-    "AlreadyExists", "CompactedMetaName", "DoesNotExist", "KeyPath",
-    "MemBackend", "MetaName", "RawReader", "RawWriter", "TenantIndexName",
-    "block_keypath", "blocks", "copy_block", "tenants",
+    "AlreadyExists", "BlockMeta", "CompactedBlockMeta", "CompactedMetaName",
+    "DedicatedColumn", "DoesNotExist", "KeyPath", "LocalBackend",
+    "MemBackend", "MetaName", "RawReader", "RawWriter", "TenantIndex",
+    "TenantIndexName", "block_keypath", "blocks", "clear_block",
+    "copy_block", "has_meta", "mark_block_compacted", "read_block_meta",
+    "read_compacted_block_meta", "read_tenant_index", "tenants",
+    "write_block_meta", "write_tenant_index",
 ]

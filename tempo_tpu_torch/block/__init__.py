@@ -1,0 +1,26 @@
+"""Block encoding plane: columnar (parquet) blocks, bloom filters, WAL.
+
+Counterpart of `tempo_tpu/block/` for the write side of storage: the
+port's own Parquet codec (`parquet.py`), the block schema, bloom filters,
+the block writer, trace-by-ID reads and the WAL. The columnar scans, the
+device scan plane and the sketch sidecar come with the read side (ROADMAP
+section 1, item 6).
+"""
+
+from tempo_tpu_torch.block.bloom import BloomFilter, ShardedBloom, shard_name
+from tempo_tpu_torch.block.reader import BackendBlock
+from tempo_tpu_torch.block.schema import (
+    VERSION,
+    block_schema,
+    nested_set,
+    spans_by_trace,
+    traces_to_table,
+)
+from tempo_tpu_torch.block.wal import WALBlock, rescan_blocks
+from tempo_tpu_torch.block.writer import DATA_NAME, INDEX_NAME, write_block
+
+__all__ = [
+    "BackendBlock", "BloomFilter", "DATA_NAME", "INDEX_NAME", "ShardedBloom",
+    "VERSION", "WALBlock", "block_schema", "nested_set", "rescan_blocks",
+    "shard_name", "spans_by_trace", "traces_to_table", "write_block",
+]

@@ -11,7 +11,7 @@ set (validated in `cmd/tempo/app/overrides_validation.go`).
 Counterpart of `tempo_tpu/overrides/overrides.py`. The reference imports
 PyYAML when the module is imported; the port imports it only in
 `reload()`, when a runtime-config file is given, so `Overrides()` without
-one needs no PyYAML (the card's machine has none). A runtime-config path
+one needs no PyYAML (not a dependency of the port). A runtime-config path
 without PyYAML raises `ImportError` naming the path: the limits are
 never quietly the defaults.
 """

@@ -4,7 +4,10 @@ version), on the same numpy-seeded OTLP payloads and a pinned clock.
 
 Rigs: 3 staged-capable stub ingesters at the default `rf=3` and a
 generator ring of 1 or 2 `Generator`s, as the reference's own tests rig
-them (`tests/test_ingest_pipeline.py:53-70`). Routes and what each test
+them (`tests/test_ingest_pipeline.py:53-70`); and a rig of 3 real
+`Ingester`s of each package (the port's against the reference's, on the
+same payloads through both tees: every ingester's `find_trace_by_id`
+equal after the push and after `flush_all`). Routes and what each test
 exercises:
 
 - the decode-once staged tee (one generator, so one interner: every
@@ -40,11 +43,13 @@ from tempo_tpu.distributor import Distributor as JDist
 from tempo_tpu.distributor.distributor import DistributorConfig as JDistCfg
 from tempo_tpu.distributor.limiter import IngestBackpressure as JBackpressure
 from tempo_tpu.distributor.sampler import SpanSampler as JSampler
+from tempo_tpu.backend.mem import MemBackend as JMem
 from tempo_tpu.generator.generator import Generator as JGen
 from tempo_tpu.generator.instance import GeneratorConfig as JGenCfg
 from tempo_tpu.generator.processors.spanmetrics import (
     SpanMetricsConfig as JSmCfg)
 from tempo_tpu.ingest.bus import Bus as JBus
+from tempo_tpu.ingester import Ingester as JIng
 from tempo_tpu.model.otlp_batch import stage_otlp as j_stage
 from tempo_tpu.overrides import Overrides as JOv
 from tempo_tpu.overrides.limits import SamplingLimits as JSampling
@@ -52,6 +57,7 @@ from tempo_tpu.ring import ring as jring
 
 import tempo_tpu_torch as tt
 from tempo_tpu_torch import sched as tsched
+from tempo_tpu_torch.backend.mem import MemBackend as TMem
 from tempo_tpu_torch.distributor import Distributor as TDist
 from tempo_tpu_torch.distributor.distributor import (
     REASON_BACKPRESSURE, REASON_INVALID_TRACE_ID, REASON_RATE_LIMITED,
@@ -63,6 +69,7 @@ from tempo_tpu_torch.distributor.sampler import SpanSampler as TSampler
 from tempo_tpu_torch.generator import Generator as TGen
 from tempo_tpu_torch.generator import GeneratorConfig as TGenCfg
 from tempo_tpu_torch.ingest.bus import Bus as TBus
+from tempo_tpu_torch.ingester import Ingester as TIng
 from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
 from tempo_tpu_torch.overrides import Overrides as TOv
 from tempo_tpu_torch.overrides.limits import SamplingLimits as TSampling
@@ -170,7 +177,7 @@ class Side:
     """One package's distributor, stub ingesters and generators."""
 
     def __init__(self, port, patches, n_gen=1, cfg=None, sm=None,
-                 bus=None):
+                 bus=None, ing_dir=None):
         self.port = port
         now = lambda: T0  # noqa: E731
         self.ov = (TOv if port else JOv)()
@@ -188,7 +195,14 @@ class Side:
                                        instance_id=f"g{i}", now=now)
                          for i in range(n_gen)}
         mod = tring if port else jring
-        self.ings = {f"i{i}": StubIngester() for i in range(3)}
+        if ing_dir is None:
+            self.ings = {f"i{i}": StubIngester() for i in range(3)}
+        else:       # real ingesters of this package, one data dir each
+            self.store = (TMem if port else JMem)()
+            self.ings = {f"i{i}": (TIng if port else JIng)(
+                str(ing_dir / ("port" if port else "ref") / f"i{i}"),
+                flush_writer=self.store, overrides=self.ov, now=now,
+                instance_id=f"i{i}") for i in range(3)}
         self.dist = (TDist if port else JDist)(
             _ring(mod, self.ings, now, rf=3), self.ings, overrides=self.ov,
             generator_ring=_ring(mod, self.gens, now),
@@ -301,6 +315,74 @@ def test_staged_tee_matches_reference(processors):
     assert ts.dist.metrics["spans_received_total"] == 2 * len(spans)
     assert assert_same_state(js.gens["g0"].instance("t1"),
                              ts.gens["g0"].instance("t1")) > 0
+
+
+# -- real ingesters ---------------------------------------------------------------
+
+
+def _found(side, tids):
+    return {iid: [_norm(ing.find_trace_by_id("t1", t)) for t in tids]
+            for iid, ing in side.ings.items()}
+
+
+def _norm(spans):
+    if spans is None:
+        return None
+    return sorted(({**s, "trace_id": bytes(s["trace_id"]).ljust(16, b"\0"),
+                    "span_id": bytes(s["span_id"]).ljust(8, b"\0"),
+                    "parent_span_id": bytes(s.get("parent_span_id") or b"")
+                    .ljust(8, b"\0"),
+                    "events": s.get("events") or [],
+                    "links": s.get("links") or []}
+                   for s in spans),
+                  key=lambda s: (s["trace_id"], s["span_id"]))
+
+
+@pytest.mark.parametrize("n_gen", [1, 2], ids=["staged-tee", "columnar-tee"])
+@pytest.mark.parametrize("processors", [SM_ONLY, DEFAULT],
+                         ids=["span-metrics", "default-processors"])
+def test_real_ingesters_match_reference(tmp_path, n_gen, processors):
+    """3 real ingesters of each package behind its distributor: the
+    staged tee hands them row views (span attrs now staged, since real
+    ingesters want them), the columnar tee payload slices; every
+    ingester finds every trace the reference's does, equal span for span,
+    live and after `flush_all` (a complete block flushed to the store)."""
+    js, ts = pair({"t1": tenant_patch(processors)}, n_gen=n_gen,
+                  ing_dir=tmp_path)
+    assert (ts.plan("t1") is not None) == (n_gen == 1)
+    spans = tree_spans(48, 13)
+    for s in spans[::3]:
+        s["attrs"] = {"http.method": "GET", "retries": 2, "ok": True}
+        s["res_attrs"] = {"service.name": s["service"], "zone": "z1"}
+    raw = payload(spans)
+    errs = both(js, ts, lambda s: s.dist.push_otlp("t1", raw))
+    assert errs[0] == errs[1] == {}
+    tids = sorted({s["trace_id"] for s in spans})[:20] + [b"\xee" * 16]
+    live = _found(ts, tids)
+    assert live == _found(js, tids)
+    want = {t: [] for t in tids}
+    for s in spans:
+        if s["trace_id"] in want:
+            want[s["trace_id"]].append(s)
+    for iid, got in live.items():
+        for t, g in zip(tids, got):
+            if t == b"\xee" * 16:
+                assert g is None
+            else:
+                assert [x["span_id"][:8] for x in g] == \
+                    [x["span_id"] for x in _norm(want[t])]
+                assert [x["attrs"] for x in g] == \
+                    [x.get("attrs", {}) for x in _norm(want[t])]
+    for side in (js, ts):
+        for ing in side.ings.values():
+            ing.flush_all()
+    flushed = _found(ts, tids)
+    assert flushed == _found(js, tids) == live
+    assert len(ts.store._objects) == len(js.store._objects) > 0
+    for ing in ts.ings.values():
+        (entry,) = ing.instance("t1").complete.values()
+        assert entry.flushed_ts and entry.meta.encoding == "gzip"
+        assert not ing.instance("t1").discarded
 
 
 # -- the columnar tee ----------------------------------------------------------

@@ -338,7 +338,7 @@ def test_unported_surfaces_raise_naming_their_item():
         tg.get_metrics("t", "{}", ())
     tg.instance("t").tick(immediate=True)           # no processor cuts
     from tempo_tpu_torch import backend, fleet, ingest
-    for mod, name, item in ((backend, "LocalBackend", "item 5"),
+    for mod, name, item in ((backend, "CachingReader", "item 5b"),
                             (fleet, "FleetController", "item 12"),
                             (ingest, "ConsumerGroup", "item 14")):
         with pytest.raises(NotImplementedError, match=item):

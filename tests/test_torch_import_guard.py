@@ -17,7 +17,12 @@
   ends with no `jax`, no `tempo_tpu` module and no `yaml` loaded; an
   `Overrides()` without a runtime-config path needs no PyYAML, and no
   port module imports `yaml` outside a function.
-- No source file of the port, nor `chip_smoke.py`, imports either.
+- A fresh interpreter drives the ingesters behind `Distributor.push_otlp`
+  (push through the staged and the columnar tee, cut, complete, flush,
+  find at every stage) and ends with no `jax`, `tempo_tpu`, `yaml` or
+  `pyarrow` module loaded: the port writes and reads Parquet itself.
+- No source file of the port, nor `chip_smoke.py`, imports either, and
+  none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
 - Every configuration this slice does not carry raises
   `NotImplementedError` instead of quietly doing something else.
@@ -180,6 +185,79 @@ def test_distributor_into_generator_loads_no_reference_and_no_yaml():
                          env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+_INGESTER_DRIVE = """
+import sys
+import tempfile
+import time
+import tempo_tpu_torch as tt
+from tempo_tpu_torch.backend import LocalBackend, read_block_meta
+from tempo_tpu_torch.block import BackendBlock
+from tempo_tpu_torch.distributor import Distributor
+from tempo_tpu_torch.generator import Generator
+from tempo_tpu_torch.ingester import Ingester
+from tempo_tpu_torch.model.otlp import encode_spans_otlp
+from tempo_tpu_torch.overrides import Overrides
+from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
+from tempo_tpu_torch.ring.ring import _instance_tokens
+from chip_smoke import trace_tree_spans
+
+def ring(ids, rf):
+    r = Ring(replication_factor=rf)
+    for i in ids:
+        r.register(InstanceDesc(id=i, state=ACTIVE,
+                                tokens=_instance_tokens(i, 64)))
+    return r
+
+root = tempfile.mkdtemp()
+store = LocalBackend(root + "/store")
+ov = Overrides()
+ov.set_tenant_patch("a", {"generator": {"processors": ["span-metrics"],
+                                        "max_active_series": 512}})
+spans = trace_tree_spans(24, seed=3, now_ns=time.time_ns())
+data = encode_spans_otlp(spans)
+tid = spans[0]["trace_id"]
+for n_gen in (1, 2):
+    ings = {f"i{k}": Ingester(f"{root}/{n_gen}/i{k}", flush_writer=store,
+                              overrides=ov, instance_id=f"i{k}")
+            for k in range(3)}
+    gens = {f"g{k}": Generator(tt.GeneratorConfig(
+        spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
+        overrides=ov, instance_id=f"g{k}", device="cpu") for k in range(n_gen)}
+    d = Distributor(ring(ings, 3), ings, overrides=ov,
+                    generator_ring=ring(gens, 1), generator_clients=gens)
+    assert d.push_otlp("a", data) == {}
+    for ing in ings.values():
+        assert ing.find_trace_by_id("a", tid)
+        ing.sweep_all(immediate=True)
+        assert ing.find_trace_by_id("a", tid)
+        assert ing.flush_tick() == 2
+        (entry,) = ing.instance("a").complete.values()
+        assert entry.flushed_ts and ing.find_trace_by_id("a", tid)
+        meta = read_block_meta(store, entry.meta.block_id, "a")
+        assert BackendBlock(store, meta).find_trace_by_id(tid)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+
+def test_ingester_drive_loads_no_reference_yaml_or_pyarrow():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _INGESTER_DRIVE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_port_source_imports_pyarrow():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        bad = [m for m in _imports(f) if m.split(".")[0] in
+               ("pyarrow", "zstandard", "snappy")]
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
 def test_yaml_is_imported_only_inside_functions():
