@@ -160,12 +160,12 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    the ingester leg's share, K1's device time a push;
 9. the ingester's own cycle at the reference's default `IngesterConfig`
    and `InstanceConfig`: one tenant through one `Distributor` into 3 real
-   ingesters (rf=3, no generator tee), 4 payloads of 16,384 spans of
-   seeded trace trees of 32 spans (512 traces a payload, 2,048 in all;
+   ingesters (rf=3, no generator tee), 2 payloads of 16,384 spans of
+   seeded trace trees of 32 spans (512 traces a payload, 1,024 in all;
    span and resource attributes of every type, events and links), then
    `sweep_all(immediate=True)` (cut: one fsynced WAL segment a trace,
    then seal) and `flush_tick()` (complete: the WAL read back, combined
-   and written as a gzip Parquet block of 2 row groups; flush: the
+   and written as a gzip Parquet block of one row group; flush: the
    block's files copied to a `LocalBackend` playing the object store).
    Checks: `find_trace_by_id` for 256 seeded ids at each stage (live, WAL,
    complete local block, the flushed copy through `BackendBlock`) equal
@@ -181,7 +181,45 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    `push_duration`, cut seconds and WAL segments/s with fsync ms, complete
    seconds and spans/s of block writing, block bytes a span (gzip, and
    uncompressed on the same input), flush seconds, `find_trace_by_id` ms
-   at each stage, replay seconds.
+   at each stage, replay seconds;
+10. the read side over backend blocks (`TempoDB` at the reference's
+   default `TempoDBConfig`: the device plane on, a 1 GiB plane budget,
+   64 blocks, 30 pool workers, 50,000-row groups):
+   a. push to query: a `TempoDB` on the card polls phase 9's flushed
+      object store (the 3 ingesters' blocks of the same traces and the
+      replayed ingester's two) and answers `find_trace_by_id` for phase
+      9's 256 seeded ids (each equal to the host decode, rf copies
+      combined), two searches on span and resource attributes, and
+      `rate() by (resource.service.name)` and `quantile_over_time(
+      duration, .5, .99)` by service over a 900 s window; every result
+      equal to a CPU twin and to a host-engine twin (`device_plane=
+      False`), every metrics block fused with no fallback;
+   b. the reference's query benchmark (`bench.py` `bench_query`) at its
+      size: `TempoDB.write_block` of 100,000 one-span traces (its
+      generator and seed) into a `LocalBackend` under `build/`; rate by
+      service, quantile_over_time(duration, .99) by service and the
+      search `{ span.http.status_code >= 400 }` (limit 20), the plane on
+      and off, each timed after one warm-up and equal on and off; the
+      quantile under the moments tier (fused; its moment rows equal to
+      the host engine's within ROADMAP section 3's row tolerance; each
+      cell's q99 equal to the host engine's at the reference's rtol 5e-2
+      and, as to the same fused query run again, beyond rtol 1e-3 in no
+      more cells than ROADMAP section 3's 40 of 16,384; within the
+      reference's tier bound of the exact quantile; within one log2
+      bucket of the log2 tier's host answer); then `_bench_scan_plane`'s
+      shape: the block's views repeated to >= 1,000,000 resident spans,
+      `{ name =~ "op-1." && duration > 20ms }` as a device mask equal to
+      `condition_mask` on every row, and `metrics_grid` rate by service
+      equal to the host engine row by row. Printed: ms a query on and
+      off, adoption seconds and bytes, mask ms and spans/s against numpy,
+      grid ms, device time and device ops of a grid and of a mask
+      dispatch (torch.profiler), H2D bytes a warm query, the plane
+      cache's device bytes against its budget, and the card's idle share
+      across a warm query_range. The profiler readings come from a second
+      process (`chip_smoke.py --phase10-profiles`, the bench block again
+      in memory), which the smoke starts and waits for: in the smoke's
+      own process, after the earlier phases' profiler sessions, the
+      trace lost most device events.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -2809,7 +2847,7 @@ def _phase_distributor(card, root, t_phase):
 # phase 9: the ingester's cycle (live traces → WAL → complete block → flush)
 # ---------------------------------------------------------------------------
 
-N_INGEST_PAYLOADS = 4
+N_INGEST_PAYLOADS = 2            # cut from 4 to make room for phase 10
 SPANS_PER_TRACE = 32
 INGEST_TENANT = "ingest-0"
 LIMIT_TENANT = "ingest-limits"
@@ -2922,15 +2960,18 @@ def _as_read(spans):
             for s in spans]
 
 
-def phase_ingester(card):
+def phase_ingester(card, then=None):
     """Phase 9: the ingester's cycle at the reference's default config,
     on real ingesters behind the distributor; the data directories and
-    the object store live under `build/` for the phase. Returns the
-    results."""
+    the object store live under `build/` for the phase. `then(store,
+    handoff)`, when given, runs on the flushed object store before it is
+    removed (phase 10a). Returns the results (and `then`'s)."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="phase9-",
                                      dir=os.path.join(ROOT, "build")) as root:
-        return _phase_ingester(card, root)
+        out = _phase_ingester(card, root)
+        handoff = out.pop("_handoff")
+        return out, (None if then is None else then(*handoff))
 
 
 def _phase_ingester(card, root):
@@ -3091,7 +3132,8 @@ def _phase_ingester(card, root):
     # payload 0 ends in a complete block, payload 1 in the head WAL block
     taken = _host_traces(payloads[:2])
     r_picks = [tid for tid in picks if tid in taken]
-    late = next(tid for tid in ids if tid not in taken)
+    late = next(bytes([b]) * 16 for b in range(256)
+                if bytes([b]) * 16 not in host)
     ing = Ingester(rdir, flush_writer=CountingStore(), cfg=IngesterConfig(),
                    overrides=ov, now=now_fn, instance_id="ingester-r")
     if ing.push_otlp(t, payloads[0]):
@@ -3188,6 +3230,610 @@ def _phase_ingester(card, root):
           f"10,001 one-span traces at the default limits: 10,000 live on "
           f"each ingester, one live_traces_exceeded discard each, counted "
           f"once by the distributor")
+    out["_handoff"] = (store, dict(tenant=t, read_want=read_want, picks=picks,
+                                   n_blocks=len(blocks) + len(counts),
+                                   now_ns=now_ns,
+                                   n_spans=n_spans))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the read side over backend blocks (TempoDB, the device plane)
+# ---------------------------------------------------------------------------
+
+BENCH_TENANT = "bench"
+N_BENCH_SPANS = 100_000          # the reference's bench_query block
+SCAN_SPANS = 1_000_000           # _bench_scan_plane's resident spans
+MOM_Q99_RTOL = 1e-3              # ROADMAP section 3, "Moments quantiles"
+MOM_Q99_OUTSIDE_SHARE = 40 / 16384   # ... of cells beyond it, at most
+MOM_PARITY_RTOL = 5e-2           # the reference's fused vs host parity
+
+
+def _series_map(series) -> dict:
+    return {tuple(sorted((str(k), str(v)) for k, v in s.labels)):
+            np.nan_to_num(np.asarray(s.samples, np.float64))
+            for s in series}
+
+
+def _same_series(a, b, exact, ctx):
+    if set(a) != set(b):
+        raise AssertionError(f"{ctx}: series differ (only first "
+                             f"{sorted(set(a) - set(b))[:3]}, only second "
+                             f"{sorted(set(b) - set(a))[:3]})")
+    for k in b:
+        ok = np.array_equal(a[k], b[k]) if exact else np.allclose(
+            a[k], b[k], rtol=1e-5, atol=1e-4)
+        if not ok:
+            raise AssertionError(f"{ctx}: series {k} differs: {a[k]} vs "
+                                 f"{b[k]}")
+
+
+def _fallbacks(db) -> dict:
+    return {k: v for k, v in db.plane_stats.items()
+            if k.startswith("fallback_")}
+
+
+def _final(series, req):
+    """The frontend's final pass over job-level series (rates divided,
+    quantiles solved)."""
+    from tempo_tpu_torch.traceql.engine_metrics import (SeriesCombiner,
+                                                        metrics_kind)
+
+    comb = SeriesCombiner(metrics_kind(req.query), req.n_steps)
+    comb.add_all(series)
+    return comb.final(req)
+
+
+def _h2d_bytes() -> int:
+    from tempo_tpu_torch.obs.runtime import DEVICE_PUT_BYTES
+
+    return int(sum(DEVICE_PUT_BYTES.value((site,)) for site in (
+        "plane_column", "plane_literals", "engine_metrics")))
+
+
+def _timed_ms(fn, iters=3):
+    """ms a call after one warm-up (the card synchronised around each)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _profile(fn, runs=3):
+    """(device ms a call, device ops a call, wall ms a call, the longest
+    op's name and ms a call) of a warm `fn` under torch.profiler: every
+    device event (kernels, memsets, copies) on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, launches, top = 0.0, 0, ("", 0.0)
+    for ev in prof.key_averages():
+        if not ev.count or ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "device_time_total", 0) or \
+            getattr(ev, "cuda_time_total", 0)
+        dev += t
+        launches += ev.count
+        if t > top[1]:
+            top = (ev.key, t)
+    top = (top[0][:80], top[1] / runs / 1e3)
+    if not dev:
+        return None, launches / runs, wall / runs * 1e3, top
+    return dev / runs / 1e3, launches / runs, wall / runs * 1e3, top
+
+
+def _moment_rows_agree(a, b, ctx):
+    """Job-level moment series of two planes within ROADMAP section 3's
+    row tolerance: the count column exact, each sum within rtol 1e-5
+    plus 2e-5 per unit of weight, the support bounds within rtol 2e-6."""
+    if set(a) != set(b):
+        raise AssertionError(f"{ctx}: series sets differ")
+    for k in b:
+        d = dict(k)
+        m = d["__moment"]
+        base = tuple(x for x in k if x[0] != "__moment")
+        if m == "0":
+            ok = np.array_equal(a[k], b[k])
+        elif m in ("hi", "lo"):
+            ok = np.allclose(a[k], b[k], rtol=2e-6, atol=0)
+        else:
+            w = b[tuple(sorted(base + (("__moment", "0"),)))]
+            ok = bool(np.all(np.abs(a[k] - b[k])
+                             <= 1e-5 * np.abs(b[k]) + 2e-5 * w))
+        if not ok:
+            raise AssertionError(f"{ctx}: {k}: {a[k]} vs {b[k]}")
+
+
+def _moments_tier_checks(mom, mom_again, mom_host, log2_host, cols, t_base,
+                         step_ns, ctx):
+    """The moments tier's q99 a (service, step) cell, held four ways:
+    the fused plane against the host engine at the reference's parity
+    (rtol 5e-2 every cell) and at ROADMAP section 3's limit (rtol 1e-3
+    on at most 40 cells in 16,384); the fused query run twice, at the
+    same limit; against the exact quantile within the reference's tier
+    bound (`tests/test_plane_fuzz.py:750`: relative or rank error at
+    most max(0.08, 2.5/sqrt(n))); against the host engine's log2-tier
+    answer within one power-of-two bucket (that tier's resolution)."""
+    mom, mom_again, mom_host, log2_host = (_series_map(x) for x in (
+        mom, mom_again, mom_host, log2_host))
+    if not (set(mom) == set(mom_again) == set(mom_host) == set(log2_host)):
+        raise AssertionError(f"{ctx}: moments / log2 series sets differ")
+    steps = (cols["start"] - t_base) // step_ns
+    host, again, exact, log2 = [], [], [], []
+    for k, v in mom.items():
+        if dict(k)["p"] != "0.99":
+            raise AssertionError(f"{ctx}: moments series {k}")
+        svc = int(dict(k)["resource.service.name"][4:])
+        for si in range(len(v)):
+            durs = np.sort(cols["dur"][(cols["service"] == svc)
+                                       & (steps == si)]) / 1e9
+            if not len(durs):
+                continue
+            q = v[si]
+            host.append(abs(q - mom_host[k][si]) / mom_host[k][si])
+            again.append(abs(q - mom_again[k][si]) / mom_again[k][si])
+            ex = np.quantile(durs, 0.99)
+            rank = abs(np.searchsorted(durs, q) / len(durs) - 0.99)
+            exact.append((abs(q - ex) / ex, rank,
+                          max(0.08, 2.5 / np.sqrt(len(durs)))))
+            log2.append(abs(np.log2(q / log2_host[k][si])))
+    host, again, log2 = (np.asarray(x) for x in (host, again, log2))
+    cells = len(host)
+    limit = int(cells * MOM_Q99_OUTSIDE_SHARE)
+    if host.max() > MOM_PARITY_RTOL:
+        raise AssertionError(f"{ctx}: moments q99 plane vs host engine "
+                             f"{host.max():.6f} beyond rtol "
+                             f"{MOM_PARITY_RTOL}")
+    for name, errs in (("plane vs host engine", host),
+                       ("plane run twice", again)):
+        over = int((errs > MOM_Q99_RTOL).sum())
+        if over > limit:
+            raise AssertionError(f"{ctx}: moments q99 {name} beyond rtol "
+                                 f"{MOM_Q99_RTOL} in {over} of {cells} "
+                                 f"cells (limit {limit}; max "
+                                 f"{errs.max():.6f})")
+    bad = [e for e in exact if min(e[0], e[1]) > e[2]]
+    if bad:
+        raise AssertionError(f"{ctx}: moments q99 off the exact quantile "
+                             f"beyond the tier bound in {len(bad)} of "
+                             f"{cells} cells (first {bad[0]})")
+    if log2.max() > 1.0:
+        raise AssertionError(f"{ctx}: moments q99 more than one log2 "
+                             f"bucket from the log2 tier's host answer "
+                             f"({log2.max():.4f})")
+    rel = np.asarray([e[0] for e in exact])
+    return {"moments_cells": cells,
+            "moments_vs_host_max": float(host.max()),
+            "moments_vs_host_over": int((host > MOM_Q99_RTOL).sum()),
+            "moments_again_max": float(again.max()),
+            "moments_err_median": float(np.median(rel)),
+            "moments_err_max": float(rel.max()),
+            "moments_vs_log2_max": float(2.0 ** log2.max())}
+
+
+def _check_fused(db, before, n_blocks, ctx):
+    got = db.plane_stats["fused_metric_blocks"] - before
+    if got != n_blocks or _fallbacks(db):
+        raise AssertionError(f"{ctx}: fused blocks {got} of {n_blocks}, "
+                             f"fallbacks {_fallbacks(db)}")
+
+
+def phase_read_push(store, handoff, card):
+    """Phase 10a: push to query. A port TempoDB at the reference's default
+    config on the card polls phase 9's flushed object store and answers
+    find_trace_by_id, a search and two metrics queries; each result is
+    held against a CPU twin and a host-engine twin on the same store."""
+    import torch
+
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.combine import sort_spans
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    ctx = "phase 10a"
+    t_phase = time.perf_counter()
+    t, want, picks = handoff["tenant"], handoff["read_want"], handoff["picks"]
+    from tempo_tpu_torch.device import resolve_device
+
+    card_db = TempoDB(store, store)
+    if card_db.device != resolve_device() or not card_db.cfg.device_plane:
+        raise AssertionError(f"{ctx}: TempoDB on {card_db.device}")
+    cpu_db = TempoDB(store, store, device="cpu")
+    host_db = TempoDB(store, store, TempoDBConfig(device_plane=False),
+                      device="cpu")
+    for db in (card_db, cpu_db, host_db):
+        db.poll_now()
+    n_blocks = len(card_db.blocks(t))
+    if n_blocks != handoff["n_blocks"]:
+        raise AssertionError(f"{ctx}: polled {n_blocks} blocks, flushed "
+                             f"{handoff['n_blocks']}")
+    out = {"blocks": n_blocks}
+    # find_trace_by_id: the blocks hold each trace rf times; combine_spans
+    # answers it once
+    times = []
+    for tid in picks:
+        t0 = time.perf_counter()
+        got = card_db.find_trace_by_id(t, tid)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if got is None or sort_spans(got) != want[tid]:
+            raise AssertionError(f"{ctx}: trace {tid.hex()} differs from the "
+                                 f"host decode")
+    out["find_ms"] = statistics.median(times)
+    searches = ("{ span.http.status_code >= 500 }",
+                '{ span.cache.hit = true && resource.host.name = "host-1" '
+                '&& duration > 1ms }')
+    for q in searches:
+        got = [[m.to_json() for m in db.search(t, q, limit=20)]
+               for db in (card_db, cpu_db, host_db)]
+        if not got[0] or got[0] != got[1] or got[0] != got[2]:
+            raise AssertionError(f"{ctx}: search {q!r}: {len(got[0])} card "
+                                 f"results, equal to the CPU twin "
+                                 f"{got[0] == got[1]}, to the host engine "
+                                 f"{got[0] == got[2]}")
+    out["search_ms"] = _timed_ms(lambda: card_db.search(t, searches[0],
+                                                        limit=20))
+    start = handoff["now_ns"] - 600 * 10**9
+    queries = ("{ } | rate() by (resource.service.name)",
+               "{ } | quantile_over_time(duration, .5, .99) by "
+               "(resource.service.name)")
+    total = 0.0
+    for q in queries:
+        req = QueryRangeRequest(q, start, start + 900 * 10**9, 60 * 10**9)
+        f0 = card_db.plane_stats["fused_metric_blocks"]
+        t0 = time.perf_counter()
+        a = _series_map(card_db.query_range(t, req))
+        out.setdefault("first_query_s", time.perf_counter() - t0)
+        _check_fused(card_db, f0, n_blocks, f"{ctx} {q}")
+        b = _series_map(cpu_db.query_range(t, req))
+        c = _series_map(host_db.query_range(t, req))
+        _same_series(a, b, True, f"{ctx} {q}: card vs CPU twin")
+        _same_series(a, c, True, f"{ctx} {q}: card vs host engine")
+        if "rate" in q:              # job-level series: raw counts
+            total = sum(v.sum() for v in a.values())
+    stored = sum(m.total_spans for m in card_db.blocks(t))
+    if round(total) != stored:
+        raise AssertionError(f"{ctx}: rate counted {total} spans, the "
+                             f"{n_blocks} blocks hold {stored}")
+    req = QueryRangeRequest(queries[0], start, start + 900 * 10**9,
+                            60 * 10**9)
+    out["query_range_ms"] = _timed_ms(lambda: card_db.query_range(t, req))
+    for db in (card_db, cpu_db, host_db):
+        db.shutdown()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10a [{card}]: TempoDB (default TempoDBConfig, device plane "
+          f"on the card) over phase 9's flushed store: {n_blocks} blocks; "
+          f"find_trace_by_id {out['find_ms']:.3f} ms (median of "
+          f"{len(picks)}), search {out['search_ms']:.3f} ms, rate by service "
+          f"{out['query_range_ms']:.3f} ms warm, first query (adoption of "
+          f"{n_blocks} blocks) {out['first_query_s']:.3f} s; phase "
+          f"{out['seconds']:.1f} s")
+    print(f"phase 10a checks: {len(picks)} traces equal to phase 9's host "
+          f"decode (rf copies combined); {len(searches)} searches and "
+          f"{len(queries)} metrics queries equal to a CPU twin and to the "
+          f"host engine (device_plane=False); every metrics block fused, no "
+          f"fallback; rate counted every span of every block")
+    return out
+
+
+def _scan_setup(db):
+    """`_bench_scan_plane`'s inputs: the bench block's views repeated to
+    >= SCAN_SPANS resident spans, the mask query, the rate grid query."""
+    from tempo_tpu_torch.block.fetch import scan_views
+    from tempo_tpu_torch.block.reader import BackendBlock
+    from tempo_tpu_torch.traceql.engine import compile_query
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    meta = db.blocklist.metas(BENCH_TENANT)[0]
+    views = [v for v, _ in scan_views(BackendBlock(db.r, meta))]
+    reps = max(1, -(-SCAN_SPANS // sum(v.n for v in views)))
+    scan = views * reps
+    _, mreq = compile_query('{ name =~ "op-1." && duration > 20ms }')
+    preds = [c for c in mreq.conditions if c.op is not None]
+    start_ns = int(scan[0].col("__startTime").values.min())
+    greq = QueryRangeRequest("{ } | rate() by (resource.service.name)",
+                             start_ns, start_ns + 900 * 10**9, 60 * 10**9)
+    return scan, reps, mreq, preds, greq, compile_query(greq.query)[0].metrics
+
+
+def _grid_call(plane, m, greq, ctx):
+    def grid():
+        h, cause = plane.metrics_grid(m, [], True, greq.start_ns,
+                                      greq.end_ns, greq.step_ns)
+        if cause is not None:
+            raise AssertionError(f"{ctx}: the 1M grid refused: {cause}")
+        return h.fetch()
+    return grid
+
+
+def phase10_profiles() -> dict:
+    """Phase 10b's torch.profiler readings, run by `_profiles_in_child` in
+    a process of its own: in the whole smoke's process, after the earlier
+    phases' profiler sessions, the trace lost most device events on an
+    H100 (8 of a grid's 22 ops, none of the mask's). The bench block
+    again (in memory), then a warm rate query_range with the plane on and
+    off, the 1M mask and the 1M grid under the profiler."""
+    from tempo_tpu_torch.backend import MemBackend
+    from tempo_tpu_torch.block.device_scan import BlockScanPlane
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    t_base = int((time.time() - 1800) * 1e9)
+    be = MemBackend()
+    db = TempoDB(be, be)
+    db.write_block(BENCH_TENANT, _bench_traces(N_BENCH_SPANS, t_base)[0],
+                   replication_factor=1)
+    db_host = TempoDB(be, be, TempoDBConfig(device_plane=False))
+    db_host.poll_now()
+    req = QueryRangeRequest("{ } | rate() by (resource.service.name)",
+                            t_base, t_base + 900 * 10**9, 60 * 10**9)
+    out = {}
+    (out["qr_device_ms"], out["qr_launches"], out["qr_wall_ms"],
+     out["qr_top"]) = _profile(lambda: db.query_range(BENCH_TENANT, req))
+    if db.plane_stats["fused_metric_blocks"] < 4 or _fallbacks(db):
+        raise AssertionError(f"phase 10b profiles: {db.plane_stats}")
+    # the host engine's grids (the plane off): the batched flush's dense
+    # add on the card
+    (out["qr_host_device_ms"], out["qr_host_launches"],
+     out["qr_host_wall_ms"], out["qr_host_top"]) = _profile(
+        lambda: db_host.query_range(BENCH_TENANT, req))
+    db_host.shutdown()
+    scan, _, mreq, preds, greq, m = _scan_setup(db)
+    plane = BlockScanPlane(scan)
+    (out["mask_device_ms"], out["mask_launches"], _,
+     out["mask_top"]) = _profile(lambda: plane.mask(preds, mreq.all_conditions))
+    (out["grid_device_ms"], out["grid_launches"], _,
+     out["grid_top"]) = _profile(_grid_call(plane, m, greq,
+                                            "phase 10b profiles"))
+    db.shutdown()
+    return out
+
+
+def _profiles_in_child(ctx) -> dict:
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                          "--phase10-profiles"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("PROFILES ")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"{ctx}: the profiling process failed "
+                             f"({out.returncode}): {out.stderr[-2000:]}")
+    return json.loads(lines[-1][len("PROFILES "):])
+
+
+def _bench_traces(n, t_base):
+    """bench_query's block (`bench.py:352-371`, the same generator and
+    seed): n one-span traces over 600 s; also (service, start, duration)
+    columns for the exact-quantile oracle."""
+    rng = np.random.default_rng(1)
+    cols = {"service": np.empty(n, np.int64), "start": np.empty(n, np.int64),
+            "dur": np.empty(n, np.int64)}
+    traces = []
+    for i in range(n):
+        tid = rng.bytes(16)
+        start = t_base + int(rng.integers(0, int(600 * 1e9)))
+        span = {
+            "trace_id": tid, "span_id": rng.bytes(8),
+            "name": f"op-{int(rng.integers(0, 64))}",
+            "service": f"svc-{int(rng.integers(0, 16))}",
+            "kind": int(rng.integers(1, 6)),
+            "status_code": int(rng.integers(0, 3)),
+            "start_unix_nano": start,
+            "end_unix_nano": start + int(rng.lognormal(16, 1.0)),
+            "attrs": {"http.status_code": int(rng.integers(200, 500))},
+            "res_attrs": {"service.name": f"svc-{int(rng.integers(0, 16))}"},
+        }
+        traces.append((tid, [span]))
+        cols["service"][i] = int(span["service"][4:])
+        cols["start"][i] = start
+        cols["dur"][i] = span["end_unix_nano"] - start
+    return traces, cols
+
+
+def phase_query_bench(card):
+    """Phase 10b: the reference's own query benchmark (`bench_query`) at its
+    size, then `_bench_scan_plane`'s shape over >= 1M resident spans; the
+    block lives under `build/` for the phase."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase10-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_query_bench(card, root)
+
+
+def _phase_query_bench(card, root):
+    import torch
+
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.block.device_scan import BlockScanPlane
+    from tempo_tpu_torch.block.fetch import condition_mask
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.ops.moments import use_query_tier
+    from tempo_tpu_torch.traceql.engine_metrics import (MetricsEvaluator,
+                                                        QueryRangeRequest)
+
+    ctx = "phase 10b"
+    t_phase = time.perf_counter()
+    out = {}
+    now_s = time.time()
+    t_base = int((now_s - 1800) * 1e9)
+    traces, cols = _bench_traces(N_BENCH_SPANS, t_base)
+    be = LocalBackend(root)
+    db = TempoDB(be, be)
+    t0 = time.perf_counter()
+    db.write_block(BENCH_TENANT, traces, replication_factor=1)
+    out["write_s"] = time.perf_counter() - t0
+    del traces
+    db.poll_now()
+    db_host = TempoDB(be, be, TempoDBConfig(device_plane=False))
+    db_host.poll_now()
+    out["row_groups"] = db.blocks(BENCH_TENANT)[0].row_group_count
+    win = (t_base, t_base + 900 * 10**9, 60 * 10**9)
+    req = QueryRangeRequest("{ } | rate() by (resource.service.name)", *win)
+    qreq = QueryRangeRequest("{ } | quantile_over_time(duration, .99) by "
+                             "(resource.service.name)", *win)
+    search = "{ span.http.status_code >= 400 }"
+    B = BENCH_TENANT
+
+    def run_search(d):
+        return d.search(B, search, limit=20, start_s=t_base / 1e9,
+                        end_s=now_s)
+
+    # adoption: the first query reads the block and uploads its columns
+    h0 = _h2d_bytes()
+    t0 = time.perf_counter()
+    first = db.query_range(B, req)
+    out["adopt_s"] = time.perf_counter() - t0
+    out["adopt_h2d_bytes"] = _h2d_bytes() - h0
+    f0 = db.plane_stats["fused_metric_blocks"]
+    for r, name in ((req, "rate"), (qreq, "quantile")):
+        a = _series_map(db.query_range(B, r))
+        b = _series_map(db_host.query_range(B, r))
+        _same_series(a, b, True, f"{ctx} {name}: plane on vs off")
+    _same_series(_series_map(first), _series_map(db.query_range(B, req)),
+                 True, f"{ctx} rate: adoption vs warm")
+    s_on = [m.to_json() for m in run_search(db)]
+    s_off = [m.to_json() for m in run_search(db_host)]
+    if len(s_on) != 20 or s_on != s_off:
+        raise AssertionError(f"{ctx}: search on/off differ ({len(s_on)})")
+    _check_fused(db, f0, 3, f"{ctx} plane-on queries")
+    h0 = _h2d_bytes()
+    f0 = db.plane_stats["fused_metric_blocks"]
+    out["rate_ms"] = _timed_ms(lambda: db.query_range(B, req))
+    out["h2d_bytes_per_query"] = (_h2d_bytes() - h0) / 4
+    out["quantile_ms"] = _timed_ms(lambda: db.query_range(B, qreq))
+    out["search_ms"] = _timed_ms(lambda: run_search(db))
+    _check_fused(db, f0, 8, f"{ctx} timed plane-on queries")
+    out["rate_host_ms"] = _timed_ms(lambda: db_host.query_range(B, req), 1)
+    out["quantile_host_ms"] = _timed_ms(lambda: db_host.query_range(B, qreq),
+                                        1)
+    out["search_host_ms"] = _timed_ms(lambda: run_search(db_host), 1)
+    # the moments query tier rides the fused moments grid
+    f0 = db.plane_stats["fused_metric_blocks"]
+    with use_query_tier("moments"):
+        out["quantile_moments_ms"] = _timed_ms(
+            lambda: db.query_range(B, qreq))
+        raw = db.query_range(B, qreq)
+        raw_again = db.query_range(B, qreq)
+        raw_host = db_host.query_range(B, qreq)
+    _check_fused(db, f0, 6, f"{ctx} moments tier")
+    _moment_rows_agree(_series_map(raw), _series_map(raw_host),
+                       f"{ctx} moments rows, plane vs host engine")
+    out.update(_moments_tier_checks(
+        _final(raw, qreq), _final(raw_again, qreq), _final(raw_host, qreq),
+        _final(db_host.query_range(B, qreq), qreq), cols, t_base, win[2],
+        ctx))
+    out["plane_stats"] = dict(db.plane_stats)
+    out["cache"] = db.planes.stats()
+    # _bench_scan_plane: the block's views repeated to >= 1M resident spans
+    scan, reps, mreq, preds, greq, m = _scan_setup(db)
+    out["scan_spans"] = sum(v.n for v in scan)
+    [condition_mask(v, mreq) for v in scan]                    # warm-up
+    t0 = time.perf_counter()
+    np_mask = np.concatenate([condition_mask(v, mreq) for v in scan])
+    out["mask_numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plane = BlockScanPlane(scan)
+    dev_mask = plane.mask(preds, mreq.all_conditions)        # adoption
+    out["scan_adopt_s"] = time.perf_counter() - t0
+    out["mask_ms"] = _timed_ms(lambda: plane.mask(preds, mreq.all_conditions))
+    dev_mask = plane.mask(preds, mreq.all_conditions)
+    if dev_mask is None or not np.array_equal(dev_mask, np_mask):
+        raise AssertionError(f"{ctx}: device mask over {out['scan_spans']} "
+                             f"spans differs from condition_mask")
+    out["mask_rows_matched"] = int(dev_mask.sum())
+    out["mask_spans_per_s"] = out["scan_spans"] / (out["mask_ms"] / 1e3)
+    grid = _grid_call(plane, m, greq, ctx)
+    out["grid_ms"] = _timed_ms(grid)
+    labels, main, _cnt, _vcnt = grid()
+    ev = MetricsEvaluator(greq, batched=True)
+    t0 = time.perf_counter()
+    for v in scan:
+        ev.observe(v)
+    eng = {dict(s.labels)["resource.service.name"]: s.samples
+           for s in ev.results()}
+    out["engine_1m_ms"] = (time.perf_counter() - t0) * 1e3
+    for gi, lbl in enumerate(labels):
+        if not np.array_equal(main[gi].astype(np.float64),
+                              eng.get(lbl, np.zeros(main.shape[1]))):
+            raise AssertionError(f"{ctx}: 1M grid row {lbl} differs from "
+                                 f"the host engine")
+    if int(main.sum()) != out["scan_spans"]:
+        raise AssertionError(f"{ctx}: the 1M grid counted {main.sum()}")
+    out["scan_plane_device_bytes"] = plane.device_bytes
+    db.shutdown()
+    db_host.shutdown()
+    del plane, scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(_profiles_in_child(ctx))
+    out["qr_idle_share"] = None if out["qr_device_ms"] is None else \
+        1.0 - out["qr_device_ms"] / out["qr_wall_ms"]
+    out["seconds"] = time.perf_counter() - t_phase
+    c = out["cache"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+    print(f"phase 10b [{card}]: bench_query's block ({N_BENCH_SPANS} one-span "
+          f"traces, {out['row_groups']} row groups) written in "
+          f"{out['write_s']:.2f} s; "
+          f"adoption (first rate query: block read + column uploads of "
+          f"{out['adopt_h2d_bytes']} bytes) {out['adopt_s']:.3f} s; ms a "
+          f"query, plane on / off: rate by service {out['rate_ms']:.3f} / "
+          f"{out['rate_host_ms']:.3f}, quantile_over_time(duration, .99) "
+          f"{out['quantile_ms']:.3f} / {out['quantile_host_ms']:.3f}, search "
+          f"(span.http.status_code >= 400, limit 20) {out['search_ms']:.3f} "
+          f"/ {out['search_host_ms']:.3f}; moments tier quantile "
+          f"{out['quantile_moments_ms']:.3f} ms (fused), q99 against the "
+          f"exact quantile median rel err {out['moments_err_median']:.4f}, "
+          f"max {out['moments_err_max']:.4f}, against the log2 tier's "
+          f"host answer within a factor {out['moments_vs_log2_max']:.4f}; "
+          f"moment rows equal to the host engine's within ROADMAP's row "
+          f"tolerance, q99 beyond rtol 1e-3 of the host engine's in "
+          f"{out['moments_vs_host_over']} of {out['moments_cells']} cells "
+          f"(max rel {out['moments_vs_host_max']:.3e}), of the same fused "
+          f"query run again max rel {out['moments_again_max']:.3e}; H2D a "
+          f"warm rate query "
+          f"{out['h2d_bytes_per_query']:.0f} bytes; PlaneCache device bytes "
+          f"{c['device_bytes']} of a {c['device_budget_bytes']} budget "
+          f"({c['entries']} entries); warm rate query_range (torch.profiler, "
+          f"a process of its own): device {fmt(out['qr_device_ms'])} ms of "
+          f"{out['qr_wall_ms']:.3f} ms wall, {out['qr_launches']:.0f} device "
+          f"ops, idle share {fmt(out['qr_idle_share'])}; the plane off "
+          f"(host engine): device {fmt(out['qr_host_device_ms'])} ms of "
+          f"{out['qr_host_wall_ms']:.3f} ms wall, "
+          f"{out['qr_host_launches']:.0f} device ops (longest "
+          f"{out['qr_host_top'][0]} {out['qr_host_top'][1]:.4f} ms)")
+    print(f"phase 10b [{card}]: >= 1M resident spans ({out['scan_spans']}, "
+          f"the block's views x{reps}, adoption {out['scan_adopt_s']:.2f} s, "
+          f"{out['scan_plane_device_bytes']} device bytes): mask "
+          f'{{ name =~ "op-1." && duration > 20ms }} {out["mask_ms"]:.3f} ms '
+          f"({out['mask_spans_per_s']:.0f} spans/s; numpy condition_mask "
+          f"{out['mask_numpy_ms']:.1f} ms), {out['mask_rows_matched']} rows, "
+          f"device {fmt(out['mask_device_ms'])} ms in "
+          f"{out['mask_launches']:.0f} device ops (longest "
+          f"{out['mask_top'][0]} {out['mask_top'][1]:.4f} ms); metrics_grid "
+          f"rate by service {out['grid_ms']:.3f} ms with its fetch (host "
+          f"engine {out['engine_1m_ms']:.1f} ms), device "
+          f"{fmt(out['grid_device_ms'])} ms in {out['grid_launches']:.0f} "
+          f"device ops (longest {out['grid_top'][0]} "
+          f"{out['grid_top'][1]:.4f} ms); phase {out['seconds']:.1f} s")
+    print(f"phase 10b checks: rate and quantile equal plane on and off; the "
+          f"search's 20 results equal; every plane-on query fused, no "
+          f"fallback ({out['plane_stats']}); the moments tier fused; the 1M "
+          f"device mask equal to condition_mask on every row; the 1M grid "
+          f"equal to the host engine row by row")
     return out
 
 
@@ -3218,6 +3864,9 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--phase10-profiles"]:
+        print("PROFILES " + json.dumps(phase10_profiles()))
+        return 0
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3348,12 +3997,17 @@ def main() -> int:
           f"{s8['8b']['ingester_ms']:.3f} ms over every pass; K1 device time "
           f"a push {s8['8a']['device_ms']} ms; phase 8 "
           f"{s8['seconds']:.1f} s")
-    s9 = phase_ingester(card)
+    s9, s10a = phase_ingester(
+        card, then=lambda store, handoff: phase_read_push(store, handoff,
+                                                          card))
     print(f"phase 9 [{card}]: push {s9['push_spans_per_s']:.0f} spans/s, cut "
           f"{s9['segments_per_s']:.1f} WAL segments/s (fsync "
           f"{s9['fsync_ms']:.3f} ms), complete {s9['complete_s']:.3f} s an "
           f"ingester, {s9['bytes_per_span']:.2f} bytes a span; phase 9 "
-          f"{s9['seconds']:.1f} s; the whole smoke "
+          f"{s9['seconds']:.1f} s")
+    s10b = phase_query_bench(card)
+    print(f"phase 10 [{card}]: 10a {s10a['seconds']:.1f} s, 10b "
+          f"{s10b['seconds']:.1f} s; the whole smoke "
           f"{time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -45,6 +45,24 @@ The main path starts where the reference's users enter:
     GeneratorInstance.collect_and_push() → sched.flush() → remote write
     SpanMetricsProcessor.quantile(q) / quantiles(qs)
 
+The read side over backend blocks (the blocks the ingesters flush):
+
+    db.TempoDB(reader, writer) (the device plane on, `cuda` by default)
+      → find_trace_by_id (bloom → row-group index → one row group a block,
+        rf copies combined)
+      → search(tenant, TraceQL) → db.PlaneCache → block.device_scan
+        .BlockScanPlane.mask (the fused first pass on the device) →
+        traceql.engine.execute_search (the second pass on the host)
+      → query_range(tenant, QueryRangeRequest) → BlockScanPlane
+        .metrics_grid (mask, exact int64 step, group scatter into torch
+        grids, one packed fetch a block), or the host engine
+        traceql.engine_metrics.MetricsEvaluator where the plane refuses
+        (counted under the reference's fallback_<cause> names)
+        → SeriesCombiner
+
+The read side's device code is plain torch ops (no hand kernel): the
+reference's is jitted jnp, not Pallas.
+
 `ops.cuda_kernels.fused_spanmetrics_matmul` is the dense fused delta, a
 kernel no path of the system runs.
 """
@@ -62,6 +80,16 @@ from tempo_tpu_torch.model.otlp_batch import (StagedIngest, batch_from_otlp,
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
 from tempo_tpu_torch.registry.pages import PagePoolConfig
 from tempo_tpu_torch.sched import DeviceScheduler, SchedConfig
+
+_LATER = {"querier", "frontend"}
+
+
+def __getattr__(name: str):
+    if name in _LATER:
+        raise NotImplementedError(
+            f"tempo_tpu_torch.{name} comes with ROADMAP section 1, item 6b")
+    raise AttributeError(name)
+
 
 __all__ = ["GeneratorConfig", "GeneratorInstance", "SpanMetricsConfig",
            "SpanMetricsProcessor", "SpanBatchBuilder", "otlp_proto_to_batch",

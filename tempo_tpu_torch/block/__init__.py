@@ -1,10 +1,10 @@
 """Block encoding plane: columnar (parquet) blocks, bloom filters, WAL.
 
-Counterpart of `tempo_tpu/block/` for the write side of storage: the
-port's own Parquet codec (`parquet.py`), the block schema, bloom filters,
-the block writer, trace-by-ID reads and the WAL. The columnar scans, the
-device scan plane and the sketch sidecar come with the read side (ROADMAP
-section 1, item 6).
+Counterpart of `tempo_tpu/block/`: the port's own Parquet codec
+(`parquet.py`), the block schema, bloom filters, the block writer,
+trace-by-ID reads, the WAL, the columnar TraceQL fetch (`fetch.py`) and
+the device scan plane (`device_scan.py`). The sketch sidecar comes with
+the cold tier (ROADMAP section 1, item 11).
 """
 
 from tempo_tpu_torch.block.bloom import BloomFilter, ShardedBloom, shard_name

@@ -949,6 +949,14 @@ class ParquetFile:
     def num_row_groups(self) -> int:
         return len(self._row_groups)
 
+    @property
+    def names(self) -> list[str]:
+        return [n for n, _ in self.schema]
+
+    def row_group_bytes(self, i: int) -> int:
+        """Uncompressed size of row group `i` (`RowGroup.total_byte_size`)."""
+        return int(self._row_groups[i].get(2, 0))
+
     def read_row_group(self, i: int,
                        columns: Sequence[str] | None = None) -> ColumnTable:
         rg = self._row_groups[i]

@@ -6,8 +6,8 @@ Parquet footer once, then byte-range reads of the column chunks of the
 one row group the row-group index names. The port reads with its own
 codec (`block/parquet.py`).
 
-The columnar scan (`column_batches`, consumed by `block/fetch.py` and the
-TraceQL engines) comes with the read side (ROADMAP section 1, item 6).
+The columnar scan (`column_batches`) hands the port's codec columns to
+`block/fetch.py` and the TraceQL engines.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import threading
 from collections import OrderedDict
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -121,11 +121,28 @@ class BackendBlock:
     # -- columnar scan -----------------------------------------------------
 
     def column_batches(self, columns: Sequence[str] | None = None,
-                       row_groups: Sequence[int] | None = None):
-        raise NotImplementedError(
-            "BackendBlock.column_batches feeds block/fetch.py and the TraceQL "
-            "engines, which come with the read side (ROADMAP section 1, "
-            "item 6)")
+                       row_groups: Sequence[int] | None = None
+                       ) -> Iterator[dict]:
+        """Yield {column: values} per row group (+ '_row_offset', '_rows').
+
+        Fixed-width columns come back as numpy arrays (fixed binary as
+        uint8 [n, width]); strings as `parquet.Strings` and lists as
+        `parquet.Lists` (offsets plus values), where the reference hands
+        out Arrow arrays. The caller picks only the columns its compiled
+        conditions touch — the pushdown analog of `AllConditions`."""
+        pf = self.parquet_file()
+        index = self.row_group_index()
+        rgs = range(pf.num_row_groups) if row_groups is None else row_groups
+        for rg in rgs:
+            with querystats.stage("block_fetch"):
+                tbl = pf.read_row_group(
+                    rg, columns=list(columns) if columns else None)
+            querystats.add(inspected_bytes=tbl.nbytes)
+            out: dict = {"_rows": tbl.num_rows}
+            out["_row_offset"] = index[rg]["row_offset"] if rg < len(index) else None
+            for name in tbl.names:
+                out[name] = tbl.column(name)
+            yield out
 
     def dedicated_column_name(self, scope: str, attr: str) -> str | None:
         for i, c in enumerate(self.meta.dedicated_columns):

@@ -15,7 +15,7 @@ is asked for). Not carried yet, and raising `NotImplementedError` naming
 their ROADMAP item: the ingest WAL (`wal=`, `replay_wal*`,
 `truncate_wal`; item 12), the Kafka consumer group of `consume_bus`
 (item 14) and the metrics summary for a tenant with no instance
-(`traceql.metrics_summary`, item 6).
+(`traceql.metrics_summary`, item 6b).
 """
 
 from __future__ import annotations
@@ -329,8 +329,7 @@ class Generator:
             if tenant not in self.instances:
                 raise NotImplementedError(
                     "an empty metrics summary needs traceql.metrics_summary, "
-                    "which comes with the read side (ROADMAP section 1, "
-                    "item 6)")
+                    "which comes with ROADMAP section 1, item 6b")
         return self.instance(tenant).get_metrics(query, group_by,
                                                  max_series=max_series)
 

@@ -287,8 +287,9 @@ class SpanMetricsProcessor:
         # need nothing); the host's plain version needs none
         self._scratch: "torch.Tensor | None" = None
         # the staged route's label-code and LUT arrays, made at first use
-        self._dims_arr: "np.ndarray | None" = None
-        self._kind_lut = self._status_lut = None
+        # and published as one tuple (pushes from several threads may race
+        # to make them)
+        self._staged_luts: "tuple | None" = None
         # the staging-buffer ring (generator/pipeline.py), made at first
         # use on the scheduler route
         self._pipe = None
@@ -473,15 +474,15 @@ class SpanMetricsProcessor:
                 and all(d in self._DIM_CODES for d in c.intrinsic_dimensions))
 
     def _staged_dims(self):
-        if self._dims_arr is None:
+        got = self._staged_luts
+        if got is None:
             it = self.registry.interner
-            self._dims_arr = np.asarray(
-                [self._DIM_CODES[d] for d in self.cfg.intrinsic_dimensions],
-                np.int32)
-            self._kind_lut = np.asarray(it.intern_many(_KIND_STRS), np.int32)
-            self._status_lut = np.asarray(it.intern_many(_STATUS_STRS),
-                                          np.int32)
-        return self._dims_arr, self._kind_lut, self._status_lut
+            got = self._staged_luts = (
+                np.asarray([self._DIM_CODES[d]
+                            for d in self.cfg.intrinsic_dimensions], np.int32),
+                np.asarray(it.intern_many(_KIND_STRS), np.int32),
+                np.asarray(it.intern_many(_STATUS_STRS), np.int32))
+        return got
 
     def push_staged(self, spans: np.ndarray, slack_lo: int, slack_hi: int,
                     weights: "np.ndarray | None" = None) -> tuple[int, int]:

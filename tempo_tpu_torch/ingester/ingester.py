@@ -9,8 +9,9 @@ WAL replay on construction.
 Counterpart of `tempo_tpu/ingester/ingester.py`, host code copied with its
 imports moved to the port. `push_otlp` decodes with the port's native
 layer, which builds at import or raises (no Python-decoder fallback).
-`search`, `tag_names` and `tag_values` come with the read side (ROADMAP
-section 1, item 6) and raise until then.
+`search`, `tag_names` and `tag_values` (TraceQL over in-memory views,
+`traceql.memview`) come with ROADMAP section 1, item 6b, and raise until
+then.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from tempo_tpu_torch.obs import Registry
 from tempo_tpu_torch.overrides import Overrides
 from tempo_tpu_torch.utils.flushqueues import FlushQueues, backoff_at
 
-_READ_SIDE = ("Ingester.{} runs TraceQL over recent data, which comes with "
-              "the read side (ROADMAP section 1, item 6)")
+_READ_SIDE = ("Ingester.{} runs TraceQL over recent data (traceql.memview), "
+              "which comes with ROADMAP section 1, item 6b")
 
 log = logging.getLogger(__name__)
 

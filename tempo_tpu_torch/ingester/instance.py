@@ -8,7 +8,7 @@ head-block lifecycle, WAL→columnar completion, and recent-data reads
 Counterpart of `tempo_tpu/ingester/instance.py`, host code copied with
 its imports moved to the port: completed blocks are written by the port's
 block writer (its own Parquet codec, `gzip` pages). Search over these
-blocks comes with the read side (ROADMAP section 1, item 6).
+blocks (`memview`) comes with ROADMAP section 1, item 6b.
 """
 
 from __future__ import annotations

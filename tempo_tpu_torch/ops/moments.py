@@ -344,8 +344,60 @@ def quantiles_for_rows(rows: np.ndarray, k: int, lo: float, hi: float,
     return out, failed
 
 
+# ---------------------------------------------------------------------------
+# TraceQL query tier (reference `tempo_tpu/ops/moments.py:88-90,417-447`)
+# ---------------------------------------------------------------------------
+
+# quantile_over_time domain: raw values clamped to [1, 1e14] (nanoseconds:
+# 1ns .. ~28h), mirroring log2_bucket_np's max(v, 1) clamp and the
+# 64-bucket grid's 2^63-ish ceiling
+QUERY_K = 12
+QUERY_LO = 0.0
+QUERY_HI = math.log(1e14)
+
+_query_tier = "log2"
+
+
+def set_query_tier(tier: str) -> None:
+    """Select the quantile_over_time accumulation axis: "log2" (the
+    [series, steps, 64] bucket grid, the default) or "moments" ([series,
+    steps, k+1] moment grids + bound planes). Process-wide."""
+    global _query_tier
+    _query_tier = "moments" if tier == "moments" else "log2"
+
+
+def query_moments_active() -> bool:
+    return _query_tier == "moments"
+
+
+class use_query_tier:
+    """Install a query tier for a with-block (tests, smoke phases)."""
+
+    def __init__(self, tier: str) -> None:
+        self.tier = tier
+        self._prev = "log2"
+
+    def __enter__(self):
+        global _query_tier
+        self._prev = _query_tier
+        set_query_tier(self.tier)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _query_tier
+        _query_tier = self._prev
+
+
+def moments_place(*_args, **_kwargs):
+    raise NotImplementedError(
+        "moments_place shards sketch state over a mesh, which comes with "
+        "mesh serving (ROADMAP section 1, item 13)")
+
+
 __all__ = ["MomentsSketch", "moments_params", "moments_init",
            "moments_update", "moments_zero_slots", "moments_basis",
            "basis_constants", "chebyshev_basis", "merge_meta_check",
            "solve_quantiles", "quantiles_for_rows", "reset_solver_cache",
-           "n_cols", "DEFAULT_K"]
+           "n_cols", "DEFAULT_K", "QUERY_K", "QUERY_LO", "QUERY_HI",
+           "set_query_tier", "query_moments_active", "use_query_tier",
+           "moments_place"]

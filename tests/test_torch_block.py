@@ -202,8 +202,13 @@ def test_cross_reading_find_trace_by_id():
     data = tbe.read("data.parquet", tbackend.block_keypath(tm.block_id, "t1"))
     assert P.read_table(data).to_pylist() == \
         pq.read_table(io.BytesIO(data)).to_pylist()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_on_port.column_batches()
+    # the columnar scan came with the read side: its row groups hold the
+    # file's columns in order
+    batches = list(port_on_port.column_batches(["name", "duration_ns"]))
+    whole = P.read_table(data)
+    assert sum(b["_rows"] for b in batches) == whole.num_rows
+    assert [n for b in batches for n in b["name"].tolist()] == \
+        whole.column("name").tolist()
 
 
 def test_find_reads_one_row_group_by_range():

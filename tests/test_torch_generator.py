@@ -263,10 +263,15 @@ def test_push_fence_pop_reattach_remove_and_pages():
         assert tg.collect_all() == 0
 
 
+PUSHES_PER_THREAD = 40
+
+
 def test_tracked_push_waits_out_a_concurrent_pop():
     """Pushes from 4 threads while the tenant is popped and reattached in
     a loop: every acked span lands in the instance that ends up in the
-    map, or in one popped while it was not in flight."""
+    map, or in one popped while it was not in flight. Each thread makes a
+    fixed number of pushes, so the work does not grow with the time a
+    loaded machine gives the loop."""
     _, tg = gens({"t": tenant_patch(SM_ONLY)})
     data = payload(k6_spans(64, 61))
     tg.push_otlp("t", data)
@@ -276,7 +281,9 @@ def test_tracked_push_waits_out_a_concurrent_pop():
 
     def pusher():
         try:
-            while not stop.is_set():
+            for _ in range(PUSHES_PER_THREAD):
+                if stop.is_set():
+                    break
                 acked.append(tg.push_otlp("t", data))
         except BaseException as e:      # noqa: BLE001 — asserted below
             errors.append(e)

@@ -21,6 +21,10 @@
   (push through the staged and the columnar tee, cut, complete, flush,
   find at every stage) and ends with no `jax`, `tempo_tpu`, `yaml` or
   `pyarrow` module loaded: the port writes and reads Parquet itself.
+- A fresh interpreter drives the read side over backend blocks
+  (`TempoDB.write_block`, `search`, `query_range` with rate and quantile
+  on both query tiers, the device plane on and off, `find_trace_by_id`)
+  and ends with no `jax`, `tempo_tpu`, `yaml` or `pyarrow` loaded.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -247,6 +251,58 @@ print("LOADED", bad)
 def test_ingester_drive_loads_no_reference_yaml_or_pyarrow():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _INGESTER_DRIVE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+_READ_DRIVE = """
+import sys
+import tempfile
+from tempo_tpu_torch.backend import LocalBackend
+from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+from tempo_tpu_torch.ops.moments import use_query_tier
+from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+T0 = 1_700_000_000 * 10**9
+traces = []
+for i in range(64):
+    tid = bytes([i + 1]) * 16
+    start = T0 + i * 7 * 10**9
+    traces.append((tid, [{
+        "trace_id": tid, "span_id": bytes([i + 1]) * 8, "name": f"op-{i % 3}",
+        "service": f"svc-{i % 2}", "kind": 2, "status_code": i % 3,
+        "start_unix_nano": start, "end_unix_nano": start + 10**6 * (i + 1),
+        "attrs": {"http.status_code": 200 + 100 * (i % 4)}}]))
+store = LocalBackend(tempfile.mkdtemp())
+for plane in (True, False):
+    db = TempoDB(store, store, TempoDBConfig(device_plane=plane), device="cpu")
+    db.write_block("t", traces, replication_factor=1)
+    db.poll_now()
+    assert len(db.search("t", "{ span.http.status_code >= 400 }", limit=100)) == 32
+    assert db.find_trace_by_id("t", traces[5][0])
+    for q in ("{ } | rate() by (resource.service.name)",
+              "{ } | quantile_over_time(duration, .5, .99) by (name)"):
+        req = QueryRangeRequest(q, T0, T0 + 900 * 10**9, 60 * 10**9)
+        assert db.query_range("t", req)
+        with use_query_tier("moments"):
+            assert db.query_range("t", req)
+    if plane:
+        assert db.plane_stats["fused_metric_blocks"] == 4
+    db.shutdown()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+
+def test_read_side_drive_loads_no_reference_yaml_or_pyarrow():
+    """`TempoDB` write_block → search → query_range (rate and quantile,
+    the log2 and moments tiers, the plane on and off) → find_trace_by_id
+    in a fresh interpreter: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _READ_DRIVE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
