@@ -219,7 +219,38 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       process (`chip_smoke.py --phase10-profiles`, the bench block again
       in memory), which the smoke starts and waits for: in the smoke's
       own process, after the earlier phases' profiler sessions, the
-      trace lost most device events.
+      trace lost most device events;
+11. the query frontend and the querier (`Frontend` at the reference's
+   default `FrontendConfig` over a `Querier` at its default
+   `QuerierConfig`, rf 3, and a `TempoDB` on the card):
+   a. run in phase 9's `then=` after 10a: phase 9's flushed blocks
+      behind the backend cutoff and one fresh ingester holding an uncut
+      16,384-span payload of the same traffic in the recent window;
+      256 finds of phase 9's ids and 64 of the payload's, 2 searches
+      (limit 20, and every match), `tag_names` and `tag_values` of
+      `resource.service.name`, inline and through `start_workers(2)`,
+      each equal to a CPU twin of the stack (inline); every match of a
+      search equal to `TempoDB.search` over the backend window with
+      `Ingester.search` over the recent one, every find to phase 9's
+      host decode and `TempoDB.find_trace_by_id` (or
+      `Ingester.find_trace_by_id`);
+   b. run in 10b's process over its RF1 block, the cutoff 300 s into
+      the block: rate and quantile_over_time(duration, .99) by service,
+      each equal to `TempoDB.query_range` clipped at the cutoff after
+      `SeriesCombiner.final` and to a CPU twin, one fused job each with
+      no fallback, no sidecar fold or fallback (no block has a
+      sidecar); under the real clock with a `CacheProvider` the second
+      query hits the job cache with the same series. Printed: a warm
+      frontend rate query's ms against `TempoDB`'s, the queue wait and
+      stages of the merged `QueryStats` through the worker pool, and
+      (in 10b's profiling process) its device time, ops and idle share;
+   c. `TEMPO_TPU_DEVICE_SCAN=1` with the plane off over 10b's block:
+      the search `{ span.http.status_code >= 400 }` (which the offload
+      refuses, as the reference's does) and the mask `{ name =~ "op-1."
+      && duration > 20ms }` as a search, each equal with the offload and
+      without, every row group's mask on the card bit-equal to the CPU
+      path's; printed: launches a search, the mask's device time and
+      ops (the profiling process) and its bound by bytes.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -3599,6 +3630,23 @@ def phase10_profiles() -> dict:
     (out["grid_device_ms"], out["grid_launches"], _,
      out["grid_top"]) = _profile(_grid_call(plane, m, greq,
                                             "phase 10b profiles"))
+    # phase 11b: a warm frontend rate query, the cutoff inside the block
+    w0 = t_base / 1e9
+    fe = _frontend(db, None, lambda: w0 + 1200.0)
+    (out["fe_device_ms"], out["fe_launches"], out["fe_wall_ms"],
+     out["fe_top"]) = _profile(lambda: fe.query_range(
+        BENCH_TENANT, req.query, start_s=w0, end_s=w0 + 900.0, step_s=60.0))
+    fe.shutdown()
+    # phase 11c: one query's per-row-group offload masks on the card
+    from tempo_tpu_torch.block.fetch import scan_views
+    from tempo_tpu_torch.block.reader import BackendBlock
+
+    meta = db.blocklist.metas(BENCH_TENANT)[0]
+    views = [v for v, _ in scan_views(BackendBlock(db.r, meta),
+                                      device=db.device)]
+    (out["offload_device_ms"], out["offload_launches"],
+     out["offload_wall_ms"], out["offload_top"]) = offload_profile(
+        views, OFFLOAD_QUERIES[1])
     db.shutdown()
     return out
 
@@ -3774,15 +3822,19 @@ def _phase_query_bench(card, root):
     if int(main.sum()) != out["scan_spans"]:
         raise AssertionError(f"{ctx}: the 1M grid counted {main.sum()}")
     out["scan_plane_device_bytes"] = plane.device_bytes
-    db.shutdown()
-    db_host.shutdown()
     del plane, scan
     gc.collect()
     torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    s11b = _phase_frontend_metrics(db, be, t_base)
+    s11c = _phase_offload(db_host, be)
+    t11 = time.perf_counter() - t11
+    db.shutdown()
+    db_host.shutdown()
     out.update(_profiles_in_child(ctx))
     out["qr_idle_share"] = None if out["qr_device_ms"] is None else \
         1.0 - out["qr_device_ms"] / out["qr_wall_ms"]
-    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds"] = time.perf_counter() - t_phase - t11
     c = out["cache"]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
     print(f"phase 10b [{card}]: bench_query's block ({N_BENCH_SPANS} one-span "
@@ -3834,7 +3886,391 @@ def _phase_query_bench(card, root):
           f"fallback ({out['plane_stats']}); the moments tier fused; the 1M "
           f"device mask equal to condition_mask on every row; the 1M grid "
           f"equal to the host engine row by row")
+    fe_idle = None if out["fe_device_ms"] is None else \
+        1.0 - out["fe_device_ms"] / out["fe_wall_ms"]
+    print(f"phase 11b [{card}]: Frontend.query_range (default "
+          f"FrontendConfig, the backend cutoff 300 s into the block) over "
+          f"10b's RF1 block, rate by service: "
+          f"{s11b['frontend_ms']:.3f} ms warm against "
+          f"{s11b['tempodb_ms']:.3f} ms for TempoDB.query_range clipped at "
+          f"the cutoff with the final pass (the frontend's own cost "
+          f"{s11b['frontend_ms'] - s11b['tempodb_ms']:.3f} ms); through "
+          f"start_workers(2): queue_wait {s11b['queue_wait_ms']:.4f} ms, "
+          f"stages (ms, merged QueryStats) {json.dumps(s11b['stages_ms'])}; "
+          f"warm frontend rate query (torch.profiler, the profiling "
+          f"process): device {fmt(out['fe_device_ms'])} ms of "
+          f"{out['fe_wall_ms']:.3f} ms wall, {out['fe_launches']:.0f} device "
+          f"ops, idle share {fmt(fe_idle)}; phase {s11b['seconds']:.1f} s")
+    print(f"phase 11b checks: rate and quantile_over_time(duration, .99) by "
+          f"service through the frontend equal to TempoDB.query_range "
+          f"clipped at the cutoff after SeriesCombiner.final and to a CPU "
+          f"twin; one fused job each, no fallback; compaction_stats 0 folds "
+          f"and 0 fallbacks (no sidecar); with a CacheProvider the second "
+          f"query hit the job cache and gave the same series; the rate "
+          f"counted {s11b['rate_spans']} spans before the cutoff")
+    q_mask = OFFLOAD_QUERIES[1]
+    print(f"phase 11c [{card}]: TEMPO_TPU_DEVICE_SCAN=1 with the plane off "
+          f"over 10b's block ({s11c['row_groups']} row groups): "
+          + "; ".join(f"{q} {v['launches']} mask launches in a search, "
+                      f"{v['masks']} of {s11c['row_groups']} row groups "
+                      f"offloaded" for q, v in s11c.items()
+                      if q in OFFLOAD_QUERIES)
+          + f"; the mask {q_mask} over every row group (torch.profiler): "
+          f"device {fmt(out['offload_device_ms'])} ms, "
+          f"{out['offload_launches']:.0f} device ops, wall "
+          f"{out['offload_wall_ms']:.3f} ms, longest {out['offload_top'][0]} "
+          f"{out['offload_top'][1]:.4f} ms; bound {s11c['bound_ms']:.6f} ms "
+          f"by bytes ({s11c['bound_bytes']} bytes at 3.35 TB/s); phase "
+          f"{s11c['seconds']:.1f} s")
+    print(f"phase 11c checks: each search equal with the offload and "
+          f"without; every row-group mask on the card bit-equal to the CPU "
+          f"path's; the attribute search refused by the offload (the "
+          f"reference's refusal), the name/duration mask offloaded on every "
+          f"row group")
+    out["11b"], out["11c"], out["11_seconds"] = s11b, s11c, t11
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the query frontend and the querier over the port's TempoDB
+# ---------------------------------------------------------------------------
+
+N_FIND_RECENT = 64               # recent trace ids found through 11a
+
+
+def _frontend(db, ing, now_fn, cache=False):
+    """`Frontend` over a `Querier` (the reference's default configs: rf 3)
+    whose ring holds one ingester, or none."""
+    from tempo_tpu_torch.backend import CacheProvider
+    from tempo_tpu_torch.frontend import Frontend
+    from tempo_tpu_torch.querier import Querier
+    from tempo_tpu_torch.ring import ACTIVE, InstanceDesc, Ring
+    from tempo_tpu_torch.ring.ring import _instance_tokens
+
+    ring, clients = None, {}
+    if ing is not None:
+        ring = Ring(replication_factor=3, now=now_fn)
+        ring.register(InstanceDesc(id=ing.id, state=ACTIVE,
+                                   tokens=_instance_tokens(ing.id, 128),
+                                   heartbeat_ts=now_fn()))
+        clients = {ing.id: ing}
+    return Frontend(db, Querier(db, ring, clients, now=now_fn),
+                    cache_provider=CacheProvider() if cache else None,
+                    now=now_fn)
+
+
+def _md(res):
+    return [m.to_json() for m in res]
+
+
+def phase_frontend_search(store, handoff, card):
+    """Phase 11a: search, find and tags through `Frontend` over phase 9's
+    flushed store (RF3 ingester blocks) and one fresh ingester holding an
+    uncut 16,384-span payload of the same traffic; the data directory
+    lives under `build/` for the phase."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase11-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_frontend_search(store, handoff, card, root)
+
+
+def _phase_frontend_search(store, handoff, card, root):
+    import torch
+
+    from tempo_tpu_torch.db import TempoDB
+    from tempo_tpu_torch.device import resolve_device
+    from tempo_tpu_torch.frontend.sharders import time_windows
+    from tempo_tpu_torch.ingester import Ingester
+    from tempo_tpu_torch.model.combine import combine_spans, sort_spans
+    from tempo_tpu_torch.overrides import Overrides
+
+    ctx = "phase 11a"
+    t_phase = time.perf_counter()
+    t, want, picks = handoff["tenant"], handoff["read_want"], handoff["picks"]
+    # the clock sits 1,000 s after phase 9's spans: its blocks lie behind
+    # the backend cutoff (now - 900 s), the recent payload inside the
+    # ingesters' window (now - 1,800 s onwards)
+    clock = handoff["now_ns"] / 1e9 + 1000.0
+    now = lambda: clock  # noqa: E731
+    ov = Overrides()
+    ov.set_tenant_patch(t, {"ingestion": dict(UNLIMITED)})
+    ing = Ingester(os.path.join(root, "recent"), overrides=ov, now=now,
+                   instance_id="recent-0")
+    recent = deep_trace_spans(N_SPANS, seed=SEED + 110,
+                              now_ns=int((clock - 100.0) * 1e9))
+    by_trace = {}
+    for s in recent:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    errs = [e for e in ing.push(t, list(by_trace.items())) if e is not None]
+    if errs:
+        raise AssertionError(f"{ctx}: the recent payload was refused: {errs}")
+    card_db = TempoDB(store, store)
+    cpu_db = TempoDB(store, store, device="cpu")
+    if card_db.device != resolve_device():
+        raise AssertionError(f"{ctx}: TempoDB on {card_db.device}")
+    for db in (card_db, cpu_db):
+        db.poll_now()
+    fe, twin = _frontend(card_db, ing, now), _frontend(cpu_db, ing, now)
+    start, end = handoff["now_ns"] / 1e9 - 600.0, clock
+    ing_win, be_win = time_windows(clock, start, end)
+    searches = ("{ span.http.status_code >= 500 }",
+                '{ span.cache.hit = true && resource.host.name = "host-1" '
+                '&& duration > 1ms }')
+    rng = np.random.default_rng(SEED + 111)
+    recent_ids = [list(by_trace)[int(i)] for i in rng.choice(
+        len(by_trace), N_FIND_RECENT, replace=False)]
+    recent_want = {tid: sort_spans(combine_spans(
+        ing.find_trace_by_id(t, tid))) for tid in recent_ids}
+    for tid, got in recent_want.items():
+        if sorted(s["span_id"] for s in got) != \
+                sorted(s["span_id"] for s in by_trace[tid]):
+            raise AssertionError(f"{ctx}: the ingester lost spans of "
+                                 f"{tid.hex()}")
+    out = {"blocks": len(card_db.blocks(t))}
+    # every match of each search, from TempoDB.search over the backend
+    # window and Ingester.search over the recent one, called directly
+    direct = {q: {m.trace_id for m in card_db.search(
+        t, q, limit=1 << 20, start_s=be_win[0], end_s=be_win[1])}
+        | {m.trace_id for m in ing.search(t, q, 1 << 20, *ing_win)}
+        for q in searches}
+
+    def run(f, label, times=None):
+        res = {}
+        for q in searches:
+            got = f.search(t, q, limit=20, start_s=start, end_s=end)
+            if len(got) != 20:
+                raise AssertionError(f"{ctx} {label}: {q!r} gave "
+                                     f"{len(got)} of 20")
+            res[q] = _md(got)
+            every = {m.trace_id for m in f.search(
+                t, q, limit=1 << 20, start_s=start, end_s=end)}
+            if every != direct[q] or not every & {
+                    tid.hex() for tid in recent_want}:
+                raise AssertionError(
+                    f"{ctx} {label}: {q!r}: {len(every)} traces through the "
+                    f"frontend, {len(direct[q])} from TempoDB.search and "
+                    f"Ingester.search called directly")
+        for tid in picks:
+            t0 = time.perf_counter()
+            got = f.find_trace(t, tid)
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            if got != want[tid] or \
+                    sort_spans(card_db.find_trace_by_id(t, tid)) != want[tid]:
+                raise AssertionError(f"{ctx} {label}: trace {tid.hex()} "
+                                     f"differs from phase 9's host decode")
+        for tid in recent_ids:
+            if f.find_trace(t, tid) != recent_want[tid]:
+                raise AssertionError(f"{ctx} {label}: recent trace "
+                                     f"{tid.hex()} differs from "
+                                     f"Ingester.find_trace_by_id")
+        res["tags"] = f.tag_names(t)
+        res["values"] = f.tag_values(t, "resource.service.name")
+        if not res["tags"].get("span") or len(res["values"]) != 16:
+            raise AssertionError(f"{ctx} {label}: tags {res['tags']}, "
+                                 f"{len(res['values'])} service values")
+        return res
+
+    inline = run(fe, "inline")
+    if run(twin, "CPU twin") != inline:
+        raise AssertionError(f"{ctx}: the card stack and its CPU twin differ")
+    fe.start_workers(2)
+    times = []
+    if run(fe, "workers", times) != inline:
+        raise AssertionError(f"{ctx}: the worker pool's answers differ from "
+                             f"the inline ones")
+    out["find_ms"] = statistics.median(times)
+    out["search_ms"] = _timed_ms(lambda: fe.search(
+        t, searches[0], limit=20, start_s=start, end_s=end))
+    out["tags_ms"] = _timed_ms(lambda: fe.tag_names(t))
+    out["values_ms"] = _timed_ms(
+        lambda: fe.tag_values(t, "resource.service.name"))
+    for f in (fe, twin):
+        f.shutdown()
+    for db in (card_db, cpu_db):
+        db.shutdown()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11a [{card}]: Frontend (default FrontendConfig) over a "
+          f"Querier (rf 3) and TempoDB on the card: phase 9's "
+          f"{out['blocks']} flushed blocks behind the cutoff and one "
+          f"ingester holding {N_SPANS} uncut spans ({len(by_trace)} "
+          f"traces); ms through the frontend, workers on: find "
+          f"{out['find_ms']:.3f} (median of {len(picks)}), search "
+          f"{out['search_ms']:.3f} (limit 20, both legs), tag_names "
+          f"{out['tags_ms']:.3f}, tag_values(resource.service.name) "
+          f"{out['values_ms']:.3f}; phase {out['seconds']:.1f} s")
+    print(f"phase 11a checks: {len(searches)} searches (limit 20) and "
+          f"{len(picks)} + {N_FIND_RECENT} finds, tag_names and tag_values "
+          f"equal inline, through start_workers(2) and on a CPU twin of the "
+          f"stack (inline); each search's every match equal to TempoDB.search over "
+          f"the backend window with Ingester.search over the recent one; "
+          f"each find equal to phase 9's host decode and "
+          f"TempoDB.find_trace_by_id (a recent one: to "
+          f"Ingester.find_trace_by_id, every span of the payload)")
+    return out
+
+
+def _phase_frontend_metrics(db, be, t_base):
+    """Phase 11b: TraceQL metrics through `Frontend` over 10b's RF1 block,
+    the backend cutoff inside the window and inside the block."""
+    from tempo_tpu_torch.db import TempoDB
+    from tempo_tpu_torch.obs import querystats
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    ctx = "phase 11b"
+    t_phase = time.perf_counter()
+    B = BENCH_TENANT
+    w0, w1, step = t_base / 1e9, t_base / 1e9 + 900.0, 60.0
+    clock = w0 + 300.0 + 900.0          # the cutoff: 300 s into the block
+    now = lambda: clock  # noqa: E731
+    cutoff_ns = int((clock - 900.0) * 1e9)
+    cpu_db = TempoDB(be, be, device="cpu")
+    cpu_db.poll_now()
+    fe, twin = _frontend(db, None, now), _frontend(cpu_db, None, now)
+    queries = ("{ } | rate() by (resource.service.name)",
+               "{ } | quantile_over_time(duration, .99) by "
+               "(resource.service.name)")
+    out = {}
+    for q in queries:
+        req = QueryRangeRequest(q, int(w0 * 1e9), int(w1 * 1e9),
+                                int(step * 1e9))
+        f0 = db.plane_stats["fused_metric_blocks"]
+        got = _series_map(fe.query_range(B, q, start_s=w0, end_s=w1,
+                                         step_s=step))
+        if db.plane_stats["fused_metric_blocks"] != f0 + 1 or _fallbacks(db):
+            raise AssertionError(f"{ctx} {q}: not one fused job "
+                                 f"({db.plane_stats})")
+        want = _series_map(_final(db.query_range(B, req,
+                                                 clip_end_ns=cutoff_ns), req))
+        _same_series(got, want, True, f"{ctx} {q}: frontend vs TempoDB "
+                     f"clipped at the cutoff")
+        _same_series(got, _series_map(twin.query_range(
+            B, q, start_s=w0, end_s=w1, step_s=step)), True,
+            f"{ctx} {q}: card vs CPU twin")
+        if "rate" in q:
+            n = sum(v.sum() for v in got.values()) * step
+            out["rate_spans"] = int(round(n))
+    if db.compaction_stats != {"sidecar_folds": 0, "sidecar_fallbacks": 0}:
+        raise AssertionError(f"{ctx}: the fold tier moved with no sidecar: "
+                             f"{db.compaction_stats}")
+    # the job cache: under the real clock the block lies behind the cutoff
+    # (cacheable); the second query is a hit and gives the same series
+    cached = _frontend(db, None, time.time, cache=True)
+    a = cached.query_range(B, queries[0], start_s=w0, end_s=w1, step_s=step)
+    hits = cached.cache_stats["hits"]
+    b = cached.query_range(B, queries[0], start_s=w0, end_s=w1, step_s=step)
+    if cached.cache_stats["hits"] != hits + 1:
+        raise AssertionError(f"{ctx}: the second query missed the job cache "
+                             f"({cached.cache_stats})")
+    _same_series(_series_map(a), _series_map(b), True,
+                 f"{ctx}: cached vs computed")
+    cached.shutdown()
+    req = QueryRangeRequest(queries[0], int(w0 * 1e9), int(w1 * 1e9),
+                            int(step * 1e9))
+    out["frontend_ms"] = _timed_ms(lambda: fe.query_range(
+        B, queries[0], start_s=w0, end_s=w1, step_s=step))
+    out["tempodb_ms"] = _timed_ms(lambda: _final(db.query_range(
+        B, req, clip_end_ns=cutoff_ns), req))
+    fe.start_workers(2)
+    fe.query_range(B, queries[0], start_s=w0, end_s=w1, step_s=step)
+    with querystats.scope() as st:
+        fe.query_range(B, queries[0], start_s=w0, end_s=w1, step_s=step)
+    out["queue_wait_ms"] = st.stage_ns.get("queue_wait", 0) / 1e6
+    out["stages_ms"] = {k: v / 1e6 for k, v in sorted(st.stage_ns.items())}
+    if "queue_wait" not in st.stage_ns or st.completed_jobs != 1:
+        raise AssertionError(f"{ctx}: worker-pool stats {st.to_json()}")
+    fe.shutdown()
+    twin.shutdown()
+    cpu_db.shutdown()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _phase_offload(db_host, be):
+    """Phase 11c: the opt-in per-row-group offload of `condition_mask`
+    (TEMPO_TPU_DEVICE_SCAN=1) with the plane off, on and off."""
+    from tempo_tpu_torch.block import device_scan
+    from tempo_tpu_torch.block.fetch import scan_views
+    from tempo_tpu_torch.block.reader import BackendBlock
+    from tempo_tpu_torch.traceql.engine import compile_query
+
+    ctx = "phase 11c"
+    t_phase = time.perf_counter()
+    B = BENCH_TENANT
+    meta = db_host.blocks(B)[0]
+    views_card = [v for v, _ in scan_views(BackendBlock(be, meta),
+                                           device=db_host.device)]
+    views_cpu = [v for v, _ in scan_views(BackendBlock(be, meta),
+                                          device="cpu")]
+    out = {"row_groups": len(views_card)}
+    prev = os.environ.pop("TEMPO_TPU_DEVICE_SCAN", None)
+    try:
+        for q in OFFLOAD_QUERIES:
+            off = [m.to_json() for m in db_host.search(B, q, limit=20)]
+            os.environ["TEMPO_TPU_DEVICE_SCAN"] = "1"
+            n0 = device_scan.device_pred_mask.launches
+            on = [m.to_json() for m in db_host.search(B, q, limit=20)]
+            launches = device_scan.device_pred_mask.launches - n0
+            _, req = compile_query(q)
+            preds = [c for c in req.conditions if c.op is not None]
+            masks = 0
+            for vc, vh in zip(views_card, views_cpu):
+                a = device_scan.device_pred_mask(vc, preds,
+                                                 req.all_conditions)
+                b = device_scan.device_pred_mask(vh, preds,
+                                                 req.all_conditions)
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    raise AssertionError(f"{ctx} {q!r}: a row-group mask on "
+                                         f"the card differs from the CPU "
+                                         f"path")
+                masks += a is not None
+            del os.environ["TEMPO_TPU_DEVICE_SCAN"]
+            if on != off or not on:
+                raise AssertionError(f"{ctx} {q!r}: {len(on)} results with "
+                                     f"the offload, {len(off)} without")
+            out[q] = {"launches": launches, "masks": masks}
+    finally:
+        if prev is None:
+            os.environ.pop("TEMPO_TPU_DEVICE_SCAN", None)
+        else:
+            os.environ["TEMPO_TPU_DEVICE_SCAN"] = prev
+    if out[OFFLOAD_QUERIES[0]]["masks"] or \
+            out[OFFLOAD_QUERIES[1]]["masks"] != len(views_card):
+        raise AssertionError(f"{ctx}: offload coverage {out}")
+    n = sum(v.n for v in views_card)
+    # bytes the mask must move a query: the int32 name codes and float32
+    # durations read once, one bool a row written, the name LUT read
+    n_dict = sum(len(v.meta["_dict_codes"]["name"][1]) for v in views_card)
+    out["bound_bytes"] = n * (4 + 4 + 1) + n_dict
+    out["bound_ms"] = out["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+OFFLOAD_QUERIES = ("{ span.http.status_code >= 400 }",
+                   '{ name =~ "op-1." && duration > 20ms }')
+
+
+def offload_profile(views, q) -> tuple:
+    """(device ms, device ops, wall ms, longest op) of one query's
+    per-row-group offload masks over `views`, warm, under torch.profiler."""
+    from tempo_tpu_torch.block import device_scan
+    from tempo_tpu_torch.traceql.engine import compile_query
+
+    _, req = compile_query(q)
+    preds = [c for c in req.conditions if c.op is not None]
+    prev = os.environ.get("TEMPO_TPU_DEVICE_SCAN")
+    os.environ["TEMPO_TPU_DEVICE_SCAN"] = "1"
+    try:
+        return _profile(lambda: [device_scan.device_pred_mask(
+            v, preds, req.all_conditions) for v in views])
+    finally:
+        if prev is None:
+            del os.environ["TEMPO_TPU_DEVICE_SCAN"]
+        else:
+            os.environ["TEMPO_TPU_DEVICE_SCAN"] = prev
 
 
 def moments_state_bytes(n_payloads=N_DISPATCH):
@@ -3997,9 +4433,10 @@ def main() -> int:
           f"{s8['8b']['ingester_ms']:.3f} ms over every pass; K1 device time "
           f"a push {s8['8a']['device_ms']} ms; phase 8 "
           f"{s8['seconds']:.1f} s")
-    s9, s10a = phase_ingester(
-        card, then=lambda store, handoff: phase_read_push(store, handoff,
-                                                          card))
+    s9, (s10a, s11a) = phase_ingester(
+        card, then=lambda store, handoff: (
+            phase_read_push(store, handoff, card),
+            phase_frontend_search(store, handoff, card)))
     print(f"phase 9 [{card}]: push {s9['push_spans_per_s']:.0f} spans/s, cut "
           f"{s9['segments_per_s']:.1f} WAL segments/s (fsync "
           f"{s9['fsync_ms']:.3f} ms), complete {s9['complete_s']:.3f} s an "
@@ -4007,8 +4444,11 @@ def main() -> int:
           f"{s9['seconds']:.1f} s")
     s10b = phase_query_bench(card)
     print(f"phase 10 [{card}]: 10a {s10a['seconds']:.1f} s, 10b "
-          f"{s10b['seconds']:.1f} s; the whole smoke "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{s10b['seconds']:.1f} s")
+    print(f"phase 11 [{card}]: 11a {s11a['seconds']:.1f} s, 11b "
+          f"{s10b['11b']['seconds']:.1f} s, 11c {s10b['11c']['seconds']:.1f} "
+          f"s, phase 11 {s11a['seconds'] + s10b['11_seconds']:.1f} s; the "
+          f"whole smoke {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

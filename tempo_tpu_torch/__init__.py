@@ -60,8 +60,22 @@ The read side over backend blocks (the blocks the ingesters flush):
         (counted under the reference's fallback_<cause> names)
         → SeriesCombiner
 
+Users reach the read side through the query frontend, as in the
+reference (SURVEY §3.4: frontend sharder → querier → TempoDB → combiner):
+
+    frontend.Frontend(db, querier.Querier(db, ingester ring, ingesters))
+      → search / find_trace / query_range / tag_names / tag_values
+      → time windows at the backend cutoff: the ingesters' recent data
+        (Ingester.search over traceql.memview views) and backend block
+        jobs of ~target bytes (frontend.sharders), run inline or by the
+        worker pool (start_workers), cached per job (backend.cache),
+        combined (MetadataCombiner, SeriesCombiner); metrics read RF1
+        blocks only, and blocks behind the cutoff with a sketch sidecar
+        fold on the request thread (block.sidecar)
+
 The read side's device code is plain torch ops (no hand kernel): the
-reference's is jitted jnp, not Pallas.
+reference's is jitted jnp, not Pallas. That includes the opt-in
+per-row-group offload of `condition_mask` (`TEMPO_TPU_DEVICE_SCAN=1`).
 
 `ops.cuda_kernels.fused_spanmetrics_matmul` is the dense fused delta, a
 kernel no path of the system runs.
@@ -80,16 +94,6 @@ from tempo_tpu_torch.model.otlp_batch import (StagedIngest, batch_from_otlp,
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
 from tempo_tpu_torch.registry.pages import PagePoolConfig
 from tempo_tpu_torch.sched import DeviceScheduler, SchedConfig
-
-_LATER = {"querier", "frontend"}
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"tempo_tpu_torch.{name} comes with ROADMAP section 1, item 6b")
-    raise AttributeError(name)
-
 
 __all__ = ["GeneratorConfig", "GeneratorInstance", "SpanMetricsConfig",
            "SpanMetricsProcessor", "SpanBatchBuilder", "otlp_proto_to_batch",

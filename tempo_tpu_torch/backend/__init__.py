@@ -3,11 +3,13 @@
 Counterpart of `tempo_tpu/backend/`. The port carries `raw.py` (the
 `RawReader`/`RawWriter` interfaces and keypaths), `mem.py` (the in-memory
 store), `local.py` (the filesystem store the ingesters write their blocks
-to) and `meta.py` (block metadata and the tenant index). The cloud and
-cache backends come with the rest of the storage layer (ROADMAP section
-1, item 5b): their names raise `NotImplementedError` until then.
+to), `meta.py` (block metadata and the tenant index) and `cache.py` (the
+role-keyed in-process caches the query frontend's job cache uses). The
+cloud backends come with the rest of the storage layer (ROADMAP section
+1, item 5b): `open_backend` raises `NotImplementedError` until then.
 """
 
+from tempo_tpu_torch.backend.cache import CacheProvider, CachingReader, LRUCache
 from tempo_tpu_torch.backend.local import LocalBackend
 from tempo_tpu_torch.backend.mem import MemBackend
 from tempo_tpu_torch.backend.meta import (
@@ -39,7 +41,7 @@ from tempo_tpu_torch.backend.raw import (
     tenants,
 )
 
-_LATER = {"CacheProvider", "CachingReader", "LRUCache", "open_backend"}
+_LATER = {"open_backend"}
 
 
 def __getattr__(name: str):
@@ -51,10 +53,10 @@ def __getattr__(name: str):
 
 
 __all__ = [
-    "AlreadyExists", "BlockMeta", "CompactedBlockMeta", "CompactedMetaName",
-    "DedicatedColumn", "DoesNotExist", "KeyPath", "LocalBackend",
-    "MemBackend", "MetaName", "RawReader", "RawWriter", "TenantIndex",
-    "TenantIndexName", "block_keypath", "blocks", "clear_block",
+    "AlreadyExists", "BlockMeta", "CacheProvider", "CachingReader",
+    "CompactedBlockMeta", "CompactedMetaName", "DedicatedColumn",
+    "DoesNotExist", "KeyPath", "LRUCache", "LocalBackend", "MemBackend",
+    "MetaName", "RawReader", "RawWriter", "TenantIndex", "TenantIndexName", "block_keypath", "blocks", "clear_block",
     "copy_block", "has_meta", "mark_block_compacted", "read_block_meta",
     "read_compacted_block_meta", "read_tenant_index", "tenants",
     "write_block_meta", "write_tenant_index",

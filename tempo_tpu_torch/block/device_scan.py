@@ -30,10 +30,14 @@ reference's `mode="drop"` index) and every read slices it off.
 `db/tempodb.py` routes search and query_range through it via
 `db/plane_cache.py`.
 
-The reference's per-row-group opt-in offload of `condition_mask`
-(`TEMPO_TPU_DEVICE_SCAN=1`, `device_pred_mask`, `_compiled_mask`) comes
-with ROADMAP item 6b; with the variable set, `device_pred_mask` raises.
-A mesh (`mesh=`) comes with item 13.
+`device_pred_mask` — the per-row-group sync offload of `condition_mask`,
+OPT-IN via TEMPO_TPU_DEVICE_SCAN=1 as in the reference: one fused
+expression per predicate signature (`_compiled_mask`) over float32
+numeric columns and int32 dictionary codes with a LUT gather, on the
+view's device (`view.meta["device"]`), with the columns cached on the
+view. It keeps the reference's float32 compares and refuses (None → the
+host plane) the shapes the reference refuses. A mesh (`mesh=`) comes
+with ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -56,6 +60,15 @@ from tempo_tpu_torch.traceql.eval import (BOOL, KIND, NUM, STATUS, STR, Col,
 
 _NUM_OPS = {A.Op.EQ, A.Op.NEQ, A.Op.GT, A.Op.GTE, A.Op.LT, A.Op.LTE}
 
+_NUM_INTRINSICS = {
+    A.Intrinsic.DURATION: "duration",
+    A.Intrinsic.KIND: "kind",
+    A.Intrinsic.STATUS: "status",
+    A.Intrinsic.NESTED_SET_LEFT: "nestedSetLeft",
+    A.Intrinsic.NESTED_SET_RIGHT: "nestedSetRight",
+    A.Intrinsic.NESTED_SET_PARENT: "nestedSetParent",
+}
+
 # static type → column type tag, for the reference's comparability lattice
 # (`enum_statics.go`: status/kind/num are distinct; see eval._comparable)
 _STATIC_T = {
@@ -70,10 +83,11 @@ _STATIC_T = {
 _INT_MAX = 1 << 62
 
 def enabled() -> bool:
-    """The reference's per-row-group sync offload policy for
-    `condition_mask` (TEMPO_TPU_DEVICE_SCAN=1). The port has no such
-    offload yet (ROADMAP item 6b): `device_pred_mask` raises when it is
-    asked for."""
+    """Per-row-group sync offload policy for `condition_mask` — OPT-IN
+    (TEMPO_TPU_DEVICE_SCAN=1): each synchronous mask pays a full device
+    round trip and compares in float32. The block-level `BlockScanPlane`
+    (one fused dispatch per block, exact int compares) is the production
+    device plane."""
     return os.environ.get("TEMPO_TPU_DEVICE_SCAN", "") == "1"
 
 
@@ -259,21 +273,126 @@ def _block_mask_kernel(n: int, pred_sig: tuple, extra_sig: tuple,
 
 
 # ---------------------------------------------------------------------------
-# per-row-group opt-in plane (ROADMAP item 6b)
+# per-row-group opt-in plane (diagnostic; float32 numerics)
 # ---------------------------------------------------------------------------
+
+def _num_term(op: A.Op, v):
+    """(sig entry, float literal) for a numeric compare; None otherwise."""
+    if op not in _NUM_OPS or isinstance(v, (str, bytes)):
+        return None
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        return None
+    return ("cmp", op, False), f
+
+
+_CMP = {A.Op.EQ: torch.eq, A.Op.NEQ: torch.ne, A.Op.GT: torch.gt,
+        A.Op.GTE: torch.ge, A.Op.LT: torch.lt, A.Op.LTE: torch.le}
+
+
+@functools.lru_cache(maxsize=64)
+def _compiled_mask(sig: tuple, all_conditions: bool):
+    """One fused expression per predicate-plan shape: the whole
+    conjunction/disjunction is one sequence of device ops per row group
+    (float32 numeric path — the per-row-group opt-in plane only)."""
+    def fn(*args):
+        mask = None
+        for t, (kind, op, neg) in enumerate(sig):
+            a, b = args[2 * t], args[2 * t + 1]
+            if kind == "lut":
+                m = b.index_select(0, a)        # codes → LUT bit
+                if neg:
+                    m = ~m
+            else:
+                m = _CMP[op](a, b)              # f32 column vs f32 literal
+            mask = m if mask is None else (mask & m if all_conditions
+                                           else mask | m)
+        return mask
+
+    return fn
+
+
+def _col_for(view, attr: A.Attribute):
+    """("dict", key, codes, dictvals) | ("num", key, values) | None."""
+    if attr.intrinsic == A.Intrinsic.NAME:
+        c = view.meta.get("name_col")
+        if c is not None:
+            return ("dict", "name") + _dict_codes(view, "name", c)
+    if (attr.intrinsic == A.Intrinsic.NONE and attr.name == "service.name"
+            and attr.scope in (A.Scope.RESOURCE, A.Scope.NONE)):
+        c = view.meta.get("service_col")
+        if c is not None:
+            return ("dict", "service") + _dict_codes(view, "service", c)
+    key = _NUM_INTRINSICS.get(attr.intrinsic)
+    if key:
+        col = view.col(key)
+        if col is not None:
+            return ("num", key, col.values)
+    return None
+
+
+def _dev_array(view, key: str, values: np.ndarray, dtype, device):
+    """Device-resident copy of a scan column, cached on the view so a
+    multi-query/multi-pass scan transfers each column once."""
+    cache = view.meta.setdefault("_dev_arrays", {})
+    arr = cache.get(key)
+    if arr is None:
+        arr = cache[key] = torch.as_tensor(np.asarray(values, dtype),
+                                           device=device)
+    return arr
+
+
+_launch_lock = threading.Lock()
+
 
 def device_pred_mask(view, preds: Sequence, all_conditions: bool
                      ) -> Optional[np.ndarray]:
-    """The reference's opt-in per-row-group device mask: None (host
-    plane) unless TEMPO_TPU_DEVICE_SCAN=1, which the port refuses until
-    ROADMAP item 6b rather than quietly staying on the host."""
+    """Evaluate pushdown predicates on the view's device (its reader's
+    `meta["device"]`, else `cuda`); None when unsupported.
+    `device_pred_mask.launches` counts the masks it dispatched (a
+    refusal dispatches none)."""
     if not enabled() or not preds:
         return None
-    raise NotImplementedError(
-        "TEMPO_TPU_DEVICE_SCAN=1 asks for the per-row-group device offload "
-        "of condition_mask, which comes with ROADMAP section 1, item 6b; "
-        "the block plane (BlockScanPlane through TempoDB) is the port's "
-        "device read path")
+    from tempo_tpu_torch.device import resolve_device
+
+    device = resolve_device(view.meta.get("device"))
+    sig = []
+    args = []
+    for c in preds:
+        if not c.operands:
+            return None
+        info = _col_for(view, c.attr)
+        if info is None:
+            return None
+        v = c.operands[0].value
+        if info[0] == "dict":
+            _, key, codes, dvals = info
+            term = _dict_term(c.op, v, dvals)
+            if term is None:
+                return None
+            sig.append(term[0])
+            args.append(_dev_array(view, f"dict:{key}", codes, np.int32,
+                                   device))
+            args.append(torch.as_tensor(term[1], device=device))
+        else:
+            _, key, values = info
+            term = _num_term(c.op, v)
+            if term is None:
+                return None
+            sig.append(term[0])
+            args.append(_dev_array(view, f"num:{key}", values, np.float32,
+                                   device))
+            args.append(torch.as_tensor(np.float32(term[1]), device=device))
+    if not sig:
+        return None
+    fn = _compiled_mask(tuple(sig), all_conditions)
+    with _launch_lock:
+        device_pred_mask.launches += 1
+    return fn(*args).cpu().numpy()
+
+
+device_pred_mask.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -469,9 +469,9 @@ def prefilter_is_noop(req: FetchSpansRequest) -> bool:
 def condition_mask(view: ColumnView, req: FetchSpansRequest) -> np.ndarray:
     """Storage-level first pass: vectorized mask from pushdown conditions.
 
-    The reference's opt-in per-row-group device offload
-    (`TEMPO_TPU_DEVICE_SCAN=1`) comes with ROADMAP item 6b: with that
-    variable set this raises rather than quietly staying on the host."""
+    With `TEMPO_TPU_DEVICE_SCAN=1` the predicates go to the per-row-group
+    device offload (`device_scan.device_pred_mask`) on the view's device;
+    shapes it refuses, as the reference's does, stay on the host."""
     n = view.n
     preds = [c for c in req.conditions if c.op is not None]
     if prefilter_is_noop(req):
@@ -534,13 +534,15 @@ def block_tag_names(block: BackendBlock, limit: int = 1000,
 
 
 def scan_views(block: BackendBlock, req: Optional[FetchSpansRequest] = None,
-               row_groups: Optional[Sequence[int]] = None
+               row_groups: Optional[Sequence[int]] = None, device=None
                ) -> Iterator[tuple[ColumnView, np.ndarray]]:
     """Yield (view, candidate_rows) per row group — the SpansetFetcher.
 
     `candidate_rows` is the storage-level prefilter; the engine's second pass
     (full pipeline) decides final membership, exactly the two-pass split of
-    `traceql.Engine.ExecuteSearch` (`engine.go:82-113`).
+    `traceql.Engine.ExecuteSearch` (`engine.go:82-113`). `device` (the
+    reader's torch device) rides on each view as `meta["device"]`: the
+    per-row-group offload of `condition_mask` runs there.
     """
     from tempo_tpu_torch.obs import querystats
 
@@ -556,6 +558,8 @@ def scan_views(block: BackendBlock, req: Optional[FetchSpansRequest] = None,
             # resident-view bytes per query instead)
             querystats.add(inspected_bytes=tbl.nbytes)
         view = view_from_table(block, tbl)
+        if device is not None:
+            view.meta["device"] = device
         _install_attr_hook(view)
         if req is not None:
             mask = condition_mask(view, req)

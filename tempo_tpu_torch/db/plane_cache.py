@@ -1,8 +1,9 @@
 """Per-block device-plane cache: the product read fast path.
 
 Counterpart of `tempo_tpu/db/plane_cache.py`; the planes live on the
-cache's torch device. The reference's sidecar-fold result cache comes
-with the sketch sidecars (ROADMAP section 1, item 11).
+cache's torch device, and the views carry it (`view.meta["device"]`) for
+the per-row-group offload of `condition_mask`. The cache also keeps the
+sidecar-fold results (`fold_get` / `fold_put`), keyed by block.
 
 Backend blocks are immutable, which makes (tenant, block_id) a perfect
 cache key: the first query against a block pays one full columnar read
@@ -38,9 +39,11 @@ class CachedBlock:
 
     def __init__(self, block: BackendBlock, mesh=None, device=None):
         from tempo_tpu_torch.block.fetch import scan_views
+        from tempo_tpu_torch.device import resolve_device
 
+        device = resolve_device(device)
         self.block = block
-        self.views = [v for v, _ in scan_views(block, None)]
+        self.views = [v for v, _ in scan_views(block, None, device=device)]
         self.plane = BlockScanPlane(self.views, mesh=mesh, device=device)
         # device path usage counters (tests + /metrics)
         self.device_scans = 0
@@ -117,7 +120,7 @@ class PlaneCache:
 
     def __init__(self, budget_bytes: int = 1 << 30, max_blocks: int = 64,
                  host_budget_bytes: int = 4 << 30, mesh=None,
-                 device=None):
+                 max_folds: int = 1024, device=None):
         from tempo_tpu_torch.device import resolve_device
 
         if mesh is not None:
@@ -132,6 +135,15 @@ class PlaneCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        # sidecar-fold result cache: (tenant, block_id) → {window key →
+        # job-level series}. Keyed by block so eviction (drop/drop_dead)
+        # can never leave a dead block serving stale folds; bounded by
+        # total cached window entries, LRU by block.
+        self.max_folds = max_folds
+        self._folds: "OrderedDict[tuple, dict]" = OrderedDict()
+        self.fold_hits = 0
+        self.fold_misses = 0
+
     def get(self, block: BackendBlock) -> CachedBlock:
         key = (block.meta.tenant_id, block.meta.block_id)
         with self._lock:
@@ -153,15 +165,45 @@ class PlaneCache:
             self._evict_locked()
         return entry
 
+    def peek(self, tenant: str, block_id: str) -> Optional[CachedBlock]:
+        with self._lock:
+            return self._entries.get((tenant, block_id))
+
     def drop(self, tenant: str, block_id: str) -> None:
         with self._lock:
             self._entries.pop((tenant, block_id), None)
+            self._folds.pop((tenant, block_id), None)
 
     def drop_dead(self, tenant: str, live_block_ids: set) -> None:
         with self._lock:
             for key in [k for k in self._entries
                         if k[0] == tenant and k[1] not in live_block_ids]:
                 del self._entries[key]
+            for key in [k for k in self._folds
+                        if k[0] == tenant and k[1] not in live_block_ids]:
+                del self._folds[key]
+
+    # -- sidecar-fold results (block/sidecar.py) ---------------------------
+
+    def fold_get(self, tenant: str, block_id: str, fold_key) -> "list | None":
+        with self._lock:
+            per_block = self._folds.get((tenant, block_id))
+            got = None if per_block is None else per_block.get(fold_key)
+            if got is None:
+                self.fold_misses += 1
+                return None
+            self._folds.move_to_end((tenant, block_id))
+            self.fold_hits += 1
+            return got
+
+    def fold_put(self, tenant: str, block_id: str, fold_key,
+                 series: list) -> None:
+        with self._lock:
+            self._folds.setdefault((tenant, block_id), {})[fold_key] = series
+            self._folds.move_to_end((tenant, block_id))
+            while (sum(len(d) for d in self._folds.values()) > self.max_folds
+                   and len(self._folds) > 1):
+                self._folds.popitem(last=False)
 
     def _evict_locked(self) -> None:
         while len(self._entries) > self.max_blocks:
@@ -186,4 +228,7 @@ class PlaneCache:
                 "host_budget_bytes": self.host_budget_bytes,
                 "hits": self.hits,
                 "misses": self.misses,
+                "fold_entries": sum(len(d) for d in self._folds.values()),
+                "fold_hits": self.fold_hits,
+                "fold_misses": self.fold_misses,
             }

@@ -1,12 +1,13 @@
 """tempodb facade: Reader/Writer/Compactor over backend + blocks.
 
 Counterpart of `tempo_tpu/db/tempodb.py`. The read side is ported whole:
-search, query_range (the fused device plane with its host fallback) and
-find_trace_by_id over the blocklist the poller keeps. The device plane
-lives on the instance's torch device (`cuda` unless `device="cpu"`).
-Compaction, retention and the sketch sidecars come with the cold tier
-(ROADMAP section 1, item 11) and raise until then; `plane_mesh` comes
-with mesh serving (item 13).
+search, query_range (the fused device plane with its host fallback),
+find_trace_by_id over the blocklist the poller keeps, and the sidecar
+fold tier's read half (`sidecar_plan`, `sidecar_series` over sidecars
+already in the store). The device plane lives on the instance's torch
+device (`cuda` unless `device="cpu"`). Compaction, retention and the
+sidecar backfill come with the cold tier (ROADMAP section 1, item 11)
+and raise until then; `plane_mesh` comes with mesh serving (item 13).
 
 Analog of `tempodb/tempodb.go:74-116` and its loops: block write (ingester
 flush target), trace lookup fan-out with time/shard pruning (`Find`
@@ -92,6 +93,12 @@ class TempoDB:
         # read-plane routing counters: how many block scans took the fused
         # device path vs the host engine (tests + /metrics)
         self.plane_stats = {"fused_metric_blocks": 0, "host_metric_blocks": 0}
+        # sidecar-fold counters (the reference keeps them among its
+        # compaction stats; the rest of those come with item 11)
+        self.compaction_stats = {
+            "sidecar_folds": 0,      # historical blocks answered by folds
+            "sidecar_fallbacks": 0,  # fold-eligible blocks that re-scanned
+        }
         self.obs = registry if registry is not None else Registry()
         self._register_obs(self.obs)
 
@@ -131,6 +138,17 @@ class TempoDB:
                          plane_stat("misses"),
                          help="Device read-plane cache misses")
 
+        def comp_stat(key):
+            return lambda: [((), self.compaction_stats[key])]
+
+        for key, hlp in (
+                ("sidecar_folds",
+                 "Historical query blocks answered by sidecar folds"),
+                ("sidecar_fallbacks",
+                 "Fold-eligible blocks that fell back to the host scan")):
+            reg.counter_func(f"tempo_compaction_{key}_total", comp_stat(key),
+                             help=hlp)
+
     # -- writer ------------------------------------------------------------
 
     def write_block(self, tenant: str, traces: Iterable[tuple[bytes, list[dict]]],
@@ -166,17 +184,27 @@ class TempoDB:
             self.planes.drop_dead(tenant, live)
 
     def scan_source(self, meta: bm.BlockMeta, req,
-                    row_groups: Sequence[int] | None = None):
+                    row_groups: Sequence[int] | None = None,
+                    cached_only: bool = False):
         """(view, candidate_rows) stream for one block: the plane cache's
         fused device first pass when enabled, else a direct parquet scan.
-        The shared read path behind search and query_range."""
+        The shared read path behind search, query_range, and tag
+        autocomplete. `cached_only` serves from the cache ONLY when the
+        block is already resident — metadata endpoints must not pay
+        full-block reads (or thrash the LRU) for a miss when a projected
+        one-column scan suffices."""
         from tempo_tpu_torch.block.fetch import scan_views
 
         if self.planes is not None:
-            return self.planes.get(self.backend_block(meta)).scan(
-                req, row_groups)
+            if cached_only:
+                entry = self.planes.peek(meta.tenant_id, meta.block_id)
+                if entry is not None:
+                    return entry.scan(req, row_groups)
+            else:
+                return self.planes.get(self.backend_block(meta)).scan(
+                    req, row_groups)
         return scan_views(self.backend_block(meta), req,
-                          row_groups=row_groups)
+                          row_groups=row_groups, device=self.device)
 
     def blocks(self, tenant: str, start_s: float | None = None,
                end_s: float | None = None,
@@ -408,12 +436,12 @@ class TempoDB:
     def enable_polling(self, interval_s: float | None = None) -> None:
         self._spawn(self._poll_loop, interval_s or self.cfg.poller.poll_interval_s)
 
-    # -- compaction / retention / sidecars: the cold tier (item 11) -------
+    # -- compaction / retention / sidecar backfill: the cold tier (item 11)
 
     def _cold_tier(self, what: str):
         raise NotImplementedError(
             f"TempoDB.{what} is the cold tier (compaction, retention and "
-            f"the sketch sidecars), which comes with ROADMAP section 1, "
+            f"the sidecar backfill), which comes with ROADMAP section 1, "
             f"item 11")
 
     def compact_tenant_once(self, tenant: str, owns=None) -> int:
@@ -425,12 +453,40 @@ class TempoDB:
     def retention_once(self, tenant: str):
         self._cold_tier("retention_once")
 
+    # -- sketch sidecars: historical folds --------------------------------
+
     def sidecar_plan(self, query: str):
-        self._cold_tier("sidecar_plan")
+        """FoldPlan when `query` is answerable from sidecars, else None."""
+        from tempo_tpu_torch.block import sidecar as sdc
+
+        return sdc.eligible_plan(query)
 
     def sidecar_series(self, tenant: str, req, meta, plan,
                        clip_end_ns: int | None = None):
-        self._cold_tier("sidecar_series")
+        """One historical block answered from its sidecar: job-level
+        TimeSeries for the frontend combiner, or None → caller re-scans
+        (missing/unreadable/domain-mismatched sidecar). Fold results ride
+        the plane cache keyed by (block, query window) and are evicted
+        with the block."""
+        from tempo_tpu_torch.block import sidecar as sdc
+
+        fkey = (req.query, req.start_ns, req.end_ns, req.step_ns,
+                clip_end_ns or 0)
+        if self.planes is not None:
+            hit = self.planes.fold_get(tenant, meta.block_id, fkey)
+            if hit is not None:
+                self.compaction_stats["sidecar_folds"] += 1
+                return hit
+        sc = sdc.read_sidecar(self.r, tenant, meta.block_id)
+        series = None if sc is None else sdc.fold_series(
+            sc, meta, req, plan, clip_end_ns)
+        if series is None:
+            self.compaction_stats["sidecar_fallbacks"] += 1
+            return None
+        self.compaction_stats["sidecar_folds"] += 1
+        if self.planes is not None:
+            self.planes.fold_put(tenant, meta.block_id, fkey, series)
+        return series
 
     def backfill_sidecars_once(self, tenant: str,
                                limit: int | None = None) -> int:

@@ -13,9 +13,11 @@ collection loop drives every instance's collection tick.
 Every instance runs on the generator's `device` (`cuda` unless `"cpu"`
 is asked for). Not carried yet, and raising `NotImplementedError` naming
 their ROADMAP item: the ingest WAL (`wal=`, `replay_wal*`,
-`truncate_wal`; item 12), the Kafka consumer group of `consume_bus`
-(item 14) and the metrics summary for a tenant with no instance
-(`traceql.metrics_summary`, item 6b).
+`truncate_wal`; item 12) and the Kafka consumer group of `consume_bus`
+(item 14). `get_metrics` for a tenant with no instance returns the
+empty `traceql.metrics_summary.MetricsResults`, as in the reference; an
+instance's own `query_range` / `get_metrics` come with the local-blocks
+processor (item 7).
 """
 
 from __future__ import annotations
@@ -327,9 +329,9 @@ class Generator:
                     max_series: int = 1000):
         with self._lock:
             if tenant not in self.instances:
-                raise NotImplementedError(
-                    "an empty metrics summary needs traceql.metrics_summary, "
-                    "which comes with ROADMAP section 1, item 6b")
+                from tempo_tpu_torch.traceql.metrics_summary import \
+                    MetricsResults
+                return MetricsResults(max_series)
         return self.instance(tenant).get_metrics(query, group_by,
                                                  max_series=max_series)
 

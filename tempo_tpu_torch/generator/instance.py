@@ -296,7 +296,15 @@ class GeneratorInstance:
 
     def collect_and_push(self, ts_ms: int | None = None) -> int:
         """One collection: purge stale series, gather device state, remote
-        write. Returns the number of samples pushed."""
+        write. Returns the number of samples pushed.
+
+        `remote_write.send_native_histograms` asks for the registry's
+        native histograms beside the samples; the port holds none yet
+        (ROADMAP section 2, item 6), so the flag raises."""
+        if self.cfg.remote_write.send_native_histograms:
+            raise NotImplementedError(
+                "remote_write.send_native_histograms sends native "
+                "histograms, which come with ROADMAP section 2, item 6")
         self.drain()
         if self.now() - self._last_purge > 60.0:
             self.registry.purge_stale()

@@ -9,9 +9,8 @@ WAL replay on construction.
 Counterpart of `tempo_tpu/ingester/ingester.py`, host code copied with its
 imports moved to the port. `push_otlp` decodes with the port's native
 layer, which builds at import or raises (no Python-decoder fallback).
-`search`, `tag_names` and `tag_values` (TraceQL over in-memory views,
-`traceql.memview`) come with ROADMAP section 1, item 6b, and raise until
-then.
+`search`, `tag_names` and `tag_values` run TraceQL over in-memory views
+of the live traces (`traceql.memview`) and over local complete blocks.
 """
 
 from __future__ import annotations
@@ -32,9 +31,6 @@ from tempo_tpu_torch.ingester.instance import InstanceConfig, TenantInstance
 from tempo_tpu_torch.obs import Registry
 from tempo_tpu_torch.overrides import Overrides
 from tempo_tpu_torch.utils.flushqueues import FlushQueues, backoff_at
-
-_READ_SIDE = ("Ingester.{} runs TraceQL over recent data (traceql.memview), "
-              "which comes with ROADMAP section 1, item 6b")
 
 log = logging.getLogger(__name__)
 
@@ -288,14 +284,72 @@ class Ingester:
 
     def search(self, tenant: str, query: str, limit: int = 20,
                start_s: float = 0, end_s: float = 0):
-        """TraceQL over live+WAL data and local complete blocks."""
-        raise NotImplementedError(_READ_SIDE.format("search"))
+        """TraceQL over live+WAL data (in-memory ColumnView) and local
+        complete blocks — the ingester side of querier fan-out."""
+        from tempo_tpu_torch.block.fetch import scan_views
+        from tempo_tpu_torch.traceql.engine import compile_query, execute_search
+        from tempo_tpu_torch.traceql.memview import view_from_traces
+
+        with self.lock:
+            if tenant not in self.instances:
+                return []
+        inst = self.instance(tenant)
+        q, req = compile_query(query, int(start_s * 1e9), int(end_s * 1e9))
+
+        def views():
+            traces = inst.all_recent_traces()
+            if traces:
+                v = view_from_traces(traces)
+                yield v, np.arange(v.n)
+            for b in inst.complete_blocks():
+                yield from scan_views(b, req)
+
+        return execute_search(q, views(), limit=limit,
+                              start_ns=int(start_s * 1e9),
+                              end_ns=int(end_s * 1e9))
 
     def tag_names(self, tenant: str) -> dict[str, list[str]]:
-        raise NotImplementedError(_READ_SIDE.format("tag_names"))
+        from tempo_tpu_torch.block.fetch import block_tag_names
+        from tempo_tpu_torch.traceql.engine import execute_tag_names
+        from tempo_tpu_torch.traceql.memview import view_from_traces
+
+        with self.lock:
+            if tenant not in self.instances:
+                return {}
+        inst = self.instance(tenant)
+        traces = inst.all_recent_traces()
+        out: dict[str, set] = {"span": set(), "resource": set()}
+        if traces:
+            v = view_from_traces(traces)
+            for scope, names in execute_tag_names([(v, np.arange(v.n))]).items():
+                out.setdefault(scope, set()).update(names)
+        for b in inst.complete_blocks():
+            for scope, names in block_tag_names(b).items():
+                out.setdefault(scope, set()).update(names)
+        return {k: sorted(v) for k, v in out.items()}
 
     def tag_values(self, tenant: str, name: str, limit: int = 1000) -> list[dict]:
-        raise NotImplementedError(_READ_SIDE.format("tag_values"))
+        """Distinct values of one attribute over live+WAL data and local
+        complete blocks (the ingester leg of `ExecuteTagValues`)."""
+        from tempo_tpu_torch.block.fetch import scan_views
+        from tempo_tpu_torch.traceql.engine import execute_tag_values, tag_values_request
+        from tempo_tpu_torch.traceql.memview import view_from_traces
+
+        with self.lock:
+            if tenant not in self.instances:
+                return []
+        inst = self.instance(tenant)
+        req = tag_values_request(name)
+
+        def views():
+            traces = inst.all_recent_traces()
+            if traces:
+                v = view_from_traces(traces)
+                yield v, np.arange(v.n)
+            for b in inst.complete_blocks():
+                yield from scan_views(b, req)
+
+        return execute_tag_values(name, views(), limit=limit)
 
     # -- replay ------------------------------------------------------------
 

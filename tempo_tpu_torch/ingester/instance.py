@@ -7,8 +7,8 @@ head-block lifecycle, WAL→columnar completion, and recent-data reads
 
 Counterpart of `tempo_tpu/ingester/instance.py`, host code copied with
 its imports moved to the port: completed blocks are written by the port's
-block writer (its own Parquet codec, `gzip` pages). Search over these
-blocks (`memview`) comes with ROADMAP section 1, item 6b.
+block writer (its own Parquet codec, `gzip` pages). `Ingester.search`
+reads these blocks and the live traces (through `traceql.memview`).
 """
 
 from __future__ import annotations

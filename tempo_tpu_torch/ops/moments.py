@@ -165,6 +165,14 @@ def merge_meta_check(a: MomentsSketch, b: MomentsSketch) -> None:
             f"shape={tuple(a.data.shape)}/{tuple(b.data.shape)})")
 
 
+def moments_merge_rows(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
+    """Host-side row merge (frontend combine, sidecar folds): [.., k+3]
+    f64 rows; sums add, the two bound columns take the max."""
+    out = a + b
+    out[..., k + 1:] = np.maximum(a[..., k + 1:], b[..., k + 1:])
+    return out
+
+
 def moments_zero_slots(state: MomentsSketch, slots) -> MomentsSketch:
     """Zero evicted slots' rows in place (ids outside the plane drop)."""
     s = torch.as_tensor(slots, device=state.data.device).to(torch.int64)
@@ -395,7 +403,8 @@ def moments_place(*_args, **_kwargs):
 
 
 __all__ = ["MomentsSketch", "moments_params", "moments_init",
-           "moments_update", "moments_zero_slots", "moments_basis",
+           "moments_update", "moments_merge_rows", "moments_zero_slots",
+           "moments_basis",
            "basis_constants", "chebyshev_basis", "merge_meta_check",
            "solve_quantiles", "quantiles_for_rows", "reset_solver_cache",
            "n_cols", "DEFAULT_K", "QUERY_K", "QUERY_LO", "QUERY_HI",

@@ -1,9 +1,10 @@
-"""Self-tracing hooks: the span surface the device scheduler calls.
+"""Self-tracing hooks: the span surface the scheduler and the frontend call.
 
 Counterpart of the part of `tempo_tpu/utils/tracing.py` that the
-scheduler uses (`span`, `span_for_tenant`, `adopted`, `install` /
-`tracer`, the disabled `NoopTracer` and the reserved-tenant guard,
-reference `:389-503`). The reference's `SelfTracer` (tail-keep buffers,
+scheduler and the query frontend use (`span`, `span_for_tenant`,
+`adopted`, `install` / `tracer`, `mark_keep`, `kept_trace_id_hex`,
+`current_trace_id_hex`, the disabled `NoopTracer` and the
+reserved-tenant guard, reference `:389-503`). The reference's `SelfTracer` (tail-keep buffers,
 W3C propagation, OTLP export and loopback self-ingest) comes with the
 app-wiring slice of the port; until then the installed tracer is the
 `NoopTracer` unless a caller installs an object with the same surface.
@@ -76,6 +77,25 @@ def span(name: str, **attrs):
     return _tracer.span(name, **attrs)
 
 
+def mark_keep() -> None:
+    """Force the current trace past head sampling (SLO miss / error)."""
+    _tracer.mark_keep()
+
+
+def kept_trace_id_hex() -> "str | None":
+    """Hex id of the current trace if its tree will be kept, else None —
+    stamped into qlog "query complete" lines as `selfTraceId`."""
+    return _tracer.trace_kept()
+
+
+def current_trace_id_hex() -> "str | None":
+    """Trace id of the active span (local or adopted remote context), or
+    None outside any span — slow requests stamp this onto their histogram
+    observation as the exemplar."""
+    s = _current_span.get()
+    return s.trace_id.hex() if s is not None else None
+
+
 def reserved_tenant() -> "str | None":
     """The loopback ops tenant, when self-ingest is active."""
     t = _tracer
@@ -125,5 +145,6 @@ def adopted(traceparent: "str | None"):
 
 
 __all__ = ["NoopTracer", "install", "tracer", "span", "span_for_tenant",
-           "adopted", "reserved_tenant", "is_reserved", "suppress",
-           "suppressed"]
+           "adopted", "mark_keep", "kept_trace_id_hex",
+           "current_trace_id_hex", "reserved_tenant", "is_reserved",
+           "suppress", "suppressed"]

@@ -443,9 +443,43 @@ def test_tenant_index_roundtrip(backend):
 
 
 def test_unported_backend_names_raise_naming_item_5b():
-    for name in ("CacheProvider", "CachingReader", "LRUCache", "open_backend"):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            getattr(tbackend, name)
+    """The cloud backends (`open_backend`) are item 5b; the role caches
+    came with the query frontend's job cache and behave as the
+    reference's (eviction order, hit and miss counts, the reads a
+    `CachingReader` serves from its roles)."""
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        tbackend.open_backend
+    from tempo_tpu.backend import cache as jcache
+    from tempo_tpu.backend.mem import MemBackend as JMem
+    from tempo_tpu.backend.raw import KeyPath as JKey
+    from tempo_tpu_torch.backend import KeyPath as TKey
+    from tempo_tpu_torch.backend import MemBackend as TMem
+    from tempo_tpu_torch.backend import cache as tcache
+
+    assert tbackend.LRUCache is tcache.LRUCache
+    got = []
+    for cache_mod, mem, key in ((tcache, TMem, TKey), (jcache, JMem, JKey)):
+        lru = cache_mod.LRUCache(max_bytes=9)
+        for k, v in (("a", b"123"), ("b", b"4567"), ("a", b"89"),
+                     ("c", b"xyzw")):
+            lru.put(k, v)
+        seen = [lru.get(k) for k in ("a", "b", "c", "d")]
+        inner = mem()
+        kp = key(("t", "blk"))
+        inner.write("bloom-0", kp, b"B" * 8)
+        inner.write("data.parquet", kp, b"P" * 64)
+        provider = cache_mod.CacheProvider()
+        rd = cache_mod.CachingReader(inner, provider)
+        reads = [rd.read("bloom-0", kp), rd.read("bloom-0", kp),
+                 rd.read_range("data.parquet", kp, 8, 4),
+                 rd.read_range("data.parquet", kp, 8, 4),
+                 rd.read("data.parquet", kp)]
+        roles = {r: (provider.cache_for(r).hits, provider.cache_for(r).misses)
+                 for r in (cache_mod.ROLE_BLOOM, cache_mod.ROLE_PAGE,
+                           cache_mod.ROLE_FOOTER)}
+        got.append((seen, lru.hits, lru.misses, reads, roles))
+    assert got[0] == got[1]
+    assert got[0][0] == [b"89", None, b"xyzw", None]
 
 
 def test_block_size_against_reference():

@@ -335,8 +335,9 @@ def test_unported_surfaces_raise_naming_their_item():
                  lambda: tg.truncate_wal("t", 3)):
         with pytest.raises(NotImplementedError, match="item 12"):
             call()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tg.get_metrics("nobody", "{}", ())
+    # a tenant with no instance answers the empty summary, as in the
+    # reference (tests/test_torch_querier.py holds it against it)
+    assert tg.get_metrics("nobody", "{}", ()).results() == []
     assert tg.query_range("nobody", None) == []
     tg.instance("t")
     with pytest.raises(RuntimeError, match="local-blocks"):
@@ -345,11 +346,30 @@ def test_unported_surfaces_raise_naming_their_item():
         tg.get_metrics("t", "{}", ())
     tg.instance("t").tick(immediate=True)           # no processor cuts
     from tempo_tpu_torch import backend, fleet, ingest
-    for mod, name, item in ((backend, "CachingReader", "item 5b"),
+    for mod, name, item in ((backend, "open_backend", "item 5b"),
                             (fleet, "FleetController", "item 12"),
                             (ingest, "ConsumerGroup", "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mod, name)
+
+
+def test_send_native_histograms_raises_naming_item_6():
+    """The reference's collect sends `registry.native_histograms()` when
+    `remote_write.send_native_histograms` is set; the port holds no
+    native histogram yet (ROADMAP section 2, item 6), so the flag raises
+    rather than being ignored."""
+    from tempo_tpu_torch.generator import GeneratorConfig, GeneratorInstance
+    from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
+
+    inst = GeneratorInstance("t", GeneratorConfig(
+        processors=("span-metrics",),
+        remote_write=RemoteWriteConfig(send_native_histograms=True)),
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="section 2, item 6"):
+        inst.collect_and_push()
+    off = GeneratorInstance("t", GeneratorConfig(
+        processors=("span-metrics",)), device="cpu")
+    assert off.collect_and_push() == 0
 
 
 def test_generator_runs_on_cuda_by_default(monkeypatch):

@@ -25,6 +25,9 @@
   (`TempoDB.write_block`, `search`, `query_range` with rate and quantile
   on both query tiers, the device plane on and off, `find_trace_by_id`)
   and ends with no `jax`, `tempo_tpu`, `yaml` or `pyarrow` loaded.
+- A fresh interpreter drives the query frontend (`Frontend` over
+  `Querier` and `TempoDB` with a job cache: search, find, tags, a rate
+  `query_range` and the sidecar fold tier) with the same result.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -303,6 +306,70 @@ def test_read_side_drive_loads_no_reference_yaml_or_pyarrow():
     in a fresh interpreter: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _READ_DRIVE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+_FRONTEND_DRIVE = """
+import sys
+import numpy as np
+from tempo_tpu_torch.backend import CacheProvider, MemBackend, block_keypath
+from tempo_tpu_torch.block import sidecar
+from tempo_tpu_torch.db import TempoDB
+from tempo_tpu_torch.frontend import Frontend
+from tempo_tpu_torch.ops import moments
+from tempo_tpu_torch.querier import Querier
+
+T0 = 1_700_000_000
+traces = []
+for i in range(48):
+    tid = bytes([i + 1]) * 16
+    start = (T0 + i * 5) * 10**9
+    traces.append((tid, [{
+        "trace_id": tid, "span_id": bytes([i + 1]) * 8, "name": f"op-{i % 3}",
+        "service": f"svc-{i % 2}", "kind": 2, "status_code": i % 3,
+        "start_unix_nano": start, "end_unix_nano": start + 10**6 * (i + 1)}]))
+be = MemBackend()
+db = TempoDB(be, be, device="cpu", now=lambda: T0 + 7200)
+meta = db.write_block("t", traces, replication_factor=1)
+db.poll_now()
+fe = Frontend(db, Querier(db), cache_provider=CacheProvider(),
+              now=lambda: T0 + 7200)
+assert len(fe.search("t", "{ }", limit=100, start_s=0, end_s=T0 + 7200)) == 48
+assert fe.find_trace("t", traces[5][0])
+assert fe.tag_names("t")["resource"] == []
+q = "{ } | rate() by (resource.service.name)"
+want = fe.query_range("t", q, start_s=T0 - 60, end_s=T0 + 600, step_s=60.0)
+assert sum(float(s.samples.sum()) for s in want) * 60 == 48
+# a sidecar in the reference's format: the fold tier answers the block
+rows = np.zeros((2, moments.n_cols(moments.QUERY_K)))
+rows[:, 0] = 24
+sc = sidecar.Sidecar(moments.QUERY_K, moments.QUERY_LO, moments.QUERY_HI,
+                     48, [("svc-0", "op"), ("svc-1", "op")], rows,
+                     np.zeros(1 << sidecar.SIDECAR_HLL_PRECISION, np.int32))
+be.write(sidecar.SIDECAR_NAME, block_keypath(meta.block_id, "t"), sc.to_json())
+db.blocklist.metas("t")[0].sidecar = True
+assert db.sidecar_plan(q) is not None
+got = fe.query_range("t", q, start_s=T0 - 60, end_s=T0 + 600, step_s=660.0)
+assert db.compaction_stats["sidecar_folds"] == 1
+assert sum(float(s.samples.sum()) for s in got) * 660 == 48
+fe.shutdown()
+db.shutdown()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+
+def test_frontend_drive_loads_no_reference_yaml_or_pyarrow():
+    """`Frontend` over `Querier` and `TempoDB` with a `CacheProvider`: a
+    search, a find, `tag_names`, a rate `query_range` and the sidecar
+    tier through `sidecar_plan`, in a fresh interpreter: no `jax`,
+    `tempo_tpu`, `yaml` or `pyarrow`."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _FRONTEND_DRIVE], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout

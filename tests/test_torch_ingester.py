@@ -11,7 +11,7 @@ discard reasons and counts, the flush queues' retry and abandonment, the
 deletion of flushed local blocks, and the exposition of the four
 `tempo_ingester_*` families (values exact; the duration histograms by
 their counts, since they time this host). The read side's `search`,
-`tag_names` and `tag_values` raise naming ROADMAP item 6.
+`tag_names` and `tag_values` are held in `tests/test_torch_querier.py`.
 """
 
 from __future__ import annotations
@@ -418,8 +418,12 @@ def test_obs_families_match_reference(rigs):
 
 
 def test_read_side_raises_naming_item_6(tmp_path):
-    ing = TIng(str(tmp_path), now=lambda: T0)
-    for call in (lambda: ing.search("t", "{}"), lambda: ing.tag_names("t"),
-                 lambda: ing.tag_values("t", "x")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    """The read side came with item 6b and no longer raises: over a
+    tenant it has never seen, each call answers empty as the reference's
+    does (`tests/test_torch_querier.py` holds the calls over data)."""
+    ing = TIng(str(tmp_path / "p"), now=lambda: T0)
+    ref = JIng(str(tmp_path / "j"), now=lambda: T0)
+    for name, args in (("search", ("t", "{}")), ("tag_names", ("t",)),
+                       ("tag_values", ("t", "x"))):
+        got = getattr(ing, name)(*args)
+        assert got == getattr(ref, name)(*args) and not got

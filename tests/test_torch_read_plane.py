@@ -684,8 +684,7 @@ def test_plane_cache_lru_budget(tmp_path):
     w.query(w.port, "{ } | rate() by (name)", T0, T0 + 100, 50e9)
     stats = w.port.planes.stats()
     assert stats["entries"] == 1 and stats["misses"] >= 3
-    assert set(stats) == {k for k in JPlaneCache().stats()
-                          if not k.startswith("fold_")}
+    assert set(stats) == set(JPlaneCache().stats())
     big = PlaneCache(device="cpu")
     assert (big.budget_bytes, big.max_blocks, big.host_budget_bytes) == \
         (1 << 30, 64, 4 << 30)
@@ -710,14 +709,145 @@ def test_search_rides_the_device_first_pass(world):
 
 
 def test_per_row_group_offload_raises_until_6b(planes, monkeypatch):
-    """`TEMPO_TPU_DEVICE_SCAN=1` asks for the reference's opt-in per-row-
-    group offload, which comes with ROADMAP item 6b: the port raises
-    rather than quietly staying on the host."""
+    """`TEMPO_TPU_DEVICE_SCAN=1` runs the reference's opt-in per-row-group
+    offload on the view's device (the CPU here): `condition_mask` gives
+    the host plane's answer through it. A mesh still raises naming item
+    13 (the differential cases are `test_offload_mask_*` below)."""
     tc, _ = planes
     _, req = tengine.compile_query('{ name = "op-1" }')
-    assert condition_mask(tc.views[0], req).any()
+    host = condition_mask(tc.views[0], req)
+    assert host.any()
     monkeypatch.setenv("TEMPO_TPU_DEVICE_SCAN", "1")
-    with pytest.raises(NotImplementedError, match="6b"):
-        condition_mask(tc.views[0], req)
+    before = tds.device_pred_mask.launches
+    np.testing.assert_array_equal(condition_mask(tc.views[0], req), host)
+    assert tds.device_pred_mask.launches == before + 1
+    assert tc.views[0].meta["device"].type == "cpu"
     with pytest.raises(NotImplementedError, match="item 13"):
         tds.BlockScanPlane(tc.views, mesh=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the per-row-group offload against the reference's jnp masks
+# ---------------------------------------------------------------------------
+
+OFFLOAD_QUERIES = [
+    '{ name = "op-1" }', '{ name != "op-1" }', '{ name > "op-3" }',
+    '{ name >= "op-3" }', '{ name < "op-2" }', '{ name <= "op-2" }',
+    '{ name =~ "op-[12]" }', '{ name !~ "op-[12]" }', '{ name =~ "(" }',
+    '{ resource.service.name = "svc-2" }',
+    '{ resource.service.name !~ "svc-[01]" }',
+    '{ .service.name = "svc-1" }', '{ name = "op-9" }',
+    "{ duration = 50ms }", "{ duration != 50ms }", "{ duration > 20ms }",
+    "{ duration >= 50ms }", "{ duration < 1.5ms }", "{ duration <= 123ms }",
+    "{ kind = server || status = error }", "{ status != ok }",
+    "{ nestedSetParent = -1 }", "{ nestedSetLeft > 2 }",
+    "{ nestedSetRight <= 3 }",
+    '{ name =~ "op-1." && duration > 20ms }',
+    '{ name !~ "op-[12]" || duration <= 5ms }',
+    '{ resource.service.name != "svc-0" && kind != client }',
+    # shapes the reference refuses (None → the host plane)
+    "{ span.http.status_code >= 400 }", '{ name = 3 }', "{ duration = \"x\" }",
+    '{ name = "op-1" && span.region = "r1" }', "{ duration > 1 + 2 }",
+]
+
+
+def _offload_both(tviews, jviews, query, monkeypatch):
+    monkeypatch.setenv("TEMPO_TPU_DEVICE_SCAN", "1")
+    _, tr = tengine.compile_query(query)
+    _, jr = jengine.compile_query(query)
+    tp = [c for c in tr.conditions if c.op is not None]
+    jp = [c for c in jr.conditions if c.op is not None]
+    out = []
+    for tv, jv in zip(tviews, jviews):
+        a = tds.device_pred_mask(tv, tp, tr.all_conditions)
+        b = jds.device_pred_mask(jv, jp, jr.all_conditions)
+        assert (a is None) == (b is None), query
+        if a is not None:
+            assert a.dtype == b.dtype == bool
+            np.testing.assert_array_equal(a, b, err_msg=query)
+        out.append(a)
+    return out
+
+
+@pytest.mark.parametrize("query", OFFLOAD_QUERIES)
+def test_offload_mask_matches_reference(planes, query, monkeypatch):
+    tc, jc = planes
+    masks = _offload_both(tc.views, jc.views, query, monkeypatch)
+    if any(m is not None for m in masks) and "=~ \"(\"" not in query:
+        assert all(m is not None for m in masks)
+    monkeypatch.delenv("TEMPO_TPU_DEVICE_SCAN")
+    assert tds.device_pred_mask(tc.views[0], [object()], True) is None
+
+
+@pytest.fixture(scope="module")
+def edge_views(tmp_path_factory):
+    """Durations on the float32 edges of the literals (20 ms, 2^24 ns and
+    1.5 ms): values one ns either side of them round to the same float32
+    as the literal, so the reference's float32 compare and the exact host
+    compare part there."""
+    rng = np.random.default_rng(12)
+    edges = []
+    for lit in (20_000_000, 1 << 24, 1_500_000):
+        edges += [lit + d for d in range(-3, 4)]
+    traces = []
+    for i, dur in enumerate(edges * 4):
+        tid = bytes([i // 256, i % 256]) + bytes(14)
+        start = T0 * 10**9 + i * 10**6
+        traces.append((tid, [{
+            "trace_id": tid, "span_id": rng.bytes(8),
+            "name": f"op-{i % 4}", "service": f"svc-{i % 3}",
+            "start_unix_nano": start, "end_unix_nano": start + dur,
+            "kind": i % 6, "status_code": i % 3}]))
+    traces.sort(key=lambda t: t[0])
+    tb, jb = port_block(tmp_path_factory.mktemp("edges"), traces,
+                        row_group_rows=32)
+    tviews = [v for v, _ in tfetch_scan(tb)]
+    jviews = [v for v, _ in jfetch_scan(jb)]
+    return tviews, jviews
+
+
+def tfetch_scan(tb):
+    from tempo_tpu_torch.block.fetch import scan_views
+
+    return scan_views(tb, device="cpu")
+
+
+def jfetch_scan(jb):
+    from tempo_tpu.block.fetch import scan_views
+
+    return scan_views(jb)
+
+
+@pytest.mark.parametrize("query", [
+    "{ duration > 20ms }", "{ duration >= 20ms }", "{ duration = 20ms }",
+    "{ duration != 20ms }", "{ duration < 20ms }", "{ duration <= 20ms }",
+    "{ duration > 16777216ns }", "{ duration = 16777217ns }",
+    "{ duration < 1.5ms || duration > 20.000001ms }",
+    '{ duration >= 1500001ns && name != "op-1" }',
+])
+def test_offload_mask_float32_edges_match_reference(edge_views, query,
+                                                     monkeypatch):
+    tviews, jviews = edge_views
+    masks = _offload_both(tviews, jviews, query, monkeypatch)
+    assert all(m is not None for m in masks)
+    monkeypatch.delenv("TEMPO_TPU_DEVICE_SCAN")
+    _, tr = tengine.compile_query(query)
+    exact = np.concatenate([condition_mask(v, tr) for v in tviews])
+    f32 = np.concatenate(masks)
+    if query in ("{ duration = 20ms }", "{ duration > 16777216ns }"):
+        assert (exact != f32).any()   # the edges do part the two planes
+
+
+def test_offload_caches_device_columns_on_the_view(edge_views, monkeypatch):
+    tviews, _ = edge_views
+    monkeypatch.setenv("TEMPO_TPU_DEVICE_SCAN", "1")
+    _, tr = tengine.compile_query('{ name = "op-1" && duration > 20ms }')
+    preds = [c for c in tr.conditions if c.op is not None]
+    view = tviews[0]
+    tds.device_pred_mask(view, preds, True)
+    cached = dict(view.meta["_dev_arrays"])
+    assert set(cached) == {"dict:name", "num:duration"}
+    assert cached["dict:name"].dtype == torch.int32
+    assert cached["num:duration"].dtype == torch.float32
+    tds.device_pred_mask(view, preds, True)
+    assert all(view.meta["_dev_arrays"][k] is cached[k] for k in cached)
