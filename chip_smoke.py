@@ -141,11 +141,13 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       K1 at a captured merged window against its plain version;
    b. the columnar tee into two generators on the card (two interners, so
       no shared staging; the ingesters take payload slices through
-      `Ingester.push_otlp`, with 8a's ingester checks): the span-metrics
-      tenants take `push_otlp_recs`, the default ones payload slices;
-      every span reaches exactly one
-      generator, each generator's spans equal its twin's, and every
-      family summed over the two generators by label set equals 8a's;
+      `Ingester.push_otlp`, with 8a's ingester checks), the span-metrics
+      tenants sent their payloads once (every series new): they take
+      `push_otlp_recs`, the default ones payload slices; every span
+      reaches exactly one generator, each generator's spans equal its
+      twin's, and every family summed over the two generators by label
+      set equals 8a's (after 8a's first pass for the span-metrics
+      tenants);
    c. overload: one span-metrics tenant with sampling floor 0.25 and tail
       protection off under a keep fraction of 0.5: spans discarded as
       `sampled`, hash-kept weights exactly 2.0 (error spans 1.0), the
@@ -1636,6 +1638,10 @@ def _k1_on_window(proc, mat, ctx):
     idle = (5,) if skw["dd_rows"] and not (
         mat[1][live & (mat[0] < skw["dd_rows"])] <= skw["min_value"]).any() \
         else ()
+    # a window of pushes without span sizes (the dict route's
+    # `push_spans`) adds nothing to the size counter, role 3
+    if not mat[2][live].any():
+        idle += (3,)
     max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, ctx, page_rows=pr,
                             idle_roles=idle)
 
@@ -2498,18 +2504,22 @@ def _timed(obj, name, acc):
     return inner
 
 
-def _dist_drive(dist, gens, traffic, ctx, acc=None):
-    """Every tenant's payloads through `Distributor.push_otlp`: the
-    span-metrics tenants' twice (every series new, then every series
-    known), the default tenants' once, payload by payload across the
-    tenants. Returns ({pass: seconds, each pass ending settled}, {pass:
-    {"push": the distributor's host ms a push from its `push_duration`
-    histogram, and per key of `acc` (seconds that wrappers add up) its
-    ms a push}})."""
+def _dist_drive(dist, gens, traffic, ctx, acc=None,
+                passes=("new", "known", "default"), after=None):
+    """Every tenant's payloads through `Distributor.push_otlp`, pass by
+    pass: the span-metrics tenants' in "new" (every series new) and
+    "known" (every series known), the default tenants' in "default",
+    payload by payload across the tenants; `after(pass)` runs once each
+    pass has settled. Returns ({pass: seconds, each pass ending
+    settled}, {pass: {"push": the distributor's host ms a push from its
+    `push_duration` histogram, and per key of `acc` (seconds that
+    wrappers add up) its ms a push}})."""
     acc = {} if acc is None else acc
     secs, ms = {}, {}
-    for what, tenants in (("new", SM_TENANTS), ("known", SM_TENANTS),
-                          ("default", DEFAULT_TENANTS)):
+    tenants_of = {"new": SM_TENANTS, "known": SM_TENANTS,
+                  "default": DEFAULT_TENANTS}
+    for what in passes:
+        tenants = tenants_of[what]
         h0 = dist.push_duration.snapshot() or {"sum": 0.0, "count": 0}
         a0 = dict(acc)
         t0 = time.perf_counter()
@@ -2525,6 +2535,8 @@ def _dist_drive(dist, gens, traffic, ctx, acc=None):
         ms[what] = {"push": (h1["sum"] - h0["sum"]) / n * 1e3}
         ms[what].update({k: (v - a0.get(k, 0.0)) / n * 1e3
                          for k, v in acc.items()})
+        if after is not None:
+            after(what)
     return secs, ms
 
 
@@ -2607,8 +2619,17 @@ def _phase_distributor(card, root, t_phase):
     b0 = sc.batches_total.get(SCHED_KERNEL, 0)
     ck.reset_launch_counts()
     plans0 = ck.paged_fused_update.plans
+    # 8b runs its span-metrics tenants one pass: their rows after 8a's
+    # first pass are what 8b's must equal
+    single_new = {}
+
+    def after(what):
+        if what == "new":
+            single_new.update({t: _family_rows([g.instance(t)])
+                               for t in SM_TENANTS})
     try:
-        secs, push_ms = _dist_drive(dist, gens, traffic, ctx, acc)
+        secs, push_ms = _dist_drive(dist, gens, traffic, ctx, acc,
+                                    after=after)
     finally:
         otlp_batch.stage_otlp = inner_stage
     launches = ck.paged_fused_update.launches
@@ -2719,8 +2740,10 @@ def _phase_distributor(card, root, t_phase):
     ing_acc = {}
     for ing in ings.values():            # the ingester leg: all three
         _timed(ing, "push_otlp", ing_acc)
+    passes_b = ("new", "default")        # one pass of the span-metrics tenants
     try:
-        secs_b, push_ms_b = _dist_drive(dist, gens, traffic, ctx, acc)
+        secs_b, push_ms_b = _dist_drive(dist, gens, traffic, ctx, acc,
+                                        passes=passes_b)
     finally:
         native.otlp_scan = inner_scan
     launches_b = ck.paged_fused_update.launches
@@ -2728,8 +2751,8 @@ def _phase_distributor(card, root, t_phase):
     if launches_b != dispatches_b or not launches_b:
         raise AssertionError(f"{ctx}: K1 launched {launches_b} times for "
                              f"{dispatches_b} merged dispatches")
-    n_push_t = {t: len(traffic[t]) * (2 if t in SM_TENANTS else 1)
-                for t in traffic}
+    n_push_t = {t: len(traffic[t]) for t in traffic}
+    sent_b = {t: sent[t] // (2 if t in SM_TENANTS else 1) for t in traffic}
     if dist.discarded or dist.metrics.get("push_failures_total"):
         raise AssertionError(f"{ctx}: discarded {dist.discarded}, "
                              f"{dist.metrics}")
@@ -2742,17 +2765,18 @@ def _phase_distributor(card, root, t_phase):
         if c != want:
             raise AssertionError(f"{ctx}: {t} took {c}, want {want}")
     twin, tgens, _ = _dist_rig("cpu", 2, now)
-    _dist_drive(twin, tgens, traffic, f"{ctx} twin")
+    _dist_drive(twin, tgens, traffic, f"{ctx} twin", passes=passes_b)
     n_b = 0
     max_rel_b = 0.0
     for t in traffic:
         got = [gens[k].instance(t).spans_received for k in gens]
         want = [tgens[k].instance(t).spans_received for k in gens]
-        if got != want or sum(got) != sent[t] or min(got) == 0:
+        if got != want or sum(got) != sent_b[t] or min(got) == 0:
             raise AssertionError(f"{ctx} {t}: spans by generator {got}, "
-                                 f"twins {want}, sent {sent[t]}")
+                                 f"twins {want}, sent {sent_b[t]}")
         n, r = _compare_rows(_family_rows([gg.instance(t) for gg in
-                                           gens.values()]), single[t],
+                                           gens.values()]),
+                             single_new.get(t, single[t]),
                              f"{ctx} {t} against 8a")
         n_b, max_rel_b = n_b + n, max(max_rel_b, r)
     k1b, row = _dist_k1_row(
@@ -2764,9 +2788,8 @@ def _phase_distributor(card, root, t_phase):
     out["8b"] = dict(secs=secs_b, push_ms=push_ms_b, launches=launches_b,
                      ingester_ms=ing_ms_b, find_ms=find_ms_b)
     print(f"phase 8b [{card}]: Distributor.push_otlp → columnar tee → two "
-          f"Generators on the card: span-metrics tenants "
-          f"{spans_sm / secs_b['new']:.0f} spans/s (series new), "
-          f"{spans_sm / secs_b['known']:.0f} spans/s (series known), default "
+          f"Generators on the card: span-metrics tenants (one pass) "
+          f"{spans_sm / secs_b['new']:.0f} spans/s (series new), default "
           f"tenants "
           f"{len(DEFAULT_TENANTS) * N_TREE_PUSHES * N_TREE_SPANS / secs_b['default']:.0f} "
           f"spans/s; host ms a push by pass, "
@@ -2788,9 +2811,10 @@ def _phase_distributor(card, root, t_phase):
           f"default tenants payload slices on every push; every span reached "
           f"exactly one generator, spans_received per generator equal to the "
           f"CPU twins'; {n_b} series of every family, summed over the two "
-          f"generators by label set, equal phase 8a's one generator (counts "
-          f"exact, sums within rtol 1e-5, max relative {max_rel_b:.3g})")
-    del dist, gens, twin, tgens, mats, single
+          f"generators by label set, equal phase 8a's one generator (after "
+          f"its first pass for the span-metrics tenants; counts exact, sums "
+          f"within rtol 1e-5, max relative {max_rel_b:.3g})")
+    del dist, gens, twin, tgens, mats, single, single_new
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3651,9 +3675,11 @@ def phase10_profiles() -> dict:
     return out
 
 
-def _profiles_in_child(ctx) -> dict:
+def _profiles_in_child(ctx, *args) -> dict:
+    """`chip_smoke.py --phase10-profiles` (or the flag and arguments
+    given) in a process of its own; its PROFILES line."""
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                          "--phase10-profiles"], cwd=ROOT,
+                          *(args or ("--phase10-profiles",))], cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
     lines = [ln for ln in out.stdout.splitlines()
              if ln.startswith("PROFILES ")]
@@ -4273,6 +4299,485 @@ def offload_profile(views, q) -> tuple:
             os.environ["TEMPO_TPU_DEVICE_SCAN"] = prev
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ingest-storage path — the generator's local blocks (the
+# recent window) and the block-builder's sketch sidecars (the history)
+# ---------------------------------------------------------------------------
+
+LB_TENANT = "lb-0"
+N_BUS_PARTITIONS = 4
+N_LB_PUSHES = 2                  # history pushes, then as many recent ones
+LB_RECENT_S = 1200.0             # the clock moves 20 minutes between legs
+LB_RATE = "{ } | rate() by (resource.service.name)"
+LB_QUANT = ("{ } | quantile_over_time(duration, .5, .99) by "
+            "(resource.service.name)")
+HLL_REL_MAX = 0.10               # about 3 sigma of the estimate at p = 10
+QUANT_GATE = 0.05                # tests/test_compact.py:246-263
+
+
+def _lb_payloads(t0):
+    """[history, recent] lists of OTLP payloads of `deep_trace_spans`,
+    stamped within 10 s before `t0` and before `t0 + LB_RECENT_S`."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    return [[encode_spans_otlp(deep_trace_spans(
+        N_SPANS, seed=SEED + 120 + 2 * leg + k, now_ns=int(at * 1e9)))
+        for k in range(N_LB_PUSHES)]
+        for leg, at in enumerate((t0, t0 + LB_RECENT_S))]
+
+
+class _LbRig:
+    """The ingest-storage deployment of one tenant on `device`, on its own
+    clock: an in-memory `Bus` of 4 partitions; one `Generator` of the
+    default config whose tenant runs span metrics and local blocks (kept
+    under `root/gen`); one `BlockBuilder` owning every partition, sidecars
+    on, writing a `LocalBackend` store under `root/store`; a `TempoDB`
+    over the store (the reference's default config) and a `Querier` (rf
+    1, no ingester: the bus replaces them)."""
+
+    def __init__(self, device, root, t0):
+        from tempo_tpu_torch.backend import LocalBackend
+        from tempo_tpu_torch.blockbuilder import (BlockBuilder,
+                                                  BlockBuilderConfig)
+        from tempo_tpu_torch.db import TempoDB
+        from tempo_tpu_torch.generator import Generator, GeneratorConfig
+        from tempo_tpu_torch.generator.processors.localblocks import \
+            LocalBlocksConfig
+        from tempo_tpu_torch.ingest import Bus
+        from tempo_tpu_torch.overrides import Overrides
+        from tempo_tpu_torch.querier import Querier
+        from tempo_tpu_torch.querier.querier import QuerierConfig
+        from tempo_tpu_torch.ring import Ring
+
+        self.t0 = t0
+        self.clock = [t0]
+        now = self.now = lambda: self.clock[0]
+        self.ov = Overrides()
+        self.ov.set_tenant_patch(LB_TENANT, {
+            "generator": {"processors": ["span-metrics", "local-blocks"]},
+            "ingestion": dict(UNLIMITED)})
+        self.bus = Bus(N_BUS_PARTITIONS)
+        self.gen = Generator(GeneratorConfig(localblocks=LocalBlocksConfig(
+            data_dir=os.path.join(root, "gen"))), overrides=self.ov, now=now,
+            device=device)
+        self.store = LocalBackend(os.path.join(root, "store"))
+        self.bb = BlockBuilder(self.bus, self.store,
+                               BlockBuilderConfig(partitions=None), now=now,
+                               device=device)
+        self.db = TempoDB(self.store, self.store, now=now, device=device)
+        self.querier = Querier(self.db, Ring(replication_factor=1, now=now),
+                               {}, cfg=QuerierConfig(rf=1))
+
+    def drain(self):
+        """Both consumers drain the bus (each reads at most 1,000 records a
+        partition a call): (the generator's seconds, settled; the
+        block-builder's)."""
+        t0 = time.perf_counter()
+        while self.gen.consume_bus(self.bus):
+            pass
+        _settle({"g": self.gen})
+        t1 = time.perf_counter()
+        while self.bb.consume_cycle():
+            pass
+        t2 = time.perf_counter()
+        self.db.poll_now()
+        return t1 - t0, t2 - t1
+
+    def frontend(self, **cfg):
+        from tempo_tpu_torch.frontend import Frontend, FrontendConfig
+
+        return Frontend(self.db, self.querier, cfg=FrontendConfig(**cfg),
+                        generator_query_range=self.gen.query_range,
+                        now=self.now)
+
+    def window(self):
+        """One step over both legs: 600 s before the history to 60 s past
+        the recent leg (the frontend's cutoff, 900 s back, lies between
+        them)."""
+        start, end = self.t0 - 600.0, self.clock[0] + 60.0
+        return dict(start_s=start, end_s=end, step_s=end - start)
+
+    def metas(self):
+        return sorted(self.db.blocklist.metas(LB_TENANT),
+                      key=lambda m: (m.start_time, m.end_time,
+                                     m.total_objects))
+
+
+def _sidecar_input(spans_by_trace):
+    """`sidecar_from_traces`' columns of [(trace id, spans)]: per-span
+    series ids of the dense (service, name) set, durations, trace ids."""
+    svc, nam, dur, tid = [], [], [], []
+    for t, spans in spans_by_trace:
+        for s in spans:
+            svc.append(s["service"])
+            nam.append(s["name"])
+            dur.append(s["end_unix_nano"] - s["start_unix_nano"])
+            tid.append(np.frombuffer(t, np.uint8))
+    comp = np.unique(np.char.add(np.char.add(np.asarray(svc), "\0"),
+                                 np.asarray(nam)), return_inverse=True)[1]
+    return (comp.astype(np.int32), np.asarray(dur, np.int64),
+            int(comp.max()) + 1, np.stack(tid))
+
+
+def _sidecar_bound(n_spans, n_series):
+    """Bytes the sidecar pass must move on the card (each span's series
+    id, f32 duration and two 32-bit hashes read once; the moment rows and
+    the 1,024 registers written once) and its bound."""
+    from tempo_tpu_torch.ops import moments as msk
+
+    nbytes = n_spans * 16 + n_series * msk.n_cols(msk.QUERY_K) * 4 + 1024 * 4
+    return (nbytes, *bound(nbytes, n_spans * (8 + 4 * msk.QUERY_K)))
+
+
+def phase12_profiles(root, t0, clock) -> dict:
+    """Phase 12's torch.profiler readings, in a process of its own as
+    phase 10b's are: the card's stack reopened from phase 12's directory
+    (the block-builder's store; the generator's local blocks replayed
+    from its data directory) on the clock where the phase left it, then
+    a warm frontend rate query over both legs, and the sidecar pass at
+    the first history block's shape (its traces rebuilt from the seed and
+    partitioned as the distributor does)."""
+    from tempo_tpu_torch import native
+    from tempo_tpu_torch.ingest.encoding import partition_for
+    from tempo_tpu_torch.ops import compact
+    from tempo_tpu_torch.ops import moments as msk
+    from tempo_tpu_torch.ops.hashing import token_for
+
+    t0, clock = float(t0), float(clock)
+    rig = _LbRig("cuda", root, t0)
+    rig.clock[0] = clock
+    rig.db.poll_now()
+    lb = rig.gen.instance(LB_TENANT).processors["local-blocks"]
+    if len(lb.inst.complete_blocks()) != 1:
+        raise AssertionError("phase 12 profiles: the local block did not "
+                             "replay")
+    fe = rig.frontend()
+    w = rig.window()
+    out = {}
+    (out["fe_device_ms"], out["fe_launches"], out["fe_wall_ms"],
+     out["fe_top"]) = _profile(lambda: fe.query_range(LB_TENANT, LB_RATE,
+                                                      **w))
+    if not rig.db.compaction_stats["sidecar_folds"]:
+        raise AssertionError("phase 12 profiles: no sidecar fold")
+    fe.shutdown()
+    by: dict = {}
+    for data in _lb_payloads(t0)[0]:
+        for sp in native.spans_from_otlp_proto_native(data):
+            by.setdefault(sp["trace_id"], []).append(sp)
+    tids = sorted(by)
+    mat = np.stack([np.frombuffer(t, np.uint8) for t in tids])
+    part = partition_for(token_for(LB_TENANT, mat), N_BUS_PARTITIONS)
+    block = [(t, by[t]) for t, p in zip(tids, part) if p == 0]
+    sids, dur, n_series, tid = _sidecar_input(block)
+    lo = min(s["start_unix_nano"] for _, sp in block for s in sp) / 1e9
+    hi = max(s["end_unix_nano"] for _, sp in block for s in sp) / 1e9
+    if len([m for m in rig.metas() if m.total_spans == len(dur)
+            and m.total_objects == len(block)
+            and abs(m.start_time - lo) < 1e-3
+            and abs(m.end_time - hi) < 1e-3]) != 1:
+        raise AssertionError("phase 12 profiles: the rebuilt block of "
+                             "partition 0 matches no history block")
+    (out["sc_device_ms"], out["sc_launches"], out["sc_wall_ms"],
+     out["sc_top"]) = _profile(lambda: compact.build_sidecar_arrays(
+        sids, dur, n_series, tid, msk.QUERY_K, msk.QUERY_LO, msk.QUERY_HI,
+        device="cuda"))
+    out["sc_spans"], out["sc_series"] = len(dur), n_series
+    (out["sc_bound_bytes"], out["sc_bound_ms"],
+     out["sc_bound_by"]) = _sidecar_bound(len(dur), n_series)
+    rig.db.shutdown()
+    return out
+
+
+def _print_phase12(r, card):
+    p = r["prof"]
+    n = 2 * N_LB_PUSHES * N_SPANS
+    sec = r["secs"]
+
+    def dev(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+    print(f"phase 12a [{card}]: Distributor.push_otlp onto a {N_BUS_PARTITIONS}"
+          f"-partition Bus ({r['records']} records, {n} spans in "
+          f"{2 * N_LB_PUSHES} pushes) {n / sec['push']:.0f} spans/s; "
+          f"Generator.consume_bus into span metrics and local blocks "
+          f"{n / sec['generator']:.0f} spans/s ({sec['generator']:.3f} s); "
+          f"BlockBuilder.consume_cycle with sidecars on the card "
+          f"{n / sec['blockbuilder']:.0f} spans/s ({sec['blockbuilder']:.3f} "
+          f"s); the local cut (tick, immediate) {r['cut_s']:.3f} s; K1 "
+          f"launches {r['launches']} for {r['dispatches']} merged dispatches, "
+          f"device time at a window {r['k1_device_ms']} ms")
+    print(f"phase 12a checks: {2 * N_BUS_PARTITIONS} RF1 blocks with a "
+          f"sidecar each, HLL registers equal bit for bit to the CPU twin's, "
+          f"moment counts exact, bounds within rtol 2e-6 "
+          f"({r['bounds_off'][0]} of {r['bounds_off'][1]} bound cells one "
+          f"f32 log apart) and sums within the rows' tolerance; HLL "
+          f"estimates within {r['hll_worst'] * 100:.2f}% of "
+          f"each block's distinct traces (limit {HLL_REL_MAX * 100:.0f}%), "
+          f"the merged history {r['hll_hist']:.1f} of {r['n_hist']}; every "
+          f"span received, none filtered by the slack")
+    print(f"phase 12b checks: Frontend (default FrontendConfig) over both "
+          f"legs: {r['folds']} sidecar folds, 0 fallbacks; rate by service "
+          f"equal to a sidecar_folds=False rescan and to the CPU twin, every "
+          f"span counted; quantile_over_time(duration, .5, .99) over "
+          f"{r['n_series']} services within the moments gate (largest "
+          f"min(rel, rank) {r['q_err']:.4f}, limit {QUANT_GATE}), "
+          f"{r['q_rel']:.3g} relative from the twin; rate and quantiles the "
+          f"same before and after the local cut")
+    print(f"phase 12b [{card}]: a warm Frontend.query_range rate by service "
+          f"over both legs {r['fe_ms']:.3f} ms; in the profiling process "
+          f"{p['fe_wall_ms']:.3f} ms of wall, device {dev(p['fe_device_ms'])} "
+          f"in {p['fe_launches']:.0f} ops, idle share "
+          + ("not measured" if p["fe_device_ms"] is None else
+             f"{1 - p['fe_device_ms'] / p['fe_wall_ms']:.4f}")
+          + f"; the sidecar pass (moments_update + hll_update) over a block "
+          f"of {p['sc_spans']} spans, {p['sc_series']} series: device "
+          f"{dev(p['sc_device_ms'])} in {p['sc_launches']:.0f} ops, "
+          f"{p['sc_wall_ms']:.3f} ms with the host, bound "
+          f"{p['sc_bound_ms']:.6f} ms by {p['sc_bound_by']} "
+          f"({p['sc_bound_bytes']} bytes at 3.35 TB/s), longest op "
+          f"{p['sc_top'][0]} {p['sc_top'][1]:.4f} ms")
+
+
+def phase_ingest_storage(card):
+    """Phase 12: the ingest-storage path at the reference's defaults, on
+    the card against a CPU twin; the stores and the local blocks live
+    under `build/` for the phase. Returns (results, K1's kernel
+    entry)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase12-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_ingest_storage(card, root)
+
+
+def _check_sidecars(rig, twin, n_traces, ctx):
+    """Every block of the card's store against the twin's (the same
+    records, so the same blocks): RF1 with a sidecar; HLL registers equal
+    bit for bit; moment counts exact, bounds within rtol 2e-6 and sums
+    within rtol 1e-5 plus 2e-5 a unit of weight (ROADMAP section 3); each
+    block's HLL estimate, and the merged history's, within HLL_REL_MAX of
+    the exact distinct traces. Returns the largest relative estimate
+    error, the history blocks' merged estimate, and (bound cells that
+    differ, bound cells)."""
+    from tempo_tpu_torch.block import sidecar as scm
+    from tempo_tpu_torch.ops import moments as msk
+
+    metas, tmetas = rig.metas(), twin.metas()
+    if len(metas) != 2 * N_BUS_PARTITIONS or [
+            (m.start_time, m.end_time, m.total_objects, m.total_spans)
+            for m in metas] != [(m.start_time, m.end_time, m.total_objects,
+                                 m.total_spans) for m in tmetas]:
+        raise AssertionError(f"{ctx}: {len(metas)} blocks, the twin "
+                             f"{len(tmetas)}, or they differ")
+    k = msk.QUERY_K
+    worst, hist = 0.0, None
+    bounds_off = n_bounds = 0
+    cutoff = rig.clock[0] - 900.0
+    for m, tm in zip(metas, tmetas):
+        a = scm.read_sidecar(rig.store, LB_TENANT, m.block_id)
+        b = scm.read_sidecar(twin.store, LB_TENANT, tm.block_id)
+        if not (m.sidecar and m.replication_factor == 1 and a and b):
+            raise AssertionError(f"{ctx}: block {m.block_id} rf "
+                                 f"{m.replication_factor}, sidecar "
+                                 f"{m.sidecar}")
+        if (a.total_spans, a.series) != (b.total_spans, b.series) or \
+                a.total_spans != m.total_spans:
+            raise AssertionError(f"{ctx}: block {m.block_id}: sidecar "
+                                 f"series or spans differ from the twin's")
+        if not np.array_equal(a.hll, b.hll):
+            raise AssertionError(f"{ctx}: block {m.block_id}: HLL registers "
+                                 f"differ from the twin's in "
+                                 f"{int((a.hll != b.hll).sum())} places")
+        if not np.array_equal(a.rows[:, 0], b.rows[:, 0]):
+            raise AssertionError(f"{ctx}: block {m.block_id}: moment counts "
+                                 f"differ from the twin's")
+        # the bounds take the device's f32 log: one ulp apart between the
+        # card and the host (ROADMAP section 3: bounds within 2e-6)
+        bd = np.abs(a.rows[:, k + 1:] - b.rows[:, k + 1:])
+        bounds_off += int((bd > 0).sum())
+        if (bd > 2e-6 * np.abs(b.rows[:, k + 1:])).any():
+            raise AssertionError(f"{ctx}: block {m.block_id}: moment bounds "
+                                 f"beyond rtol 2e-6 of the twin's "
+                                 f"(max {float(bd.max())})")
+        tol = 1e-5 * np.abs(b.rows[:, 1:k + 1]) + 2e-5 * b.rows[:, :1]
+        if (np.abs(a.rows[:, 1:k + 1] - b.rows[:, 1:k + 1]) > tol).any():
+            raise AssertionError(f"{ctx}: block {m.block_id}: moment sums "
+                                 f"beyond the rows' tolerance")
+        n_bounds += bd.size
+        rel = abs(a.trace_cardinality() - m.total_objects) / m.total_objects
+        if rel > HLL_REL_MAX:
+            raise AssertionError(f"{ctx}: block {m.block_id}: HLL estimate "
+                                 f"{a.trace_cardinality():.1f} of "
+                                 f"{m.total_objects} traces")
+        worst = max(worst, rel)
+        if m.end_time < cutoff:
+            hist = a if hist is None else scm.merge_sidecars(hist, a)
+    est = hist.trace_cardinality()
+    if abs(est - n_traces) / n_traces > HLL_REL_MAX:
+        raise AssertionError(f"{ctx}: merged history HLL {est:.1f} of "
+                             f"{n_traces} traces")
+    return worst, est, (bounds_off, n_bounds)
+
+
+def _quantile_gate(series, durs, ctx):
+    """Each (service, p) cell within the reference's moments gate of the
+    exact quantile of the spans sent: min(relative error, rank error) <=
+    0.05. Returns the largest such error."""
+    worst = 0.0
+    for key, v in series.items():
+        d = dict(key)
+        svc, q = d["resource.service.name"], float(d["p"])
+        x = durs[svc]
+        got = float(v.sum())
+        exact = float(np.quantile(x, q))
+        err = min(abs(got - exact) / exact, abs(float(np.mean(x <= got)) - q))
+        if err > QUANT_GATE:
+            raise AssertionError(f"{ctx}: {svc} q{q}: {got} against the "
+                                 f"exact {exact} (error {err:.4f})")
+        worst = max(worst, err)
+    return worst
+
+
+def _phase_ingest_storage(card, root):
+    import torch
+
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.distributor import Distributor
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ring import Ring
+
+    ctx = "phase 12"
+    t_phase = time.perf_counter()
+    t0 = time.time()
+    legs = _lb_payloads(t0)
+    host = _host_traces(legs[0] + legs[1])
+    n_spans = 2 * N_LB_PUSHES * N_SPANS
+    n_hist = len(_host_traces(legs[0]))
+    durs: dict = {}
+    for spans in host.values():
+        for s in spans:
+            durs.setdefault(s["service"], []).append(
+                (s["end_unix_nano"] - s["start_unix_nano"]) / 1e9)
+    durs = {k: np.asarray(v) for k, v in durs.items()}
+    sched.reset()
+    sc = sched.configure(sched.SchedConfig())
+    rig = _LbRig("cuda", os.path.join(root, "card"), t0)
+    dist = Distributor(Ring(replication_factor=1, now=rig.now), {},
+                       overrides=rig.ov, bus=rig.bus, now=rig.now)
+    inst = rig.gen.instance(LB_TENANT)
+    if set(inst.processors) != {"span-metrics", "local-blocks"} or \
+            inst._fast_spanmetrics() is not None or \
+            inst.state_layout != "dense":
+        raise AssertionError(f"{ctx}: {sorted(inst.processors)}, "
+                             f"{inst.state_layout} state")
+    proc = inst.processors["span-metrics"]
+    mats = _capture_windows(proc)
+    secs = {"push": 0.0, "generator": 0.0, "blockbuilder": 0.0}
+    marks = [[0] * N_BUS_PARTITIONS]
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    ck.reset_launch_counts()
+    for leg, payloads in enumerate(legs):
+        if leg:
+            rig.clock[0] += LB_RECENT_S
+        t1 = time.perf_counter()
+        for data in payloads:
+            errs = dist.push_otlp(LB_TENANT, data)
+            if errs:
+                raise AssertionError(f"{ctx}: push: {errs}")
+        secs["push"] += time.perf_counter() - t1
+        g_s, b_s = rig.drain()
+        secs["generator"] += g_s
+        secs["blockbuilder"] += b_s
+        marks.append([rig.bus.high_watermark(p)
+                      for p in range(N_BUS_PARTITIONS)])
+    launches = ck.paged_fused_update.launches
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches != dispatches or not launches:
+        raise AssertionError(f"{ctx}: K1 launched {launches} times for "
+                             f"{dispatches} merged dispatches")
+    if inst.spans_received != n_spans or inst.spans_filtered_slack or \
+            dist.discarded:
+        raise AssertionError(f"{ctx}: {inst.spans_received} spans received, "
+                             f"{inst.spans_filtered_slack} filtered, "
+                             f"discarded {dist.discarded}")
+    n_records = sum(marks[-1])
+
+    # the twin: the same records on the CPU, leg by leg on its own clock
+    twin = _LbRig("cpu", os.path.join(root, "twin"), t0)
+    for leg in range(2):
+        if leg:
+            twin.clock[0] += LB_RECENT_S
+        for p in range(N_BUS_PARTITIONS):
+            for rec in rig.bus.fetch(p, marks[leg][p],
+                                     marks[leg + 1][p] - marks[leg][p]):
+                twin.bus.produce(p, rec.tenant, rec.value)
+        twin.drain()
+    hll_worst, hll_hist, bounds_off = _check_sidecars(rig, twin, n_hist, ctx)
+
+    # 12b: the frontend at its defaults over both legs
+    fe, tfe = rig.frontend(), twin.frontend()
+    w = rig.window()
+    before = {q: _series_map(fe.query_range(LB_TENANT, q, **w))
+              for q in (LB_RATE, LB_QUANT)}
+    stats = dict(rig.db.compaction_stats)
+    if not stats["sidecar_folds"] or stats["sidecar_fallbacks"]:
+        raise AssertionError(f"{ctx}: {stats}")
+    scan = _series_map(rig.frontend(sidecar_folds=False).query_range(
+        LB_TENANT, LB_RATE, **w))
+    _same_series(before[LB_RATE], scan, True, f"{ctx}: rate folded vs "
+                 f"rescanned")
+    twin_q = {q: _series_map(tfe.query_range(LB_TENANT, q, **w))
+              for q in (LB_RATE, LB_QUANT)}
+    _same_series(before[LB_RATE], twin_q[LB_RATE], True,
+                 f"{ctx}: rate card vs CPU twin")
+    total = sum(float(v.sum()) for v in before[LB_RATE].values()) * w["step_s"]
+    if round(total) != n_spans:
+        raise AssertionError(f"{ctx}: the rate counts {total} of {n_spans} "
+                             f"spans")
+    q_err = _quantile_gate(before[LB_QUANT], durs, f"{ctx} card")
+    _quantile_gate(twin_q[LB_QUANT], durs, f"{ctx} twin")
+    q_rel = max(float(np.max(np.abs(before[LB_QUANT][k] - v)
+                             / np.maximum(np.abs(v), 1e-30)))
+                for k, v in twin_q[LB_QUANT].items())
+    # the local cut: live traces → WAL (a fsynced segment a trace) → one
+    # complete RF1 block; the recent leg answers the same
+    lb = inst.processors["local-blocks"]
+    t1 = time.perf_counter()
+    inst.tick(immediate=True)
+    cut_s = time.perf_counter() - t1
+    if len(lb.inst.complete_blocks()) != 1 or lb.inst.all_recent_traces():
+        raise AssertionError(f"{ctx}: after the local cut "
+                             f"{len(lb.inst.complete_blocks())} blocks")
+    after = {q: _series_map(fe.query_range(LB_TENANT, q, **w))
+             for q in (LB_RATE, LB_QUANT)}
+    _same_series(after[LB_RATE], before[LB_RATE], True,
+                 f"{ctx}: rate after the local cut")
+    _same_series(after[LB_QUANT], before[LB_QUANT], False,
+                 f"{ctx}: quantiles after the local cut")
+    fe_ms = _timed_ms(lambda: fe.query_range(LB_TENANT, LB_RATE, **w))
+    prof = _profiles_in_child(ctx, "--phase12-profiles",
+                              os.path.join(root, "card"), repr(t0),
+                              repr(rig.clock[0]))
+    k1, row = _dist_k1_row(
+        "paged_fused_update (local-blocks tenant: consume_bus → push_spans "
+        "→ push_batch, scheduler route, dense state, sketch dd, f32)", proc,
+        mats[-1], launches, f"{ctx} window")
+    for fr in (fe, tfe):
+        fr.shutdown()
+    for r in (rig, twin):
+        r.db.shutdown()
+    sched.reset()
+    del rig, twin, inst, proc, mats, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(secs=secs, records=n_records, launches=launches,
+               dispatches=dispatches, hll_worst=hll_worst, hll_hist=hll_hist,
+               bounds_off=bounds_off,
+               n_hist=n_hist, folds=stats["sidecar_folds"], q_err=q_err,
+               q_rel=q_rel, cut_s=cut_s, fe_ms=fe_ms, prof=prof,
+               k1_device_ms=k1["device_ms"], n_series=len(durs))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, row
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -4302,6 +4807,9 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--phase10-profiles"]:
         print("PROFILES " + json.dumps(phase10_profiles()))
+        return 0
+    if sys.argv[1:2] == ["--phase12-profiles"]:
+        print("PROFILES " + json.dumps(phase12_profiles(*sys.argv[2:])))
         return 0
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4417,16 +4925,16 @@ def main() -> int:
     sc7 = s7[0]["runs"]["sched"]
     print(f"phase 8 [{card}]: span-metrics tenants through "
           f"Distributor.push_otlp, spans/s with every series new / known: "
-          + "; ".join(f"{k} {sm_spans / s8[k]['secs']['new']:.0f} / "
-                      f"{sm_spans / s8[k]['secs']['known']:.0f}"
-                      for k in ("8a", "8b"))
+          f"8a {sm_spans / s8['8a']['secs']['new']:.0f} / "
+          f"{sm_spans / s8['8a']['secs']['known']:.0f}; 8b (one pass) "
+          f"{sm_spans / s8['8b']['secs']['new']:.0f} / -"
           + f"; phase 7a's staged fast route on the same payloads (dense, "
           f"scheduler, no distributor) {sc7['spans_per_s']:.0f} / "
           f"{sc7['warm_spans_per_s']:.0f}; distributor host time a "
           f"16,384-span push, series new / known: "
-          + "; ".join(f"{k} {s8[k]['push_ms']['new']['push']:.3f} / "
-                      f"{s8[k]['push_ms']['known']['push']:.3f} ms"
-                      for k in ("8a", "8b"))
+          f"8a {s8['8a']['push_ms']['new']['push']:.3f} / "
+          f"{s8['8a']['push_ms']['known']['push']:.3f} ms; 8b "
+          f"{s8['8b']['push_ms']['new']['push']:.3f} / - ms"
           + f"; of it the ingester leg (3 real ingesters), series new / "
           f"known: 8a {s8['8a']['push_ms']['new']['push_staged']:.3f} / "
           f"{s8['8a']['push_ms']['known']['push_staged']:.3f} ms, 8b "
@@ -4447,13 +4955,16 @@ def main() -> int:
           f"{s10b['seconds']:.1f} s")
     print(f"phase 11 [{card}]: 11a {s11a['seconds']:.1f} s, 11b "
           f"{s10b['11b']['seconds']:.1f} s, 11c {s10b['11c']['seconds']:.1f} "
-          f"s, phase 11 {s11a['seconds'] + s10b['11_seconds']:.1f} s; the "
-          f"whole smoke {time.perf_counter() - t0:.1f} s")
+          f"s, phase 11 {s11a['seconds'] + s10b['11_seconds']:.1f} s")
+    s12, k12 = phase_ingest_storage(card)
+    _print_phase12(s12, card)
+    print(f"phase 12 [{card}]: {s12['seconds']:.1f} s; the whole smoke "
+          f"{time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
-                                            *k8)]}))
+                                            *k8, k12)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -73,9 +73,29 @@ reference (SURVEY §3.4: frontend sharder → querier → TempoDB → combiner):
         blocks only, and blocks behind the cutoff with a sketch sidecar
         fold on the request thread (block.sidecar)
 
+The recent window and the history of a metrics query at the frontend's
+defaults (RF1 blocks only, sketch sidecars folded) come from the
+ingest-storage path, as in the reference:
+
+    distributor.Distributor(..., bus=ingest.Bus(n)).push_otlp → records
+      → generator.Generator.consume_bus → the tenant's GeneratorInstance
+        with processors ("span-metrics", "local-blocks"): the SpanBatch
+        route (push_batch) → span metrics (K1) and
+        generator.processors.localblocks.LocalBlocksProcessor (live
+        traces → WAL → complete RF1 blocks on `tick`) → Generator.
+        query_range, the frontend's generator_query_range
+      → blockbuilder.BlockBuilder.consume_cycle → an RF1 block a tenant
+        a cycle, with a sketch sidecar built on the device
+        (ops.compact.build_sidecar_arrays: moments_update and the
+        HyperLogLog hll_update) → the frontend's sidecar fold
+
 The read side's device code is plain torch ops (no hand kernel): the
 reference's is jitted jnp, not Pallas. That includes the opt-in
-per-row-group offload of `condition_mask` (`TEMPO_TPU_DEVICE_SCAN=1`).
+per-row-group offload of `condition_mask` (`TEMPO_TPU_DEVICE_SCAN=1`)
+and the sidecar's sketch pass. The object-store plane has the
+reference's cloud backends (`backend.open_backend`: mem, local, s3, gcs,
+azure), hedged reads (`utils.hedging`) and the shared memcached/redis
+cache tier (`backend.memcached`), all host code.
 
 `ops.cuda_kernels.fused_spanmetrics_matmul` is the dense fused delta, a
 kernel no path of the system runs.

@@ -1,8 +1,7 @@
 """Role-keyed caching reader.
 
 Counterpart of `tempo_tpu/backend/cache.py` (in-process host code,
-copied). The memcached client comes with the rest of the storage layer
-(ROADMAP section 1, item 5b).
+copied). The shared memcached/redis tier is `backend/memcached.py`.
 
 Analog of `tempodb/backend/cache/` + `modules/cache`: reads of hot small
 objects (bloom filters, parquet footers, pages) go through a cache selected

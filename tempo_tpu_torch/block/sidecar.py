@@ -25,13 +25,13 @@ and `by()` restricted to the two label axes the sidecar keys on.
 Everything else — and any block without a readable, domain-matching
 sidecar — falls back to the host scan path, counted by the caller.
 
-Counterpart of `tempo_tpu/block/sidecar.py`: the read half (decode, the
-eligibility plan, the per-block fold, the merge) is host numpy, copied,
-and reads the reference's `sidecar.json` bytes. Writing a sidecar
-(`build_sidecar`, `sidecar_from_traces`, `write_sidecar`) and the HLL
-estimate (`Sidecar.trace_cardinality`) need the HyperLogLog device code
-and come with the rest of the storage layer (ROADMAP section 1, item 5b;
-section 2, item 2); they raise until then.
+Counterpart of `tempo_tpu/block/sidecar.py`; the two packages read and
+write the same `sidecar.json` bytes. The read half (decode, the
+eligibility plan, the per-block fold, the merge) is host numpy, copied.
+The write half (`build_sidecar`, `sidecar_from_traces`) runs its sketch
+pass on a device (`ops.compact.build_sidecar_arrays`: `cuda` unless
+`device="cpu"`): HLL registers bit-identical to the reference's, moment
+counts and bounds exact, moment sums within f32 reduction order.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ import math
 import numpy as np
 
 from tempo_tpu_torch.ops import moments as msk
+from tempo_tpu_torch.ops.compact import SIDECAR_HLL_PRECISION, build_sidecar_arrays
 
 SIDECAR_NAME = "sidecar.json"
 SIDECAR_VERSION = 1
@@ -50,11 +51,6 @@ SIDECAR_VERSION = 1
 _SERVICE_LABEL = "resource.service.name"
 _NAME_LABEL = "name"
 _LABEL_MOMENT = "__moment"   # mirror of engine_metrics._LABEL_MOMENT
-# 1024 int32 registers (the reference's `ops/compact.py` constant)
-SIDECAR_HLL_PRECISION = 10
-
-_WRITE_LATER = ("{} builds a sketch sidecar (HyperLogLog registers over "
-                "trace ids), which comes with ROADMAP section 1, item 5b")
 
 
 @dataclasses.dataclass
@@ -101,20 +97,69 @@ class Sidecar:
             hll_precision=int(d["hll"]["precision"]))
 
     def trace_cardinality(self) -> float:
-        """HLL distinct-trace estimate for this block (or a merged row):
-        the estimate is device code, ROADMAP section 2, item 2."""
-        raise NotImplementedError(
-            "Sidecar.trace_cardinality is the HyperLogLog estimate, which "
-            "comes with ROADMAP section 1, item 5b (section 2, item 2)")
+        """HLL distinct-trace estimate for this block (or a merged row).
+        It reads the decoded JSON's registers, not device state: the
+        port's `hll_estimate` runs on them as a CPU tensor."""
+        import torch
+
+        from tempo_tpu_torch.ops import sketches as sk
+
+        state = sk.HyperLogLog(
+            registers=torch.from_numpy(
+                np.ascontiguousarray(self.hll[None, :], np.int32)),
+            precision=self.hll_precision)
+        return float(sk.hll_estimate(state)[0])
 
 
 def build_sidecar(service: np.ndarray, name: np.ndarray,
-                  duration_ns: np.ndarray, trace_id: np.ndarray) -> Sidecar:
-    raise NotImplementedError(_WRITE_LATER.format("build_sidecar"))
+                  duration_ns: np.ndarray, trace_id: np.ndarray,
+                  device=None) -> Sidecar:
+    """One sketch pass on `device` over block-resident label/duration/
+    trace columns.
+
+    `service`/`name` are per-span label arrays (any dtype castable to
+    str); rows are keyed by the dense (service, name) set.
+    """
+    n = len(duration_ns)
+    if n == 0:
+        return Sidecar(k=msk.QUERY_K, lo=msk.QUERY_LO, hi=msk.QUERY_HI,
+                       total_spans=0, series=[],
+                       rows=np.zeros((0, msk.n_cols(msk.QUERY_K)), np.float64),
+                       hll=np.zeros(1 << SIDECAR_HLL_PRECISION, np.int32))
+    svc = np.asarray(service).astype("U")
+    nam = np.asarray(name).astype("U")
+    su, si = np.unique(svc, return_inverse=True)
+    nu, ni = np.unique(nam, return_inverse=True)
+    comp = si.astype(np.int64) * len(nu) + ni
+    ucomp, inv = np.unique(comp, return_inverse=True)
+    series = [(str(su[c // len(nu)]), str(nu[c % len(nu)]))
+              for c in ucomp.tolist()]
+    rows, hll = build_sidecar_arrays(
+        inv.astype(np.int32), np.asarray(duration_ns, np.int64),
+        len(series), trace_id, msk.QUERY_K, msk.QUERY_LO, msk.QUERY_HI,
+        device=device)
+    return Sidecar(k=msk.QUERY_K, lo=msk.QUERY_LO, hi=msk.QUERY_HI,
+                   total_spans=n, series=series,
+                   rows=np.asarray(rows, np.float64), hll=hll)
 
 
-def sidecar_from_traces(traces) -> Sidecar:
-    raise NotImplementedError(_WRITE_LATER.format("sidecar_from_traces"))
+def sidecar_from_traces(traces, device=None) -> Sidecar:
+    """Build from writer-shaped input: [(trace_id bytes, [span dict])]."""
+    svc, nam, dur, tid = [], [], [], []
+    for t, spans in traces:
+        for s in spans:
+            svc.append(s.get("service", ""))
+            nam.append(s.get("name", ""))
+            dur.append(int(s.get("end_unix_nano", 0))
+                       - int(s.get("start_unix_nano", 0)))
+            tid.append(np.frombuffer(t, np.uint8))
+    if not dur:
+        return build_sidecar(np.zeros(0, "U1"), np.zeros(0, "U1"),
+                             np.zeros(0, np.int64), np.zeros((0, 16), np.uint8),
+                             device=device)
+    return build_sidecar(np.asarray(svc), np.asarray(nam),
+                         np.asarray(dur, np.int64), np.stack(tid),
+                         device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +167,9 @@ def sidecar_from_traces(traces) -> Sidecar:
 # ---------------------------------------------------------------------------
 
 def write_sidecar(w, tenant: str, block_id: str, sc: Sidecar) -> None:
-    raise NotImplementedError(_WRITE_LATER.format("write_sidecar"))
+    from tempo_tpu_torch.backend.raw import block_keypath
+
+    w.write(SIDECAR_NAME, block_keypath(block_id, tenant), sc.to_json())
 
 
 def read_sidecar(r, tenant: str, block_id: str) -> Sidecar | None:

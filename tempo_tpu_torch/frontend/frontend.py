@@ -9,11 +9,14 @@ combiner with early exit. With no workers started, jobs execute inline
 
 Counterpart of `tempo_tpu/frontend/frontend.py`, host code copied over
 the port's `Querier` and `TempoDB`: the device work of a query is the
-TempoDB's read plane, on that TempoDB's device. Not carried yet: the
-materialized-view tier (`matview.materializer()` is always None, and
+TempoDB's read plane, on that TempoDB's device. The generators'
+recent-window leg is `generator_query_range`: pass
+`generator.Generator.query_range`, which answers from the tenants'
+local-blocks processors (the App's fan-out of it over a generator ring
+comes with the app wiring, ROADMAP section 1, item 9). Not carried yet:
+the materialized-view tier (`matview.materializer()` is always None, and
 `subscribe_query` / `unsubscribe_query` raise naming ROADMAP section 1,
-item 8) and the generators' recent-window leg (`generator_query_range`
-stays None until item 7 brings the local-blocks processor).
+item 8).
 """
 
 from __future__ import annotations

@@ -14,10 +14,10 @@ Every instance runs on the generator's `device` (`cuda` unless `"cpu"`
 is asked for). Not carried yet, and raising `NotImplementedError` naming
 their ROADMAP item: the ingest WAL (`wal=`, `replay_wal*`,
 `truncate_wal`; item 12) and the Kafka consumer group of `consume_bus`
-(item 14). `get_metrics` for a tenant with no instance returns the
-empty `traceql.metrics_summary.MetricsResults`, as in the reference; an
-instance's own `query_range` / `get_metrics` come with the local-blocks
-processor (item 7).
+(item 14). `query_range` and `get_metrics` read a tenant's local
+blocks (the `local-blocks` processor); for a tenant with no instance
+they answer empty, as in the reference. `query_range` is the query
+frontend's `generator_query_range` hook.
 """
 
 from __future__ import annotations

@@ -26,8 +26,15 @@ through `push_batch` for any other processor mix) and `push_otlp_recs`
 (`native.otlp_scan` records with their payload). The reference also
 sends a tenant with materialized query grids down the SpanBatch route;
 the port has no materialized grids yet (ROADMAP section 1, item 8), so
-its fast route has no such check. The `local-blocks` and
-`trace-analytics` processors raise `NotImplementedError`.
+its fast route has no such check.
+
+The `local-blocks` processor (`processors/localblocks.py`) keeps the
+tenant's recent traces as RF1 blocks on the instance's device and serves
+`query_range` and `get_metrics` over them; `tick` runs its cut. A tenant
+with it has two processors, so its pushes take the SpanBatch route
+(`push_batch`), where span metrics run K1 as on every route. The
+`trace-analytics` processor raises `NotImplementedError` naming ROADMAP
+section 1, item 10.
 
 The multi-tenant `Generator` (`generator.py`) drives instances through
 the reference's push fence (`try_track` / `untrack`, the `detached` flag
@@ -47,6 +54,10 @@ import numpy as np
 
 from tempo_tpu_torch import sched
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.generator.processors.localblocks import (
+    LocalBlocksConfig,
+    LocalBlocksProcessor,
+)
 from tempo_tpu_torch.generator.processors.servicegraphs import (
     ServiceGraphsConfig,
     ServiceGraphsProcessor,
@@ -69,6 +80,9 @@ class GeneratorConfig:
     servicegraphs: ServiceGraphsConfig = dataclasses.field(
         default_factory=ServiceGraphsConfig)
     remote_write: RemoteWriteConfig = dataclasses.field(default_factory=RemoteWriteConfig)
+    localblocks: LocalBlocksConfig = dataclasses.field(
+        default_factory=LocalBlocksConfig)
+    localblocks_flush_writer: "object" = None  # RawWriter for flush_to_storage
     ingestion_time_range_slack_s: float = 30.0
 
 
@@ -168,10 +182,15 @@ class GeneratorInstance:
                 elif name == "service-graphs":
                     self.processors[name] = ServiceGraphsProcessor(
                         self.registry, self.cfg.servicegraphs)
-                elif name in ("trace-analytics", "local-blocks"):
+                elif name == "local-blocks":
+                    self.processors[name] = LocalBlocksProcessor(
+                        self.tenant, self.cfg.localblocks,
+                        flush_writer=self.cfg.localblocks_flush_writer,
+                        now=self.now, device=self.device)
+                elif name == "trace-analytics":
                     raise NotImplementedError(
-                        f"processor {name} comes with a later slice of the "
-                        f"port")
+                        "processor trace-analytics comes with a later slice "
+                        "of the port (ROADMAP section 1, item 10)")
                 else:
                     raise ValueError(f"unknown processor {name}")
 
@@ -333,10 +352,9 @@ class GeneratorInstance:
     # -- maintenance -------------------------------------------------------
 
     def tick(self, immediate: bool = False) -> None:
-        """Background maintenance: each processor's cut pass. In the
-        reference these are the local-blocks cut and the trace-analytics
-        idle-trace cut (ROADMAP section 1, items 7 and 10); the port's
-        span metrics and service graphs have none."""
+        """Background maintenance: each processor's cut pass, which is the
+        local-blocks cut/complete/flush pass (the reference's other one,
+        trace analytics' idle-trace cut, is ROADMAP section 1, item 10)."""
         for proc in list(self.processors.values()):
             fn = getattr(proc, "cut_tick", None)
             if fn is not None:
@@ -347,8 +365,7 @@ class GeneratorInstance:
     def query_range(self, req, clip_start_ns: "int | None" = None):
         """TraceQL metrics over this tenant's local blocks (`QueryRange`
         `instance.go:487-556`); raises, as the reference does, when the
-        local-blocks processor is not enabled, which it cannot be in the
-        port yet (ROADMAP section 1, item 7)."""
+        local-blocks processor is not enabled."""
         lb = self.processors.get("local-blocks")
         if lb is None:
             raise RuntimeError("local-blocks processor not enabled")

@@ -44,6 +44,7 @@ import functools
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -188,6 +189,44 @@ def gather_step(arena, table, slots, *, page_shift: int) -> torch.Tensor:
     got = arena[torch.where(bad, 0, r)]
     fill = bad if arena.ndim == 1 else bad[:, None]
     return got.masked_fill(fill, 0)
+
+
+def u32_on(h, device) -> torch.Tensor:
+    """uint32 hashes (numpy or a tensor) as int64 on `device`: CUDA has
+    few uint32 ops, so hashes ride in int64 and a signed 32-bit tensor is
+    read back as its unsigned value."""
+    if isinstance(h, torch.Tensor):
+        return h.to(device=device, dtype=torch.int64) & 0xFFFFFFFF
+    return torch.from_numpy(np.asarray(h, np.uint32).astype(np.int64)).to(
+        device)
+
+
+def hll_cells(h1: torch.Tensor, h2: torch.Tensor,
+              precision: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(register, rho) of int64 hashes in [0, 2^32): the register is h1's
+    top `precision` bits; rho = clz32(h2) + 1 = 33 - bit_length(h2), so 33
+    for h2 = 0 and 1 for h2 >= 2^31. There is no clz op in torch, and a
+    float log2 rounds up just below a power of two, so the bit length is
+    a binary search in integer shifts."""
+    n = torch.zeros_like(h2)
+    x = h2
+    for s in (16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        n = n + big * s
+        x = torch.where(big, x >> s, x)
+    rho = (33 - (n + x)).to(torch.int32)
+    return h1 >> (32 - precision), rho
+
+
+def hll_step(ar, table, slots, h1, h2, *, precision: int,
+             page_shift: int) -> None:
+    """Paged HyperLogLog, in place: the scatter-max of each item's rho
+    into its register of the row the page table resolves for its slot
+    (`ar` [rows, 2^precision] int32); discards and unbacked pages drop."""
+    dev = ar.device
+    r, keep = _kept(ar, table, torch.as_tensor(slots, device=dev), page_shift)
+    idx, rho = hll_cells(u32_on(h1, dev), u32_on(h2, dev), precision)
+    max_rows(ar.view(-1), r * ar.shape[1] + idx, keep, rho)
 
 
 def zero_step(arena, table, slots, *, page_shift: int) -> None:

@@ -18,7 +18,12 @@ on the card, and bit-identical to the reference on the CPU.
 update its composed twin runs; on the write path the paged fused update
 (K1) adds into the same rows.
 
-Log2, HyperLogLog and Count-Min sketches come with later slices.
+The HyperLogLog half (`hll_init`, `hll_update`, `hll_merge`,
+`hll_estimate`) is the reference's jnp code as torch ops on the state's
+device: registers are int32 and bit-identical to the reference's (hashes
+ride in int64, rho comes from an integer bit length, the update is a
+`scatter_reduce_` max), the estimate is float32 as the reference's is.
+Log2 and Count-Min sketches come with later slices.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, add_cells, add_rows,
-                                      dd_index, dense_zeros)
+                                      dd_index, dense_zeros, hll_cells,
+                                      max_rows, u32_on)
 
 
 @dataclasses.dataclass
@@ -153,5 +159,73 @@ def dd_quantile(state: DDSketch, q: float) -> torch.Tensor:
     return torch.where(total > 0, val, zero)
 
 
+# ---------------------------------------------------------------------------
+# HyperLogLog
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class HyperLogLog:
+    """Per-series HLL registers [S, m] int32, m = 2^precision. Update is
+    a scatter-max, merge an elementwise max."""
+
+    registers: torch.Tensor
+    precision: int
+
+
+def hll_init(num_series: int, precision: int = 14,
+             device=None) -> HyperLogLog:
+    """Empty registers on `device` (`cuda` unless `"cpu"` is asked for)."""
+    return HyperLogLog(
+        registers=torch.zeros((num_series, 1 << precision), dtype=torch.int32,
+                              device=resolve_device(device)),
+        precision=precision)
+
+
+def hll_update(state: HyperLogLog, series_ids, h1, h2,
+               mask=None) -> HyperLogLog:
+    """Insert pre-hashed items (two uint32 hashes each), in place: h1's
+    top bits pick the register, rho = clz(h2) + 1 (<= 33) goes in by max
+    (`ops.pages.hll_cells`). A masked item maxes 0 into register 0 of
+    series 0, as in the reference. Ids outside [0, S) drop; the
+    reference's scatter wraps a negative id to the last rows."""
+    regs = state.registers
+    dev = regs.device
+    sids = torch.as_tensor(series_ids, device=dev).to(torch.int64)
+    idx, rho = hll_cells(u32_on(h1, dev), u32_on(h2, dev), state.precision)
+    if mask is not None:
+        m = torch.as_tensor(mask, device=dev)
+        rho = torch.where(m, rho, 0)
+        sids = torch.where(m, sids, 0)
+        idx = torch.where(m, idx, 0)
+    keep = (sids >= 0) & (sids < regs.shape[0])
+    max_rows(regs.view(-1), sids * regs.shape[1] + idx, keep, rho)
+    return state
+
+
+def hll_merge(a: HyperLogLog, b: HyperLogLog) -> HyperLogLog:
+    _merge_check("hll_merge", ("precision", a.precision),
+                 ("precision", b.precision),
+                 tuple(a.registers.shape), tuple(b.registers.shape))
+    return dataclasses.replace(
+        a, registers=torch.maximum(a.registers, b.registers))
+
+
+def hll_estimate(state: HyperLogLog) -> torch.Tensor:
+    """Cardinality estimate per series, [S] float32: the Flajolet alpha_m
+    raw estimate, linear counting in the small range (E <= 2.5 m with
+    empty registers), each step in f32 as the reference's."""
+    m = float(1 << state.precision)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    f32 = dict(dtype=torch.float32, device=state.registers.device)
+    regs = state.registers.to(torch.float32)
+    raw = torch.tensor(alpha * m * m, **f32) / torch.exp2(-regs).sum(dim=-1)
+    zeros = (regs == 0).sum(dim=-1).to(torch.float32)
+    mt = torch.tensor(m, **f32)
+    linear = mt * torch.log(mt / torch.clamp(zeros, min=1e-30))
+    use_linear = (raw <= torch.tensor(2.5 * m, **f32)) & (zeros > 0)
+    return torch.where(use_linear, linear, raw)
+
+
 __all__ = ["DDSketch", "dd_params", "dd_init", "dd_update", "dd_merge",
-           "dd_quantile", "dd_value_table", "_merge_check"]
+           "dd_quantile", "dd_value_table", "_merge_check", "HyperLogLog",
+           "hll_init", "hll_update", "hll_merge", "hll_estimate"]

@@ -442,13 +442,15 @@ def test_tenant_index_roundtrip(backend):
         [m.to_json() for m in idx.metas]
 
 
-def test_unported_backend_names_raise_naming_item_5b():
-    """The cloud backends (`open_backend`) are item 5b; the role caches
-    came with the query frontend's job cache and behave as the
-    reference's (eviction order, hit and miss counts, the reads a
-    `CachingReader` serves from its roles)."""
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tbackend.open_backend
+def test_backend_exports_and_role_caches_match_reference():
+    """The package exports the reference's names, `open_backend` (the
+    cloud backends, `tests/test_torch_cloud.py`) among them; the role
+    caches behave as the reference's (eviction order, hit and miss
+    counts, the reads a `CachingReader` serves from its roles)."""
+    from tempo_tpu_torch.backend import cloud
+
+    assert sorted(tbackend.__all__) == sorted(jbackend.__all__)
+    assert tbackend.open_backend is cloud.open_backend
     from tempo_tpu.backend import cache as jcache
     from tempo_tpu.backend.mem import MemBackend as JMem
     from tempo_tpu.backend.raw import KeyPath as JKey

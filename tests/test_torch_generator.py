@@ -345,9 +345,8 @@ def test_unported_surfaces_raise_naming_their_item():
     with pytest.raises(RuntimeError, match="local-blocks"):
         tg.get_metrics("t", "{}", ())
     tg.instance("t").tick(immediate=True)           # no processor cuts
-    from tempo_tpu_torch import backend, fleet, ingest
-    for mod, name, item in ((backend, "open_backend", "item 5b"),
-                            (fleet, "FleetController", "item 12"),
+    from tempo_tpu_torch import fleet, ingest
+    for mod, name, item in ((fleet, "FleetController", "item 12"),
                             (ingest, "ConsumerGroup", "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mod, name)

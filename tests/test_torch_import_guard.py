@@ -28,6 +28,10 @@
 - A fresh interpreter drives the query frontend (`Frontend` over
   `Querier` and `TempoDB` with a job cache: search, find, tags, a rate
   `query_range` and the sidecar fold tier) with the same result.
+- A fresh interpreter drives the ingest-storage path
+  (`Distributor.push_otlp` onto a bus, a local-blocks `Generator` and a
+  `BlockBuilder` with sidecars draining it, a frontend rate query over
+  both legs) with the same result.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -375,6 +380,77 @@ def test_frontend_drive_loads_no_reference_yaml_or_pyarrow():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_INGEST_STORAGE_DRIVE = """
+import sys
+import tempfile
+from tempo_tpu_torch.backend import MemBackend
+from tempo_tpu_torch.blockbuilder import BlockBuilder, BlockBuilderConfig
+from tempo_tpu_torch.db import TempoDB
+from tempo_tpu_torch.distributor import Distributor
+from tempo_tpu_torch.frontend import Frontend
+from tempo_tpu_torch.generator import Generator, GeneratorConfig
+from tempo_tpu_torch.generator.processors.localblocks import LocalBlocksConfig
+from tempo_tpu_torch.ingest import Bus
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.overrides import Overrides
+from tempo_tpu_torch.querier import Querier
+from tempo_tpu_torch.ring import Ring
+
+T0 = 1_700_000_000.0
+clock = [T0]
+now = lambda: clock[0]
+ov = Overrides()
+ov.set_tenant_patch("t", {"generator": {
+    "processors": ["span-metrics", "local-blocks"], "max_active_series": 512}})
+with tempfile.TemporaryDirectory() as root:
+    gen = Generator(GeneratorConfig(localblocks=LocalBlocksConfig(
+        data_dir=root)), overrides=ov, now=now, device="cpu")
+    bus = Bus(2)
+    be = MemBackend()
+    bb = BlockBuilder(bus, be, BlockBuilderConfig(partitions=None), now=now,
+                      device="cpu")
+    d = Distributor(Ring(replication_factor=1), {}, overrides=ov, bus=bus,
+                    now=now)
+    for leg in range(2):
+        spans = synthetic_spans(200, seed=leg, now_ns=int((clock[0] - 5) * 1e9))
+        assert d.push_otlp("t", encode_spans_otlp(spans)) == {}
+        assert gen.consume_bus(bus) > 0 and bb.consume_cycle() > 0
+        clock[0] += 1200.0
+    gen.instance("t").tick(immediate=True)
+    db = TempoDB(be, be, device="cpu", now=now)
+    db.poll_now()
+    assert all(m.sidecar and m.replication_factor == 1
+               for m in db.blocklist.metas("t"))
+    fe = Frontend(db, Querier(db), generator_query_range=gen.query_range,
+                  now=now)
+    got = fe.query_range("t", "{ } | rate()", start_s=T0 - 600,
+                         end_s=clock[0], step_s=clock[0] - T0 + 600)
+    assert round(sum(float(s.samples.sum()) for s in got)
+                 * (clock[0] - T0 + 600)) == 400
+    assert db.compaction_stats["sidecar_folds"] > 0
+    fe.shutdown()
+    db.shutdown()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+
+def test_ingest_storage_drive_loads_no_reference_yaml_or_pyarrow():
+    """`Distributor.push_otlp` onto a bus, a local-blocks `Generator` and
+    a `BlockBuilder` (sidecars on) draining it, and a frontend rate query
+    over both legs (the sidecar fold behind the cutoff, the generators'
+    local blocks after it), in a fresh interpreter: no `jax`,
+    `tempo_tpu`, `yaml` or `pyarrow`."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _INGEST_STORAGE_DRIVE],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_no_port_source_imports_pyarrow():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
@@ -522,12 +598,18 @@ def test_dense_layout_and_other_entry_points_raise():
         assert g.state_layout == "dense"
         with pytest.raises(NotImplementedError, match="later slice"):
             g.registry.new_native_histogram("h", ("a",))
-        for proc in ("local-blocks", "trace-analytics"):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                tt.GeneratorInstance("t", tt.GeneratorConfig(
-                    processors=("span-metrics", proc),
-                    registry=tt.RegistryOverrides(max_active_series=512)),
-                    device="cpu")
+        lb = tt.GeneratorInstance("t", tt.GeneratorConfig(
+            processors=("span-metrics", "local-blocks"),
+            registry=tt.RegistryOverrides(max_active_series=512)),
+            device="cpu")
+        assert set(lb.processors) == {"span-metrics", "local-blocks"}
+        shutil.rmtree(os.path.dirname(
+            lb.processors["local-blocks"].inst.wal_dir))
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tt.GeneratorInstance("t", tt.GeneratorConfig(
+                processors=("span-metrics", "trace-analytics"),
+                registry=tt.RegistryOverrides(max_active_series=512)),
+                device="cpu")
     g = _instance()
     with pytest.raises(ValueError, match="unknown sketch"):
         _instance(sketch="hll")

@@ -1,9 +1,9 @@
-"""The read half of the sketch sidecars (`block/sidecar.py`) and the
-frontend's sidecar fold tier, against the reference.
+"""The sketch sidecars (`block/sidecar.py`) and the frontend's sidecar
+fold tier, against the reference.
 
-The port writes no sidecar yet (ROADMAP item 5b), so these tests take
-the reference's bytes: `tempo_tpu.block.sidecar.sidecar_from_traces(...)
-.to_json()` over each block's traces, written under `sidecar.json` next
+The fold tests take the reference's bytes:
+`tempo_tpu.block.sidecar.sidecar_from_traces(...).to_json()` over each
+block's traces, written under `sidecar.json` next
 to the block in each package's backend, with the block's meta marked
 `sidecar`. Both frontends then fold the same bytes. Held:
 
@@ -14,7 +14,10 @@ to the block in each package's backend, with the block's meta marked
   frontend's fold; the rate fold equal to the rescan at rel 1e-9; a
   block without its sidecar mark falls back to the scan; the second
   query is a fold-cache hit;
-- the write half and the HLL estimate raise naming item 5b.
+- the write half (`build_sidecar`, `sidecar_from_traces`,
+  `write_sidecar`) and the HLL estimate against the reference's
+  (`tests/test_torch_blockbuilder.py` holds the port-written sidecars
+  folded by the reference's frontend).
 """
 
 from __future__ import annotations
@@ -203,15 +206,32 @@ def test_merge_sidecars_matches_reference():
     np.testing.assert_array_equal(tmerge(a, b, 2), jmerge(a, b, 2))
 
 
-def test_write_half_raises_naming_item_5b():
-    sc = tsc.Sidecar.from_json(jsc.sidecar_from_traces(
-        fold_blocks(np.random.default_rng(1), n_blocks=1)[0][0]).to_json())
-    for call in (lambda: tsc.build_sidecar(None, None, None, None),
-                 lambda: tsc.sidecar_from_traces([]),
-                 lambda: tsc.write_sidecar(None, "t", "b", sc),
-                 sc.trace_cardinality):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call()
+def test_write_half_matches_reference():
+    """`sidecar_from_traces` on the CPU against the reference's: the same
+    series, spans and HLL registers, moment counts and bounds exact, sums
+    within rtol 1e-5; `write_sidecar` writes what `read_sidecar` reads in
+    both packages; `trace_cardinality` equal within rtol 1e-6."""
+    from tempo_tpu.backend.mem import MemBackend as JMem
+    from tempo_tpu_torch.backend.mem import MemBackend as TMem
+
+    for traces in fold_blocks(np.random.default_rng(1), n_blocks=2)[0]:
+        t = tsc.sidecar_from_traces(traces, device="cpu")
+        j = jsc.sidecar_from_traces(traces)
+        assert (t.k, t.lo, t.hi, t.total_spans, t.series) == \
+            (j.k, j.lo, j.hi, j.total_spans, j.series)
+        np.testing.assert_array_equal(t.hll, j.hll)
+        k = t.k
+        np.testing.assert_array_equal(t.rows[:, 0], j.rows[:, 0])
+        np.testing.assert_array_equal(t.rows[:, k + 1:], j.rows[:, k + 1:])
+        np.testing.assert_allclose(t.rows[:, 1:k + 1], j.rows[:, 1:k + 1],
+                                   rtol=1e-5, atol=1e-5 * t.total_spans)
+        assert t.trace_cardinality() == pytest.approx(
+            j.trace_cardinality(), rel=1e-6)
+        tbe, jbe = TMem(), JMem()
+        tsc.write_sidecar(tbe, "t", "b", t)
+        jbe._objects.update(tbe._objects)
+        assert jsc.read_sidecar(jbe, "t", "b").to_json() == t.to_json()
+        assert tsc.read_sidecar(tbe, "t", "b").to_json() == t.to_json()
 
 
 # ---------------------------------------------------------------------------
