@@ -39,7 +39,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 4. the span-metrics main paths on the direct route through the entry
    points, each on the card against the same path on the host (plain
    versions), with kernel launch counts zeroed just before and read just
-   after: 4 seeded OTLP payloads of 16,384 spans → `otlp_proto_to_batch` →
+   after: 3 seeded OTLP payloads of 16,384 spans → `otlp_proto_to_batch` →
    `GeneratorInstance.push_batch` → `collect_and_push()` to a local
    remote-write receiver → quantiles;
    a. `sketch: dd` with f32 state (quantiles exactly equal);
@@ -72,7 +72,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    scheduler at its default config (`sched.configure(SchedConfig())`,
    worker thread, 2 ms windows) and 8 tenants of the default generator
    (span metrics and service graphs, 65,536 series, DDSketch over 16,384),
-   each sent 8 pushes of 1,024 seeded trace-tree spans (client/server
+   each sent 4 pushes of 1,024 seeded trace-tree spans (client/server
    pairs, 1/16 db clients with no server side; 32 services x 32
    operations) by 2 producer threads, then the clock stepped past the
    service graphs' wait and one empty push each; the same pushes through
@@ -252,7 +252,40 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       && duration > 20ms }` as a search, each equal with the offload and
       without, every row group's mask on the card bit-equal to the CPU
       path's; printed: launches a search, the mask's device time and
-      ops (the profiling process) and its bound by bytes.
+      ops (the profiling process) and its bound by bytes;
+12. the ingest-storage path at the frontend's defaults: one span-metrics
+   + local-blocks tenant behind a `Distributor` onto a 4-partition bus,
+   drained by `Generator.consume_bus` and a `BlockBuilder` (sidecars on
+   the card), one push of 16,384 spans a leg (history, then the clock
+   +20 min, recent), against a CPU twin fed the same records; rate and
+   quantiles by service through the frontend over both legs;
+13. the materialized grids and trace analytics:
+   a. the process materializer at `MatViewConfig()` on the card and a
+      `Frontend` at `FrontendConfig()` over the generator leg; a
+      span-metrics + local-blocks tenant fed 3 pushes of 16,384
+      `deep_trace_spans` spans (the clock +15 s a push, 10 s steps) with
+      explicit grids (rate and quantile by service, histogram), one
+      subscribed after 2 pushes (built from the live traces), one
+      auto-subscribed after 32 frontend misses; then the quantile on the
+      moments tier (a fresh materializer, built at a fourth push); and a
+      span-metrics-only tenant with a grid. Checks: the served reads
+      equal the recompute (the materializer reset) bit for bit, the
+      moments read within 0.02; every grid equal to a CPU twin's fed the
+      same payloads; no staged fast push; K1 launches equal to merged
+      dispatches. Printed: a warm hit read against the recompute, the
+      grids' device bytes, an append's device time and ops (in a process
+      of its own) against its bound;
+   b. a span-metrics + trace-analytics tenant at `TraceAnalyticsConfig()`
+      on the default scheduler, 2 pushes of 16,384 spans (a third
+      errored), one cut of 32,768 spans in 1,024 traces, against a CPU
+      twin: root-cause counters exact, critical-path seconds within rtol
+      1e-5, share rows under the moments rule, cycle, late and orphan
+      counters equal; `structure.analyze` on the card equal to the
+      pure-Python oracle at 4,096 spans (an orphan subtree, a cycle and a
+      duplicate id included) and to its CPU run at 262,144 spans in 8,192
+      traces. Printed: spans/s through `cut_tick`, the analysis's ms with
+      the host, its device time and ops (the profiling process) and its
+      bound by bytes.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -282,7 +315,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 N_SPANS = 16384
 N_DISPATCH = 8
-N_MAIN_PUSHES = 4                # each main path of phase 4 and of 7b
+N_MAIN_PUSHES = 3                # each main path of phase 4 and of 7b
+                                 # (4 before phase 13, cut to make room)
 N_7A_PUSHES = 2                  # phase 7a (phase 8 drives the same traffic)
 N_DIST_PUSHES = 2                # phase 8's span-metrics tenants, a pass
 N_TIMED = 30
@@ -1407,13 +1441,14 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
 # ---------------------------------------------------------------------------
 
 N_TENANTS, N_TREE_PUSHES, N_TREE_SPANS, N_PRODUCERS = 8, 8, 1024, 2
+N_PHASE6_PUSHES = 4              # phase 6's pushes a tenant (8 before 13)
 SCHED_KERNEL = "spanmetrics_fused_update"
 
 
-def _tree_traffic(now_ns, n_tenants=N_TENANTS):
-    """Per tenant, 8 OTLP payloads of 1,024 trace-tree spans (32 services
-    x 32 operations), with per-span sizes of 200-2,000 B and integer
-    sample weights 1-3."""
+def _tree_traffic(now_ns, n_tenants=N_TENANTS, n_pushes=N_TREE_PUSHES):
+    """Per tenant, `n_pushes` OTLP payloads of 1,024 trace-tree spans (32
+    services x 32 operations), with per-span sizes of 200-2,000 B and
+    integer sample weights 1-3."""
     from tempo_tpu_torch.model.otlp import encode_spans_otlp
 
     rng = np.random.default_rng(SEED + 6)
@@ -1421,7 +1456,7 @@ def _tree_traffic(now_ns, n_tenants=N_TENANTS):
         N_TREE_SPANS, seed=SEED + 100 * t + k, now_ns=now_ns)),
         rng.integers(200, 2001, N_TREE_SPANS).astype(np.float32),
         rng.integers(1, 4, N_TREE_SPANS).astype(np.float32))
-        for k in range(N_TREE_PUSHES)] for t in range(n_tenants)]
+        for k in range(n_pushes)] for t in range(n_tenants)]
 
 
 def _tree_set(traffic, clock, paged, use_scheduler):
@@ -1467,7 +1502,7 @@ def _drive(insts, batches):
 
     def producer(j):
         try:
-            for k0 in range(0, N_TREE_PUSHES, 4):
+            for k0 in range(0, len(batches[0]), 4):
                 for t in range(j, N_TENANTS, N_PRODUCERS):
                     for sb, size, w in batches[t][k0:k0 + 4]:
                         sizes = np.zeros(sb.capacity, np.float32)
@@ -1755,7 +1790,7 @@ def phase_default_deployment(paged, card):
     t_phase = time.perf_counter()
     layout = "paged" if paged else "dense"
     now = time.time()
-    traffic = _tree_traffic(int(now * 1e9))
+    traffic = _tree_traffic(int(now * 1e9), n_pushes=N_PHASE6_PUSHES)
     sched.reset()
     sc = sched.configure(sched.SchedConfig())
     if sc._worker is None or not sc.cfg.enabled or sc.cfg.pipeline_depth != 2:
@@ -1798,10 +1833,10 @@ def phase_default_deployment(paged, card):
     _expire_all(d_insts, clock_d)
     direct_launches = ck.paged_fused_update.launches
     n_fams, n_series, max_rel = _compare_sets(s_insts, d_insts, layout)
-    n_pushes = N_TENANTS * N_TREE_PUSHES
+    n_pushes = N_TENANTS * N_PHASE6_PUSHES
     spans = n_pushes * N_TREE_SPANS
     print(f"phase 6 {layout} [{card}]: {N_TENANTS} tenants x "
-          f"{N_TREE_PUSHES} pushes of {N_TREE_SPANS} trace-tree spans "
+          f"{N_PHASE6_PUSHES} pushes of {N_TREE_SPANS} trace-tree spans "
           f"({spans} spans) from {N_PRODUCERS} producer threads: scheduler "
           f"route {spans / sched_s:.0f} spans/s ({sched_s:.3f} s), direct "
           f"route {spans / direct_s:.0f} spans/s ({direct_s:.3f} s); "
@@ -4306,7 +4341,8 @@ def offload_profile(views, q) -> tuple:
 
 LB_TENANT = "lb-0"
 N_BUS_PARTITIONS = 4
-N_LB_PUSHES = 2                  # history pushes, then as many recent ones
+N_LB_PUSHES = 1                  # history pushes, then as many recent ones
+                                 # (2 before phase 13, cut to make room)
 LB_RECENT_S = 1200.0             # the clock moves 20 minutes between legs
 LB_RATE = "{ } | rate() by (resource.service.name)"
 LB_QUANT = ("{ } | quantile_over_time(duration, .5, .99) by "
@@ -4778,6 +4814,657 @@ def _phase_ingest_storage(card, root):
     return out, row
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the materialized query grids and trace analytics
+# ---------------------------------------------------------------------------
+
+MV_TENANT = "mv-0"               # span metrics + local blocks, grids
+MV_SM_TENANT = "mv-sm"           # span metrics only, with a grid
+N_MV_PUSHES = 3                  # on the log2 tier; one more on moments
+MV_STEP_S = 10.0
+MV_CLOCK_S = 15.0                # the clock's move between pushes
+MV_READ_STEPS = 12               # a read's window, all after the cutoff
+MV_AUTO_AFTER = 32               # MatViewConfig().auto_subscribe_after
+MV_RATE = LB_RATE
+MV_QUANT = LB_QUANT
+MV_HIST = "{ } | histogram_over_time(duration)"
+MV_LATE = "{ status = error } | count_over_time() by (resource.service.name)"
+MV_AUTO = "{ kind = server } | rate() by (name)"
+MV_MOM_REL = 0.02                # tests/test_matview.py:281
+TA_TENANT = "ta-0"
+N_TA_PUSHES = 2
+# share quantiles beyond rtol 1e-3 of the twin's, as a share of the
+# series: ROADMAP section 3's envelope for moment rows of few
+# observations (q50 on up to 43 of 256 series), its 40 of 16,384 for q99
+SHARE_OUTSIDE_MAX = {0.5: 43 / 256, 0.99: 40 / 16384}
+STRUCT_SMALL = (128, 32)         # traces, spans a trace: 4,096 spans
+STRUCT_BIG = (8192, 32)          # 262,144 spans, n_pad 2^18
+
+
+def _mv_payloads(t0, n=N_MV_PUSHES + 1):
+    """`n` OTLP payloads of `deep_trace_spans`, one a push, each stamped
+    within 10 s before the clock of its push (the clock moves
+    MV_CLOCK_S between pushes)."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    return [encode_spans_otlp(deep_trace_spans(
+        N_SPANS, seed=SEED + 130 + k,
+        now_ns=int((t0 + k * MV_CLOCK_S) * 1e9)))
+        for k in range(n)]
+
+
+class _MvRig:
+    """Phase 13a's deployment on `device`: a `Generator` of the default
+    config whose tenant MV_TENANT runs span metrics and local blocks (its
+    data under `root`) and MV_SM_TENANT span metrics only; the process
+    materializer at `MatViewConfig()` on the same device; a `Frontend` at
+    `FrontendConfig()` over the generator leg (reads stay within the last
+    900 s, so no backend job)."""
+
+    def __init__(self, device, root, t0):
+        from tempo_tpu_torch import matview
+        from tempo_tpu_torch.backend import MemBackend
+        from tempo_tpu_torch.db import TempoDB
+        from tempo_tpu_torch.frontend import Frontend, FrontendConfig
+        from tempo_tpu_torch.generator import Generator, GeneratorConfig
+        from tempo_tpu_torch.generator.processors.localblocks import \
+            LocalBlocksConfig
+        from tempo_tpu_torch.overrides import Overrides
+        from tempo_tpu_torch.querier import Querier
+        from tempo_tpu_torch.querier.querier import QuerierConfig
+        from tempo_tpu_torch.ring import Ring
+
+        self.device = device
+        self.clock = [t0]
+        now = self.now = lambda: self.clock[0]
+        ov = Overrides()
+        ov.set_tenant_patch(MV_TENANT, {"generator": {
+            "processors": ["span-metrics", "local-blocks"]}})
+        ov.set_tenant_patch(MV_SM_TENANT, {"generator": {
+            "processors": ["span-metrics"]}})
+        self.gen = Generator(GeneratorConfig(localblocks=LocalBlocksConfig(
+            data_dir=os.path.join(root, "gen"))), overrides=ov, now=now,
+            device=device)
+        self.mv = self.configure()
+        be = MemBackend()
+        self.db = TempoDB(be, be, now=now, device=device)
+        self.fe = Frontend(self.db, Querier(
+            self.db, Ring(replication_factor=1, now=now), {},
+            cfg=QuerierConfig(rf=1)), cfg=FrontendConfig(),
+            generator_query_range=self.gen.query_range, now=now)
+        self.inst = self.gen.instance(MV_TENANT)
+        self.sm = self.gen.instance(MV_SM_TENANT)
+
+    def configure(self):
+        from tempo_tpu_torch import matview
+
+        self.mv = matview.configure(matview.MatViewConfig(), now=self.now,
+                                    device=self.device)
+        return self.mv
+
+    def window(self):
+        """MV_READ_STEPS aligned steps ending with the clock's step."""
+        hi = int(self.clock[0] // MV_STEP_S)
+        start = (hi - MV_READ_STEPS + 1) * MV_STEP_S
+        return dict(start_s=start, end_s=start + MV_READ_STEPS * MV_STEP_S,
+                    step_s=MV_STEP_S)
+
+    def read(self, query):
+        return _series_map(self.fe.query_range(MV_TENANT, query,
+                                               **self.window()))
+
+    def grids(self):
+        """{query: {grid name: host copy}} of every subscription."""
+        return {s.query: {k: g.cpu().numpy().copy()
+                          for k, g in s.grids.items()}
+                for s in self.mv.subscriptions()}
+
+    def shutdown(self):
+        self.fe.shutdown()
+        self.db.shutdown()
+
+
+def _mv_timeline(rig, payloads, card):
+    """Both sides' pushes and subscriptions, in order: explicit grids
+    (rate, quantile on the bucket tier, histogram) for MV_TENANT and a
+    rate grid for MV_SM_TENANT; MV_AUTO read 32 times through the
+    frontend (the card; the twin's materializer is told the same
+    recurrence count), so it auto-subscribes; push 1, which builds every
+    grid; push 2; MV_LATE subscribed, built from the live traces of both
+    at push 3. Returns the frontend's seconds for the 32 misses (None on
+    the twin)."""
+    for q in (MV_RATE, MV_QUANT, MV_HIST):
+        ok, why = rig.fe.subscribe_query(MV_TENANT, q, MV_STEP_S)
+        if not ok:
+            raise AssertionError(f"phase 13a: subscribe {q}: {why}")
+    rig.fe.subscribe_query(MV_SM_TENANT, MV_RATE, MV_STEP_S)
+    miss_s = None
+    if card:
+        t1 = time.perf_counter()
+        for _ in range(MV_AUTO_AFTER):
+            rig.read(MV_AUTO)
+        miss_s = time.perf_counter() - t1
+    else:
+        rig.mv.consider_auto_subscribe(MV_TENANT, MV_AUTO, MV_STEP_S,
+                                       MV_AUTO_AFTER)
+    for k in range(N_MV_PUSHES):
+        if k:
+            rig.clock[0] += MV_CLOCK_S
+        if k == 2:
+            rig.fe.subscribe_query(MV_TENANT, MV_LATE, MV_STEP_S)
+        rig.gen.push_otlp(MV_TENANT, payloads[k])
+        if k < 2:
+            rig.gen.push_otlp(MV_SM_TENANT, payloads[k])
+    _settle({"g": rig.gen})
+    return miss_s
+
+
+def _mv_moments(rig, payloads):
+    """The moments tier: a fresh materializer, the quantile subscribed
+    under `use_query_tier("moments")` and built from the live traces of
+    the N_MV_PUSHES pushes at the next push, then appended to."""
+    rig.configure()
+    ok, why = rig.fe.subscribe_query(MV_TENANT, MV_QUANT, MV_STEP_S)
+    if not ok:
+        raise AssertionError(f"phase 13a: subscribe moments: {why}")
+    rig.clock[0] += MV_CLOCK_S
+    rig.gen.push_otlp(MV_TENANT, payloads[N_MV_PUSHES])
+    _settle({"g": rig.gen})
+
+
+def _mom_close(a, b, ctx):
+    """Quantile series within MV_MOM_REL of each other."""
+    if set(a) != set(b):
+        raise AssertionError(f"{ctx}: series differ")
+    worst = 0.0
+    for k, v in b.items():
+        rel = float(np.max(np.abs(a[k] - v) / np.maximum(np.abs(v), 1e-12)))
+        worst = max(worst, rel)
+        if rel > MV_MOM_REL:
+            raise AssertionError(f"{ctx}: {k}: {a[k]} against {v}")
+    return worst
+
+
+def _same_grids(card, twin, ctx):
+    """Each subscription's grids, card against CPU twin: count, bucket and
+    bound planes bit for bit; float64 moment sums within 1e-12 relative
+    (the card's atomics add them in another order)."""
+    if set(card) != set(twin):
+        raise AssertionError(f"{ctx}: subscriptions differ")
+    cells = 0
+    for q, grids in twin.items():
+        for name, g in grids.items():
+            c = card[q][name]
+            ok = c.shape == g.shape and (
+                np.allclose(c, g, rtol=1e-12, atol=1e-9) if name == "mmt"
+                else np.array_equal(c, g))
+            if not ok:
+                raise AssertionError(f"{ctx}: {q} grid {name} differs")
+            cells += int(np.count_nonzero(g))
+    return cells
+
+
+def phase_matview(card):
+    """Phase 13a: the materialized grids at the reference's defaults on
+    the card, against a CPU twin fed the same payloads; the generators'
+    local blocks live under `build/` for the phase. Returns (results,
+    K1's kernel entry)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase13-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_matview(card, root)
+
+
+def _phase_matview(card, root):
+    import torch
+
+    from tempo_tpu_torch import matview, sched
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops import moments as msk
+
+    import logging
+
+    from tempo_tpu_torch.obs import qlog
+
+    ctx = "phase 13a"
+    t_phase = time.perf_counter()
+    # on the phase's pinned clock every query takes 0 s, which the query
+    # log's warmed slow threshold (0 s) reports, one line a query
+    logging.getLogger(qlog.LOGGER_NAME).setLevel(logging.ERROR)
+    t0 = float(int(time.time()))
+    payloads = _mv_payloads(t0)
+    sched.reset()
+    sc = sched.configure(sched.SchedConfig())
+    rig = _MvRig("cuda", os.path.join(root, "card"), t0)
+    proc = rig.inst.processors["span-metrics"]
+    sm_proc = rig.sm.processors["span-metrics"]
+    fast = {"n": 0}
+    for p in (proc, sm_proc):
+        for name in ("push_staged", "push_from_recs"):
+            inner = getattr(p, name)
+            setattr(p, name, lambda *a, _f=inner, **k: (
+                fast.__setitem__("n", fast["n"] + 1), _f(*a, **k))[1])
+    mats = _capture_windows(proc)
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    ck.reset_launch_counts()
+    miss_s = _mv_timeline(rig, payloads, card=True)
+    if rig.inst._fast_spanmetrics() is not None or \
+            rig.sm._fast_spanmetrics() is not None or fast["n"]:
+        raise AssertionError(f"{ctx}: a tenant with a grid took the staged "
+                             f"fast route ({fast['n']} fast pushes)")
+    subs = {s.query: s for s in rig.mv.subscriptions()
+            if s.tenant == MV_TENANT}
+    if set(subs) != {MV_RATE, MV_QUANT, MV_HIST, MV_LATE, MV_AUTO} or \
+            subs[MV_AUTO].origin != "auto" or rig.mv.auto_subscribed != 1:
+        raise AssertionError(f"{ctx}: subscriptions {sorted(subs)}")
+    sm_sub = [s for s in rig.mv.subscriptions()
+              if s.tenant == MV_SM_TENANT][0]
+    if sm_sub.appends != 2 or sm_sub.append_spans != 2 * N_SPANS:
+        raise AssertionError(f"{ctx}: the span-metrics-only tenant's grid "
+                             f"took {sm_sub.appends} appends")
+    grids = rig.grids()
+    state_bytes = rig.mv.status()["state_bytes"]
+    h0 = rig.mv.reads.get("hit", 0)
+    served = {q: rig.read(q) for q in (MV_RATE, MV_QUANT, MV_HIST, MV_LATE,
+                                       MV_AUTO)}
+    hits = rig.mv.reads.get("hit", 0) - h0
+    if hits != len(served):
+        raise AssertionError(f"{ctx}: {hits} hits for {len(served)} reads "
+                             f"({rig.mv.reads})")
+    hit_ms = _timed_ms(lambda: rig.read(MV_RATE))
+    saved = rig.mv
+    matview.reset()
+    recomputed = {q: rig.read(q) for q in served}
+    for q in served:
+        _same_series(served[q], recomputed[q], True,
+                     f"{ctx}: {q} served against the recompute")
+    total = sum(float(v.sum()) for v in served[MV_RATE].values()) * MV_STEP_S
+    if round(total) != N_MV_PUSHES * N_SPANS:
+        raise AssertionError(f"{ctx}: the served rate counts {total} spans")
+    recompute_ms = _timed_ms(lambda: rig.read(MV_RATE), iters=1)
+    with msk.use_query_tier("moments"):
+        _mv_moments(rig, payloads)
+        mom_sub = rig.mv.subscriptions()[0]
+        if mom_sub.grids["mmt"].dtype != torch.float64:
+            raise AssertionError(f"{ctx}: moments grid "
+                                 f"{mom_sub.grids['mmt'].dtype}")
+        mom_grids = rig.grids()
+        mom_served = rig.read(MV_QUANT)
+        if rig.mv.reads.get("hit") != 1:
+            raise AssertionError(f"{ctx}: moments read {rig.mv.reads}")
+        mom_mv = rig.mv
+        matview.reset()
+        mom_worst = _mom_close(mom_served, rig.read(MV_QUANT),
+                               f"{ctx}: moments served against recompute")
+    launches = ck.paged_fused_update.launches
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches != dispatches or not launches:
+        raise AssertionError(f"{ctx}: K1 launched {launches} times for "
+                             f"{dispatches} merged dispatches")
+    k1, row = _dist_k1_row(
+        "paged_fused_update (a tenant with materialized grids: push_otlp → "
+        "the SpanBatch route → push_batch, scheduler, dense state, sketch "
+        "dd, f32)", proc, mats[-1], launches, f"{ctx} window")
+    appends = sum(s.appends for s in saved.subscriptions()) + \
+        mom_sub.appends
+    rig.shutdown()
+    del rig, proc, sm_proc, mats, saved, mom_mv, subs, sm_sub, mom_sub
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the twin: the same payloads and timeline on the CPU
+    twin = _MvRig("cpu", os.path.join(root, "twin"), t0)
+    _mv_timeline(twin, payloads, card=False)
+    cells = _same_grids(grids, twin.grids(), f"{ctx}: card against twin")
+    with msk.use_query_tier("moments"):
+        _mv_moments(twin, payloads)
+        cells += _same_grids(mom_grids, twin.grids(),
+                             f"{ctx}: moments, card against twin")
+    twin.shutdown()
+    matview.reset()
+    sched.reset()
+    out = dict(hit_ms=hit_ms, recompute_ms=recompute_ms, miss_s=miss_s,
+               state_bytes=state_bytes, hits=hits, mom_worst=mom_worst,
+               launches=launches, dispatches=dispatches, appends=appends,
+               cells=cells, k1_device_ms=k1["device_ms"],
+               n_series=len(served[MV_RATE]))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, row
+
+
+def _structure_batch(n_traces, per, seed, corrupt=True):
+    """Seeded trees of `per` spans (each span's parent an earlier span of
+    its trace), about a third errored, ends anywhere in a second (so
+    children may outlive their parents). With `corrupt`: trace 1 holds
+    an orphan subtree, trace 2 a two-span parent cycle, trace 3 a
+    duplicate span id. Returns (grp, span ids [n, 8], parent ids, start,
+    end, err)."""
+    rng = np.random.default_rng(seed)
+    n = n_traces * per
+    grp = np.repeat(np.arange(n_traces, dtype=np.int32), per)
+    sid = rng.integers(1, 2 ** 63 - 1, size=n, dtype=np.int64)
+    j = np.tile(np.arange(per, dtype=np.int64), n_traces)
+    par = grp.astype(np.int64) * per + (rng.random(n) * j).astype(np.int64)
+    pid = np.where(j == 0, 0, sid[par])
+    if corrupt:
+        pid[1 * per + 1] = rng.integers(1, 2 ** 62)      # orphan subtree
+        a, b = 2 * per + 1, 2 * per + 2                   # 2-span cycle
+        pid[a], pid[b] = sid[b], sid[a]
+        sid[3 * per + 5] = sid[3 * per + 4]               # duplicate id
+    end = 1_700_000_000 * 10 ** 9 + rng.integers(1, 10 ** 9, n)
+    start = end - rng.integers(1, 10 ** 8, n)
+    err = rng.random(n) < 1 / 3
+    as_bytes = lambda v: np.ascontiguousarray(v).view(np.uint8).reshape(n, 8)
+    return grp, as_bytes(sid), as_bytes(pid), start, end, err
+
+
+def _structure_bound(n, n_traces):
+    """Bytes `analyze` must move: per span its trace (4 B), span and
+    parent ids (8 + 8), end (8) and error flag (1) read once, parent,
+    bounding child, errored bounding child and root cause (4 each) and
+    two flags written once; per trace its anchor (4)."""
+    nbytes = n * (29 + 18) + n_traces * 4
+    return (nbytes, *bound(nbytes, n * 32))
+
+
+def _structure_checks(ctx):
+    """`structure.analyze` on the card: at 4,096 spans against the
+    pure-Python oracle (every output; root causes on the settled mask, as
+    the processor attributes), and at a busy tenant's cut (262,144 spans
+    in 8,192 traces) against its own run on the CPU, bit for bit. Returns
+    the card call's ms with the host at the big shape."""
+    from tempo_tpu_torch.ops import structure
+
+    nt, per = STRUCT_SMALL
+    grp, sid, pid, start, end, err = _structure_batch(nt, per, SEED + 140)
+    n = len(grp)
+    res = structure.analyze(grp, sid, pid, end, err, nt, n, nt,
+                            device="cuda")
+    ref = structure.reference_analysis(grp, sid, pid, end, err)
+    for k in ("parent_row", "on_path", "bc", "ebc", "cyclic", "anchor"):
+        if not np.array_equal(res[k], ref[k]):
+            raise AssertionError(f"{ctx}: analyze {k} differs from the "
+                                 f"oracle at {n} spans")
+    ok = err & ~res["cyclic"] & (res["ebc"][np.clip(res["rc"], 0, n - 1)]
+                                 < 0)
+    if not np.array_equal(res["rc"][ok], ref["rc"][ok]) or \
+            not (res["parent_row"] == structure.ORPHAN).any() or \
+            not res["cyclic"].any():
+        raise AssertionError(f"{ctx}: analyze root causes or corruption "
+                             f"flags differ from the oracle")
+    nt, per = STRUCT_BIG
+    big = _structure_batch(nt, per, SEED + 141)
+    n = len(big[0])
+    args = (big[0], big[1], big[2], big[4], big[5], nt, n, nt)
+    got = structure.analyze(*args, device="cuda")
+    want = structure.analyze(*args, device="cpu")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{ctx}: analyze {k} differs card against "
+                                 f"CPU at {n} spans")
+    return _timed_ms(lambda: structure.analyze(*args, device="cuda"))
+
+
+def _ta_collect(inst):
+    from tempo_tpu_torch import sched
+
+    sched.flush()
+    return {(s.name, s.labels): s.value for s in inst.registry.collect(1)
+            if not s.is_stale_marker and s.name.startswith(
+                ("tempo_critical_path", "tempo_error_root_cause"))}
+
+
+def _ta_shares(inst):
+    """{cp label set: share moment row} and {q: {label set: quantile}}."""
+    p = inst.processors["trace-analytics"]
+    slots = p.cp.table.active_slots()
+    slots = slots[slots < p.cfg.sketch_max_series]
+    _, rows = p.aux_checkpoint(slots)
+    by = {p.cp.labels_of(int(slots[i])): r
+          for i, r in zip(rows["mom_sel"].tolist(), rows["mom_rows"])}
+    return by, {q: p.quantile(q) for q in (0.5, 0.99)}
+
+
+def phase_traceanalytics(card):
+    """Phase 13b: a span-metrics + trace-analytics tenant at
+    `TraceAnalyticsConfig()` on the default scheduler route, dense state,
+    2 pushes of 16,384 `deep_trace_spans` spans (about a third errored),
+    then one cut of 32,768 spans in 1,024 traces, against a CPU twin; and
+    `structure.analyze` on the card against the oracle and the CPU.
+    Returns (results, K1's kernel entry)."""
+    import torch
+
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.generator import Generator
+    from tempo_tpu_torch.generator.processors import traceanalytics as ta
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.overrides import Overrides
+    from tempo_tpu_torch.utils import dataquality
+
+    ctx = "phase 13b"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    payloads = [encode_spans_otlp(deep_trace_spans(
+        N_SPANS, seed=SEED + 150 + k, now_ns=int(t0 * 1e9)))
+        for k in range(N_TA_PUSHES)]
+    sched.reset()
+    sc = sched.configure(sched.SchedConfig())
+    ta.reset_counters()
+    dataquality.reset_orphan_spans()
+    runs = {}
+    for side, dev in (("card", "cuda"), ("twin", "cpu")):
+        tenant = TA_TENANT if side == "card" else TA_TENANT + "-twin"
+        ov = Overrides()
+        ov.set_tenant_patch(tenant, {"generator": {
+            "processors": ["span-metrics", "trace-analytics"]}})
+        gen = Generator(overrides=ov, now=lambda: t0, device=dev)
+        inst = gen.instance(tenant)
+        proc = inst.processors["span-metrics"]
+        mats = _capture_windows(proc) if side == "card" else None
+        b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+        ck.reset_launch_counts()
+        for data in payloads:
+            gen.push_otlp(tenant, data)
+        _settle({"g": gen})
+        launches = ck.paged_fused_update.launches
+        dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+        t1 = time.perf_counter()
+        inst.tick(immediate=True)
+        sched.flush()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        cut_s = time.perf_counter() - t1
+        p = inst.processors["trace-analytics"]
+        if p._live or inst.state_layout != "dense" or \
+                ta._cut_spans.get(tenant) != N_TA_PUSHES * N_SPANS or \
+                ta._cut_traces.get(tenant) != \
+                N_TA_PUSHES * N_SPANS // SPANS_PER_TRACE:
+            raise AssertionError(f"{ctx} {side}: cut {ta._cut_spans} spans, "
+                                 f"{ta._cut_traces} traces")
+        runs[side] = dict(
+            samples=_ta_collect(inst), shares=_ta_shares(inst),
+            counters=(ta._cycle_spans.get(tenant, 0.0),
+                      ta._late_spans.get(tenant, 0.0),
+                      dataquality.orphan_spans_snapshot().get(tenant, 0)),
+            cut_s=cut_s, launches=launches, dispatches=dispatches,
+            proc=proc, mats=mats, inst=inst)
+    c, tw = runs["card"], runs["twin"]
+    if c["launches"] != c["dispatches"] or not c["launches"]:
+        raise AssertionError(f"{ctx}: K1 launched {c['launches']} times for "
+                             f"{c['dispatches']} merged dispatches")
+    if set(c["samples"]) != set(tw["samples"]):
+        raise AssertionError(f"{ctx}: series differ from the twin")
+    n_rc = n_cp = 0
+    for k, v in tw["samples"].items():
+        if k[0] == "tempo_error_root_cause_total":
+            n_rc += 1
+            if c["samples"][k] != v:
+                raise AssertionError(f"{ctx}: root cause {k}: "
+                                     f"{c['samples'][k]} against {v}")
+        else:
+            n_cp += 1
+            if abs(c["samples"][k] - v) > 1e-5 * abs(v):
+                raise AssertionError(f"{ctx}: critical path {k}: "
+                                     f"{c['samples'][k]} against {v}")
+    if c["counters"] != tw["counters"]:
+        raise AssertionError(f"{ctx}: cycle, late and orphan counters "
+                             f"{c['counters']} against {tw['counters']}")
+    rows_c, q_c = c["shares"]
+    rows_t, q_t = tw["shares"]
+    if set(rows_c) != set(rows_t):
+        raise AssertionError(f"{ctx}: share series differ")
+    k = 8
+    for lab, r in rows_t.items():
+        d = rows_c[lab]
+        w = float(r[0])
+        if not (np.allclose(d[:k + 1], r[:k + 1], rtol=1e-5, atol=2e-5 * w)
+                and np.allclose(d[k + 1:], r[k + 1:], rtol=2e-6, atol=0)):
+            raise AssertionError(f"{ctx}: share row {lab} outside the "
+                                 f"moments rule")
+    outside = {}
+    for q, share in SHARE_OUTSIDE_MAX.items():
+        want = q_t[q]
+        got = q_c[q]
+        if set(got) != set(want):
+            raise AssertionError(f"{ctx}: share quantile series differ")
+        outside[q] = sum(1 for lab, v in want.items()
+                         if abs(got[lab] - v) > 1e-3 * abs(v))
+        cap = max(1, int(np.ceil(share * len(want))))
+        if outside[q] > cap:
+            raise AssertionError(f"{ctx}: q{q} outside rtol 1e-3 on "
+                                 f"{outside[q]} of {len(want)} series "
+                                 f"(limit {cap})")
+    k1, row = _dist_k1_row(
+        "paged_fused_update (a span-metrics + trace-analytics tenant: "
+        "push_otlp → the SpanBatch route, scheduler, dense state, sketch "
+        "dd, f32)", c["proc"], c["mats"][-1], c["launches"],
+        f"{ctx} window")
+    analyze_ms = _structure_checks(ctx)
+    out = dict(cut_s=c["cut_s"], twin_cut_s=tw["cut_s"], n_rc=n_rc,
+               n_cp=n_cp, counters=c["counters"], outside=outside,
+               n_share=len(rows_t), analyze_ms=analyze_ms,
+               launches=c["launches"], dispatches=c["dispatches"],
+               k1_device_ms=k1["device_ms"])
+    for r in runs.values():
+        r.clear()
+    ta.reset_counters()
+    dataquality.reset_orphan_spans()
+    sched.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, row
+
+
+def phase13_profiles() -> dict:
+    """Phase 13's torch.profiler readings, in a process of its own as
+    phase 10b's are (the smoke runs them in phase 12's profiling
+    process, `--phase12-profiles`; `--phase13-profiles` alone): one warm
+    append (`Materializer.observe_batch` of a
+    16,384-span batch into the rate, quantile and histogram grids of a
+    local-blocks tenant) and `structure.analyze` at STRUCT_BIG's shape."""
+    import torch
+
+    from tempo_tpu_torch import matview
+    from tempo_tpu_torch.model.otlp_batch import batch_from_otlp
+    from tempo_tpu_torch.ops import structure
+
+    out = {}
+    t0 = float(int(time.time()))
+    payloads = _mv_payloads(t0, 2)
+    with tempfile.TemporaryDirectory(prefix="phase13p-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        rig = _MvRig("cuda", root, t0)
+        for q in (MV_RATE, MV_QUANT, MV_HIST):
+            rig.fe.subscribe_query(MV_TENANT, q, MV_STEP_S)
+        rig.gen.push_otlp(MV_TENANT, payloads[0])     # builds the grids
+        rig.clock[0] += MV_CLOCK_S
+        sb = batch_from_otlp(payloads[1], rig.inst.registry.interner)
+        lb = rig.inst.processors["local-blocks"]
+        subs = rig.mv.subscriptions()
+        before = {s.query: ({k: g.clone() for k, g in s.grids.items()},
+                            s.append_spans) for s in subs}
+        rig.mv.observe_batch(MV_TENANT, sb, lb=lb)
+        torch.cuda.synchronize()
+        # read once: each appended row's int64 slot and ring column, and
+        # its bucket (histogram grids); written once: every touched f32
+        # cell
+        rows = cells = nbytes = 0
+        for s in subs:
+            grids0, spans0 = before[s.query]
+            n_s = s.append_spans - spans0
+            changed = sum(int((g != grids0[k]).sum())
+                          for k, g in s.grids.items())
+            rows += n_s
+            cells += changed
+            nbytes += n_s * (16 if "count" in s.grids else 24) + changed * 4
+        append = lambda: rig.mv.observe_batch(MV_TENANT, sb, lb=lb)
+        (out["app_device_ms"], out["app_ops"], out["app_wall_ms"],
+         out["app_top"]) = _profile(append)
+        out["app_ms"] = _timed_ms(append)
+        out["app_rows"], out["app_cells"] = rows, cells
+        (out["app_bound_bytes"], out["app_bound_ms"],
+         out["app_bound_by"]) = (nbytes, *bound(nbytes, rows))
+        rig.shutdown()
+        matview.reset()
+    nt, per = STRUCT_BIG
+    big = _structure_batch(nt, per, SEED + 141)
+    n = len(big[0])
+    args = (big[0], big[1], big[2], big[4], big[5], nt, n, nt)
+    (out["st_device_ms"], out["st_ops"], out["st_wall_ms"],
+     out["st_top"]) = _profile(lambda: structure.analyze(*args,
+                                                         device="cuda"))
+    (out["st_bound_bytes"], out["st_bound_ms"],
+     out["st_bound_by"]) = _structure_bound(n, nt)
+    out["st_spans"] = n
+    return out
+
+
+def _print_phase13(a, b, p, card):
+    def dev(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+    print(f"phase 13a checks: {a['hits']} frontend reads served from grids "
+          f"(rate, quantile on the bucket tier, histogram, a grid built from "
+          f"the live traces after 2 pushes, one auto-subscribed after "
+          f"{MV_AUTO_AFTER} misses) equal bit for bit to the recompute "
+          f"(materializer reset); the moments tier within "
+          f"{a['mom_worst']:.2e} relative (limit {MV_MOM_REL}); every grid "
+          f"equal to the CPU twin's ({a['cells']} non-zero cells; moment "
+          f"sums within 1e-12); no staged fast push; K1 {a['launches']} "
+          f"launches for {a['dispatches']} merged dispatches")
+    print(f"phase 13a [{card}]: a warm hit read (Frontend.query_range, rate "
+          f"by service over {MV_READ_STEPS} steps) {a['hit_ms']:.3f} ms "
+          f"against the recompute {a['recompute_ms']:.3f} ms; {MV_AUTO_AFTER} "
+          f"misses {a['miss_s']:.3f} s; grids' device bytes "
+          f"{a['state_bytes']} ({a['n_series']} services); {a['appends']} "
+          f"appends; an append of {p['app_rows']} rows into 3 grids "
+          f"(profiling process): {p['app_ms']:.3f} ms with the host, device "
+          f"{dev(p['app_device_ms'])} in {p['app_ops']:.0f} ops, bound "
+          f"{p['app_bound_ms']:.6f} ms by {p['app_bound_by']} "
+          f"({p['app_bound_bytes']} bytes, {p['app_cells']} cells)")
+    print(f"phase 13b checks: root-cause counters ({b['n_rc']} series) equal "
+          f"to the CPU twin's, critical-path seconds ({b['n_cp']} series) "
+          f"within rtol 1e-5, share rows ({b['n_share']}) within the moments "
+          f"rule, share quantiles outside rtol 1e-3 on {b['outside']} "
+          f"(limits, of the series: q50 43/256, q99 40/16,384, at least "
+          f"1); "
+          f"cycle / late / orphan counters {b['counters']} equal; "
+          f"structure.analyze equal to the oracle at "
+          f"{STRUCT_SMALL[0] * STRUCT_SMALL[1]} spans (an orphan subtree, a "
+          f"cycle, a duplicate id) and to its CPU run at {p['st_spans']}; K1 "
+          f"{b['launches']} launches for {b['dispatches']} merged dispatches")
+    n = N_TA_PUSHES * N_SPANS
+    print(f"phase 13b [{card}]: one cut of {n} spans through cut_tick "
+          f"{b['cut_s']:.3f} s ({n / b['cut_s']:.0f} spans/s; the CPU twin "
+          f"{b['twin_cut_s']:.3f} s); structure.analyze at {p['st_spans']} "
+          f"spans {b['analyze_ms']:.3f} ms with the host, device "
+          f"{dev(p['st_device_ms'])} in {p['st_ops']:.0f} ops (longest "
+          f"{p['st_top'][0]} {p['st_top'][1]:.4f} ms), bound "
+          f"{p['st_bound_ms']:.6f} ms by {p['st_bound_by']} "
+          f"({p['st_bound_bytes']} bytes)")
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -4809,7 +5496,14 @@ def main() -> int:
         print("PROFILES " + json.dumps(phase10_profiles()))
         return 0
     if sys.argv[1:2] == ["--phase12-profiles"]:
-        print("PROFILES " + json.dumps(phase12_profiles(*sys.argv[2:])))
+        # phase 13's readings ride the same process: one interpreter and
+        # one CUDA context fewer in the smoke's time
+        out = phase12_profiles(*sys.argv[2:])
+        out["phase13"] = phase13_profiles()
+        print("PROFILES " + json.dumps(out))
+        return 0
+    if sys.argv[1:] == ["--phase13-profiles"]:
+        print("PROFILES " + json.dumps(phase13_profiles()))
         return 0
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4958,13 +5652,18 @@ def main() -> int:
           f"s, phase 11 {s11a['seconds'] + s10b['11_seconds']:.1f} s")
     s12, k12 = phase_ingest_storage(card)
     _print_phase12(s12, card)
-    print(f"phase 12 [{card}]: {s12['seconds']:.1f} s; the whole smoke "
+    print(f"phase 12 [{card}]: {s12['seconds']:.1f} s")
+    s13a, k13a = phase_matview(card)
+    s13b, k13b = phase_traceanalytics(card)
+    _print_phase13(s13a, s13b, s12["prof"]["phase13"], card)
+    print(f"phase 13 [{card}]: 13a {s13a['seconds']:.1f} s, 13b "
+          f"{s13b['seconds']:.1f} s; the whole smoke "
           f"{time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
-                                            *k8, k12)]}))
+                                            *k8, k12, k13a, k13b)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

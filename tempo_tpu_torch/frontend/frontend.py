@@ -13,10 +13,11 @@ TempoDB's read plane, on that TempoDB's device. The generators'
 recent-window leg is `generator_query_range`: pass
 `generator.Generator.query_range`, which answers from the tenants'
 local-blocks processors (the App's fan-out of it over a generator ring
-comes with the app wiring, ROADMAP section 1, item 9). Not carried yet:
-the materialized-view tier (`matview.materializer()` is always None, and
-`subscribe_query` / `unsubscribe_query` raise naming ROADMAP section 1,
-item 8).
+comes with the app wiring, ROADMAP section 1, item 9). A metrics query
+is served from the process materializer's standing grid when one
+covers it (`tempo_tpu_torch.matview`), and every miss feeds the query
+log's recurrence count that auto-subscribes the hot set;
+`subscribe_query` / `unsubscribe_query` are the explicit half.
 """
 
 from __future__ import annotations
@@ -842,16 +843,20 @@ class Frontend:
     def subscribe_query(self, tenant: str, query: str, step_s: float
                         ) -> "tuple[bool, str]":
         """Explicit materialized-view subscription (the API half of the
-        matview tier): the grids come with ROADMAP section 1, item 8."""
-        raise NotImplementedError(
-            "Frontend.subscribe_query subscribes a materialized query grid, "
-            "which comes with ROADMAP section 1, item 8")
+        matview tier; the other half is qlog-recurrence auto-subscribe).
+        Returns (ok, reason-when-refused)."""
+        from tempo_tpu_torch import matview
+        mv = matview.materializer()
+        if mv is None:
+            return False, "matview tier disabled"
+        sub, why = mv.subscribe(tenant, query, step_s)
+        return sub is not None, why
 
     def unsubscribe_query(self, tenant: str, query: str,
                           step_s: float) -> bool:
-        raise NotImplementedError(
-            "Frontend.unsubscribe_query drops a materialized query grid, "
-            "which comes with ROADMAP section 1, item 8")
+        from tempo_tpu_torch import matview
+        mv = matview.materializer()
+        return mv is not None and mv.unsubscribe(tenant, query, step_s)
 
     def decode_job_result(self, spec: dict, result):
         """Decode a remote worker's JSON job result back into the objects

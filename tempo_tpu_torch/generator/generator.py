@@ -102,10 +102,10 @@ class Generator:
     def instance(self, tenant: str) -> GeneratorInstance:
         """The tenant's instance, created on first use with the tenant's
         overrides applied to the base config: processors, series budget,
-        collection interval and switch, ingestion slack, and the
-        span-metrics sketch tier, moments count and kernel tier. (The
-        reference also applies the `ta_*` limits to the trace-analytics
-        config; that processor raises in the port.)"""
+        collection interval and switch, ingestion slack, the span-metrics
+        sketch tier, moments count and kernel tier, and the `ta_*` limits
+        of the trace-analytics config. The instance's `_matview_limits`
+        resolves the tenant's current overrides for the materializer."""
         with self._lock:
             inst = self.instances.get(tenant)
             if inst is None:
@@ -130,8 +130,24 @@ class Generator:
                 if sm_patch:
                     cfg.spanmetrics = dataclasses.replace(
                         cfg.spanmetrics, **sm_patch)
+                ta_patch = {}
+                if lim.generator.ta_trace_idle_s:
+                    ta_patch["trace_idle_s"] = lim.generator.ta_trace_idle_s
+                if lim.generator.ta_late_window_s:
+                    ta_patch["late_window_s"] = lim.generator.ta_late_window_s
+                if lim.generator.ta_max_live_traces:
+                    ta_patch["max_live_traces"] = \
+                        lim.generator.ta_max_live_traces
+                if lim.generator.ta_max_spans_per_trace:
+                    ta_patch["max_spans_per_trace"] = \
+                        lim.generator.ta_max_spans_per_trace
+                if ta_patch:
+                    cfg.traceanalytics = dataclasses.replace(
+                        cfg.traceanalytics, **ta_patch)
                 inst = GeneratorInstance(tenant, cfg, now=self.now,
                                          device=self.device)
+                inst._matview_limits = \
+                    lambda t=tenant: self.overrides.for_tenant(t)
                 self.instances[tenant] = inst
             return inst
 

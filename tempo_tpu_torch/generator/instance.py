@@ -23,18 +23,21 @@ bytes → `native.otlp_stage` → the span-metrics fast route),
 `push_staged_view` (a row view of a decode-once `StagedIngest`: the fast
 route for a span-metrics-only instance, the staged SpanBatch columns
 through `push_batch` for any other processor mix) and `push_otlp_recs`
-(`native.otlp_scan` records with their payload). The reference also
-sends a tenant with materialized query grids down the SpanBatch route;
-the port has no materialized grids yet (ROADMAP section 1, item 8), so
-its fast route has no such check.
+(`native.otlp_scan` records with their payload). A tenant with
+materialized query grids (`tempo_tpu_torch.matview`) always takes the
+SpanBatch route: `push_batch` feeds each batch, after the slack filter
+and before the processors, to the process materializer, which evaluates
+the grids' queries over the batch columns.
 
 The `local-blocks` processor (`processors/localblocks.py`) keeps the
 tenant's recent traces as RF1 blocks on the instance's device and serves
-`query_range` and `get_metrics` over them; `tick` runs its cut. A tenant
-with it has two processors, so its pushes take the SpanBatch route
-(`push_batch`), where span metrics run K1 as on every route. The
-`trace-analytics` processor raises `NotImplementedError` naming ROADMAP
-section 1, item 10.
+`query_range` and `get_metrics` over them, and the materializer's
+backfill reads them; `tick` runs its cut. The `trace-analytics`
+processor (`processors/traceanalytics.py`) buffers live traces and, at
+each `tick`, analyses the idle ones on the instance's device. A tenant
+with either has more than span metrics, so its pushes take the
+SpanBatch route (`push_batch`), where span metrics run K1 as on every
+route.
 
 The multi-tenant `Generator` (`generator.py`) drives instances through
 the reference's push fence (`try_track` / `untrack`, the `detached` flag
@@ -66,6 +69,10 @@ from tempo_tpu_torch.generator.processors.spanmetrics import (
     SpanMetricsConfig,
     SpanMetricsProcessor,
 )
+from tempo_tpu_torch.generator.processors.traceanalytics import (
+    TraceAnalyticsConfig,
+    TraceAnalyticsProcessor,
+)
 from tempo_tpu_torch.generator.remote_write import RemoteWriteClient, RemoteWriteConfig
 from tempo_tpu_torch.model.otlp_batch import stage_otlp
 from tempo_tpu_torch.model.span_batch import SpanBatch
@@ -79,6 +86,8 @@ class GeneratorConfig:
     spanmetrics: SpanMetricsConfig = dataclasses.field(default_factory=SpanMetricsConfig)
     servicegraphs: ServiceGraphsConfig = dataclasses.field(
         default_factory=ServiceGraphsConfig)
+    traceanalytics: TraceAnalyticsConfig = dataclasses.field(
+        default_factory=TraceAnalyticsConfig)
     remote_write: RemoteWriteConfig = dataclasses.field(default_factory=RemoteWriteConfig)
     localblocks: LocalBlocksConfig = dataclasses.field(
         default_factory=LocalBlocksConfig)
@@ -119,6 +128,10 @@ class GeneratorInstance:
         # resolved this instance but has not yet registered in flight
         # re-resolves instead of scattering into a fenced instance
         self.detached = False
+        # resolver for this tenant's CURRENT overrides (set by
+        # Generator.instance); the materializer fingerprints it to
+        # expire and rebuild grids when the tenant's limits change
+        self._matview_limits: "object | None" = None
 
     def drain(self) -> None:
         """The collection barrier: flush the device scheduler and reap
@@ -188,9 +201,8 @@ class GeneratorInstance:
                         flush_writer=self.cfg.localblocks_flush_writer,
                         now=self.now, device=self.device)
                 elif name == "trace-analytics":
-                    raise NotImplementedError(
-                        "processor trace-analytics comes with a later slice "
-                        "of the port (ROADMAP section 1, item 10)")
+                    self.processors[name] = TraceAnalyticsProcessor(
+                        self.registry, self.cfg.traceanalytics)
                 else:
                     raise ValueError(f"unknown processor {name}")
 
@@ -210,9 +222,15 @@ class GeneratorInstance:
 
     def _fast_spanmetrics(self) -> "SpanMetricsProcessor | None":
         """The single eligible span-metrics processor for the staged fast
-        routes, or None when the SpanBatch route is required. (The
-        reference also returns None for a tenant with materialized query
-        grids, which the port does not have yet.)"""
+        routes, or None when the SpanBatch route is required. A tenant
+        with materialized query grids always takes the SpanBatch route:
+        the matview appender evaluates TraceQL over the batch columns,
+        which the StageRec fast path never builds."""
+        from tempo_tpu_torch import matview
+
+        mv = matview.materializer()
+        if mv is not None and mv.wants(self.tenant):
+            return None
         procs = list(self.processors.values())
         if len(procs) != 1 or not isinstance(procs[0], SpanMetricsProcessor):
             return None
@@ -292,9 +310,21 @@ class GeneratorInstance:
                    now_s: "float | None" = None) -> None:
         self.spans_received += sb.n
         sb = self._apply_slack(sb, now_s)
+        # materialized query grids see the batch BEFORE the processor
+        # fan: a grid (re)build backfills from local-blocks state, so the
+        # backfill must not already hold the batch it then appends
+        from tempo_tpu_torch import matview
+
+        mv = matview.materializer()
+        if mv is not None and mv.wants(self.tenant):
+            mv.observe_batch(self.tenant, sb,
+                             lb=self.processors.get("local-blocks"),
+                             limits_fn=self._matview_limits)
         for proc in self.processors.values():
             if isinstance(proc, SpanMetricsProcessor):
                 proc.push_batch(sb, span_sizes, sample_weights=sample_weights)
+            elif isinstance(proc, TraceAnalyticsProcessor):
+                proc.push_batch(sb, sample_weights=sample_weights)
             else:
                 proc.push_batch(sb)
 
@@ -352,9 +382,9 @@ class GeneratorInstance:
     # -- maintenance -------------------------------------------------------
 
     def tick(self, immediate: bool = False) -> None:
-        """Background maintenance: each processor's cut pass, which is the
-        local-blocks cut/complete/flush pass (the reference's other one,
-        trace analytics' idle-trace cut, is ROADMAP section 1, item 10)."""
+        """Background maintenance: each processor's cut pass — the
+        local-blocks cut/complete/flush pass and the trace-analytics
+        idle-trace cut."""
         for proc in list(self.processors.values()):
             fn = getattr(proc, "cut_tick", None)
             if fn is not None:

@@ -116,7 +116,7 @@ class LocalBlocksProcessor:
 
     def views_for_matview(self) -> Iterator[tuple]:
         """Stored-state scan views for the materialized-view backfill
-        (ROADMAP section 1, item 8): a grid (re)build runs the recompute
+        (`matview`): a grid (re)build runs the recompute
         evaluator over exactly these views, so a fresh grid cannot
         disagree with `query_range` over the same window. No bloom
         prefilter — rebuilds are rare and must see every span."""

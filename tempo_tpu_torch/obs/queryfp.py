@@ -5,10 +5,10 @@ Counterpart of `tempo_tpu/obs/queryfp.py`, over the port's TraceQL AST;
 
 The query log (obs/qlog.py) wants to notice that 10k dashboards are
 polling the same handful of TraceQL-metrics queries, and the
-materialized-view tier (`matview`, ROADMAP item 8) wants to serve
-exactly those queries from standing device grids — both need to agree,
-byte for byte, on what "the same query" means, so the identity lives
-here and nowhere else.
+materialized-view tier (`matview`) wants to serve exactly those
+queries from standing device grids — both need to agree, byte for
+byte, on what "the same query" means, so the identity lives here and
+nowhere else.
 
 A fingerprint covers (op, canonical query text, step) and deliberately
 EXCLUDES the time window: a dashboard re-polling `rate()` every 10s

@@ -262,13 +262,11 @@ def test_unported_frontend_surfaces_raise_naming_their_item(pair):
     p, _ = pair
     from tempo_tpu_torch import matview
 
+    # no materializer configured: the reference's answers, not a raise
     assert matview.materializer() is None
-    for call in (lambda: p.fe.subscribe_query("t1", "{ } | rate()", 60.0),
-                 lambda: p.fe.unsubscribe_query("t1", "{ } | rate()", 60.0),
-                 lambda: matview.configure(None),
-                 lambda: matview.Materializer):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    assert p.fe.subscribe_query("t1", "{ } | rate()", 60.0) == \
+        (False, "matview tier disabled")
+    assert p.fe.unsubscribe_query("t1", "{ } | rate()", 60.0) is False
     assert p.fe.generator_query_range is None
 
 

@@ -84,7 +84,8 @@ def _cfg_view(inst):
     return (tuple(c.processors), dataclasses.asdict(c.registry),
             c.ingestion_time_range_slack_s, c.spanmetrics.sketch,
             c.spanmetrics.moments_k, c.spanmetrics.kernel,
-            c.spanmetrics.sketch_max_series)
+            c.spanmetrics.sketch_max_series,
+            dataclasses.asdict(c.traceanalytics))
 
 
 PATCHES = {
@@ -107,15 +108,18 @@ def test_instance_config_from_overrides_matches_reference():
             _cfg_view(jg.instance(tenant)), tenant
         assert tg.instance(tenant).device == torch.device("cpu")
     assert tuple(tg.instance("no-override").processors) == DEFAULT
-    # trace-analytics is asked for: the reference builds it, the port
-    # raises naming its slice
-    jg.overrides.set_tenant_patch("ta", tenant_patch(
-        ("trace-analytics",), generator={"ta_max_live_traces": 9}))
-    tg.overrides.set_tenant_patch("ta", tenant_patch(("trace-analytics",)))
-    assert jg.instance("ta").cfg.traceanalytics.max_live_traces == 9
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tg.instance("ta")
-    assert "ta" not in tg.instances
+    # trace-analytics is asked for: both build it, with the ta_* limits
+    # applied, and both hand the instance the materializer's overrides
+    # resolver
+    for g in (jg, tg):
+        g.overrides.set_tenant_patch("ta", tenant_patch(
+            ("trace-analytics",), generator={"ta_max_live_traces": 9,
+                                             "ta_max_spans_per_trace": 7}))
+    assert _cfg_view(tg.instance("ta")) == _cfg_view(jg.instance("ta"))
+    assert tg.instance("ta").cfg.traceanalytics.max_live_traces == 9
+    assert tuple(tg.instance("ta").processors) == ("trace-analytics",)
+    assert tg.instance("ta")._matview_limits() == \
+        tg.overrides.for_tenant("ta")
 
 
 @pytest.mark.parametrize("sm", [{}, {"dimensions": ("http.method",)},

@@ -32,6 +32,10 @@
   (`Distributor.push_otlp` onto a bus, a local-blocks `Generator` and a
   `BlockBuilder` with sidecars draining it, a frontend rate query over
   both legs) with the same result.
+- A fresh interpreter drives the materialized grids (an explicit and an
+  auto-subscribed grid over a local-blocks tenant, read through
+  `Frontend`) and a trace-analytics tenant pushed and cut, with the
+  same result.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -451,6 +455,123 @@ def test_ingest_storage_drive_loads_no_reference_yaml_or_pyarrow():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_GRID_DRIVE_HEAD = """
+import sys
+import tempfile
+from tempo_tpu_torch.generator import Generator, GeneratorConfig
+from tempo_tpu_torch.generator.processors.localblocks import LocalBlocksConfig
+from tempo_tpu_torch.model.span_batch import SpanBatchBuilder
+from tempo_tpu_torch.overrides import Overrides
+
+T0 = 1_700_000_000.0
+clock = [T0]
+now = lambda: clock[0]
+ov = Overrides()
+ov.set_tenant_patch("t", {"generator": {
+    "processors": ["span-metrics", "local-blocks"], "max_active_series": 512}})
+ov.set_tenant_patch("ta", {"generator": {
+    "processors": ["span-metrics", "trace-analytics"],
+    "max_active_series": 512}})
+
+
+def push(inst, k):
+    b = SpanBatchBuilder(inst.registry.interner)
+    t0 = int(clock[0] * 1e9)
+    for i in range(40):
+        tid = bytes([k, i // 4 + 1]) * 8
+        b.append(trace_id=tid, span_id=bytes([i % 4 + 1]) * 8,
+                 parent_span_id=b"" if i % 4 == 0 else bytes([1]) * 8,
+                 name=f"op-{i % 3}", service=f"svc-{i % 2}",
+                 status_code=2 if i % 5 == 0 else 0,
+                 start_unix_nano=t0 - (i % 4 + 1) * 10**8,
+                 end_unix_nano=t0 - (i % 4) * 10**7)
+    inst.push_batch(b.build())
+"""
+
+_DRIVE_TAIL = """
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+_MATVIEW_DRIVE = _GRID_DRIVE_HEAD + """
+from tempo_tpu_torch import matview
+from tempo_tpu_torch.backend import MemBackend
+from tempo_tpu_torch.db import TempoDB
+from tempo_tpu_torch.frontend import Frontend, FrontendConfig
+from tempo_tpu_torch.querier import Querier
+from tempo_tpu_torch.querier.querier import QuerierConfig
+from tempo_tpu_torch.ring import Ring
+
+with tempfile.TemporaryDirectory() as root:
+    gen = Generator(GeneratorConfig(localblocks=LocalBlocksConfig(
+        data_dir=root)), overrides=ov, now=now, device="cpu")
+    mv = matview.configure(matview.MatViewConfig(auto_subscribe_after=2),
+                           now=now, device="cpu")
+    be = MemBackend()
+    db = TempoDB(be, be, device="cpu", now=now)
+    fe = Frontend(db, Querier(db, Ring(replication_factor=1), {},
+                              cfg=QuerierConfig(rf=1)),
+                  cfg=FrontendConfig(query_backend_after_s=1e9),
+                  generator_query_range=gen.query_range, now=now)
+    rate = "{ } | rate() by (resource.service.name)"
+    hist = "{ } | histogram_over_time(duration)"
+    assert fe.subscribe_query("t", rate, 10.0) == (True, "")
+    inst = gen.instance("t")
+    push(inst, 1)
+    kw = dict(start_s=(int(T0) // 10 - 3) * 10.0,
+              end_s=(int(T0) // 10 + 1) * 10.0, step_s=10.0)
+    for _ in range(2):
+        fe.query_range("t", hist, **kw)
+    clock[0] += 5
+    push(inst, 2)
+    served = {s.labels: s.samples.tolist()
+              for s in fe.query_range("t", rate, **kw)}
+    fe.query_range("t", hist, **kw)
+    assert mv.reads["hit"] == 2 and mv.auto_subscribed == 1, mv.reads
+    matview.reset()
+    assert served == {s.labels: s.samples.tolist()
+                      for s in fe.query_range("t", rate, **kw)}
+    fe.shutdown()
+    db.shutdown()
+""" + _DRIVE_TAIL
+
+_TRACE_ANALYTICS_DRIVE = _GRID_DRIVE_HEAD + """
+gen = Generator(overrides=ov, now=now, device="cpu")
+ta = gen.instance("ta")
+push(ta, 3)
+ta.tick(immediate=True)
+samples = ta.registry.collect()
+assert any(s.name == "tempo_critical_path_seconds_total" for s in samples)
+assert any(s.name == "tempo_error_root_cause_total" for s in samples)
+assert ta.processors["trace-analytics"].quantile(0.5)
+""" + _DRIVE_TAIL
+
+
+def _fresh(drive: str):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", drive], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_matview_drive_loads_no_reference():
+    """A materializer with an explicit and an auto-subscribed grid over a
+    local-blocks tenant, read through `Frontend` (served reads equal the
+    recompute), in a fresh interpreter: no `jax`, `tempo_tpu`, `yaml` or
+    `pyarrow`."""
+    _fresh(_MATVIEW_DRIVE)
+
+
+def test_trace_analytics_drive_loads_no_reference():
+    """A span-metrics + trace-analytics tenant pushed and cut, its
+    counters collected and a share quantile read, in a fresh
+    interpreter: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`."""
+    _fresh(_TRACE_ANALYTICS_DRIVE)
+
+
 def test_no_port_source_imports_pyarrow():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
@@ -605,11 +726,12 @@ def test_dense_layout_and_other_entry_points_raise():
         assert set(lb.processors) == {"span-metrics", "local-blocks"}
         shutil.rmtree(os.path.dirname(
             lb.processors["local-blocks"].inst.wal_dir))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tt.GeneratorInstance("t", tt.GeneratorConfig(
-                processors=("span-metrics", "trace-analytics"),
-                registry=tt.RegistryOverrides(max_active_series=512)),
-                device="cpu")
+        ta = tt.GeneratorInstance("t", tt.GeneratorConfig(
+            processors=("span-metrics", "trace-analytics"),
+            registry=tt.RegistryOverrides(max_active_series=512)),
+            device="cpu")
+        assert set(ta.processors) == {"span-metrics", "trace-analytics"}
+        assert ta._fast_spanmetrics() is None
     g = _instance()
     with pytest.raises(ValueError, match="unknown sketch"):
         _instance(sketch="hll")

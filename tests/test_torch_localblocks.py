@@ -256,9 +256,11 @@ def test_generator_without_localblocks_raises():
             gi.get_metrics("{ }", [])
         with pytest.raises(RuntimeError, match="local-blocks"):
             gi.query_range(None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tt.GeneratorInstance("t1", tt.GeneratorConfig(
-            processors=("trace-analytics",)), device="cpu")
+        ta = mod(side, "generator.instance").GeneratorInstance(
+            "t1", mod(side, "generator.instance").GeneratorConfig(
+                processors=("trace-analytics",)), **_kw(side))
+        with pytest.raises(RuntimeError, match="local-blocks"):
+            ta.query_range(None)
 
 
 def test_default_config_matches_reference(tmp_path):
