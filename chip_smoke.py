@@ -287,6 +287,37 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       the host, its device time and ops (the profiling process) and its
       bound by bytes.
 
+14. the App on the card, `python -m tempo_tpu_torch`'s object: `App(Config())`
+   at target `all` (the `local` backend and its data under `build/`, a
+   free loopback port, `start_loops()`, `serve(app, block=False)`, a
+   pinned clock, the compaction loop's interval raised to an hour so it
+   does not race the phase's own sweep), its tenant given span metrics
+   and local blocks:
+   a. 3 pushes of 16,384 `deep_trace_spans` spans (32-span traces) as
+      OTLP protobuf through `POST /v1/traces` (the default limits hold),
+      then 64 finds, a search, the tags and a tag's values, a rate and
+      a `quantile_over_time` by service, the span-metrics summary and
+      `/metrics` over HTTP, every answer equal to a CPU twin's
+      (`App(device="cpu")`, the same payloads and clock; /metrics by
+      family names) and the finds and rate to the payloads; K1 launches
+      equal to merged dispatches; K1 at a captured window against its
+      plain version;
+   b. the cold tier of the same App: the ingester's traces cut,
+      completed and flushed into a block, a find and the two queries
+      through `TempoDB` directly, the first payload pushed again and
+      flushed (duplicate (trace, span) pairs across blocks), one
+      `db.compact_tenant_once` on the device route: the merge's order
+      equal to `reference_merge_order` and to its CPU run row for row,
+      every output block at level 1 with a sidecar, the finds and
+      queries over it equal to those over the first block; the merge's
+      device time and ops from a process of its own (phase 12's);
+   c. `python3 -m tempo_tpu_torch -config.file ... -server.http-listen-port
+      <free>`, started with the phase: `/ready`, one push, one find
+      equal to the payload, then SIGINT and its exit within 15 s.
+
+`python3 chip_smoke.py --phase14` builds as above and runs phase 14
+alone (about 100 s).
+
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
 and writes Parquet with its own codec and loads PyYAML only for a
@@ -306,6 +337,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4212,9 +4244,9 @@ def _phase_frontend_metrics(db, be, t_base):
         if "rate" in q:
             n = sum(v.sum() for v in got.values()) * step
             out["rate_spans"] = int(round(n))
-    if db.compaction_stats != {"sidecar_folds": 0, "sidecar_fallbacks": 0}:
-        raise AssertionError(f"{ctx}: the fold tier moved with no sidecar: "
-                             f"{db.compaction_stats}")
+    if any(db.compaction_stats.values()):
+        raise AssertionError(f"{ctx}: the fold tier (or the cold tier) "
+                             f"moved with no sidecar: {db.compaction_stats}")
     # the job cache: under the real clock the block lies behind the cutoff
     # (cacheable); the second query is a hit and gives the same series
     cached = _frontend(db, None, time.time, cache=True)
@@ -5465,6 +5497,590 @@ def _print_phase13(a, b, p, card):
           f"({p['st_bound_bytes']} bytes)")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the App on the card (python -m tempo_tpu_torch's object)
+# ---------------------------------------------------------------------------
+
+APP_TENANT = "single-tenant"       # the HTTP API's tenant without a header
+N_APP_PUSHES = 3
+N_APP_FIND = 64                    # trace ids found over HTTP and direct
+APP_RATE = LB_RATE
+APP_QUANT = ("{ } | quantile_over_time(duration, .5, .9) by "
+             "(resource.service.name)")
+APP_SEARCH = '{ resource.service.name = "service-3" && span.http.status_code >= 500 }'
+APP_WINDOW_S = 600.0               # [t0 - 600, t0], 60 s steps: the recent window
+
+
+def _app_payloads(t0):
+    """(span lists, OTLP payloads) of `N_APP_PUSHES` pushes of
+    `deep_trace_spans` (32-span traces), stamped within 10 s before t0."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    spans = [deep_trace_spans(N_SPANS, seed=SEED + 140 + k,
+                              now_ns=int(t0 * 1e9))
+             for k in range(N_APP_PUSHES)]
+    return spans, [encode_spans_otlp(s) for s in spans]
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _http_errors:
+    """Turn an HTTP error answer into an AssertionError carrying its
+    body (the API's error message)."""
+
+    def __init__(self, what):
+        self.what = what
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, e, tb):
+        import urllib.error
+
+        if isinstance(e, urllib.error.HTTPError):
+            raise AssertionError(f"phase 14: {self.what} answered {e.code}: "
+                                 f"{e.read()[:2000]!r}") from e
+        return False
+
+
+class _AppRig:
+    """`App(Config())` at target `all` on `device`, on a pinned clock `t0`
+    (traces stay live until the phase cuts them): the `local` backend
+    and every data directory under `root`, a free loopback port,
+    `start_loops()` and `serve(app, block=False)`; the tenant given the
+    span-metrics and local-blocks processors (tests/test_app.py:79-80).
+    The compaction loop's interval is raised from 30 s to an hour so the
+    loop does not race the phase's own `compact_tenant_once` over the
+    same blocks; the loop is started all the same."""
+
+    def __init__(self, device, root, t0):
+        from tempo_tpu_torch.app import App
+        from tempo_tpu_torch.app.api import serve
+        from tempo_tpu_torch.app.config import Config
+
+        cfg = Config()
+        cfg.storage.local_path = os.path.join(root, "blocks")
+        cfg.storage.wal_path = os.path.join(root, "data", "wal")
+        cfg.generator.localblocks.data_dir = os.path.join(root, "lb")
+        cfg.server.http_listen_port = _free_port()
+        cfg.compaction_interval_s = 3600.0
+        self.clock = [t0]
+        self.app = App(cfg, now=lambda: self.clock[0], device=device)
+        # the default limits hold: 4 pushes of ~2.8 MB stay within the
+        # 20 MB ingestion burst
+        self.app.overrides.set_tenant_patch(APP_TENANT, {
+            "generator": {"processors": ["span-metrics", "local-blocks"]}})
+        self.app.start_loops()
+        self.srv = serve(self.app, block=False)
+        self.base = f"http://127.0.0.1:{cfg.server.http_listen_port}"
+        self.inst = self.app.generator.instance(APP_TENANT)
+
+    def post(self, payload) -> float:
+        """One OTLP protobuf push through `/v1/traces`; ms with the reply."""
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + "/v1/traces", data=payload,
+            headers={"Content-Type": "application/x-protobuf"})
+        t = time.perf_counter()
+        with _http_errors("POST /v1/traces"):
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body = json.loads(r.read() or b"{}")
+                if r.status != 200 or body:
+                    raise AssertionError(f"phase 14: push answered "
+                                         f"{r.status} {body}")
+        return (time.perf_counter() - t) * 1e3
+
+    def get(self, path):
+        """(ms, decoded body) of one GET: JSON, or the text of /metrics."""
+        import urllib.request
+
+        t = time.perf_counter()
+        with _http_errors(f"GET {path}"):
+            with urllib.request.urlopen(self.base + path, timeout=120) as r:
+                raw = r.read()
+        ms = (time.perf_counter() - t) * 1e3
+        return ms, (raw.decode() if path == "/metrics" else json.loads(raw))
+
+    def settle(self):
+        import torch
+
+        self.app.sched.flush()
+        self.inst.drain()
+        if self.app.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def shutdown(self, keep_live=True):
+        """Stop the server and the App. With `keep_live` false the
+        ingester's live traces are dropped instead of cut and flushed
+        (App.shutdown's `flush_all`): the CPU twin holds 14a's reads only,
+        and the card's App flushed the same traces in 14b."""
+        self.srv.shutdown()
+        self.srv.server_close()
+        if not keep_live:
+            self.app.ingester.flush_all = lambda: None
+        self.app.shutdown()
+
+
+def _app_paths(spans, t0):
+    """The reads of phase 14a: finds, a search, the tags, a rate and a
+    quantile query_range by service, the span-metrics summary and
+    /metrics."""
+    import urllib.parse
+
+    tids = sorted({s["trace_id"] for sp in spans for s in sp})
+    picks = tids[::len(tids) // N_APP_FIND][:N_APP_FIND]
+    q = urllib.parse.quote
+    win = f"&start={t0 - APP_WINDOW_S}&end={t0}&step=60"
+    return picks, {
+        **{f"find {i}": f"/api/traces/{t.hex()}" for i, t in enumerate(picks)},
+        "search": f"/api/search?limit=20&q={q(APP_SEARCH)}"
+                  f"&start={t0 - APP_WINDOW_S}&end={t0}",
+        "tags": "/api/search/tags",
+        "rate": f"/api/metrics/query_range?q={q(APP_RATE)}{win}",
+        "quantile": f"/api/metrics/query_range?q={q(APP_QUANT)}{win}",
+        "summary": f"/api/metrics/summary?q={q('{ }')}"
+                   f"&groupBy=resource.service.name",
+        "metrics": "/metrics",
+    }
+
+
+def _canon(key, body):
+    """An answer in a form two Apps can be compared by: spans sorted by
+    span id, traces by id, series by labels, /metrics by family names
+    (its values are timings)."""
+    if key == "metrics":
+        return sorted({ln.split()[2] for ln in body.splitlines()
+                       if ln.startswith("# TYPE")})
+    if key.startswith("find"):
+        return sorted(body["spans"], key=lambda s: s["span_id"])
+    if key == "search":
+        return sorted(body["traces"], key=lambda t: t["traceID"])
+    if key in ("rate", "quantile"):
+        return sorted((json.dumps(s["labels"], sort_keys=True), s["samples"])
+                      for s in body["series"])
+    if key == "summary":
+        return sorted(body["summaries"],
+                      key=lambda s: json.dumps(s["series"]))
+    return body
+
+
+def _app_reads(rig, paths):
+    """Every read of `paths` → ({key: canonical answer}, {key: ms})."""
+    got, ms = {}, {}
+    for key, path in paths.items():
+        ms[key], body = rig.get(path)
+        got[key] = _canon(key, body)
+    return got, ms
+
+
+def _check_app_answers(got, spans, t0, ctx):
+    """The card's answers against the payloads themselves: every find the
+    sent trace, the rate counting every span, every service present."""
+    sent: dict = {}
+    for sp in spans:
+        for s in sp:
+            sent.setdefault(s["trace_id"].hex(), set()).add(s["span_id"].hex())
+    for key, val in got.items():
+        if key.startswith("find"):
+            tid = val[0]["trace_id"]
+            if {s["span_id"] for s in val} != sent[tid]:
+                raise AssertionError(f"{ctx}: {key} found {len(val)} spans "
+                                     f"of {len(sent[tid])}")
+    total = sum(x["value"] for _, samples in got["rate"] for x in samples
+                if x["value"] == x["value"]) * 60
+    if round(total) != N_APP_PUSHES * N_SPANS:
+        raise AssertionError(f"{ctx}: the rate counts {total} spans")
+    if len(got["quantile"]) != 2 * len(got["rate"]) or not got["search"]:
+        raise AssertionError(f"{ctx}: {len(got['quantile'])} quantile "
+                             f"series, {len(got['search'])} traces found")
+
+
+def _merge_input(spans_by_block):
+    """The compaction input of phase 14b as the merge sees it: each
+    block's rows in trace-id order (the ingester writes traces sorted),
+    spans of a trace in the order the ingester combined them, blocks in
+    order; only the ids matter to the merge."""
+    tid, sid = [], []
+    for spans in spans_by_block:
+        by: dict = {}
+        for s in spans:
+            by.setdefault(s["trace_id"], []).append(s["span_id"])
+        for t in sorted(by):
+            tid += [t] * len(by[t])
+            sid += by[t]
+    return (np.frombuffer(b"".join(tid), np.uint8).reshape(-1, 16),
+            np.frombuffer(b"".join(sid), np.uint8).reshape(-1, 8))
+
+
+def _merge_bound(n_in, n_out):
+    """The merge's least time: 24 bytes of ids read a row (trace and span
+    id), 8 bytes of order written a kept row; no arithmetic to speak of
+    (a sort's compares are not counted as flops)."""
+    nbytes = 24 * n_in + 8 * n_out
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase14_profiles() -> dict:
+    """The merge's device time and ops (torch.profiler) at phase 14b's
+    shape, rebuilt from the seed: 3 pushes' rows then the first push's
+    again, 65,536 rows, 49,152 kept."""
+    from tempo_tpu_torch.ops import compact as cops
+
+    spans, _ = _app_payloads(float(int(time.time())))
+    tid, sid = _merge_input([[s for sp in spans for s in sp], spans[0]])
+    out = {}
+    (out["merge_device_ms"], out["merge_launches"], out["merge_wall_ms"],
+     out["merge_top"]) = _profile(lambda: cops.merge_order(tid, sid,
+                                                           device="cuda"))
+    order = cops.merge_order(tid, sid, device="cuda")
+    out["merge_rows"], out["merge_kept"] = len(tid), len(order)
+    (out["merge_bound_bytes"], out["merge_bound_ms"],
+     out["merge_bound_by"]) = _merge_bound(len(tid), len(order))
+    return out
+
+
+def _flush_blocks(rig, want, ctx):
+    """Cut every live trace of the App's ingester, complete and flush the
+    block, and poll until the store lists `want` blocks of the tenant
+    (the ingester's own flush loops may take an op: wait for it)."""
+    ing = rig.app.ingester
+    t = time.perf_counter()
+    ing.sweep_all(immediate=True)
+    deadline = time.time() + 120
+    while True:
+        ing.flush_tick()
+        rig.app.db.poll_now()
+        metas = rig.app.db.blocklist.metas(APP_TENANT)
+        if len(metas) >= want:
+            break
+        if time.time() > deadline:
+            raise AssertionError(f"{ctx}: {len(metas)} blocks flushed, "
+                                 f"{want} wanted")
+        time.sleep(0.05)
+    return metas, time.perf_counter() - t
+
+
+def _db_reads(db, picks, t0):
+    """TempoDB direct: finds, the rate and the quantile (after the
+    combiner's final pass) over the tenant's blocks; ({key: answer},
+    {key: ms})."""
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    got, ms = {}, {}
+    t = time.perf_counter()
+    for i, tid in enumerate(picks):
+        spans = db.find_trace_by_id(APP_TENANT, tid)
+        got[f"find {i}"] = sorted(
+            (s["span_id"], s["name"], s["start_unix_nano"],
+             s["end_unix_nano"]) for s in spans)
+    ms["find"] = (time.perf_counter() - t) / len(picks) * 1e3
+    for key, q in (("rate", APP_RATE), ("quantile", APP_QUANT)):
+        req = QueryRangeRequest(
+            query=q, start_ns=int((t0 - APP_WINDOW_S) * 1e9),
+            end_ns=int(t0 * 1e9), step_ns=int(60e9))
+        t = time.perf_counter()
+        got[key] = _series_map(_final(db.query_range(APP_TENANT, req), req))
+        ms[key] = (time.perf_counter() - t) * 1e3
+    return got, ms
+
+
+def _same_db_reads(a, b, ctx):
+    for key in a:
+        if key in ("rate", "quantile"):
+            _same_series(a[key], b[key], True, f"{ctx}: {key}")
+        elif a[key] != b[key]:
+            raise AssertionError(f"{ctx}: {key} differs")
+
+
+def _entry_point(root, port):
+    """Start `python3 -m tempo_tpu_torch` (the repo's binary, the default
+    config but for its storage paths, on the card) with its stderr in a
+    file; the process is waited for in `_entry_point_check`."""
+    cfg = os.path.join(root, "tempo.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"storage:\n  local_path: {root}/blocks\n"
+                f"  wal_path: {root}/data/wal\n"
+                f"generator:\n  localblocks: {{data_dir: {root}/lb}}\n")
+    err = open(os.path.join(root, "stderr.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tempo_tpu_torch", "-config.file", cfg,
+         "-server.http-listen-port", str(port)], cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=err)
+    proc.ready_s = None
+    threading.Thread(target=_watch_ready, args=(proc, port),
+                     daemon=True).start()
+    return proc, err
+
+
+def _watch_ready(proc, port):
+    """Poll `/ready` from the process's start; keep the seconds it took."""
+    import urllib.error
+    import urllib.request
+
+    t = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t < 120:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/ready",
+                                        timeout=5) as r:
+                if r.status == 200:
+                    proc.ready_s = time.perf_counter() - t
+                    return
+        except (urllib.error.URLError, OSError):
+            pass
+        time.sleep(0.1)
+
+
+def _entry_point_check(proc, err, root, port, payload, spans, ctx):
+    """Phase 14c: wait for `/ready`, push one payload, find one of its
+    traces, then stop the process with SIGINT (15 s, then it fails)."""
+    import signal
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    t = time.perf_counter()
+    try:
+        deadline = time.time() + 120
+        while proc.ready_s is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"{ctx}: the process exited "
+                                     f"{proc.returncode}")
+            if time.time() > deadline:
+                raise AssertionError(f"{ctx}: not ready in 120 s")
+            time.sleep(0.1)
+        ready_s = proc.ready_s
+        req = urllib.request.Request(
+            base + "/v1/traces", data=payload,
+            headers={"Content-Type": "application/x-protobuf"})
+        t1 = time.perf_counter()
+        with _http_errors("14c POST /v1/traces"), \
+                urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != 200:
+                raise AssertionError(f"{ctx}: push answered {r.status}")
+        push_ms = (time.perf_counter() - t1) * 1e3
+        tid = spans[0]["trace_id"]
+        with _http_errors("14c GET /api/traces"), urllib.request.urlopen(
+                f"{base}/api/traces/{tid.hex()}", timeout=60) as r:
+            doc = json.loads(r.read())
+        want = sorted(s["span_id"].hex() for s in spans
+                      if s["trace_id"] == tid)
+        if sorted(s["span_id"] for s in doc["spans"]) != want:
+            raise AssertionError(f"{ctx}: the find returned "
+                                 f"{len(doc['spans'])} spans of {len(want)}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=15)
+        if rc != 0:
+            raise AssertionError(f"{ctx}: exit {rc} after SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    with open(os.path.join(root, "stderr.txt")) as f:
+        log = f.read()
+    if "tempo_tpu_torch starting: target=all" not in log:
+        raise AssertionError(f"{ctx}: no start line: {log[-1000:]}")
+    return dict(ready_s=ready_s, push_ms=push_ms, rc=rc,
+                seconds=time.perf_counter() - t)
+
+
+def phase_app(card):
+    """Phase 14: the App on the card (14a, 14b) against a CPU twin, and
+    `python3 -m tempo_tpu_torch` (14c). Returns (results, K1's kernel
+    entry)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase14-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_app(card, root)
+
+
+def _reset_singletons():
+    from tempo_tpu_torch import matview, sched
+    from tempo_tpu_torch.ops import moments as msk
+    from tempo_tpu_torch.registry import pages
+
+    sched.reset()
+    matview.reset()
+    pages.reset()
+    msk.set_query_tier("log2")
+
+
+def _phase_app(card, root):
+    ctx = "phase 14"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    if t0 % 3600 < 30:
+        t0 += 30   # both blocks of 14b in one compaction window (an hour)
+    spans, payloads = _app_payloads(t0)
+    # 14c's process starts first, so its start-up overlaps 14a and 14b
+    port = _free_port()
+    os.makedirs(os.path.join(root, "bin"))
+    proc, err = _entry_point(os.path.join(root, "bin"), port)
+    try:
+        out = _phase_app_in(card, root, t0, spans, payloads, ctx)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        err.close()
+        raise
+    out["c"] = _entry_point_check(proc, err, os.path.join(root, "bin"),
+                                  port, payloads[0], spans[0], f"{ctx}c")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, out.pop("row")
+
+
+def _phase_app_in(card, root, t0, spans, payloads, ctx):
+    import torch
+
+    from tempo_tpu_torch.block.sidecar import read_sidecar
+    from tempo_tpu_torch.ops import compact as cops
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    # 14a: the App on the card through its HTTP API
+    _reset_singletons()
+    rig = _AppRig("cuda", os.path.join(root, "card"), t0)
+    proc = rig.inst.processors["span-metrics"]
+    mats = _capture_windows(proc)
+    sc = rig.app.sched
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    ck.reset_launch_counts()
+    push_ms = [rig.post(p) for p in payloads]
+    rig.settle()
+    launches = ck.paged_fused_update.launches
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches != dispatches or not launches:
+        raise AssertionError(f"{ctx}a: K1 launched {launches} times for "
+                             f"{dispatches} merged dispatches")
+    picks, paths = _app_paths(spans, t0)
+    card_got, read_ms = _app_reads(rig, paths)
+    _check_app_answers(card_got, spans, t0, f"{ctx}a")
+    k1, row = _dist_k1_row(
+        "paged_fused_update (the App: POST /v1/traces → Distributor."
+        "push_otlp → the generator's SpanBatch route, scheduler, dense "
+        "state, sketch dd, f32)", proc, mats[-1], launches, f"{ctx}a window")
+
+    # 14b: the cold tier of the same App
+    db = rig.app.db
+    metas_a, flush_a_s = _flush_blocks(rig, 1, f"{ctx}b")
+    before, db_ms = _db_reads(db, picks, t0)
+    dup_ms = rig.post(payloads[0])
+    rig.settle()
+    metas_ab, flush_b_s = _flush_blocks(rig, len(metas_a) + 1, f"{ctx}b")
+    seen = []
+    inner = cops.merge_order
+
+    def capture(tid, sid, device=None):
+        order = inner(tid, sid, device=device)
+        seen.append((tid, sid, order, device))
+        return order
+
+    cops.merge_order = capture
+    try:
+        t = time.perf_counter()
+        n_groups = db.compact_tenant_once(APP_TENANT)
+        compact_s = time.perf_counter() - t
+    finally:
+        cops.merge_order = inner
+    if n_groups != 1 or len(seen) != 1:
+        raise AssertionError(f"{ctx}b: {n_groups} groups, {len(seen)} merges")
+    tid, sid, order, dev = seen[0]
+    n_in = len(tid)
+    if dev is None or torch.device(dev) != db.device or \
+            n_in != (N_APP_PUSHES + 1) * N_SPANS or \
+            len(order) != N_APP_PUSHES * N_SPANS:
+        raise AssertionError(f"{ctx}b: merge of {n_in} rows on {dev} kept "
+                             f"{len(order)}")
+    if not np.array_equal(order, cops.reference_merge_order(tid, sid)):
+        raise AssertionError(f"{ctx}b: the merge differs from "
+                             f"reference_merge_order")
+    if not np.array_equal(order, cops.merge_order(tid, sid, device="cpu")):
+        raise AssertionError(f"{ctx}b: the merge differs from the CPU's")
+    stats = db.compaction_stats
+    outs = db.blocklist.metas(APP_TENANT)
+    if stats["blocks"] != len(metas_ab) or stats["spans"] != n_in or \
+            not outs or not all(m.sidecar and m.compaction_level == 1
+                                for m in outs) or \
+            stats["sidecars_written"] != len(outs) or \
+            sum(m.total_spans for m in outs) != len(order):
+        raise AssertionError(f"{ctx}b: after compaction {stats}, "
+                             f"{[(m.compaction_level, m.sidecar) for m in outs]}")
+    for m in outs:
+        if read_sidecar(db.r, APP_TENANT, m.block_id) is None:
+            raise AssertionError(f"{ctx}b: block {m.block_id} has no sidecar")
+    after, _ = _db_reads(db, picks, t0)
+    _same_db_reads(after, before, f"{ctx}b: compacted against its inputs")
+    rig.shutdown()
+    del rig, proc, mats, db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CPU twin of 14a: the same payloads on the same clock
+    _reset_singletons()
+    twin = _AppRig("cpu", os.path.join(root, "twin"), t0)
+    for p in payloads:
+        twin.post(p)
+    twin.settle()
+    twin_got, _ = _app_reads(twin, paths)
+    twin.shutdown(keep_live=False)
+    _reset_singletons()
+    for key in paths:
+        if card_got[key] != twin_got[key]:
+            raise AssertionError(f"{ctx}a: {key} differs between the card "
+                                 f"and its CPU twin")
+    return dict(push_ms=push_ms, dup_ms=dup_ms, read_ms=read_ms,
+                db_ms=db_ms, launches=launches, dispatches=dispatches,
+                k1_device_ms=k1["device_ms"], flush_s=(flush_a_s, flush_b_s),
+                compact_s=compact_s,
+                device_seconds=stats["device_seconds"], merge_rows=n_in,
+                merge_kept=len(order), blocks_in=len(metas_ab),
+                blocks_out=len(outs), n_reads=len(paths), row=row)
+
+
+def _print_phase14(r, p, card):
+    a = r["read_ms"]
+    finds = [v for k, v in a.items() if k.startswith("find")]
+    print(f"phase 14a [{card}]: the App at target all on the card, "
+          f"{N_APP_PUSHES} pushes of {N_SPANS} spans through POST "
+          f"/v1/traces: {', '.join(f'{m:.1f}' for m in r['push_ms'])} ms a "
+          f"push; {r['n_reads']} reads equal to the CPU twin's; K1 launches "
+          f"{r['launches']} = merged dispatches {r['dispatches']}, device "
+          f"{r['k1_device_ms']} ms a window")
+    print(f"phase 14a [{card}]: HTTP ms: find median "
+          f"{statistics.median(finds):.2f}, search {a['search']:.2f}, tags "
+          f"{a['tags']:.2f}, rate "
+          f"{a['rate']:.2f}, quantile {a['quantile']:.2f}, summary "
+          f"{a['summary']:.2f}, /metrics {a['metrics']:.2f}; TempoDB direct "
+          f"over the flushed block: find {r['db_ms']['find']:.2f}, rate "
+          f"{r['db_ms']['rate']:.2f}, quantile {r['db_ms']['quantile']:.2f}")
+    print(f"phase 14b [{card}]: flush (cut, complete, flush, poll) "
+          f"{r['flush_s'][0]:.2f} s for {N_APP_PUSHES * N_SPANS} spans, "
+          f"{r['flush_s'][1]:.2f} s for the repeated push ({r['dup_ms']:.1f} "
+          f"ms); compact_tenant_once {r['compact_s']:.3f} s with the host "
+          f"({r['blocks_in']} blocks, {r['merge_rows']} rows → "
+          f"{r['blocks_out']} block(s), {r['merge_kept']} rows, sidecars "
+          f"on), the merge's dispatch {r['device_seconds'] * 1e3:.2f} ms; the "
+          f"merge alone (its own process): device "
+          + (f"{p['merge_device_ms']:.4f} ms" if p["merge_device_ms"]
+             else "not measured")
+          + f" in {p['merge_launches']:.0f} ops, wall {p['merge_wall_ms']:.3f} "
+          f"ms, longest {p['merge_top'][0]} {p['merge_top'][1]:.4f} ms; bound "
+          f"{p['merge_bound_ms']:.6f} ms by {p['merge_bound_by']} "
+          f"({p['merge_bound_bytes']} bytes)")
+    c = r["c"]
+    print(f"phase 14c [{card}]: python3 -m tempo_tpu_torch ready "
+          f"{c['ready_s']:.1f} s after its start (with the phase's), a push "
+          f"{c['push_ms']:.1f} ms, a find equal to the payload, SIGINT exit "
+          f"{c['rc']}; phase 14 {r['seconds']:.1f} s")
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -5500,11 +6116,18 @@ def main() -> int:
         # one CUDA context fewer in the smoke's time
         out = phase12_profiles(*sys.argv[2:])
         out["phase13"] = phase13_profiles()
+        out["phase14"] = phase14_profiles()
         print("PROFILES " + json.dumps(out))
         return 0
     if sys.argv[1:] == ["--phase13-profiles"]:
         print("PROFILES " + json.dumps(phase13_profiles()))
         return 0
+    if sys.argv[1:] == ["--phase14-profiles"]:
+        print("PROFILES " + json.dumps(phase14_profiles()))
+        return 0
+    if sys.argv[1:] not in ([], ["--phase14"]):
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -5527,6 +6150,16 @@ def main() -> int:
           + f" -> {os.path.relpath(native.library_path(), ROOT)}")
     print(f"build: {len(ck.BUILD_INFO)} builds in {build_s:.2f} s (one nvcc "
           f"each, together)")
+    if sys.argv[1:] == ["--phase14"]:
+        # phase 14 alone, its merge profile from a process of its own
+        s14, k14 = phase_app(card)
+        _print_phase14(s14, _profiles_in_child("phase 14",
+                                               "--phase14-profiles"), card)
+        print(json.dumps(k14))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     k1 = phase_k1_dd()
     n_probe, shifted = edge_probe_on_card()
     print(f"phase 3a edge probe: {shifted} of {n_probe} DDSketch edge "
@@ -5657,13 +6290,16 @@ def main() -> int:
     s13b, k13b = phase_traceanalytics(card)
     _print_phase13(s13a, s13b, s12["prof"]["phase13"], card)
     print(f"phase 13 [{card}]: 13a {s13a['seconds']:.1f} s, 13b "
-          f"{s13b['seconds']:.1f} s; the whole smoke "
+          f"{s13b['seconds']:.1f} s")
+    s14, k14 = phase_app(card)
+    _print_phase14(s14, s12["prof"]["phase14"], card)
+    print(f"phase 14 [{card}]: {s14['seconds']:.1f} s; the whole smoke "
           f"{time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
-                                            *k8, k12, k13a, k13b)]}))
+                                            *k8, k12, k13a, k13b, k14)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -97,6 +97,14 @@ reference's cloud backends (`backend.open_backend`: mem, local, s3, gcs,
 azure), hedged reads (`utils.hedging`) and the shared memcached/redis
 cache tier (`backend.memcached`), all host code.
 
+A deployment starts at `python -m tempo_tpu_torch` (`__main__.py`): the
+App (`app.App`, on the card) wires every module above at its default
+target `all`, serves the reference's HTTP API (`app.api`) and runs the
+loops, the cold tier's among them: `TempoDB.enable_compaction` merges
+blocks with the merge order computed on the device
+(`ops.compact.merge_order`, torch ops) and writes sketch sidecars beside
+the outputs (`db.compactor`, `compactor.Compactor`).
+
 `ops.cuda_kernels.fused_spanmetrics_matmul` is the dense fused delta, a
 kernel no path of the system runs.
 """

@@ -3,8 +3,8 @@
 Counterpart of `tempo_tpu/block/`: the port's own Parquet codec
 (`parquet.py`), the block schema, bloom filters, the block writer,
 trace-by-ID reads, the WAL, the columnar TraceQL fetch (`fetch.py`) and
-the device scan plane (`device_scan.py`). The sketch sidecar comes with
-the cold tier (ROADMAP section 1, item 11).
+the device scan plane (`device_scan.py`) and the sketch sidecar
+(`sidecar.py`).
 """
 
 from tempo_tpu_torch.block.bloom import BloomFilter, ShardedBloom, shard_name

@@ -259,6 +259,14 @@ class ColumnTable:
                                          for n, c in self.columns.items()},
                            len(rows))
 
+    def with_column(self, name: str, values) -> "ColumnTable":
+        """A table with column `name` replaced (same type and length)."""
+        if name not in self.columns or len(values) != self.num_rows:
+            raise ValueError(f"replace {name!r}: no such column or "
+                             f"{len(values)} rows for {self.num_rows}")
+        return ColumnTable(self.schema, {**self.columns, name: values},
+                           self.num_rows)
+
     @property
     def nbytes(self) -> int:
         return sum(c.nbytes for c in self.columns.values())

@@ -1,8 +1,7 @@
 """Storage engine facade (SURVEY.md §2.2 'tempodb core'): blocklist,
 poller, bounded query pool, TempoDB Reader/Writer with the device read
-plane. Counterpart of `tempo_tpu/db/`; the compaction merge and retention
-(`compact`, `do_retention`, `iter_trace_groups`, `merge_blocks`) come with
-the cold tier (ROADMAP section 1, item 11) and raise until then."""
+plane and the cold tier (compaction, retention, sidecar backfill).
+Counterpart of `tempo_tpu/db/`."""
 
 from tempo_tpu_torch.db.blocklist import List
 from tempo_tpu_torch.db.compactor import (

@@ -4,10 +4,14 @@ Counterpart of `tempo_tpu/db/tempodb.py`. The read side is ported whole:
 search, query_range (the fused device plane with its host fallback),
 find_trace_by_id over the blocklist the poller keeps, and the sidecar
 fold tier's read half (`sidecar_plan`, `sidecar_series` over sidecars
-already in the store). The device plane lives on the instance's torch
-device (`cuda` unless `device="cpu"`). Compaction, retention and the
-sidecar backfill come with the cold tier (ROADMAP section 1, item 11)
-and raise until then; `plane_mesh` comes with mesh serving (item 13).
+already in the store), and so is the cold tier: compaction (the merge on
+the instance's device, through the scheduler's compaction class),
+retention and the sidecar backfill. The device plane lives on the
+instance's torch device (`cuda` unless `device="cpu"`); `plane_mesh`
+comes with mesh serving (item 13). Unlike the reference, a failed device
+compaction does not fall back to the host merge: the failure reaches
+the compaction loop, which logs it; the host merge runs only under
+`compactor.device: false`.
 
 Analog of `tempodb/tempodb.go:74-116` and its loops: block write (ingester
 flush target), trace lookup fan-out with time/shard pruning (`Find`
@@ -93,9 +97,13 @@ class TempoDB:
         # read-plane routing counters: how many block scans took the fused
         # device path vs the host engine (tests + /metrics)
         self.plane_stats = {"fused_metric_blocks": 0, "host_metric_blocks": 0}
-        # sidecar-fold counters (the reference keeps them among its
-        # compaction stats; the rest of those come with item 11)
+        # device cold tier: compaction + sidecar-fold counters (tests,
+        # /metrics and the smoke read these)
         self.compaction_stats = {
+            "blocks": 0,             # input blocks through the device route
+            "spans": 0,              # spans merged/deduped on device
+            "device_seconds": 0.0,   # wall time inside the merge dispatch
+            "sidecars_written": 0,   # compaction outputs + backfills
             "sidecar_folds": 0,      # historical blocks answered by folds
             "sidecar_fallbacks": 0,  # fold-eligible blocks that re-scanned
         }
@@ -137,11 +145,21 @@ class TempoDB:
         reg.counter_func("tempo_read_plane_cache_misses_total",
                          plane_stat("misses"),
                          help="Device read-plane cache misses")
+        self.compaction_duration = reg.histogram(
+            "tempo_compactor_cycle_duration_seconds",
+            "One per-tenant compaction sweep (selection + block rewrites)")
 
         def comp_stat(key):
             return lambda: [((), self.compaction_stats[key])]
 
         for key, hlp in (
+                ("blocks", "Input blocks compacted via the device route"),
+                ("spans", "Spans merged/deduped/re-sorted on device"),
+                ("device_seconds",
+                 "Wall seconds inside device compaction-merge dispatches"),
+                ("sidecars_written",
+                 "Sketch sidecars written (compaction outputs, block cuts, "
+                 "backfills)"),
                 ("sidecar_folds",
                  "Historical query blocks answered by sidecar folds"),
                 ("sidecar_fallbacks",
@@ -436,22 +454,72 @@ class TempoDB:
     def enable_polling(self, interval_s: float | None = None) -> None:
         self._spawn(self._poll_loop, interval_s or self.cfg.poller.poll_interval_s)
 
-    # -- compaction / retention / sidecar backfill: the cold tier (item 11)
+    # -- compaction / retention -------------------------------------------
 
-    def _cold_tier(self, what: str):
-        raise NotImplementedError(
-            f"TempoDB.{what} is the cold tier (compaction, retention and "
-            f"the sidecar backfill), which comes with ROADMAP section 1, "
-            f"item 11")
+    def compact_tenant_once(self, tenant: str,
+                            owns: Callable[[str], bool] = lambda key: True) -> int:
+        """One compaction sweep for a tenant; `owns` is the ring-ownership
+        predicate keyed like `modules/compactor/compactor.go:190`."""
+        t0 = time.perf_counter()
+        metas = self.blocklist.metas(tenant)
+        jobs = self.selector.blocks_to_compact(metas)
+        done = 0
+        for group in jobs:
+            key = f"{tenant}-{group[0].block_id}"
+            if not owns(key):
+                continue
+            out = self._compact_group(tenant, group)
+            self.blocklist.update(
+                tenant, add=out, remove=group,
+                compacted_add=[bm.CompactedBlockMeta(m, self.now()) for m in group])
+            # compacted-away inputs must not serve stale cached state:
+            # drop their parquet handles, device planes, AND any cached
+            # sidecar-fold results immediately (not at the next poll)
+            for m in group:
+                self._block_cache.pop((tenant, m.block_id), None)
+                if self.planes is not None:
+                    self.planes.drop(tenant, m.block_id)
+            done += 1
+        self.compaction_duration.observe(time.perf_counter() - t0)
+        return done
 
-    def compact_tenant_once(self, tenant: str, owns=None) -> int:
-        self._cold_tier("compact_tenant_once")
+    def _compact_group(self, tenant: str, group: list) -> list:
+        """Compaction of one input group: the device route (the merge on
+        this instance's device) unless `compactor.device` is off. Its
+        failure propagates; the reference's host fallback is not kept."""
+        cfg = self.cfg.compactor
+        if cfg.device:
+            return comp.compact_device(
+                self.r, self.w, tenant, group, cfg,
+                stats=self.compaction_stats,
+                dispatch=self._compaction_dispatch(tenant),
+                device=self.device)
+        return comp.compact(self.r, self.w, tenant, group, cfg)
 
-    def enable_compaction(self, interval_s: float = 30.0, owns=None) -> None:
-        self._cold_tier("enable_compaction")
+    def _compaction_dispatch(self, tenant: str):
+        """Compaction-class admission to the shared device scheduler:
+        merge dispatches queue BEHIND ingest/query work (and behind the
+        anti-starvation floor, sched.compaction_min_share)."""
+        from tempo_tpu_torch import sched
 
-    def retention_once(self, tenant: str):
-        self._cold_tier("retention_once")
+        return lambda fn: sched.run(fn, kernel="compaction_merge",
+                                    priority=sched.PRIO_COMPACTION,
+                                    tenant=tenant)
+
+    def retention_once(self, tenant: str) -> tuple[list, list]:
+        marked, deleted = comp.do_retention(
+            self.r, self.w, tenant, self.blocklist.metas(tenant),
+            self.blocklist.compacted_metas(tenant), self.cfg.compactor, self.now)
+        self.blocklist.update(
+            tenant, remove=marked,
+            compacted_add=[bm.CompactedBlockMeta(m, self.now()) for m in marked],
+            compacted_remove=[c for c in self.blocklist.compacted_metas(tenant)
+                              if c.meta.block_id in set(deleted)])
+        return marked, deleted
+
+    def enable_compaction(self, interval_s: float = 30.0,
+                          owns: Callable[[str], bool] = lambda key: True) -> None:
+        self._spawn(self._compaction_loop, interval_s, owns)
 
     # -- sketch sidecars: historical folds --------------------------------
 
@@ -490,7 +558,26 @@ class TempoDB:
 
     def backfill_sidecars_once(self, tenant: str,
                                limit: int | None = None) -> int:
-        self._cold_tier("backfill_sidecars_once")
+        """Attach sidecars to up to `limit` existing blocks without one
+        (low-priority compaction-class work; the compactor service calls
+        this each sweep so history converges to fold-served)."""
+        cfg = self.cfg.compactor
+        if limit is None:
+            limit = cfg.backfill_sidecars
+        if limit <= 0 or not cfg.sidecars:
+            return 0
+        run = self._compaction_dispatch(tenant)
+        done = 0
+        for m in self.blocklist.metas(tenant):
+            if done >= limit:
+                break
+            if m.sidecar:
+                continue
+            if run(lambda m=m: comp.backfill_sidecar(
+                    self.r, self.w, tenant, m, self.compaction_stats,
+                    device=self.device)):
+                done += 1
+        return done
 
     # -- loops -------------------------------------------------------------
 
@@ -505,6 +592,15 @@ class TempoDB:
                 self.poll_now()
             except Exception:
                 log.exception("poll cycle failed")
+
+    def _compaction_loop(self, interval_s: float, owns) -> None:
+        while not self._stop.wait(interval_s):
+            for tenant in self.blocklist.tenants():
+                try:
+                    self.compact_tenant_once(tenant, owns)
+                    self.retention_once(tenant)
+                except Exception:
+                    log.exception("compaction cycle failed (tenant=%s)", tenant)
 
     def shutdown(self) -> None:
         self._stop.set()

@@ -12,8 +12,8 @@ the port's `Querier` and `TempoDB`: the device work of a query is the
 TempoDB's read plane, on that TempoDB's device. The generators'
 recent-window leg is `generator_query_range`: pass
 `generator.Generator.query_range`, which answers from the tenants'
-local-blocks processors (the App's fan-out of it over a generator ring
-comes with the app wiring, ROADMAP section 1, item 9). A metrics query
+local-blocks processors (`app.App` passes it, or its fan-out over the
+generator ring when peers or a ring KV are configured). A metrics query
 is served from the process materializer's standing grid when one
 covers it (`tempo_tpu_torch.matview`), and every miss feeds the query
 log's recurrence count that auto-subscribes the hot set;

@@ -33,6 +33,7 @@ import numpy as np
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.generator.instance import GeneratorConfig, GeneratorInstance
+from tempo_tpu_torch.generator.wal import WAL_LATER as _WAL_LATER
 from tempo_tpu_torch.model.otlp_batch import batch_from_otlp
 from tempo_tpu_torch.model.span_batch import SpanBatchBuilder
 from tempo_tpu_torch.obs import Registry
@@ -40,8 +41,6 @@ from tempo_tpu_torch.overrides import Overrides
 from tempo_tpu_torch.utils import tracing
 
 _LOG = logging.getLogger("tempo_tpu_torch.generator")
-_WAL_LATER = ("the ingest WAL comes with durability and fleet (ROADMAP "
-              "section 1, item 12)")
 
 
 class Generator:

@@ -354,3 +354,32 @@ class RemoteWriteClient:
         with _RW_LOCK:
             _RW_STATS["failed"] += 1
         return False
+# RUNTIME registry families (process-wide, next to the sched ones): the
+# per-client attributes above stay the store, these render them
+from tempo_tpu_torch.obs.runtime import RUNTIME  # noqa: E402
+
+
+def _retries_family() -> list:
+    # the lock covers the iteration too: a sender inserting a new cause
+    # key mid-scrape would otherwise blow up the /metrics render
+    with _RW_LOCK:
+        return [((c,), float(v)) for c, v in _RW_RETRIES.items()]
+
+
+RUNTIME.counter_func(
+    "tempo_remote_write_retries_total", _retries_family,
+    help="Remote-write attempts retried after a retryable failure, by "
+         "cause (429 vs 5xx vs network) — sustained growth means the "
+         "metrics backend is rejecting or unreachable",
+    labels=("cause",))
+RUNTIME.counter_func(
+    "tempo_remote_write_sends_total",
+    lambda: [((), float(_RW_STATS["sends"]))],
+    help="Remote-write requests delivered (2xx)")
+RUNTIME.counter_func(
+    "tempo_remote_write_failed_sends_total",
+    lambda: [((), float(_RW_STATS["failed"]))],
+    help="Remote-write requests dropped after exhausting retries "
+         "(samples LOST to the metrics backend)")
+
+

@@ -8,15 +8,102 @@ smoke use it to make payloads. `slice_otlp_payload` cuts a payload down
 to a subset of its spans from the native scan's wire offsets. The C++
 staging route (`model/otlp_batch.py`) is the generator's main path; this
 Python decoder is its reference and the route of `otlp_proto_to_batch`.
-The OTLP/JSON route of the reference comes with a later slice.
+The OTLP/JSON route (`spans_from_otlp_json`, `otlp_json_to_batch`) is the
+reference's, copied, for the HTTP API's JSON pushes.
 """
 
 from __future__ import annotations
 
+import binascii
 from typing import Any, Iterable
 
 from tempo_tpu_torch.model import proto_wire as pw
 from tempo_tpu_torch.model.span_batch import SpanBatch, SpanBatchBuilder
+
+_KIND_NAMES = {
+    "SPAN_KIND_UNSPECIFIED": 0, "SPAN_KIND_INTERNAL": 1, "SPAN_KIND_SERVER": 2,
+    "SPAN_KIND_CLIENT": 3, "SPAN_KIND_PRODUCER": 4, "SPAN_KIND_CONSUMER": 5,
+}
+_STATUS_NAMES = {"STATUS_CODE_UNSET": 0, "STATUS_CODE_OK": 1, "STATUS_CODE_ERROR": 2}
+
+
+# ---------------------------------------------------------------------------
+# OTLP/JSON
+# ---------------------------------------------------------------------------
+
+def _json_anyvalue(v: dict[str, Any]) -> Any:
+    if "stringValue" in v:
+        return v["stringValue"]
+    if "intValue" in v:
+        return int(v["intValue"])
+    if "doubleValue" in v:
+        return float(v["doubleValue"])
+    if "boolValue" in v:
+        return bool(v["boolValue"])
+    if "arrayValue" in v:
+        return [_json_anyvalue(x) for x in v["arrayValue"].get("values", [])]
+    if "kvlistValue" in v:
+        return {kv["key"]: _json_anyvalue(kv.get("value", {}))
+                for kv in v["kvlistValue"].get("values", [])}
+    if "bytesValue" in v:
+        return v["bytesValue"]
+    return None
+
+
+def _json_attrs(lst: Iterable[dict] | None) -> dict[str, Any]:
+    return {kv["key"]: _json_anyvalue(kv.get("value", {})) for kv in (lst or [])}
+
+
+def spans_from_otlp_json(payload: dict) -> Iterable[dict]:
+    """Yield flat span dicts from an OTLP/JSON ExportTraceServiceRequest."""
+    for rs in payload.get("resourceSpans", []):
+        res_attrs = _json_attrs(rs.get("resource", {}).get("attributes"))
+        service = str(res_attrs.get("service.name", ""))
+        for ss in rs.get("scopeSpans", rs.get("instrumentationLibrarySpans", [])):
+            for sp in ss.get("spans", []):
+                kind = sp.get("kind", 0)
+                if isinstance(kind, str):
+                    kind = _KIND_NAMES.get(kind, 0)
+                status = sp.get("status", {})
+                scode = status.get("code", 0)
+                if isinstance(scode, str):
+                    scode = _STATUS_NAMES.get(scode, 0)
+                span = {
+                    "trace_id": binascii.unhexlify(sp.get("traceId", "")),
+                    "span_id": binascii.unhexlify(sp.get("spanId", "")),
+                    "parent_span_id": binascii.unhexlify(sp.get("parentSpanId", "") or ""),
+                    "name": sp.get("name", ""),
+                    "service": service,
+                    "kind": int(kind),
+                    "status_code": int(scode),
+                    "status_message": status.get("message", ""),
+                    "start_unix_nano": int(sp.get("startTimeUnixNano", 0)),
+                    "end_unix_nano": int(sp.get("endTimeUnixNano", 0)),
+                    "attrs": _json_attrs(sp.get("attributes")),
+                    "res_attrs": res_attrs,
+                }
+                if sp.get("events"):
+                    span["events"] = [
+                        {"time_unix_nano": int(e.get("timeUnixNano", 0)),
+                         "name": e.get("name", "")}
+                        for e in sp["events"]]
+                if sp.get("links"):
+                    span["links"] = [
+                        {"trace_id": binascii.unhexlify(
+                            ln.get("traceId", "") or ""),
+                         "span_id": binascii.unhexlify(
+                            ln.get("spanId", "") or "")}
+                        for ln in sp["links"]]
+                yield span
+
+
+def otlp_json_to_batch(payload: dict, builder: SpanBatchBuilder | None = None) -> SpanBatch:
+    b = SpanBatchBuilder() if builder is None else builder
+    for span in spans_from_otlp_json(payload):
+        b.append(**span)
+    return b.build()
+
+
 
 
 def _pb_anyvalue(buf) -> Any:

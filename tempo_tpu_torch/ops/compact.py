@@ -11,9 +11,21 @@ and returned as host arrays. Both planes merge across blocks
 elementwise (add / max), which is what makes a historical quantile a
 fold instead of a re-scan.
 
-The device merge/dedup/re-sort of the cold tier (`merge_order`, with its
-oracle `reference_merge_order`) comes with the compactor (ROADMAP
-section 1, item 11): `merge_order` raises until then.
+The cold tier's merge/dedup/re-sort (`merge_order`) reproduces the host
+compactor's contract (`heapq.merge` over trace-id-sorted blocks, then
+`combine_spans`: the first occurrence of a (trace, span) id pair wins,
+concatenation order kept) as torch ops on the caller's device. The
+reference's kernel is two stable 7- and 5-key `lax.sort`s over
+big-endian uint32 limbs, padded to a power of two with all-ones limbs.
+torch sorts neither uint32 nor several keys at once, so here each
+8-byte half of an id folds into one int64, big-endian with its sign bit
+flipped (signed order is then byte order): a trace id is 2 keys, a span
+id 1, and each multi-key sort is a chain of stable `torch.sort`s, least
+significant key first. The concat row needs no sort of its own, since
+stability keeps it. Nothing is padded, so a real id of sixteen `0xFF`
+bytes needs no tie-break against pad rows. `reference_merge_order` is
+the pure-Python oracle (a sort over byte keys and a per-trace seen set),
+copied from the reference.
 """
 
 from __future__ import annotations
@@ -46,11 +58,84 @@ def pad_pow2(n: int, floor: int = 64) -> int:
     return p
 
 
+_SIGN = np.uint64(1 << 63)
+
+
+def _key64(mat: np.ndarray, lo: int) -> np.ndarray:
+    """Bytes [lo, lo+8) of each row of an [n, w] uint8 id column as one
+    int64 whose signed order is the bytes' lexicographic order."""
+    v = np.ascontiguousarray(mat[:, lo:lo + 8], np.uint8)
+    v = v.view(np.dtype(">u8")).reshape(-1).astype(np.uint64)
+    return (v ^ _SIGN).view(np.int64)
+
+
+def _stable_order(keys, order=None):
+    """Row order sorted by the rows of `keys` (most significant first),
+    ties kept in `order` (default: row order), through stable sorts of
+    the least significant key first."""
+    import torch
+
+    for key in reversed(keys):
+        k = key if order is None else key[order]
+        o = torch.sort(k, stable=True).indices
+        order = o if order is None else order[o]
+    return order
+
+
 def merge_order(trace_id: np.ndarray, span_id: np.ndarray,
-                n_pad: int | None = None) -> np.ndarray:
-    raise NotImplementedError(
-        "merge_order is the cold tier's device merge, which comes with the "
-        "compactor (ROADMAP section 1, item 11)")
+                device=None) -> np.ndarray:
+    """The merge/dedup/re-sort over the concatenated rows of all input
+    blocks (block order, row order within a block), on `device` (`cuda`
+    unless `"cpu"` is asked for).
+
+    Returns the output row order as indices into the concatenation:
+    traces ascend by trace-id bytes, spans within a trace keep concat
+    order, and duplicate (trace_id, span_id) pairs keep only their
+    first occurrence: bit-compatible with `heapq.merge` +
+    `combine_spans` in the host compactor and equal to
+    `reference_merge_order` row for row. One upload of the keys, one
+    download of the order.
+    """
+    import torch
+
+    from tempo_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    n = len(trace_id)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    keys = torch.from_numpy(np.stack(
+        [_key64(trace_id, 0), _key64(trace_id, 8), _key64(span_id, 0)])
+    ).to(dev)
+    t_hi, t_lo, s = keys[0], keys[1], keys[2]
+    # pass 1: runs of equal (trace, span) ids, the first concat row
+    # leading each; its flag scattered back to the row is the keep set
+    o = _stable_order((t_hi, t_lo, s))
+    sk = keys[:, o]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = (sk[:, 1:] != sk[:, :-1]).any(0)
+    keep = torch.empty(n, dtype=torch.bool, device=dev)
+    keep[o] = first
+    # pass 2: the output order, trace-id bytes then concat row
+    perm = _stable_order((t_hi, t_lo))
+    return perm[keep[perm]].cpu().numpy()
+
+
+def reference_merge_order(trace_id: np.ndarray,
+                          span_id: np.ndarray) -> np.ndarray:
+    """Pure-Python oracle for `merge_order`: stable sort on trace-id
+    bytes, then a per-trace first-wins span_id seen set."""
+    n = len(trace_id)
+    order = sorted(range(n), key=lambda i: (bytes(trace_id[i]), i))
+    seen: set[tuple[bytes, bytes]] = set()
+    out = []
+    for i in order:
+        key = (bytes(trace_id[i]), bytes(span_id[i]))
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(i)
+    return np.asarray(out, np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -113,5 +198,5 @@ def build_sidecar_arrays(series_ids: np.ndarray, duration_ns: np.ndarray,
     return state.data.cpu().numpy(), hll.registers[0].cpu().numpy()
 
 
-__all__ = ["merge_order", "trace_id_limbs", "span_id_limbs", "pad_pow2",
-           "build_sidecar_arrays", "trace_hashes", "SIDECAR_HLL_PRECISION"]
+__all__ = ["merge_order", "reference_merge_order", "trace_id_limbs",
+           "span_id_limbs", "pad_pow2", "build_sidecar_arrays", "trace_hashes", "SIDECAR_HLL_PRECISION"]

@@ -402,6 +402,34 @@ def moments_place(*_args, **_kwargs):
         "mesh serving (ROADMAP section 1, item 13)")
 
 
+# ---------------------------------------------------------------------------
+# obs: moments-solver families in the process-wide runtime registry
+# ---------------------------------------------------------------------------
+
+from tempo_tpu_torch.obs.runtime import RUNTIME  # noqa: E402
+
+RUNTIME.counter_func(
+    "tempo_moments_solves_total",
+    lambda: [((), float(solves_total))],
+    help="Maximum-entropy solves of moments-sketch rows (cache misses; "
+         "steady-state collects re-solve only changed series)")
+RUNTIME.counter_func(
+    "tempo_moments_solver_fallback_total",
+    lambda: [((), float(fallbacks_total))],
+    help="Moments-sketch solves that failed to converge at every order "
+         "— the caller served its bucket-sketch fallback instead. "
+         "Nonzero in steady state means the tier is misconfigured for "
+         "this workload (runbook 'Choosing a quantile sketch tier')")
+RUNTIME.counter_func(
+    "tempo_moments_solve_cache_hits_total",
+    lambda: [((), float(cache_hits_total))],
+    help="Moments quantile reads served from the per-row solution cache")
+RUNTIME.counter_func(
+    "tempo_moments_solve_seconds_total",
+    lambda: [((), float(solve_seconds_total))],
+    help="Host wall seconds spent in the maxent quantile solver")
+
+
 __all__ = ["MomentsSketch", "moments_params", "moments_init",
            "moments_update", "moments_merge_rows", "moments_zero_slots",
            "moments_basis",

@@ -444,5 +444,52 @@ class use:
             _active = self._prev
 
 
+# ---------------------------------------------------------------------------
+# obs: page-pool families in the process-wide runtime registry (the
+# reference's, less its gather-overhead timer, which the port keeps not)
+# ---------------------------------------------------------------------------
+
+from tempo_tpu_torch.obs.runtime import RUNTIME  # noqa: E402
+
+_ARENA_LABELS = ("role", "dtype", "width")
+
+
+def _arena_rows(field):
+    pool = _active
+    if pool is None:
+        return []
+    with pool.lock:
+        return [((a.role, a.dtype, str(a.width)), float(field(a)))
+                for a in pool.arenas.values()]
+
+
+RUNTIME.gauge_func(
+    "tempo_pages_total",
+    lambda: _arena_rows(lambda a: a.n_pages - 1),
+    help="Usable device pages per arena kind (absent families when the "
+         "page pool is off; excludes each arena's reserved trash page)",
+    labels=_ARENA_LABELS)
+RUNTIME.gauge_func(
+    "tempo_pages_free",
+    lambda: _arena_rows(lambda a: len(a.free)),
+    help="Free device pages per arena kind — 0 with allocation failures "
+         "rising means the pool is exhausted (runbook 'Sizing the page "
+         "pool')", labels=_ARENA_LABELS)
+RUNTIME.counter_func(
+    "tempo_pages_allocated_total",
+    lambda: [] if _active is None else [((), float(_active.allocated_total))],
+    help="Pages handed out since process start (demand-driven: series "
+         "table slot allocation backs pages on first touch)")
+RUNTIME.counter_func(
+    "tempo_pages_evicted_total",
+    lambda: [] if _active is None else [((), float(_active.evicted_total))],
+    help="Pages returned to the free list by staleness sweeps / purges")
+RUNTIME.counter_func(
+    "tempo_pages_alloc_failures_total",
+    lambda: [] if _active is None else [((), float(_active.alloc_failures))],
+    help="Series allocations refused because the page pool was "
+         "exhausted (the paged twin of a spent series budget)")
+
+
 __all__ = ["PagePoolConfig", "PagePool", "PagedPlane", "PageBacking",
            "configure", "active", "reset", "use", "load_reference_state"]

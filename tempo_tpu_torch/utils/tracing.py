@@ -4,22 +4,61 @@ Counterpart of the part of `tempo_tpu/utils/tracing.py` that the
 scheduler and the query frontend use (`span`, `span_for_tenant`,
 `adopted`, `install` / `tracer`, `mark_keep`, `kept_trace_id_hex`,
 `current_trace_id_hex`, the disabled `NoopTracer` and the
-reserved-tenant guard, reference `:389-503`). The reference's `SelfTracer` (tail-keep buffers,
-W3C propagation, OTLP export and loopback self-ingest) comes with the
-app-wiring slice of the port; until then the installed tracer is the
-`NoopTracer` unless a caller installs an object with the same surface.
+reserved-tenant guard, reference `:389-503`), and the `selftrace:` config
+block the App reads (`SelfTraceConfig`, reference `:51-83`). The
+reference's `SelfTracer` (tail-keep buffers, W3C propagation, OTLP export
+and loopback self-ingest) comes with ROADMAP section 1, item 9b: the App
+raises naming it when self-tracing is configured, and the installed
+tracer is the `NoopTracer` unless a caller installs an object with the
+same surface.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 
 _current_span = contextvars.ContextVar("tempo_self_span", default=None)
 # recursion guard: True while this process is ingesting its own export
 # (any span_for_tenant() block for the reserved tenant); span creation
 # is then a no-op
 _suppress = contextvars.ContextVar("tempo_self_suppress", default=False)
+
+
+@dataclasses.dataclass
+class SelfTraceConfig:
+    """The `selftrace:` config block (runbook "Tracing Tempo with
+    Tempo"). `enabled` routes export into this process's OWN distributor
+    under the reserved `tenant`; `endpoint` routes to an external OTLP
+    host instead (mutually exclusive — loopback wins)."""
+
+    enabled: bool = False
+    endpoint: str = ""
+    tenant: str = "tempo-self"
+    head_sample_rate: float = 1.0
+    flush_interval_s: float = 2.0
+    max_buffer: int = 4096        # spans ready to export
+    max_trace_spans: int = 256    # tail buffer: spans held per open trace
+    max_open_traces: int = 1024   # tail buffer: concurrently open traces
+
+    def check(self) -> list[str]:
+        problems = []
+        if not (0.0 <= self.head_sample_rate <= 1.0):
+            problems.append(f"head_sample_rate {self.head_sample_rate} "
+                            "outside [0, 1]")
+        if self.flush_interval_s <= 0:
+            problems.append("flush_interval_s must be > 0")
+        if self.max_buffer < 1 or self.max_trace_spans < 2 \
+                or self.max_open_traces < 1:
+            problems.append("max_buffer/max_trace_spans/max_open_traces "
+                            "must be positive (max_trace_spans >= 2)")
+        if self.enabled and not self.tenant:
+            problems.append("enabled requires a reserved tenant name")
+        if self.enabled and self.endpoint:
+            problems.append("both enabled (loopback) and endpoint set: "
+                            "loopback wins, endpoint is ignored")
+        return ["selftrace: " + p for p in problems] if problems else []
 
 
 class NoopTracer:
@@ -144,7 +183,7 @@ def adopted(traceparent: "str | None"):
             _current_span.reset(token)
 
 
-__all__ = ["NoopTracer", "install", "tracer", "span", "span_for_tenant",
+__all__ = ["SelfTraceConfig", "NoopTracer", "install", "tracer", "span", "span_for_tenant",
            "adopted", "mark_keep", "kept_trace_id_hex",
            "current_trace_id_hex", "reserved_tenant", "is_reserved",
            "suppress", "suppressed"]

@@ -3,10 +3,10 @@ both writers of RF1 blocks, against the reference.
 
 Held, each side built from the same seeded traces:
 
-- `tests/test_ingest_bus.py:61`, first half: a cycle drains both
-  partitions, commits after the flush, and writes RF1 blocks holding
-  every trace. Its crash-replay half needs `compact_tenant_once`, which
-  is ROADMAP section 1, item 11: it raises naming it;
+- `tests/test_ingest_bus.py:61`: a cycle drains both partitions, commits
+  after the flush, and writes RF1 blocks holding every trace; a crash
+  replay (partition 0 un-committed and reconsumed) duplicates blocks,
+  which `compact_tenant_once` dedupes;
 - `tests/test_compact.py:191` (sidecar merge and HLL cardinality) and
   `:303` (a sidecar emitted at each cut);
 - the ingest-storage stack at the reference's defaults (a bus, one
@@ -206,12 +206,17 @@ def test_blockbuilder_commit_after_flush():
     assert len(metas) == bb.blocks_flushed == 2
     assert sum(m.total_objects for m in metas) == 20
     assert all(m.replication_factor == 1 and m.sidecar for m in metas)
-    # the crash-replay half dedupes through compaction: item 11
+    # crash-replay: un-commit partition 0 and reconsume — blocks duplicate
+    # (at-least-once), compaction dedupes
     bus.commit(CONSUMER_GROUP, 0, 0)
     bb.consume_cycle()
     db.poll_now()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        db.compact_tenant_once("acme")
+    assert sum(m.total_objects for m in db.blocklist.metas("acme")) > 20
+    assert db.compact_tenant_once("acme") == 1
+    metas = db.blocklist.metas("acme")
+    assert sum(m.total_objects for m in metas) == 20  # deduped again
+    assert sum(m.total_spans for m in metas) == 40
+    assert all(m.sidecar and m.compaction_level == 1 for m in metas)
     db.shutdown()
 
 

@@ -6,8 +6,8 @@ read paths: `write_block` → `poll_now` → `find_trace_by_id`, `search` and
 `query_range` with the device plane on (the reference's default
 `TempoDBConfig`) and off. Both packages share one `LocalBackend`
 directory; the port writes, the reference reads through pyarrow. The
-compaction merge, retention and the sidecar backfill are the cold tier
-(ROADMAP item 11) and raise in the port.
+cold tier (compaction, retention, the sidecar backfill) is held in
+`tests/test_torch_compact.py`.
 """
 
 from __future__ import annotations
@@ -84,17 +84,11 @@ def test_tempodb_runs_on_cuda_by_default(tmp_path):
 def test_unported_surfaces_raise_naming_their_item(tmp_path):
     be = TLocal(str(tmp_path))
     db = TDB(be, be, device="cpu")
-    for call in (lambda: db.compact_tenant_once("t"),
-                 lambda: db.enable_compaction(1.0),
-                 lambda: db.retention_once("t"),
-                 lambda: db.backfill_sidecars_once("t")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
-    from tempo_tpu_torch import db as tdb
-    for fn in (tdb.compact, tdb.do_retention, tdb.iter_trace_groups,
-               tdb.merge_blocks):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
+    # the cold tier is ported (tests/test_torch_compact.py): on a tenant
+    # with no blocks every sweep is a no-op, as in the reference
+    assert db.compact_tenant_once("t") == 0
+    assert db.retention_once("t") == ([], [])
+    assert db.backfill_sidecars_once("t") == 0
     with pytest.raises(NotImplementedError, match="item 13"):
         TDB(be, be, TCfg(plane_mesh=object()), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -105,7 +99,7 @@ def test_unported_surfaces_raise_naming_their_item(tmp_path):
         moments.moments_place(None)
     # the sidecar fold (tests/test_torch_sidecar.py) and its writer, the
     # block-builder (tests/test_torch_blockbuilder.py), hold both halves
-    # against the reference; only the compactor's backfill is item 11
+    # against the reference; the backfill is tests/test_torch_compact.py
     from tempo_tpu_torch.block import sidecar
     assert sidecar.sidecar_from_traces([], device="cpu").total_spans == 0
     assert db.sidecar_plan("{ } | rate()") is not None
@@ -316,16 +310,11 @@ def test_obs_families_match_reference(world):
     j = world["ref"].obs.render()
     names = lambda text: sorted({ln.split()[2] for ln in text.splitlines()
                                  if ln.startswith("# TYPE")})
-    # the cold tier's families (compaction, backfilled sidecars) come with
-    # item 11, whose code is the only code that advances them; the two
-    # sidecar-fold counters are advanced by the fold tier's read half
-    folds = ("tempo_compaction_sidecar_folds_total",
-             "tempo_compaction_sidecar_fallbacks_total")
-    cold = lambda n: (n.startswith(("tempo_compaction_",
-                                    "tempo_compactor_"))
-                      and n not in folds)
-    assert names(t) == [n for n in names(j) if not cold(n)]
-    assert any(cold(n) for n in names(j))
+    # the cold tier's families (compaction, backfilled sidecars, the
+    # sweep's duration) came with it: the same families as the reference
+    assert names(t) == names(j)
+    assert "tempo_compaction_blocks_total" in t
+    assert "tempo_compactor_cycle_duration_seconds" in t
     assert "tempo_read_plane_fused_metric_blocks_total" in t
 
 

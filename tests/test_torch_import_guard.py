@@ -36,6 +36,10 @@
   auto-subscribed grid over a local-blocks tenant, read through
   `Frontend`) and a trace-analytics tenant pushed and cut, with the
   same result.
+- A fresh interpreter drives the App at target `all` (`start_loops`,
+  `serve`, a push, a find and a query over HTTP, one compaction sweep,
+  shutdown) with the same result; `load_config(text=...)` loads PyYAML
+  and nothing else of the list.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -743,3 +747,89 @@ def test_dense_layout_and_other_entry_points_raise():
         for interpret in (False, True):
             _instance(kernel=kernel, pallas_interpret=interpret)
     assert g.device_state_bytes() == 0    # no series yet: no pages backed
+
+
+_APP_DRIVE = """
+import json
+import socket
+import sys
+import tempfile
+import time
+import urllib.parse
+import urllib.request
+from tempo_tpu_torch.app import App
+from tempo_tpu_torch.app.api import serve
+from tempo_tpu_torch.app.config import Config
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+s = socket.socket()
+s.bind(("127.0.0.1", 0))
+port = s.getsockname()[1]
+s.close()
+with tempfile.TemporaryDirectory() as root:
+    cfg = Config()
+    cfg.storage.local_path = root + "/blocks"
+    cfg.storage.wal_path = root + "/wal"
+    cfg.generator.localblocks.data_dir = root + "/lb"
+    cfg.server.http_listen_port = port
+    app = App(cfg, device="cpu")
+    app.overrides.set_tenant_patch("single-tenant", {"generator": {
+        "processors": ["span-metrics", "local-blocks"]}})
+    app.start_loops()
+    srv = serve(app, block=False)
+    base = f"http://127.0.0.1:{port}"
+    spans = synthetic_spans(64, seed=1, now_ns=int((time.time() - 5) * 1e9))
+    req = urllib.request.Request(base + "/v1/traces",
+                                 data=encode_spans_otlp(spans),
+                                 headers={"Content-Type":
+                                          "application/x-protobuf"})
+    assert urllib.request.urlopen(req, timeout=10).status == 200
+    tid = spans[0]["trace_id"].hex()
+    doc = json.loads(urllib.request.urlopen(
+        base + "/api/traces/" + tid, timeout=10).read())
+    assert doc["spans"]
+    now = time.time()
+    doc = json.loads(urllib.request.urlopen(
+        base + "/api/metrics/query_range?q=" +
+        urllib.parse.quote("{ } | rate()") +
+        f"&start={now - 300}&end={now}&step=300", timeout=10).read())
+    assert doc["series"]
+    # two historical blocks of the tenant, then one compaction sweep
+    old = [dict(s, start_unix_nano=s["start_unix_nano"] - 7200 * 10 ** 9,
+                end_unix_nano=s["end_unix_nano"] - 7200 * 10 ** 9)
+           for s in spans]
+    from tempo_tpu_torch.block.schema import spans_by_trace
+    for half in (old[:40], old[20:]):
+        app.db.write_block("single-tenant", spans_by_trace(half),
+                           replication_factor=1)
+    assert app.db.compact_tenant_once("single-tenant") == 1
+    assert app.db.compaction_stats["blocks"] == 2
+    srv.shutdown()
+    app.shutdown()
+""" + _DRIVE_TAIL
+
+_CONFIG_DRIVE = """
+import sys
+from tempo_tpu_torch.app import load_config
+cfg = load_config(text="server: {http_listen_port: 9999}")
+assert cfg.server.http_listen_port == 9999 and "yaml" in sys.modules
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tempo_tpu", "pyarrow")
+             or m.startswith(("jax.", "tempo_tpu.", "pyarrow.")))
+print("LOADED", bad)
+"""
+
+
+def test_app_drive_loads_no_reference_yaml_or_pyarrow():
+    """`App(Config(), device="cpu")` at target `all` (the `local`
+    backend, the default config's compaction loop and usage reporter):
+    `start_loops`, `serve`, one OTLP push over HTTP, a find and a rate
+    `query_range` over HTTP, one `compact_tenant_once`, shutdown, in a
+    fresh interpreter: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`."""
+    _fresh(_APP_DRIVE)
+
+
+def test_load_config_text_loads_yaml_and_no_reference():
+    """`load_config(text=...)` is the one path that imports PyYAML; it
+    loads no `jax`, `tempo_tpu` or `pyarrow`."""
+    _fresh(_CONFIG_DRIVE)
