@@ -315,8 +315,40 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       <free>`, started with the phase: `/ready`, one push, one find
       equal to the payload, then SIGINT and its exit within 15 s.
 
+15. durability and fleet, on the card against CPU twins:
+   a. `App(Config())` at target `all` with `wal.enabled` (fsync batch)
+      and the default processors on dense state: 3 pushes of 16,384
+      `deep_trace_spans` spans over HTTP, then the App abandoned with no
+      shutdown; a second App over the same directories replays the WAL
+      at its boot through the scheduler and K1 (launches equal to the
+      replayed dispatches); its state equal to the live App's and to a
+      CPU twin App's (counts, buckets, DDSketch rows and q50/q99 exact,
+      sums at rtol 1e-5); the WAL append's and its fsync's ms a push,
+      bytes a record, replay spans/s;
+   b. `snapshot_instance` of that tenant, of a paged `sketch: both` f32
+      tenant and of a compact one, each restored into a fresh instance
+      (bit for bit; compact: counts exact, sums within 1e-2), the dense
+      blob into an instance that took a push of other traces (its span
+      metrics equal to the oracle that took every push), the paged blob
+      into a dense instance (bit for bit); ms with the host, blob bytes,
+      device-to-host copies;
+   c. two `FleetController`s on one `KVStore` and a `local` backend hand
+      a tenant off with zero loss; `python3 -m tempo_tpu_torch.fleet.
+      worker` with the WAL takes 2 pushes, is SIGKILLed, restarted over
+      the same directories, and answers the oracle's samples and q99;
+   d. a native histogram on dense and paged state, card against host,
+      and `send_native_histograms`' payload, card against host.
+   Then one process of its own takes every captured K1 window's device
+   time (`--final-profiles`: the windows are saved under `build/`; read
+   in the smoke's own process after other profiles, the trace lost
+   events) and phase 15's device readings (the snapshot's gather, the
+   restore's scatters, `sketch_restore`, the native update, each with
+   its ops and bound). Their numbers are printed in place: the output
+   is held until the end.
+
 `python3 chip_smoke.py --phase14` builds as above and runs phase 14
-alone (about 100 s).
+alone (about 100 s); `--phase15` runs phase 15 alone, then its final
+profiles.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -503,11 +535,10 @@ def host_floor_ms():
     return host_ms(lambda: one.add_(1.0))
 
 
-def profiled_device_ms(fn, runs, kernel_names=None, by_name=None):
-    """Mean device time per call from torch.profiler's CUPTI trace: the
-    device events (kernels, memsets) whose name contains one of
-    `kernel_names`, or all of them when None; None when the trace shows
-    no device time. `by_name`, a dict, receives every device event's mean
+def profiled_device_ms(fn, runs, by_name=None):
+    """Mean device time per call from torch.profiler's CUPTI trace: every
+    device event (kernels, memsets, copies); None when the trace shows no
+    device time. `by_name`, a dict, receives every device event's mean
     time per call by name."""
     import torch
     from torch.autograd import DeviceType
@@ -527,8 +558,7 @@ def profiled_device_ms(fn, runs, kernel_names=None, by_name=None):
             getattr(ev, "cuda_time_total", 0)
         if by_name is not None:
             by_name[ev.key] = t / runs / 1e3
-        if kernel_names is None or any(n in ev.key for n in kernel_names):
-            total += t
+        total += t
     return total / runs / 1e3 if total else None
 
 
@@ -632,8 +662,10 @@ def phase_k1_dd():
              for how, fn in calls.items()}
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
-    device_ms = profiled_device_ms(calls["fused_step"], N_TIMED,
-                                   ["pfu_span_kernel"])
+    device_ms = _k1_device_job(
+        "phase 3a (sketch dd, f32, paged)", k_ar, t_dev, batches[0],
+        dict(edges=edges, gamma=gamma, min_value=minv, dd_rows=DD_ROWS),
+        PAGE_SHIFT)[0]
     nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
                          edges=edges)
     bound_ms, bound_by = bound(nbytes, N_SPANS * (40 + len(edges)))
@@ -852,18 +884,15 @@ def phase_k1_compact():
              for how, fn in calls.items()}
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         t_dev, b0[0], b0[1:4], p_ar, **kw), N_TIMED)
-    events = {}
-    device_ms = profiled_device_ms(calls["fused_step"], N_TIMED,
-                                   by_name=events)
-    memsets = [k for k in events if "emset" in k]
-    if memsets:
-        raise AssertionError(f"phase 5: compact K1 runs memsets {memsets}")
-    split = {name: sum(t for k, t in events.items() if name in k)
-             for name in ("pfu_span_kernel", "pfu_fold_kernel")}
+    skw = {k: v for k, v in kw.items() if k != "page_rows"}
+    device_ms, _, events = _k1_device_job(
+        "phase 3b (sketch both, compact, paged)", k_ar, t_dev, batches[0],
+        dict(skw, compact=True), PAGE_SHIFT)
+    n = len(_K1_JOBS) - 1
     print(f"phase 5: compact K1 device time per dispatch {device_ms} ms, of "
-          f"which span pass {split['pfu_span_kernel']} ms and fold "
-          f"{split['pfu_fold_kernel']} ms; every device event per dispatch: "
-          f"{json.dumps(events)}")
+          f"which span pass {_Later(f'k1-{n}-span')} ms and fold "
+          f"{_Later(f'k1-{n}-fold')} ms; every device event per dispatch: "
+          f"{events} (no memset: the final profiles check it)")
     nbytes = bound_bytes(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
                          edges=edges, mom_rows=DD_ROWS, compact=True)
     cells = touched_cells(batches[0], tables, dd_rows=DD_ROWS, nb=nb,
@@ -974,7 +1003,8 @@ def phase_k1_dense():
         "name": "paged_fused_update", "tier": "dense, both f32",
         "pushes": 4, "launches": launches, "max_abs_err": max_abs,
         "trash_and_guard_pages": "zero", "pass": True}))
-    both_ms = _device_ms(lambda: step(k_ar, b_dev[0]))
+    both_ms = _k1_device_job("phase 3d (dense, sketch both, f32)", k_ar,
+                             t_dev, batches[0], skw, shift)[0]
     # sketch: dd (the dense main path's tier): 7 roles, the same push
     t7, skw7 = t_dev[:7], dict(skw, mom_rows=0, mom_meta=None)
     kw7 = dict(skw7, page_rows=pr)
@@ -984,7 +1014,8 @@ def phase_k1_dense():
              for how in ("fused_step", "sliced")}
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         t7, b0[0], b0[1:4], p_ar[:7], **kw7), N_TIMED)
-    device_ms = _device_ms(calls["fused_step"])
+    device_ms = _k1_device_job("phase 5 (dense, sketch dd, f32)", k_ar[:7],
+                               t7, batches[0], skw7, shift)[0]
     # the composed twin on row views of a copy of the same state
     tw = [a.clone() for a in base[:7]]
     v = [a[pr:pr + n] for a, n in zip(tw, rows)]
@@ -1289,18 +1320,21 @@ def _push_all(inst, payloads, sizes, weights):
     return time.perf_counter() - t0, decode_s
 
 
-def _compare_samples(rx, compact, ctx):
-    """The card's WriteRequest against the host's: counts exact, the size
-    counter at rtol 1e-5, the latency `_sum` at rtol 1e-5 (f32) or 1e-2
-    (folded from the bf16 pair under compact). Returns (label sets,
-    calls total)."""
+def _compare_samples(rx, compact, ctx, host_samples):
+    """The card's WriteRequest against the host's collected samples (each
+    label set's values in write order): counts exact, the size counter at
+    rtol 1e-5, the latency `_sum` at rtol 1e-5 (f32) or 1e-2 (folded from
+    the bf16 pair under compact). Returns (label sets, calls total)."""
     from tempo_tpu_torch.generator.remote_write import decode_write_request
 
-    bodies = rx.bodies
-    card, host = bodies.get(f"/{ctx}-card"), bodies.get(f"/{ctx}-host")
-    if not card or not host:
-        raise AssertionError(f"{ctx}: remote write received {list(bodies)}")
-    gpu, cpu = decode_write_request(card), decode_write_request(host)
+    card = rx.bodies.get(f"/{ctx}-card")
+    if not card:
+        raise AssertionError(f"{ctx}: remote write received "
+                             f"{list(rx.bodies)}")
+    gpu = decode_write_request(card)
+    cpu: dict = {}
+    for smp in host_samples:
+        cpu.setdefault(tuple(sorted(smp.labels)), []).append(smp.value)
     if not gpu or set(gpu) != set(cpu):
         raise AssertionError(f"{ctx}: card and host wrote different series sets")
     for k, vs in gpu.items():
@@ -1372,6 +1406,13 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
     payloads, sizes, int_w, dyadic_w = _payloads(now, n_payloads)
     weights = dyadic_w if compact else int_w
     res = {}
+    # the remote write's encode, snappy and decode (15-20 s at 516,325
+    # samples) run once, on the card's "dd" tier, checked against the
+    # host's collected samples; the other tiers compare the collected rows
+    # by label set under the same tolerances (the smoke's time, ROADMAP
+    # "The smoke's time")
+    remote = tier == "dd"
+    host_samples = None
     with LocalReceiver() as rx:
         names = ((f"{tier}-card", "cuda"), (f"{tier}-host", "cpu"))
         insts = _instances(rx, now, sm, names, paged=paged)
@@ -1385,7 +1426,14 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
                 launches = ck.paged_fused_update.launches
                 plans = ck.paged_fused_update.plans
             tc = time.perf_counter()
-            n_samples = inst.collect_and_push()
+            if remote and on_card:
+                n_samples = inst.collect_and_push()
+            else:
+                inst.drain()
+                collected = inst.registry.collect()
+                n_samples = len(collected)
+                if remote:
+                    host_samples = collected
             collect_s = time.perf_counter() - tc
             proc = inst.processors["span-metrics"]
             tq = time.perf_counter()
@@ -1402,11 +1450,20 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
             print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
                   f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
                   f"push_batch {push_s - decode_s:.3f} s), "
-                  f"{res[name]['series']} series; collect_and_push "
+                  f"{res[name]['series']} series; "
+                  f"{'collect_and_push' if remote and on_card else 'collect'} "
                   f"{n_samples} samples in {collect_s:.3f} s; DDSketch "
                   f"q50+q99 in {dd_s:.3f} s"
                   + (f"; moments q50+q99 in {mom_s:.3f} s" if compact else ""))
-        n_sets, total = _compare_samples(rx, compact, tier)
+        if remote:
+            n_sets, total = _compare_samples(rx, compact, tier, host_samples)
+        else:
+            rows = [_family_rows([insts[n]]) for n, _ in names]
+            n_sets, _ = _compare_rows(*rows, tier,
+                                      hist_rtol=1e-2 if compact else None)
+            total = float(sum(
+                v[0].sum() for v in
+                rows[0]["traces_spanmetrics_calls_total"].values()))
     card, host = res[f"{tier}-card"], res[f"{tier}-host"]
     want = float(sum(w.sum() for w in weights))
     if not compact and total != want:
@@ -1439,7 +1496,8 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
                                  f"{MOM_OUTSIDE_MAX}")
     n_q = len(card["dd_q"][0])
     print(f"phase 4 {tier} checks: {n_sets} label sets in the card's "
-          f"WriteRequest equal the host's under the stated tolerances; calls "
+          f"{'WriteRequest' if remote else 'largest family'} equal the "
+          f"host's collected ones under the stated tolerances; calls "
           f"total {total} (weighted spans {want}); DDSketch q50/q99 of "
           f"{n_q} series equal"
           + (f"; moments rows of {n_rows} series within the moments "
@@ -1669,6 +1727,137 @@ def _merged_window(proc, rows, bucket, seed):
     return mat
 
 
+class _Later:
+    """A reading that a later process takes: it formats as a token that
+    `main()` replaces in the output once `_resolve_later` has the value
+    (each K1 window's device time, phase 15's profiles)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __format__(self, spec):
+        return f"@@{self.key}@@"
+
+    __str__ = __repr__ = lambda self: self.__format__("")
+
+
+_K1_JOBS: list = []        # saved K1 windows whose device time is pending
+_LATER: dict = {}          # token key -> its text, once resolved
+
+
+def _k1_device_job(ctx, arenas, tables, mat, skw, shift):
+    """Save a K1 window (the packed spans, the tables, the arenas' shapes
+    and the step's parameters) for `k1_device_times`; returns the
+    pending (device ms, device ms with the copy, device events)."""
+    d = os.path.join(ROOT, "build", f"k1-jobs-{os.getpid()}")
+    os.makedirs(d, exist_ok=True)
+    n = len(_K1_JOBS)
+    meta = {"ctx": ctx, "shift": shift,
+            "shapes": [list(a.shape) for a in arenas],
+            "dtypes": [str(a.dtype).split(".")[-1] for a in arenas],
+            "skw": {k: (list(v) if isinstance(v, tuple) else v)
+                    for k, v in skw.items()}}
+    path = os.path.join(d, f"{n}.npz")
+    np.savez(path, mat=mat, tables=tables.cpu().numpy(),
+             meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+    _K1_JOBS.append(path)
+    return (_Later(f"k1-{n}-device"), _Later(f"k1-{n}-dispatch"),
+            _Later(f"k1-{n}-events"))
+
+
+def k1_device_times(paths) -> dict:
+    """Each saved K1 window's device time, torch.profiler in this
+    process: the dispatch as the scheduler makes it (the window's copy to
+    the card, then K1), K1's own events (the span pass, and the fold
+    under compact state, with the persistent scratch it needs) and every
+    event, on zero arenas of the window's shapes (K1's work does not
+    depend on the values it adds to)."""
+    import torch
+
+    from tempo_tpu_torch.ops import pages as op
+
+    out = {}
+    for n, path in enumerate(paths):
+        with np.load(path) as z:
+            mat, tables = z["mat"], torch.from_numpy(z["tables"]).cuda()
+            meta = json.loads(bytes(z["meta"]).decode())
+        skw = dict(meta["skw"], edges=tuple(meta["skw"]["edges"]))
+        if skw.get("mom_meta") is not None:
+            skw["mom_meta"] = tuple(skw["mom_meta"])
+        arenas = [torch.zeros(shape, dtype=getattr(torch, dt), device="cuda")
+                  for shape, dt in zip(meta["shapes"], meta["dtypes"])]
+        shift = meta["shift"]
+        if skw.get("compact"):
+            from tempo_tpu_torch.ops import cuda_kernels as ck
+
+            skw["scratch"] = ck.compact_scratch(
+                tables, arenas, page_rows=1 << shift, edges=skw["edges"],
+                dd_rows=skw["dd_rows"])
+
+        def dispatch():
+            op.fused_step(arenas, tables, torch.from_numpy(mat).to("cuda"),
+                          page_shift=shift, **skw)
+
+        events = {}
+        disp = _device_ms(dispatch, events)
+        split = {part: sum(t for name, t in events.items()
+                           if f"pfu_{part}_kernel" in name)
+                 for part in ("span", "fold")}
+        out[f"k1-{n}-device"] = sum(split.values()) or None
+        out[f"k1-{n}-span"] = split["span"] or None
+        out[f"k1-{n}-fold"] = split["fold"] or None
+        out[f"k1-{n}-memsets"] = [k for k in events if "emset" in k]
+        out[f"k1-{n}-dispatch"] = disp
+        out[f"k1-{n}-events"] = {k: round(v, 6) for k, v in events.items()}
+        out[f"k1-{n}-ctx"] = meta["ctx"]
+        del arenas
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fmt_later(v) -> str:
+    if v is None:
+        return "not measured"
+    if isinstance(v, float):
+        return f"{v:.6f}" if v < 0.01 else f"{v:.4f}"
+    return json.dumps(v) if isinstance(v, (dict, list)) else str(v)
+
+
+def _resolve_later(phase15: bool) -> None:
+    """Run `chip_smoke.py --final-profiles` in a process of its own: every
+    saved K1 window's device time and, with `phase15`, phase 15's
+    profiles; their tokens' texts go to `_LATER`, and one line a window
+    is printed."""
+    if not _K1_JOBS and not phase15:
+        return
+    listing = os.path.join(ROOT, "build", f"k1-jobs-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(listing), exist_ok=True)
+    with open(listing, "w") as f:
+        json.dump({"k1": _K1_JOBS, "phase15": phase15}, f)
+    got = _profiles_in_child("the final profiles", "--final-profiles",
+                             listing)
+    os.remove(listing)
+    for path in _K1_JOBS:
+        os.remove(path)
+    _LATER.update({k: _fmt_later(v) for k, v in got.items()})
+    for n in range(len(_K1_JOBS)):
+        if got[f"k1-{n}-memsets"]:
+            raise AssertionError(f"{got[f'k1-{n}-ctx']}: K1 runs memsets "
+                                 f"{got[f'k1-{n}-memsets']}")
+        print(f"K1 device time, its own process: {got[f'k1-{n}-ctx']}: K1 "
+              f"{_LATER[f'k1-{n}-device']} ms, with the window's copy "
+              f"{_LATER[f'k1-{n}-dispatch']} ms")
+
+
+def final_profiles(listing) -> dict:
+    with open(listing) as f:
+        want = json.load(f)
+    out = k1_device_times(want["k1"])
+    if want["phase15"]:
+        out.update(phase15_profiles())
+    return out
+
+
 def _k1_on_window(proc, mat, ctx):
     """K1 at a merged window's shape on a copy of the processor's state:
     held against its plain version on the card, timed through the main
@@ -1723,12 +1912,11 @@ def _k1_on_window(proc, mat, ctx):
     dispatch_ms = cuda_time_ms(dispatch, N_TIMED)
     plain_ms = cuda_time_ms(lambda: ck.paged_fused_update_plain(
         tables, b[0], b[1:4], p_ar, **kw), N_TIMED)
-    # one trace of the dispatch gives both: every device event (the copy
-    # and K1) and K1's own
-    events = {}
-    dispatch_device_ms = _device_ms(dispatch, events)
-    device_ms = sum(t for name, t in events.items()
-                    if "pfu_span_kernel" in name) or None
+    # K1's device time at this window comes from a process of its own
+    # (`k1_device_times`): read here, after other phases' profiles, the
+    # trace loses events
+    device_ms, dispatch_device_ms, events = _k1_device_job(
+        ctx, arenas, tables, mat, skw, shift)
     gamma, minv, nb = _dd_meta()
     nbytes = bound_bytes(mat, tables.cpu().numpy(), dd_rows=skw["dd_rows"],
                          nb=nb, edges=skw["edges"], page_shift=shift)
@@ -1929,7 +2117,7 @@ def phase_default_deployment(paged, card):
           f"{spread(k1['dispatch_ms'])} as the scheduler dispatches it (host "
           f"matrix to the card, then K1); device time per merged dispatch "
           f"(torch.profiler) K1 {k1['device_ms']} ms, with the copy "
-          f"{k1['dispatch_device_ms']} ms ({json.dumps(k1['events'])}); plain "
+          f"{k1['dispatch_device_ms']} ms ({k1['events']}); plain "
           f"version {k1['plain_ms'][1]:.4f} ms; bound {k1['bound_ms']:.6f} ms "
           f"by {k1['bound_by']}; max abs err against the plain version "
           f"{k1['max_abs']}")
@@ -2244,10 +2432,11 @@ def _family_rows(insts):
     return out
 
 
-def _compare_rows(got, want, ctx):
+def _compare_rows(got, want, ctx, rtol=1e-5, hist_rtol=None):
     """Family rows by label set: counts and buckets exact, sums (a
-    histogram's sums, the size counter) within rtol 1e-5. Returns (series
-    of the largest family, max relative sum error)."""
+    histogram's sums, the size counter) within `rtol` (0: exact; a
+    histogram's sums within `hist_rtol` when given). Returns (series of
+    the largest family, max relative sum error)."""
     max_rel, n = 0.0, 0
     if got.keys() != want.keys():
         raise AssertionError(f"{ctx}: families {sorted(got)} vs "
@@ -2258,11 +2447,13 @@ def _compare_rows(got, want, ctx):
                                  f"({len(rows)} / {len(want[name])})")
         for key, xs in rows.items():
             for i, (x, y) in enumerate(zip(xs, want[name][key], strict=True)):
-                if name == "traces_spanmetrics_size_total" or (
-                        len(xs) == 3 and i == 1):
+                is_hist = len(xs) == 3 and i == 1
+                if name == "traces_spanmetrics_size_total" or is_hist:
                     max_rel = max(max_rel, float(np.max(
                         np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
-                    ok = np.allclose(x, y, rtol=1e-5, atol=1e-6)
+                    tol = hist_rtol if is_hist and hist_rtol else rtol
+                    ok = np.allclose(x, y, rtol=tol, atol=1e-6) if tol \
+                        else np.array_equal(x, y)
                 else:
                     ok = np.array_equal(x, y)
                 if not ok:
@@ -2272,12 +2463,13 @@ def _compare_rows(got, want, ctx):
     return n, max_rel
 
 
-def _compare_by_labels(ga, gb, ctx):
+def _compare_by_labels(ga, gb, ctx, rtol=1e-5, prefix=""):
     """Two instances whose interners gave out ids in different orders:
-    every family's rows and the DDSketch rows compared series by series
-    through the label sets, counts and buckets exact, sums (a
-    histogram's sums, the size counter) at rtol 1e-5. Returns (families,
-    series, max relative sum error)."""
+    every family's rows (those whose name starts with `prefix`) and the
+    DDSketch rows compared series by series through the label sets,
+    counts and buckets exact, sums (a histogram's sums, the size counter)
+    at `rtol` (0: exact). Returns (families, series, max relative sum
+    error)."""
     from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
                                                                   _DD_ZEROS)
 
@@ -2290,8 +2482,12 @@ def _compare_by_labels(ga, gb, ctx):
         return {proc.calls.labels_of(int(s)): (rows[0][i], rows[1][i])
                 for i, s in enumerate(slots)}
 
-    fa = _family_rows([ga])
-    n_series, max_rel = _compare_rows(fa, _family_rows([gb]), ctx)
+    def rows(g):
+        return {k: v for k, v in _family_rows([g]).items()
+                if k.startswith(prefix)}
+
+    fa = rows(ga)
+    n_series, max_rel = _compare_rows(fa, rows(gb), ctx, rtol)
     da, db = dd(ga), dd(gb)
     if da.keys() != db.keys() or not all(
             np.array_equal(x, y) for k, xs in da.items()
@@ -2560,14 +2756,7 @@ def _timed(obj, name, acc):
     """Wrap `obj.name` to add its seconds to `acc[name]`; returns the
     original, for `setattr(obj, name, original)`."""
     inner = getattr(obj, name)
-
-    def timed(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return inner(*a, **k)
-        finally:
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-    setattr(obj, name, timed)
+    setattr(obj, name, _acc_wrap(inner, acc, name))
     return inner
 
 
@@ -5556,12 +5745,15 @@ class _AppRig:
     (traces stay live until the phase cuts them): the `local` backend
     and every data directory under `root`, a free loopback port,
     `start_loops()` and `serve(app, block=False)`; the tenant given the
-    span-metrics and local-blocks processors (tests/test_app.py:79-80).
-    The compaction loop's interval is raised from 30 s to an hour so the
-    loop does not race the phase's own `compact_tenant_once` over the
-    same blocks; the loop is started all the same."""
+    span-metrics and local-blocks processors (tests/test_app.py:79-80)
+    unless `processors` says otherwise, and with `wal` the generator's
+    ingest WAL under `root`. The compaction loop's interval is raised
+    from 30 s to an hour so the loop does not race the phase's own
+    `compact_tenant_once` over the same blocks; the loop is started all
+    the same."""
 
-    def __init__(self, device, root, t0):
+    def __init__(self, device, root, t0,
+                 processors=("span-metrics", "local-blocks"), wal=False):
         from tempo_tpu_torch.app import App
         from tempo_tpu_torch.app.api import serve
         from tempo_tpu_torch.app.config import Config
@@ -5572,12 +5764,15 @@ class _AppRig:
         cfg.generator.localblocks.data_dir = os.path.join(root, "lb")
         cfg.server.http_listen_port = _free_port()
         cfg.compaction_interval_s = 3600.0
+        if wal:
+            cfg.wal.enabled = True
+            cfg.wal.dir = os.path.join(root, "generator-wal")
         self.clock = [t0]
         self.app = App(cfg, now=lambda: self.clock[0], device=device)
         # the default limits hold: 4 pushes of ~2.8 MB stay within the
         # 20 MB ingestion burst
         self.app.overrides.set_tenant_patch(APP_TENANT, {
-            "generator": {"processors": ["span-metrics", "local-blocks"]}})
+            "generator": {"processors": list(processors)}})
         self.app.start_loops()
         self.srv = serve(self.app, block=False)
         self.base = f"http://127.0.0.1:{cfg.server.http_listen_port}"
@@ -6081,6 +6276,741 @@ def _print_phase14(r, p, card):
           f"{c['rc']}; phase 14 {r['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the generator's durability and fleet (ingest WAL, checkpoints,
+# the handoff controller and its worker) and native histograms
+# ---------------------------------------------------------------------------
+
+DEFAULT_PROCESSORS = ("span-metrics", "service-graphs")
+N_WAL_PUSHES = 3
+N_WORKER_PUSHES = 2
+N_CKPT_PUSHES = 2
+FLEET_TENANT = "handoff-0"
+NATIVE_OBS = N_SPANS
+
+
+def _abandon(rig):
+    """The kill shape in process: stop an App's server and every loop it
+    started with no shutdown (no drain, no flush, no checkpoint; the WAL
+    segment left open)."""
+    rig.srv.shutdown()
+    rig.srv.server_close()
+    app = rig.app
+    app._stop.set()
+    for part in (app.ingester, app.generator, app.db):
+        if part is not None:
+            part._stop.set()
+    if app.fleet is not None:
+        app.fleet._stop.set()
+        app.fleet._wake.set()
+    if getattr(app, "usage_reporter", None) is not None:
+        app.usage_reporter.shutdown()
+    for lc in app._lifecyclers:
+        lc.stop_heartbeat()
+
+
+def _quantiles(inst):
+    """The span-metrics DDSketch quantiles q50 and q99 by label set."""
+    proc = inst.processors["span-metrics"]
+    return [proc.dd_quantiles((q,))[0] for q in (0.5, 0.99)]
+
+
+def _same_quantiles(a, b, ctx):
+    if _quantiles(a) != _quantiles(b):
+        raise AssertionError(f"{ctx}: DDSketch q50/q99 differ")
+
+
+def _acc_wrap(inner, acc, key):
+    """`inner` with its seconds added to `acc[key]`."""
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+    return timed
+
+
+def _class_patch(cls, name, wrap):
+    """Replace `cls.name` by `wrap(original)`; returns an undo."""
+    inner = getattr(cls, name)
+    setattr(cls, name, wrap(inner))
+    return lambda: setattr(cls, name, inner)
+
+
+def phase_durability(card, device="cuda"):
+    """Phase 15 on `device` (`cpu` only for a rehearsal) against CPU
+    twins: 15a kill and replay of the App's ingest WAL, 15b checkpoint and
+    restore, 15c the handoff and the fleet worker, 15d native histograms.
+    Returns (results, K1's kernel entry)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase15-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        t_phase = time.perf_counter()
+        out, row = _phase_wal_app(card, root, device)
+        out["seconds_a"] = time.perf_counter() - t_phase
+        _print_15a(out, card)
+        t = time.perf_counter()
+        out["b"] = _phase_checkpoints(out.pop("inst"), device)
+        out["b"]["seconds"] = time.perf_counter() - t
+        _print_15b(out["b"], card)
+        _reset_singletons()
+        t = time.perf_counter()
+        out["c"] = _phase_fleet(root, device)
+        out["c"]["seconds"] = time.perf_counter() - t
+        _print_15c(out["c"], card)
+        t = time.perf_counter()
+        out["d"] = _phase_native(device)
+        out["d"]["seconds"] = time.perf_counter() - t
+        out["seconds"] = time.perf_counter() - t_phase
+        _print_15d(out["d"], card, out["seconds"])
+        return out, row
+
+
+def _phase_wal_app(card, root, device):
+    """15a: the App at target `all` with `wal.enabled` (default fsync) and
+    the default processors on dense state takes `N_WAL_PUSHES` pushes of
+    `deep_trace_spans` over HTTP and is abandoned; a second App over the
+    same directories replays the WAL at its boot through the scheduler
+    and K1; its state equals the first App's and a CPU twin's."""
+    import torch
+
+    from tempo_tpu_torch.generator import wal as twal
+    from tempo_tpu_torch.generator.generator import Generator
+    from tempo_tpu_torch.generator.processors.spanmetrics import (
+        SpanMetricsProcessor)
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    ctx = "phase 15a"
+    t0 = float(int(time.time()))
+    spans = [deep_trace_spans(N_SPANS, seed=SEED + 150 + k,
+                              now_ns=int(t0 * 1e9))
+             for k in range(N_WAL_PUSHES)]
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+    payloads = [encode_spans_otlp(s) for s in spans]
+    dirs = os.path.join(root, "app")
+
+    _reset_singletons()
+    for k in twal.STATS:
+        twal.STATS[k] = type(twal.STATS[k])(0)
+    rig = _AppRig(device, dirs, t0, processors=DEFAULT_PROCESSORS, wal=True)
+    if rig.inst.state_layout != "dense":
+        raise AssertionError(f"{ctx}: {rig.inst.state_layout} state")
+    acc = {}
+    wal = rig.app.generator.wal
+    _timed(wal, "append_view", acc)
+    undo = _class_patch(twal._TenantWal, "_sync_to",
+                        lambda inner: _acc_wrap(inner, acc, "fsync"))
+    try:
+        push_ms = [rig.post(p) for p in payloads]
+    finally:
+        undo()
+    rig.settle()
+    appended = twal.STATS["appended_batches"]
+    if appended != N_WAL_PUSHES:
+        raise AssertionError(f"{ctx}: {appended} WAL records for "
+                             f"{N_WAL_PUSHES} acked pushes")
+    rec_bytes = twal.STATS["appended_bytes"] / appended
+    first = rig.inst
+    _abandon(rig)
+
+    # the second App over the same directories: boot replay
+    _reset_singletons()
+    mats, replay = [], {}
+    undo_w = _class_patch(
+        SpanMetricsProcessor, "_dispatch_packed",
+        lambda inner: lambda self, mat: (mats.append(mat.copy()),
+                                         inner(self, mat))[1])
+    undo_r = _class_patch(Generator, "replay_wal_all",
+                          lambda inner: _acc_wrap(inner, replay, "replay"))
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        rig2 = _AppRig(device, dirs, t0, processors=DEFAULT_PROCESSORS,
+                       wal=True)
+    finally:
+        undo_w()
+        undo_r()
+    boot_s = time.perf_counter() - t
+    rig2.settle()
+    launches = ck.paged_fused_update.launches
+    dispatches = rig2.app.sched.batches_total.get(SCHED_KERNEL, 0)
+    replayed = twal.STATS["replayed_batches"]
+    if replayed != N_WAL_PUSHES or twal.STATS["dead_letters"]:
+        raise AssertionError(f"{ctx}: replayed {replayed} records, "
+                             f"{twal.STATS['dead_letters']} dead letters")
+    if device == "cuda" and (launches != dispatches or not launches):
+        raise AssertionError(f"{ctx}: K1 launched {launches} times for "
+                             f"{dispatches} replayed dispatches")
+    inst = rig2.inst
+    n_fams, n_series, rel = _compare_by_labels(inst, first,
+                                               f"{ctx} replay vs live")
+    _same_quantiles(inst, first, f"{ctx} replay vs live")
+    k1 = row = None
+    if device == "cuda":
+        k1, row = _dist_k1_row(
+            "paged_fused_update (WAL replay at the App's boot: Generator."
+            "replay_wal_all → push_staged_view → the SpanBatch route, "
+            "scheduler, dense state, sketch dd, f32)",
+            inst.processors["span-metrics"], mats[-1], launches,
+            f"{ctx} replayed window")
+    # the second App's loops stop too (its instance stays for 15b)
+    _abandon(rig2)
+    del first
+    gc.collect()
+
+    # the CPU twin: the same payloads into an App on the host
+    _reset_singletons()
+    twin = _AppRig("cpu", os.path.join(root, "twin"), t0,
+                   processors=DEFAULT_PROCESSORS)
+    for p in payloads:
+        twin.post(p)
+    twin.settle()
+    _compare_by_labels(inst, twin.inst, f"{ctx} card vs CPU twin")
+    _same_quantiles(inst, twin.inst, f"{ctx} card vs CPU twin")
+    twin.shutdown(keep_live=False)
+    _reset_singletons()
+    n_spans = N_WAL_PUSHES * N_SPANS
+    return dict(push_ms=push_ms,
+                append_ms=acc["append_view"] / N_WAL_PUSHES * 1e3,
+                fsync_ms=acc["fsync"] / N_WAL_PUSHES * 1e3,
+                rec_bytes=rec_bytes, boot_s=boot_s,
+                replay_s=replay["replay"],
+                replay_spans_per_s=n_spans / replay["replay"],
+                launches=launches, dispatches=dispatches,
+                k1_device_ms=k1["device_ms"] if k1 else None,
+                n_fams=n_fams, n_series=n_series, sum_rel=rel,
+                inst=inst), row
+
+
+def _snap_restore(inst, fresh, ctx, rtol=0.0):
+    """Snapshot `inst`, restore into `fresh()` on the same device; the
+    restored instance equals `inst` by labels (`rtol` 0: bit for bit).
+    Returns the timings, blob bytes and device-to-host copies."""
+    import torch
+
+    from tempo_tpu_torch.fleet import checkpoint as fck
+
+    inst.drain()
+    sync = torch.cuda.synchronize if inst.device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    c0 = fck.D2H_COPIES
+    t = time.perf_counter()
+    blob = fck.snapshot_instance(inst)
+    snap_ms = (time.perf_counter() - t) * 1e3
+    copies = fck.D2H_COPIES - c0
+    dst = fresh()
+    t = time.perf_counter()
+    stats = fck.restore_instance(dst, blob)
+    sync()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    if stats["dropped"] or not stats["series"]:
+        raise AssertionError(f"{ctx}: restore {stats}")
+    _compare_by_labels(dst, inst, ctx, rtol=rtol)
+    if rtol == 0.0:
+        _same_quantiles(dst, inst, ctx)
+    return dict(blob=blob, blob_bytes=len(blob), snap_ms=snap_ms,
+                restore_ms=restore_ms, copies=copies,
+                series=stats["series"]), dst
+
+
+def _phase_checkpoints(inst, device):
+    """15b: `snapshot_instance` of 15a's replayed tenant (dense, default
+    processors), restored into a fresh instance (bit for bit) and into
+    one that took a push (equal to the oracle that took every push); a
+    paged `sketch: both` f32 tenant restored into a fresh paged instance
+    and into a dense one (bit for bit); a compact tenant restored into a
+    fresh compact instance (counts exact, the latency sum within the
+    compact tier's 1%)."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.fleet import checkpoint as fck
+    from tempo_tpu_torch.model.otlp_batch import stage_otlp
+    from tempo_tpu_torch.registry import pages
+
+    ctx = "phase 15b"
+    out = {}
+    clock = inst.now
+
+    def like(src):
+        return lambda: tt.GeneratorInstance(src.tenant, src.cfg, now=clock,
+                                            device=device)
+
+    out["dense"], _ = _snap_restore(inst, like(inst), f"{ctx} dense")
+    # into an instance that took a push of other traces: the oracle took
+    # every push. Span metrics only: the service-graph families follow
+    # the processor's store of unpaired edges (its capacity and expiry),
+    # which is host state and not in a checkpoint, as in the reference
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    t0 = clock()
+    payloads = [encode_spans_otlp(deep_trace_spans(
+        N_SPANS, seed=SEED + 150 + k, now_ns=int(t0 * 1e9)))
+        for k in range(N_WAL_PUSHES + 1)]
+    took = like(inst)()
+    took.push_staged_view(stage_otlp(payloads[-1], took.registry.interner)
+                          .view())
+    fck.restore_instance(took, out["dense"]["blob"])
+    oracle = like(inst)()
+    for p in payloads:
+        oracle.push_staged_view(stage_otlp(p, oracle.registry.interner).view())
+    took.drain()
+    oracle.drain()
+    _compare_by_labels(took, oracle, f"{ctx} into a pushed instance",
+                       prefix="traces_spanmetrics")
+    _same_quantiles(took, oracle, f"{ctx} into a pushed instance")
+
+    # paged tenants: `sketch: both` f32, then compact
+    now = time.time()
+    k6, sizes, int_w, _ = _payloads(now, N_CKPT_PUSHES)
+    for tier, sm in (("paged", dict(sketch="both")),
+                     ("compact", dict(sketch="both", compact_state=True))):
+        pool = pages.PagePool(tt.PagePoolConfig(
+            enabled=True, page_rows=PAGE_ROWS, arena_slots=ARENA_SLOTS),
+            device=device)
+        cfg = tt.GeneratorConfig(processors=("span-metrics",),
+                                 spanmetrics=tt.SpanMetricsConfig(**sm))
+        with pages.use(pool):
+            src = tt.GeneratorInstance("ckpt", cfg, now=lambda: now,
+                                       device=device)
+            if src.state_layout != "paged":
+                raise AssertionError(f"{ctx} {tier}: {src.state_layout}")
+            _push_all(src, k6, sizes, int_w)
+            out[tier], _ = _snap_restore(
+                src, lambda: tt.GeneratorInstance("ckpt", cfg,
+                                                  now=lambda: now,
+                                                  device=device),
+                f"{ctx} {tier} → paged", rtol=0.0 if tier == "paged"
+                else 1e-2)
+        if tier == "paged":
+            dense = tt.GeneratorInstance("ckpt", cfg, now=lambda: now,
+                                         device=device)
+            t = time.perf_counter()
+            fck.restore_instance(dense, out[tier]["blob"])
+            out["to_dense_ms"] = (time.perf_counter() - t) * 1e3
+            if dense.state_layout != "dense":
+                raise AssertionError(f"{ctx}: paged → {dense.state_layout}")
+            _compare_by_labels(dense, src, f"{ctx} paged → dense", rtol=0.0)
+            _same_quantiles(dense, src, f"{ctx} paged → dense")
+        del src
+    for v in out.values():
+        if isinstance(v, dict):
+            v.pop("blob", None)
+    return out
+
+
+def _worker_yaml(root, port):
+    return (f"target: metrics-generator\n"
+            f"server: {{http_listen_port: {port}}}\n"
+            f"ring_kv_url: local\nusage_stats_enabled: false\n"
+            f"storage:\n  backend: local\n  local_path: {root}/blocks\n"
+            f"  wal_path: {root}/wal\n"
+            f"wal: {{enabled: true, dir: {root}/gwal}}\n"
+            f"fleet: {{enabled: true, rebalance_interval_s: 5.0}}\n"
+            f"distributor: {{generator_placement: tenant}}\n"
+            f"generator:\n  processors: [span-metrics]\n"
+            f"overrides_defaults:\n  generator:\n"
+            f"    processors: [span-metrics]\n"
+            f"    ingestion_time_range_slack_s: 0.0\n"
+            f"    collection_interval_s: 3600.0\n")
+
+
+def _worker_collect(base, tenant):
+    """(samples {(name, labels): value}, q99 {labels: value}) over HTTP."""
+    import urllib.request
+
+    def get(path):
+        req = urllib.request.Request(base + path,
+                                     headers={"X-Scope-OrgID": tenant})
+        with _http_errors(f"GET {path}"), \
+                urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+    doc = get("/internal/generator/collect?ts_ms=1")
+    samples = {(s["name"], tuple(tuple(kv) for kv in s["labels"])):
+               s["value"] for s in doc["samples"]}
+    q = get("/internal/generator/quantile?q=0.99")
+    return samples, {tuple(tuple(kv) for kv in e["labels"]): e["value"]
+                     for e in q["quantiles"]}
+
+
+def _same_samples(got, want, ctx):
+    """Samples by label set: counts exact, `_sum`s and the size counter
+    within rtol 1e-5."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{ctx}: {len(got)} / {len(want)} samples")
+    for k, v in want.items():
+        if k[0].endswith("_sum") or k[0] == "traces_spanmetrics_size_total":
+            ok = abs(got[k] - v) <= 1e-5 * abs(v) + 1e-6
+        else:
+            ok = got[k] == v
+        if not ok:
+            raise AssertionError(f"{ctx}: {k}: {got[k]} vs {v}")
+
+
+def _phase_fleet(root, device):
+    """15c: two `FleetController`s on one `KVStore` and a `local` backend
+    hand a tenant off with zero loss; then `python3 -m tempo_tpu_torch.
+    fleet.worker` with the WAL takes `N_WORKER_PUSHES` pushes, is
+    SIGKILLed, restarted over the same directories, and answers the
+    oracle's samples and q99."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.fleet import STATS as FSTATS
+    from tempo_tpu_torch.fleet import FleetConfig
+    from tempo_tpu_torch.fleet import checkpoint as fck
+    from tempo_tpu_torch.fleet.controller import FleetController
+    from tempo_tpu_torch.fleet.placement import TenantPlacement
+    from tempo_tpu_torch.fleet.worker import reap_workers, spawn_worker
+    from tempo_tpu_torch.generator import Generator
+    from tempo_tpu_torch.overrides import Limits, Overrides
+    from tempo_tpu_torch.ring import KVStore, Lifecycler, Ring
+    from tempo_tpu_torch.rpc import RemoteGeneratorClient
+
+    ctx = "phase 15c"
+    out = {}
+    now = time.time()
+    k6, _, _, _ = _payloads(now, 3)
+    be = LocalBackend(os.path.join(root, "fleet-store"))
+    kv = KVStore()
+    cfg = tt.GeneratorConfig(processors=("span-metrics",))
+    members = {}
+    for iid in ("gen-a", "gen-b"):
+        g = Generator(cfg, instance_id=iid, now=lambda: now,
+                         device=device)
+        ring = Ring(kv=kv, key="generator", replication_factor=1,
+                    now=lambda: now)
+        lc = Lifecycler(kv, iid, key="generator", now=lambda: now)
+        members[iid] = (g, lc, FleetController(
+            g, ring, iid, be, be, cfg=FleetConfig(enabled=True),
+            now=lambda: now))
+    own = "gen-a" if TenantPlacement(members["gen-a"][2].ring,
+                                     "gen-a").owns(FLEET_TENANT) else "gen-b"
+    other = "gen-b" if own == "gen-a" else "gen-a"
+    h0, r0 = FSTATS["handoffs"], FSTATS["restores"]
+    members[own][0].push_otlp(FLEET_TENANT, k6[0])
+    members[own][0].push_otlp(FLEET_TENANT, k6[1])
+    members[own][1].leave()
+    t = time.perf_counter()
+    members[own][2].tick()               # drain, checkpoint, release
+    out["handoff_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    members[other][2].tick()             # restore, consume the blob
+    out["receive_ms"] = (time.perf_counter() - t) * 1e3
+    if FLEET_TENANT in members[own][0].tenants() or \
+            FLEET_TENANT not in members[other][0].tenants() or \
+            FSTATS["handoffs"] - h0 != 1 or FSTATS["restores"] - r0 != 1 or \
+            fck.list_checkpoints(be, "fleet-checkpoints"):
+        raise AssertionError(f"{ctx}: the handoff did not conclude")
+    members[other][0].push_otlp(FLEET_TENANT, k6[2])
+    oracle = Generator(cfg, instance_id="oracle", now=lambda: now,
+                          device=device)
+    for p in k6:
+        oracle.push_otlp(FLEET_TENANT, p)
+    got = members[other][0].instance(FLEET_TENANT)
+    want = oracle.instance(FLEET_TENANT)
+    got.drain()
+    want.drain()
+    _compare_by_labels(got, want, f"{ctx} handoff")
+    _same_quantiles(got, want, f"{ctx} handoff")
+    out["blob_bytes"] = FSTATS["checkpoint_bytes"]
+    del members, oracle, got, want
+
+    # the worker: SIGKILL after the acked pushes, restart, the same answers
+    wroot = os.path.join(root, "worker")
+    os.makedirs(wroot)
+    port = _free_port()
+    cfg_path = os.path.join(wroot, "member.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(_worker_yaml(wroot, port))
+    procs = []
+    try:
+        t = time.perf_counter()
+        p = spawn_worker(["--config", cfg_path], cwd=ROOT,
+                         wait_ready_s=120.0)
+        procs.append(p)
+        out["worker_ready_s"] = time.perf_counter() - t
+        base = f"http://127.0.0.1:{p.ready['port']}"
+        client = RemoteGeneratorClient(base, timeout_s=120.0)
+        from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+        wl = [encode_spans_otlp(deep_trace_spans(
+            N_SPANS, seed=SEED + 155 + k, now_ns=int(now * 1e9)))
+            for k in range(N_WORKER_PUSHES)]
+        for pl in wl:
+            if client.push_otlp(FLEET_TENANT, pl) != N_SPANS:
+                raise AssertionError(f"{ctx}: a worker push was not acked")
+        p.kill()                          # SIGKILL: nothing drains
+        p.wait(timeout=30)
+        t = time.perf_counter()
+        p2 = spawn_worker(["--config", cfg_path], cwd=ROOT,
+                          wait_ready_s=120.0)
+        procs.append(p2)
+        out["restart_ready_s"] = time.perf_counter() - t
+        samples, q99 = _worker_collect(
+            f"http://127.0.0.1:{p2.ready['port']}", FLEET_TENANT)
+    finally:
+        reap_workers(procs)
+    lim = Limits()
+    lim.generator.processors = ("span-metrics",)
+    lim.generator.ingestion_time_range_slack_s = 0.0
+    lim.generator.collection_interval_s = 3600.0
+    og = Generator(tt.GeneratorConfig(), instance_id="oracle-w",
+                      overrides=Overrides(defaults=lim), device=device)
+    for pl in wl:
+        og.push_otlp(FLEET_TENANT, pl)
+    oi = og.instance(FLEET_TENANT)
+    oi.drain()
+    want = {(s.name, tuple(s.labels)): s.value
+            for s in oi.registry.collect(ts_ms=1) if not s.is_stale_marker}
+    _same_samples(samples, want, f"{ctx} the restarted worker")
+    want_q = {tuple(k): v for k, v in
+              oi.processors["span-metrics"].quantile(0.99).items()}
+    if q99 != want_q:
+        raise AssertionError(f"{ctx}: the restarted worker's q99 differs")
+    out["worker_samples"] = len(samples)
+    return out
+
+
+def _phase_native(device):
+    """15d: a native histogram on dense and on paged state, card against
+    host (log2 counts, counts and zero counts exact, sums at rtol 1e-6),
+    and `remote_write.send_native_histograms`' payload, card against
+    host."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
+    from tempo_tpu_torch.registry import pages
+    from tempo_tpu_torch.registry.registry import (ManagedRegistry,
+                                                   RegistryOverrides)
+
+    ctx = "phase 15d"
+    rng = np.random.default_rng(SEED + 15)
+    vals = np.concatenate([np.zeros(64), rng.lognormal(-4, 2, NATIVE_OBS - 64)
+                           ]).astype(np.float32)
+    names = [f"svc-{i}" for i in rng.integers(0, 512, NATIVE_OBS)]
+    out = {}
+
+    def payload(reg):
+        nh = reg.new_native_histogram("native_latency", ("service",))
+        rows = reg.interner.intern_many(names).reshape(-1, 1)
+        nh.observe_batch(rows, vals)
+        return {labels: (np.asarray(h), s, c, z)
+                for labels, h, s, c, z, _ts, _off in reg.native_histograms(1)}
+
+    def same(a, b, what):
+        if a.keys() != b.keys() or not a:
+            raise AssertionError(f"{ctx} {what}: series differ")
+        for k, (h, s, c, z) in a.items():
+            h2, s2, c2, z2 = b[k]
+            if not (np.array_equal(h, h2) and c == c2 and z == z2 and
+                    abs(s - s2) <= 1e-6 * abs(s2) + 1e-9):
+                raise AssertionError(f"{ctx} {what}: {k} differs")
+
+    for layout in ("dense", "paged"):
+        got = {}
+        for dev in (device, "cpu"):
+            pool = pages.PagePool(tt.PagePoolConfig(
+                enabled=True, page_rows=PAGE_ROWS, arena_slots=ARENA_SLOTS),
+                device=dev) if layout == "paged" else None
+            with pages.use(pool):
+                got[dev] = payload(ManagedRegistry(
+                    "nh", RegistryOverrides(), device=dev))
+        same(got[device], got["cpu"], layout)
+        out[layout] = len(got["cpu"])
+    sent = {}
+    for dev in (device, "cpu"):
+        inst = tt.GeneratorInstance("nh", tt.GeneratorConfig(
+            processors=("span-metrics",), remote_write=RemoteWriteConfig(
+                send_native_histograms=True)), now=lambda: 1000.0,
+            device=dev)
+        box = []
+        inst.remote_write.send = lambda s, n=(), box=box: box.append(n) or True
+        nh = inst.registry.new_native_histogram("native_latency",
+                                                ("service",))
+        nh.observe_batch(inst.registry.interner.intern_many(names)
+                         .reshape(-1, 1), vals)
+        inst.collect_and_push(ts_ms=1)
+        sent[dev] = {lab: (np.asarray(h), s, c, z)
+                     for lab, h, s, c, z, _ts, _off in box[0]}
+    same(sent[device], sent["cpu"], "send_native_histograms")
+    out["sent"] = len(sent["cpu"])
+    return out
+
+
+def phase15_profiles() -> dict:
+    """Phase 15's device readings in this process (torch.profiler): the
+    snapshot's gather and the restore's scatters of a dense default
+    tenant fed 15a's payloads, `sketch_restore` alone, and the native
+    histogram update on dense and paged state; each with its bound by
+    bytes."""
+    import torch
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.fleet import checkpoint as fck
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+    from tempo_tpu_torch.model.otlp_batch import stage_otlp
+    from tempo_tpu_torch.registry import pages
+    from tempo_tpu_torch.registry.registry import (ManagedRegistry,
+                                                   RegistryOverrides)
+
+    out = {}
+    t0 = float(int(time.time()))
+    cfg = tt.GeneratorConfig(processors=DEFAULT_PROCESSORS)
+    src = tt.GeneratorInstance("p15", cfg, now=lambda: t0, device="cuda")
+    for k in range(N_WAL_PUSHES):
+        data = encode_spans_otlp(deep_trace_spans(
+            N_SPANS, seed=SEED + 150 + k, now_ns=int(t0 * 1e9)))
+        src.push_staged_view(stage_otlp(data, src.registry.interner).view())
+    src.drain()
+    torch.cuda.synchronize()
+    blob = fck.snapshot_instance(src)
+    meta, arrays = fck._decode(blob)
+    moved = sum(v.nbytes for k, v in arrays.items()
+                if not k.endswith("::keys") and not k.endswith("_sel"))
+    out["p15_blob_bytes"] = len(blob)
+    out["p15_moved_bytes"] = moved
+    out["p15_series"] = int(src.processors["span-metrics"].calls.table
+                            .active_count)
+    c0 = fck.D2H_COPIES
+    dev, ops, wall, top = _profile(lambda: fck.snapshot_instance(src))
+    out.update(p15_snap_device_ms=dev, p15_snap_ops=int(ops),
+               p15_snap_wall_ms=wall, p15_snap_top=top,
+               p15_snap_copies=(fck.D2H_COPIES - c0) // 4)
+    # the gather: each row read once and written once on the card
+    out["p15_snap_bound_ms"] = 2 * moved / HBM_BYTES_PER_S * 1e3
+    dst = tt.GeneratorInstance("p15", cfg, now=lambda: t0, device="cuda")
+    fck.restore_instance(dst, blob)
+    dev, ops, wall, top = _profile(lambda: fck.restore_instance(dst, blob))
+    out.update(p15_restore_device_ms=dev, p15_restore_ops=int(ops),
+               p15_restore_wall_ms=wall, p15_restore_top=top)
+    # the scatter: the rows uploaded, the state rows read and written
+    out["p15_restore_bound_ms"] = 3 * moved / HBM_BYTES_PER_S * 1e3
+    proc = dst.processors["span-metrics"]
+    srows = {k[len("__sketch__::"):]: v for k, v in arrays.items()
+             if k.startswith("__sketch__::")}
+    slots = proc.calls.table.active_slots()
+    ok = np.ones(slots.size, bool)
+    sk_bytes = sum(v.nbytes for k, v in srows.items() if not k.endswith("_sel"))
+
+    def sk():
+        with dst.registry.state_lock:
+            proc.sketch_restore(meta["spanmetrics"], slots, ok, srows)
+    dev, ops, wall, top = _profile(sk)
+    out.update(p15_sketch_device_ms=dev, p15_sketch_ops=int(ops),
+               p15_sketch_wall_ms=wall, p15_sketch_top=top,
+               p15_sketch_bound_ms=3 * sk_bytes / HBM_BYTES_PER_S * 1e3)
+    # native histograms: one batch of NATIVE_OBS observations
+    rng = np.random.default_rng(SEED + 15)
+    vals = rng.lognormal(-4, 2, NATIVE_OBS).astype(np.float32)
+    sid = rng.integers(0, 512, NATIVE_OBS)
+    for layout in ("dense", "paged"):
+        pool = pages.PagePool(tt.PagePoolConfig(
+            enabled=True, page_rows=PAGE_ROWS, arena_slots=ARENA_SLOTS),
+            device="cuda") if layout == "paged" else None
+        with pages.use(pool):
+            reg = ManagedRegistry("nh", RegistryOverrides(), device="cuda")
+        nh = reg.new_native_histogram("native_latency", ("service",))
+        slots = nh.resolve_slots(reg.interner.intern_many(
+            [f"svc-{i}" for i in sid]).reshape(-1, 1), None)
+        dev, ops, wall, top = _profile(lambda: nh.observe_slots(slots, vals))
+        cells = np.unique(slots.astype(np.int64) * 64 + np.minimum(
+            np.floor(np.log2(vals) + 1e-4) + 33, 63).astype(np.int64)).size
+        # slot, value and weight read once; each touched cell (a log2
+        # bucket, and the slot's sum, count and zeros) read and written
+        nbytes = 12 * NATIVE_OBS + 8 * (cells + 3 * np.unique(slots).size)
+        out.update({f"p15_native_{layout}_device_ms": dev,
+                    f"p15_native_{layout}_ops": int(ops),
+                    f"p15_native_{layout}_wall_ms": wall,
+                    f"p15_native_{layout}_bound_ms":
+                        nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+_P15_LATER = {k: _Later(k) for k in (
+    "p15_snap_device_ms", "p15_snap_ops", "p15_snap_wall_ms",
+    "p15_snap_copies", "p15_snap_bound_ms", "p15_restore_device_ms",
+    "p15_restore_ops", "p15_restore_wall_ms", "p15_restore_bound_ms",
+    "p15_sketch_device_ms", "p15_sketch_ops", "p15_sketch_bound_ms",
+    "p15_native_dense_device_ms", "p15_native_dense_ops",
+    "p15_native_dense_bound_ms", "p15_native_paged_device_ms",
+    "p15_native_paged_ops", "p15_native_paged_bound_ms",
+    "p15_moved_bytes", "p15_series", "p15_snap_top", "p15_restore_top",
+    "p15_sketch_top")}
+
+
+def _print_15a(a, card):
+    print(f"phase 15a [{card}]: the App with wal.enabled (fsync batch) and "
+          f"the default processors, {N_WAL_PUSHES} pushes of {N_SPANS} "
+          f"spans over HTTP: {', '.join(f'{m:.1f}' for m in a['push_ms'])} "
+          f"ms a push, of it the WAL append {a['append_ms']:.3f} ms (fsync "
+          f"{a['fsync_ms']:.3f} ms), {a['rec_bytes']:.0f} bytes a record; "
+          f"abandoned; the second App ready {a['boot_s']:.2f} s after its "
+          f"start, replay {a['replay_s']:.3f} s ({a['replay_spans_per_s']:.0f}"
+          f" spans/s); K1 launches {a['launches']} = replayed dispatches "
+          f"{a['dispatches']}, device {a['k1_device_ms']} ms a window; "
+          f"{a['n_fams']} families, {a['n_series']} series equal to the live "
+          f"App's and the CPU twin's (counts, buckets, DDSketch rows, "
+          f"q50/q99 exact; max sum rel {a['sum_rel']:.2e}); 15a "
+          f"{a['seconds_a']:.1f} s")
+
+
+def _print_15b(b, card):
+    later = _P15_LATER
+    for tier in ("dense", "paged", "compact"):
+        t = b[tier]
+        print(f"phase 15b [{card}]: {tier} tenant ({t['series']} series): "
+              f"snapshot {t['snap_ms']:.2f} ms with the host "
+              f"({t['copies']} device-to-host copies), blob "
+              f"{t['blob_bytes']} bytes, restore into a fresh instance "
+              f"{t['restore_ms']:.2f} ms, "
+              + ("bit for bit" if tier != "compact"
+                 else "counts exact, sums within 1e-2"))
+    print(f"phase 15b [{card}]: paged → dense {b['to_dense_ms']:.2f} ms, bit "
+          f"for bit; a restore into an instance that took a push equals "
+          f"the oracle; the snapshot's gather (its own process, dense "
+          f"default tenant, {later['p15_series']} span-metrics series, "
+          f"{later['p15_moved_bytes']} bytes of rows): device "
+          f"{later['p15_snap_device_ms']} ms in {later['p15_snap_ops']} ops "
+          f"(longest {later['p15_snap_top']}), "
+          f"{later['p15_snap_copies']} copies to the host, wall "
+          f"{later['p15_snap_wall_ms']} ms, bound "
+          f"{later['p15_snap_bound_ms']} ms by bytes; the restore: device "
+          f"{later['p15_restore_device_ms']} ms in "
+          f"{later['p15_restore_ops']} ops (longest "
+          f"{later['p15_restore_top']}), wall "
+          f"{later['p15_restore_wall_ms']} ms, bound "
+          f"{later['p15_restore_bound_ms']} ms; sketch_restore alone "
+          f"{later['p15_sketch_device_ms']} ms in {later['p15_sketch_ops']} "
+          f"ops (longest {later['p15_sketch_top']}), bound "
+          f"{later['p15_sketch_bound_ms']} ms; 15b {b['seconds']:.1f} s")
+
+
+def _print_15c(c, card):
+    print(f"phase 15c [{card}]: handoff of a tenant between two "
+          f"FleetControllers: the owner's tick {c['handoff_ms']:.1f} ms "
+          f"(drain, snapshot, blob write), the receiver's "
+          f"{c['receive_ms']:.1f} ms (read, restore), blob {c['blob_bytes']} "
+          f"bytes, zero loss; python3 -m tempo_tpu_torch.fleet.worker ready "
+          f"{c['worker_ready_s']:.1f} s, SIGKILLed after "
+          f"{N_WORKER_PUSHES} pushes, ready again {c['restart_ready_s']:.1f} "
+          f"s (boot replay included), {c['worker_samples']} samples and q99 "
+          f"equal to the oracle's; 15c {c['seconds']:.1f} s")
+
+
+def _print_15d(d, card, seconds):
+    later = _P15_LATER
+    print(f"phase 15d [{card}]: native histograms card = host on dense "
+          f"({d['dense']} series) and paged ({d['paged']}) state, "
+          f"send_native_histograms' payload equal ({d['sent']}); the update "
+          f"of {NATIVE_OBS} observations (its own process): dense "
+          f"{later['p15_native_dense_device_ms']} ms in "
+          f"{later['p15_native_dense_ops']} ops (bound "
+          f"{later['p15_native_dense_bound_ms']} ms), paged "
+          f"{later['p15_native_paged_device_ms']} ms in "
+          f"{later['p15_native_paged_ops']} ops (bound "
+          f"{later['p15_native_paged_bound_ms']} ms); 15d {d['seconds']:.1f} "
+          f"s; phase 15 {seconds:.1f} s")
+
+
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
@@ -6096,6 +7026,26 @@ def moments_state_bytes(n_payloads=N_DISPATCH):
 
 
 def main() -> int:
+    """`_main` with its standard output held until the end: the readings
+    taken in a later process (`_Later`) replace their tokens first, or
+    read "not measured" when the run stopped before them."""
+    import contextlib
+    import io
+    import re
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return _main()
+    finally:
+        text = buf.getvalue()
+        for key, val in _LATER.items():
+            text = text.replace(f"@@{key}@@", val)
+        sys.stdout.write(re.sub(r"@@[a-z0-9_-]+@@", "not measured", text))
+        sys.stdout.flush()
+
+
+def _main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -6125,7 +7075,12 @@ def main() -> int:
     if sys.argv[1:] == ["--phase14-profiles"]:
         print("PROFILES " + json.dumps(phase14_profiles()))
         return 0
-    if sys.argv[1:] not in ([], ["--phase14"]):
+    if sys.argv[1:2] == ["--final-profiles"]:
+        for src in ck.SOURCES:
+            ck._lib(src)
+        print("PROFILES " + json.dumps(final_profiles(sys.argv[2])))
+        return 0
+    if sys.argv[1:] not in ([], ["--phase14"], ["--phase15"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     card = smi_line()
@@ -6150,12 +7105,23 @@ def main() -> int:
           + f" -> {os.path.relpath(native.library_path(), ROOT)}")
     print(f"build: {len(ck.BUILD_INFO)} builds in {build_s:.2f} s (one nvcc "
           f"each, together)")
+    if sys.argv[1:] == ["--phase15"]:
+        # phase 15 alone, its profiles and K1's device time from a
+        # process of its own
+        s15, k15 = phase_durability(card)
+        _resolve_later(phase15=True)
+        print(json.dumps(k15, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--phase14"]:
         # phase 14 alone, its merge profile from a process of its own
         s14, k14 = phase_app(card)
         _print_phase14(s14, _profiles_in_child("phase 14",
                                                "--phase14-profiles"), card)
-        print(json.dumps(k14))
+        _resolve_later(phase15=False)
+        print(json.dumps(k14, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -6293,13 +7259,19 @@ def main() -> int:
           f"{s13b['seconds']:.1f} s")
     s14, k14 = phase_app(card)
     _print_phase14(s14, s12["prof"]["phase14"], card)
-    print(f"phase 14 [{card}]: {s14['seconds']:.1f} s; the whole smoke "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase 14 [{card}]: {s14['seconds']:.1f} s")
+    s15, k15 = phase_durability(card)
+    t_late = time.perf_counter()
+    _resolve_later(phase15=True)
+    print(f"the final profiles (every K1 window's device time, phase 15's "
+          f"readings) {time.perf_counter() - t_late:.1f} s in a process of "
+          f"their own; the whole smoke {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
-                                            *k8, k12, k13a, k13b, k14)]}))
+                                            *k8, k12, k13a, k13b, k14,
+                                            k15)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

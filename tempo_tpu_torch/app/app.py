@@ -7,8 +7,8 @@ the generator (span metrics through K1), `TempoDB` (the read plane and
 the compaction merge) and the block-builder. The wiring, targets, rings
 and loops are the reference's. Configurations whose parts are not
 ported raise `NotImplementedError` naming their ROADMAP item where the
-reference first builds the part: `wal.enabled` and `fleet.enabled`
-(item 12), `mesh.enabled` (item 13), `ingest.kafka_bootstrap` and
+reference first builds the part: `mesh.enabled` (item 13),
+`ingest.kafka_bootstrap` and
 `distributor.jaeger_agent_port` (item 14), and `grpc://` peers,
 `server.grpc_listen_port`, `querier_worker.frontend_address`,
 `selftrace.enabled` and `self_tracing_endpoint` (item 9b).
@@ -458,15 +458,39 @@ class App:
         cfg = self.cfg.generator
         cfg.localblocks_flush_writer = self.backend
         iid = self._iid("generator")
+        wal = None
         if self.cfg.wal.enabled:
             from tempo_tpu_torch.generator.wal import GeneratorWal
-            GeneratorWal(self.cfg.wal, now=self.now)    # raises: item 12
+            wal = GeneratorWal(self.cfg.wal, now=self.now)
         self.generator = Generator(cfg, overrides=self.overrides,
                                    instance_id=iid, registry=self.obs,
-                                   now=self.now, device=self.device)
+                                   now=self.now, wal=wal, device=self.device)
         self._join_ring("generator", iid)
+        if wal is not None and not self.cfg.fleet.enabled:
+            # boot recovery without a fleet: no checkpoints exist, so the
+            # whole WAL replays through the push routes onto the device
+            # (the fleet replays in its controller's boot tick, after
+            # the restore pass set the watermarks)
+            got = self.generator.replay_wal_all()
+            if got["batches"] or got["dead_letters"]:
+                import logging
+                logging.getLogger("tempo_tpu_torch.generator.wal").info(
+                    "boot WAL replay: %d batches across %d tenants "
+                    "(%d dead-lettered)", got["batches"], got["tenants"],
+                    got["dead_letters"])
         if self.cfg.fleet.enabled:
-            raise later("the generator fleet (fleet.enabled)", "12")
+            # the controller's own view of the generator ring: membership
+            # changes (and heartbeat expiry) drive the drain, checkpoint
+            # and restore protocol against the backend
+            from tempo_tpu_torch.backend import raw
+            from tempo_tpu_torch.fleet.controller import FleetController
+
+            # keep the checkpoint prefix out of store-side tenant listing
+            raw.RESERVED_ROOTS.add(self.cfg.fleet.checkpoint_prefix)
+            fring = self._shared_ring("generator", 1)
+            self.fleet = FleetController(
+                self.generator, fring, iid, self.backend, self.backend,
+                cfg=self.cfg.fleet, now=self.now)
 
     def _peer_clients(self, kind: str):
         """Remote peers from static config → (clients, populated ring).
@@ -687,6 +711,8 @@ class App:
         # next beat — peers only mark us unhealthy after the timeout
         for lc in self._lifecyclers:
             lc.start_heartbeat(self.cfg.heartbeat_interval_s)
+        if self.fleet is not None:
+            self.fleet.start()
         self.ready = True
 
     def shutdown(self) -> None:
@@ -702,6 +728,10 @@ class App:
             self.distributor.forwarders.shutdown()  # drain queued tees
         if self.ingester:
             self.ingester.shutdown()
+        if self.fleet is not None:
+            # before the generator's shutdown: the drain and shutdown
+            # checkpoints must see the instances
+            self.fleet.shutdown()
         if self.generator:
             self.generator.shutdown()
         if self.frontend:

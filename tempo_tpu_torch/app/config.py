@@ -158,12 +158,12 @@ class Config:
     matview: MatViewConfig = dataclasses.field(default_factory=MatViewConfig)
     # generator fleet (tempo_tpu_torch.fleet): N generator processes
     # dividing the tenant space over the ring, with checkpoint/restore
-    # through the storage backend. Default off; on, the App raises until
-    # durability and fleet are ported (ROADMAP item 12)
+    # through the storage backend (see runbook "Operating a generator
+    # fleet"). Default off
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     # generator ingest WAL (tempo_tpu_torch.generator.wal): every acked
-    # push appends to a per-tenant segment log before the ack returns.
-    # Default off; on, the App raises until item 12
+    # push appends to a per-tenant segment log before the ack returns,
+    # and boot replays it onto the device. Default off
     wal: IngestWalConfig = dataclasses.field(default_factory=IngestWalConfig)
     # fault injection (tempo_tpu_torch.utils.faults): named fault points in
     # the real backend/KV/RPC/sched/WAL paths, scripted with

@@ -1,13 +1,27 @@
-"""Multi-host generator fleet: tenant placement over the generator ring.
+"""Multi-host generator fleet: N processes as ONE logical metrics-generator.
 
-Counterpart of `tempo_tpu/fleet/`. This slice of the port carries
-`placement.py` (`tenant_token`, `TenantPlacement`), which the
-distributor's `generator_placement="tenant"` routes by, and the `fleet:`
-config block the App reads (`FleetConfig`). Checkpoints, the handoff
-controller, the worker and the fleet's obs families come with durability
-and fleet (ROADMAP section 1, item 12): their names raise
-`NotImplementedError` until then, and so does the App with
-`fleet.enabled` set.
+Counterpart of `tempo_tpu/fleet/`:
+
+- **Placement** (`placement.py`): tenants hash onto the generator ring
+  (RF1 with spillover past unhealthy members); the distributor's
+  `generator_placement="tenant"` routes a tenant's whole stream to its
+  owner.
+- **Checkpoint/restore** (`checkpoint.py`): a tenant's device state
+  (every family's active rows and the sketch sidecars, gathered on the
+  card) snapshots to the object store as one mergeable blob in the
+  reference's format; restore scatter-merges it into the receiving
+  instance's device planes.
+- **Drain/handoff** (`controller.py`): on an ownership change the losing
+  process drains, checkpoints and drops the tenant; the gaining process
+  restores and merges, then replays its WAL past the blob's watermark.
+  Shutdown checkpoints and boot restores are the same two code paths.
+- **Worker** (`worker.py`): `python -m tempo_tpu_torch.fleet.worker
+  --config fleet.yaml` (one fleet member, on the card) and `--kv-only`
+  (a standalone /kv CAS server).
+
+`app.config` imports this module: the heavy siblings load lazily (the
+exports below). Importing it registers the `tempo_fleet_*` families in
+the process runtime registry.
 """
 
 from __future__ import annotations
@@ -58,20 +72,70 @@ class FleetConfig:
         return ["fleet: " + p for p in problems] if problems else []
 
 
-_LATER = {
-    "FleetController", "STATS", "RETRY_CAUSES",
-    "snapshot_instance", "restore_instance", "CheckpointMismatch",
-    "write_checkpoint", "list_checkpoints", "read_checkpoint",
-    "delete_checkpoint",
+# mutated by checkpoint.py / controller.py under their own locks; plain
+# int/float adds are atomic enough for counters
+STATS = {
+    "checkpoint_bytes": 0,
+    "checkpoint_seconds": 0.0,
+    "checkpoints": 0,
+    "restores": 0,
+    "restore_merged_series": 0,
+    "restore_dropped_series": 0,
+    "handoffs": 0,
 }
+
+# checkpoint blob-write retries by exception class (the controller's
+# backoff loop; a rising rate means the object store flaps under handoffs)
+RETRY_CAUSES: dict = {}
+
+from tempo_tpu_torch.obs.runtime import RUNTIME  # noqa: E402
+
+RUNTIME.counter_func(
+    "tempo_fleet_checkpoint_bytes_total",
+    lambda: [((), float(STATS["checkpoint_bytes"]))],
+    help="Bytes of tenant device-state checkpoints written to the "
+         "object store (runbook 'Operating a generator fleet')")
+RUNTIME.counter_func(
+    "tempo_fleet_checkpoint_seconds_total",
+    lambda: [((), float(STATS["checkpoint_seconds"]))],
+    help="Wall seconds spent cutting tenant checkpoints (drain + "
+         "gather + encode + backend write)")
+RUNTIME.counter_func(
+    "tempo_fleet_checkpoints_total",
+    lambda: [((), float(STATS["checkpoints"]))],
+    help="Tenant checkpoints written (handoffs + shutdown snapshots)")
+RUNTIME.counter_func(
+    "tempo_fleet_checkpoint_restores_total",
+    lambda: [((), float(STATS["restores"]))],
+    help="Tenant checkpoints restored-and-merged into this process "
+         "(boot restores + handoff receives)")
+RUNTIME.counter_func(
+    "tempo_fleet_checkpoint_retries_total",
+    lambda: [((cause,), float(n)) for cause, n in RETRY_CAUSES.items()],
+    help="Checkpoint blob-write retries by failure cause (jittered "
+         "backoff before reattach/orphan fallback; runbook 'Operating "
+         "a generator fleet')",
+    labels=("cause",))
+RUNTIME.counter_func(
+    "tempo_fleet_handoffs_total",
+    lambda: [((), float(STATS["handoffs"]))],
+    help="Tenants this process drained, checkpointed, and released "
+         "because ring ownership moved elsewhere")
 
 
 def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"tempo_tpu_torch.fleet.{name} comes with durability and fleet "
-            f"(ROADMAP section 1, item 12)")
+    """Lazy exports: the heavy halves import torch and the generator."""
+    if name in ("snapshot_instance", "restore_instance",
+                "CheckpointMismatch", "write_checkpoint",
+                "list_checkpoints", "read_checkpoint", "delete_checkpoint"):
+        from tempo_tpu_torch.fleet import checkpoint
+        return getattr(checkpoint, name)
+    if name == "FleetController":
+        from tempo_tpu_torch.fleet.controller import FleetController
+        return FleetController
     raise AttributeError(name)
 
 
-__all__ = ["FleetConfig", "TenantPlacement", "tenant_token"]
+__all__ = ["FleetConfig", "FleetController", "TenantPlacement", "STATS",
+           "RETRY_CAUSES", "tenant_token", "snapshot_instance",
+           "restore_instance", "CheckpointMismatch"]

@@ -11,13 +11,17 @@ with their payload, and a row view of a decode-once staging); a
 collection loop drives every instance's collection tick.
 
 Every instance runs on the generator's `device` (`cuda` unless `"cpu"`
-is asked for). Not carried yet, and raising `NotImplementedError` naming
-their ROADMAP item: the ingest WAL (`wal=`, `replay_wal*`,
-`truncate_wal`; item 12) and the Kafka consumer group of `consume_bus`
-(item 14). `query_range` and `get_metrics` read a tenant's local
-blocks (the `local-blocks` processor); for a tenant with no instance
-they answer empty, as in the reference. `query_range` is the query
-frontend's `generator_query_range` hook.
+is asked for). With an ingest WAL (`wal=`, a `generator.wal.
+GeneratorWal`) every push route appends its record before the ack,
+`replay_wal` / `replay_wal_all` push recorded batches back through the
+same routes (the scheduler and K1 on the device), and `truncate_wal`
+drops what a written fleet checkpoint covers; `pop_instance` /
+`end_handoff` bound the fleet handoff's window. Not carried yet: the
+Kafka consumer group of `consume_bus` (item 14). `query_range` and
+`get_metrics` read a tenant's local blocks (the `local-blocks`
+processor); for a tenant with no instance they answer empty, as in the
+reference. `query_range` is the query frontend's `generator_query_range`
+hook.
 """
 
 from __future__ import annotations
@@ -33,8 +37,7 @@ import numpy as np
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.generator.instance import GeneratorConfig, GeneratorInstance
-from tempo_tpu_torch.generator.wal import WAL_LATER as _WAL_LATER
-from tempo_tpu_torch.model.otlp_batch import batch_from_otlp
+from tempo_tpu_torch.model.otlp_batch import batch_from_otlp, stage_otlp
 from tempo_tpu_torch.model.span_batch import SpanBatchBuilder
 from tempo_tpu_torch.obs import Registry
 from tempo_tpu_torch.overrides import Overrides
@@ -54,13 +57,21 @@ class Generator:
                  registry: Registry | None = None,
                  now: Callable[[], float] = time.time,
                  wal=None, device=None) -> None:
-        if wal is not None:
-            raise NotImplementedError(_WAL_LATER)
         self.device = resolve_device(device)
         self.base_cfg = cfg or GeneratorConfig()
         self.overrides = overrides or Overrides()
         self.id = instance_id
         self.now = now
+        # ingest WAL (generator/wal.py, None = off): every acked push is
+        # appended before the ack returns and replayed on boot past the
+        # fleet-checkpoint watermark
+        self.wal = wal
+        # tenants mid-handoff: their pushes skip the WAL append. The
+        # popped instance's snapshot claims the tenant's WAL watermark,
+        # and a replacement instance's record under that claim would be
+        # truncated without being in any blob; set with the detach in
+        # pop_instance, cleared when the handoff concludes
+        self._wal_skip: set[str] = set()
         self.instances: dict[str, GeneratorInstance] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -147,6 +158,9 @@ class Generator:
                                          device=self.device)
                 inst._matview_limits = \
                     lambda t=tenant: self.overrides.for_tenant(t)
+                if self.wal is not None:
+                    inst._wal_mark = \
+                        lambda t=tenant: (self.id, *self.wal.watermark(t))
                 self.instances[tenant] = inst
             return inst
 
@@ -170,10 +184,19 @@ class Generator:
         to a fresh instance instead of scattering into the snapshot."""
         with self._lock:
             inst = self.instances.pop(tenant, None)
+            if inst is not None and self.wal is not None:
+                self._wal_skip.add(tenant)
         if inst is not None:
             with inst._push_cv:
                 inst.detached = True
         return inst
+
+    def end_handoff(self, tenant: str) -> None:
+        """Close the WAL-skip window a `pop_instance` opened (idempotent;
+        the fleet controller calls it once the cut concluded: blob
+        written and truncated, instance reattached, or orphaned)."""
+        with self._lock:
+            self._wal_skip.discard(tenant)
 
     def reattach_instance(self, tenant: str,
                           inst: "GeneratorInstance") -> bool:
@@ -188,10 +211,18 @@ class Generator:
             if tenant in self.instances:
                 return False
             self.instances[tenant] = inst
+            self._wal_skip.discard(tenant)   # the WAL resumes with it
         with inst._push_cv:
             inst.detached = False
             inst._push_cv.notify_all()
         return True
+
+    def _wal_for(self, tenant: str):
+        """The WAL this tenant's pushes append to, or None (WAL off, or
+        the tenant is mid-handoff: see `_wal_skip`)."""
+        if self.wal is None or tenant in self._wal_skip:
+            return None
+        return self.wal
 
     @contextlib.contextmanager
     def _tracked_push(self, tenant: str):
@@ -230,20 +261,28 @@ class Generator:
         inst = self.pop_instance(tenant)
         if inst is not None:
             self.release_instance_pages(inst)
+            self.end_handoff(tenant)
         return inst
 
     # -- write (PushSpans RPC analog; the distributor's GeneratorClient) ---
 
-    def push_spans(self, tenant: str, spans: Sequence[dict]) -> None:
+    def push_spans(self, tenant: str, spans: Sequence[dict],
+                   durable: bool = True) -> None:
         # tenant-aware span: for the reserved self-tracing tenant it
         # suppresses the whole ingest call tree
         with tracing.span_for_tenant("generator.Push", tenant,
                                      n_spans=len(spans)):
             with self._tracked_push(tenant) as inst:
                 self._push_spans(inst, spans)
+                wal = self._wal_for(tenant)
+                if durable and wal is not None:
+                    # bus-driven pushes pass durable=False: the bus
+                    # commits offsets after processing, so it is the
+                    # replay log, and a WAL record would apply twice
+                    wal.append_spans(tenant, spans)
 
-    def _push_spans(self, inst: GeneratorInstance,
-                    spans: Sequence[dict]) -> None:
+    def _push_spans(self, inst: GeneratorInstance, spans: Sequence[dict],
+                    now_s: "float | None" = None) -> None:
         b = SpanBatchBuilder(inst.registry.interner)
         for s in spans:
             b.append(
@@ -259,7 +298,7 @@ class Generator:
                 end_unix_nano=int(s.get("end_unix_nano", 0)),
                 attrs=s.get("attrs"),
                 res_attrs=s.get("res_attrs"))
-        inst.push_batch(b.build())
+        inst.push_batch(b.build(), now_s=now_s)
 
     def push_otlp(self, tenant: str, data: bytes, trusted: bool = False,
                   push_id: str | None = None) -> int:
@@ -269,23 +308,55 @@ class Generator:
         already validated in this process (the distributor's tee): the
         stage may skip re-validating attribute bytes; never set it for
         wire input. `push_id` makes retries idempotent: a recently acked
-        id returns its count without scattering again."""
+        id returns its count without scattering again.
+
+        With the WAL on, the payload is staged once, pushed through the
+        staged-view route and its staged columns appended (the record
+        shape the distributor's tee logs). A push whose scatter landed
+        but whose append failed stays ("pending", n) under its push id:
+        the retry redoes only the append."""
         with tracing.span_for_tenant("generator.Push", tenant,
                                      n_bytes=len(data)), \
                 self._tracked_push(tenant) as inst:
-            if push_id is not None:
-                seen = inst.seen_push(push_id)
-                if seen is not None:
-                    return seen
-            got = inst.push_otlp_staged(data, trusted=trusted)
-            if got is None:
+            seen = inst.seen_push(push_id) if push_id is not None else None
+            if isinstance(seen, int):
+                return seen
+            pending = seen[1] if seen is not None else None
+            wal = self._wal_for(tenant)
+            if self.wal is not None:
                 need_span, need_res = inst.needs_attr_columns()
-                sb, sizes = batch_from_otlp(
-                    data, inst.registry.interner, return_sizes=True,
-                    include_span_attrs=need_span,
-                    include_res_attrs=need_res, trusted=trusted)
-                inst.push_batch(sb, span_sizes=sizes)
-                got = sb.n
+                view = stage_otlp(data, inst.registry.interner,
+                                  trusted=trusted,
+                                  include_span_attrs=need_span,
+                                  include_res_attrs=need_res).view()
+                got = pending if pending is not None \
+                    else inst.push_staged_view(view)
+                if got is not None:
+                    if push_id is not None:
+                        inst.note_push(push_id, ("pending", got))
+                    if wal is not None:
+                        wal.append_view(tenant, view, push_id=push_id)
+                    if push_id is not None:
+                        inst.note_push(push_id, got)
+                    return got
+            if pending is not None:
+                got = pending
+            else:
+                got = inst.push_otlp_staged(data, trusted=trusted)
+                if got is None:
+                    need_span, need_res = inst.needs_attr_columns()
+                    sb, sizes = batch_from_otlp(
+                        data, inst.registry.interner, return_sizes=True,
+                        include_span_attrs=need_span,
+                        include_res_attrs=need_res, trusted=trusted)
+                    inst.push_batch(sb, span_sizes=sizes)
+                    got = sb.n
+            if push_id is not None:
+                inst.note_push(push_id, ("pending", got))
+            if wal is not None:
+                # no staged product on this route: log the raw payload
+                wal.append_otlp(tenant, data, trusted=trusted,
+                                push_id=push_id)
             if push_id is not None:
                 inst.note_push(push_id, got)
             return got
@@ -295,6 +366,10 @@ class Generator:
         subset) + the ORIGINAL payload — no re-parse, no re-encode.
         Returns span count or None when this tenant needs the full
         staging path (caller sends payload bytes instead)."""
+        if self.wal is not None:
+            # scan records carry raw-offset columns, not interner ids: no
+            # WAL-able product, so the caller takes push_otlp, which logs
+            return None
         with self._tracked_push(tenant) as inst:
             return inst.push_otlp_recs(raw, recs)
 
@@ -317,20 +392,121 @@ class Generator:
         """The zero-copy distributor tee: a row-index view over a shared
         decode-once staging (`model.otlp_batch.StagedView`). Returns the
         span count, or None when this instance cannot consume the view
-        (foreign interner) — the caller falls back to payload bytes."""
-        with self._tracked_push(tenant) as inst:
-            return inst.push_staged_view(view)
+        (foreign interner) — the caller falls back to payload bytes.
 
-    # -- ingest WAL (ROADMAP section 1, item 12) ---------------------------
+        The WAL append comes after the scatter and before the ack, both
+        inside the tracked-push fence, so a checkpoint's watermark (read
+        after `wait_pushes_idle`) covers every record whose scatter the
+        snapshot gathered."""
+        with self._tracked_push(tenant) as inst:
+            got = inst.push_staged_view(view)
+            if got is not None:
+                wal = self._wal_for(tenant)
+                if wal is not None:
+                    wal.append_view(tenant, view)
+            return got
+
+    # -- ingest WAL (generator/wal.py): replay + truncation ----------------
+
+    def _apply_wal_record(self, tenant: str, meta: dict, arrays,
+                          seg_strings, idmap_cache: "dict | None" = None
+                          ) -> None:
+        """Replay ONE WAL record through the normal push routes at the
+        original push's wall time (the slack filter drops exactly what
+        the live push dropped). Raises on a declined or unknown record,
+        which the WAL dead-letters."""
+        from tempo_tpu_torch.generator import wal as wal_mod
+        from tempo_tpu_torch.rpc import _json_to_spans
+
+        kind = meta.get("kind")
+        ts = float(meta.get("ts", self.now()))
+        with self._tracked_push(tenant) as inst:
+            pid = meta.get("push_id")
+            if pid is not None and inst.seen_push(pid) is not None:
+                return                  # already applied this boot
+            if kind == "staged":
+                # the id map grows with the segment's string table (keyed
+                # on the list itself, held strongly): re-interning the
+                # whole vocabulary per record would be O(records x strings)
+                c = idmap_cache if idmap_cache is not None else {}
+                if c.get("list") is not seg_strings:
+                    c.clear()
+                    c.update(list=seg_strings, n=0,
+                             idmap=np.zeros(0, np.int32))
+                if len(seg_strings) > c["n"]:
+                    new = np.asarray(inst.registry.interner.intern_many(
+                        seg_strings[c["n"]:]), np.int32)
+                    c["idmap"] = np.concatenate([c["idmap"], new])
+                    c["n"] = len(seg_strings)
+                view = wal_mod.rebuild_view(inst.registry.interner, meta,
+                                            arrays, seg_strings, c["idmap"])
+                got = inst.push_staged_view(view, now_s=ts)
+                if got is None:
+                    raise RuntimeError(
+                        "staged WAL record declined by the live instance")
+            elif kind == "otlp":
+                data = arrays["raw"].tobytes()
+                trusted = bool(meta.get("trusted"))
+                need_span, need_res = inst.needs_attr_columns()
+                st = stage_otlp(data, inst.registry.interner,
+                                trusted=trusted, include_span_attrs=need_span,
+                                include_res_attrs=need_res)
+                got = inst.push_staged_view(st.view(), now_s=ts)
+                if got is None:
+                    sb, sizes = batch_from_otlp(
+                        data, inst.registry.interner, return_sizes=True,
+                        include_span_attrs=need_span,
+                        include_res_attrs=need_res, trusted=trusted)
+                    inst.push_batch(sb, span_sizes=sizes, now_s=ts)
+                    got = sb.n
+            elif kind == "spans":
+                self._push_spans(inst, _json_to_spans(meta["spans"]),
+                                 now_s=ts)
+                got = int(meta.get("n", 0))
+            else:
+                raise ValueError(f"unknown WAL record kind {kind!r}")
+            if pid is not None:
+                # re-seed the idempotency window: a client retry landing
+                # after crash recovery still dedupes
+                inst.note_push(pid, got)
 
     def replay_wal(self, tenant: str, past_seq: "int | None" = None) -> dict:
-        raise NotImplementedError(_WAL_LATER)
+        """Replay this tenant's local WAL records past the watermark:
+        `past_seq=None` reads it from the instance's restored checkpoint
+        metadata (this member's entry; -1 = nothing restored, replay
+        everything on disk)."""
+        if self.wal is None:
+            return {"batches": 0, "dead_letters": 0}
+        if past_seq is None:
+            wm = self.instance(tenant).wal_watermarks.get(self.id)
+            past_seq = int(wm[1]) if wm else -1
+        cache: dict = {}
+        return self.wal.replay(
+            tenant,
+            lambda meta, arrays, seg_strings, t=tenant:
+                self._apply_wal_record(t, meta, arrays, seg_strings,
+                                       idmap_cache=cache),
+            past_seq=past_seq)
 
     def replay_wal_all(self) -> dict:
-        raise NotImplementedError(_WAL_LATER)
+        """Boot recovery: replay every tenant with WAL segments on disk
+        (ownership is irrelevant: these records exist nowhere else; a
+        fleet handoff moves replayed state to its owner on the next
+        tick)."""
+        out = {"tenants": 0, "batches": 0, "dead_letters": 0}
+        if self.wal is None:
+            return out
+        for tenant in self.wal.tenants_on_disk():
+            got = self.replay_wal(tenant)
+            out["tenants"] += 1
+            out["batches"] += got["batches"]
+            out["dead_letters"] += got["dead_letters"]
+        return out
 
     def truncate_wal(self, tenant: str, upto_seq: "int | None") -> None:
-        raise NotImplementedError(_WAL_LATER)
+        """Drop WAL segments wholly covered by a written checkpoint."""
+        if self.wal is not None and upto_seq is not None and upto_seq >= 0:
+            self.wal.truncate(tenant, upto_seq)
 
     # -- reads (frontend generator_query_range hook) -----------------------
 
@@ -393,7 +569,9 @@ class Generator:
                 for _tid, spans in decode_push(rec.value):
                     by_tenant.setdefault(rec.tenant, []).extend(spans)
             for tenant, spans in by_tenant.items():
-                self.push_spans(tenant, spans)
+                # durable=False: the bus commit below is these spans'
+                # replay log; a WAL record too would apply them twice
+                self.push_spans(tenant, spans, durable=False)
             bus.commit(group, p, recs[-1].offset + 1)
             total += len(recs)
         return total
@@ -439,3 +617,5 @@ class Generator:
         for t in self._threads:
             t.join(timeout=2)
         self.collect_all()
+        if self.wal is not None:
+            self.wal.close()

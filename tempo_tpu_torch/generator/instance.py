@@ -116,10 +116,19 @@ class GeneratorInstance:
         self.spans_received = 0
         self.spans_filtered_slack = 0
         self._last_purge = 0.0
-        # idempotent push dedupe: push id -> span count of recently
-        # acked pushes, so a retried push whose response was lost does
-        # not scatter twice
-        self._push_ids: "dict[str, int]" = {}
+        # ingest-WAL bookkeeping (generator/wal.py): `wal_watermarks`
+        # maps member instance id -> [segment, seq] of the last WAL
+        # record covered by restored checkpoints, carried forward through
+        # handoffs so a member never replays records a checkpoint holds.
+        # `_wal_mark` (set by Generator when its WAL is on) reads this
+        # member's live watermark at snapshot time.
+        self.wal_watermarks: dict[str, list] = {}
+        self._wal_mark = None
+        self.checkpointed_wal_seq: "int | None" = None
+        # idempotent push dedupe: push id -> span count of recently acked
+        # pushes, so a retried push whose response was lost does not
+        # scatter twice; WAL replay re-seeds it across a restart
+        self._push_ids: dict = {}
         # in-flight pushes and collections (the fleet handoff barrier):
         # a checkpoint cut must not race a push that is still scattering
         self._pushes_inflight = 0
@@ -158,12 +167,14 @@ class GeneratorInstance:
             self._pushes_inflight -= 1
             self._push_cv.notify_all()
 
-    def seen_push(self, push_id: str) -> "int | None":
-        """The span count of a recently acked push id, or None."""
+    def seen_push(self, push_id: str):
+        """A recently seen push id's state: its span count (acked and
+        durable), ("pending", count) (scattered, its WAL append not yet
+        confirmed: a retry redoes only the append), or None."""
         with self._lock:
             return self._push_ids.get(push_id)
 
-    def note_push(self, push_id: str, result: int) -> None:
+    def note_push(self, push_id: str, result) -> None:
         with self._lock:
             self._push_ids[push_id] = result
             while len(self._push_ids) > 512:   # bounded: FIFO eviction
@@ -345,21 +356,17 @@ class GeneratorInstance:
 
     def collect_and_push(self, ts_ms: int | None = None) -> int:
         """One collection: purge stale series, gather device state, remote
-        write. Returns the number of samples pushed.
-
-        `remote_write.send_native_histograms` asks for the registry's
-        native histograms beside the samples; the port holds none yet
-        (ROADMAP section 2, item 6), so the flag raises."""
-        if self.cfg.remote_write.send_native_histograms:
-            raise NotImplementedError(
-                "remote_write.send_native_histograms sends native "
-                "histograms, which come with ROADMAP section 2, item 6")
+        write. Returns the number of samples pushed; under
+        `remote_write.send_native_histograms` the registry's native
+        histograms ride the same write request."""
         self.drain()
         if self.now() - self._last_purge > 60.0:
             self.registry.purge_stale()
             self._last_purge = self.now()
         samples = self.registry.collect(ts_ms)
-        self.remote_write.send(samples)
+        native = (self.registry.native_histograms(ts_ms)
+                  if self.cfg.remote_write.send_native_histograms else [])
+        self.remote_write.send(samples, native)
         return len(samples)
 
     # -- accounting --------------------------------------------------------

@@ -663,6 +663,129 @@ class SpanMetricsProcessor:
         return ((self._pdd[0], self._pdd[1]) if self._pdd else ()) + \
             ((self._pmom[0],) if self._pmom else ())
 
+    # -- fleet checkpoint/restore (fleet/checkpoint.py) ---------------------
+
+    def _sketch_rows_dev(self, slots: np.ndarray, role: int) -> torch.Tensor:
+        """The slots' rows of a sketch role on the device: indexed in dense
+        state, gathered through the plane's page table in paged state
+        (real rows only, no padding)."""
+        if not self._paged:
+            return self._dense_views()[role].index_select(
+                0, torch.from_numpy(slots.astype(np.int64)).to(self.device))
+        return self._paged_planes()[role].gather_dev(slots.astype(np.int32))
+
+    def sketch_checkpoint(self, slots: np.ndarray) -> tuple[dict | None, dict]:
+        """(meta, rows) of the sketch sidecars of the given calls-table
+        slots: the movable half of a tenant checkpoint, rows left on the
+        device for the checkpoint's batched fetch. `*_sel` arrays index
+        into `slots` (the sketch planes cover a prefix of the series
+        table). Caller holds the registry state lock."""
+        meta: dict = {"tier": self.cfg.sketch, "dd": None, "mom": None}
+        rows: dict = {}
+        sel = np.flatnonzero(slots < self._sketch_rows)
+        ss = slots[sel]
+        if self._dd_on:
+            nb = (self._pdd[0].width if self._paged
+                  else self.dd.counts.shape[1])
+            meta["dd"] = {"gamma": float(self._step_kw["gamma"]),
+                          "min_value": float(self._step_kw["min_value"]),
+                          "nb": int(nb)}
+            rows["dd_sel"] = sel.astype(np.int64)
+            rows["dd_counts"] = self._sketch_rows_dev(ss, _DD_COUNTS)
+            rows["dd_zeros"] = self._sketch_rows_dev(ss, _DD_ZEROS)
+        if self._mom_meta is not None:
+            mk, mlo, mhi = self._mom_meta
+            meta["mom"] = {"k": int(mk), "lo": float(mlo), "hi": float(mhi)}
+            rows["mom_sel"] = sel.astype(np.int64)
+            rows["mom_rows"] = self._sketch_rows_dev(ss, _MOMENTS)
+        if meta["dd"] is None and meta["mom"] is None:
+            return None, {}
+        return meta, rows
+
+    def sketch_meta_check(self, meta: dict) -> None:
+        """Validate a checkpoint's sketch metadata against this
+        processor's planes through the ValueError-raising merge guards,
+        before any restore row is written."""
+        dd = meta.get("dd")
+        if (dd is not None) != self._dd_on:
+            raise ValueError(
+                f"fleet restore: dd-sketch tier mismatch (checkpoint "
+                f"{'has' if dd else 'lacks'} a DDSketch plane, live "
+                f"instance {'has' if self._dd_on else 'lacks'} one)")
+        if dd is not None:
+            nb = (self._pdd[0].width if self._paged
+                  else self.dd.counts.shape[1])
+            sketches._merge_check(
+                "fleet_restore/dd",
+                ("gamma", self._step_kw["gamma"],
+                 "min_value", self._step_kw["min_value"]),
+                ("gamma", dd["gamma"], "min_value", dd["min_value"]),
+                (int(nb),), (int(dd["nb"]),))
+        mom = meta.get("mom")
+        live_mom = self._mom_meta is not None
+        if (mom is not None) != live_mom:
+            raise ValueError(
+                f"fleet restore: moments tier mismatch (checkpoint "
+                f"{'has' if mom else 'lacks'} a moments plane, live "
+                f"instance {'has' if live_mom else 'lacks'} one)")
+        if mom is not None:
+            mk, mlo, mhi = self._mom_meta
+            moments.merge_meta_check(
+                moments.MomentsSketch(
+                    data=np.zeros((1, moments.n_cols(mk)), np.float32),
+                    k=mk, lo=mlo, hi=mhi),
+                moments.MomentsSketch(
+                    data=np.zeros((1, moments.n_cols(int(mom["k"]))),
+                                  np.float32),
+                    k=int(mom["k"]), lo=float(mom["lo"]),
+                    hi=float(mom["hi"])))
+
+    def _sketch_target(self, ls: np.ndarray, role: int):
+        """(tensor, row index on its device) a restore merges a sketch
+        role into: the dense view at the slots, or the plane's arena at
+        the physical rows of its host page map."""
+        from tempo_tpu_torch.fleet.checkpoint import _paged_phys
+
+        if self._paged:
+            plane = self._paged_planes()[role]
+            data, idx = plane.data, _paged_phys(plane, ls)
+        else:
+            data, idx = self._dense_views()[role], ls.astype(np.int64)
+        return data, torch.from_numpy(np.ascontiguousarray(idx)).to(
+            data.device)
+
+    def sketch_restore(self, meta: dict, live_slots: np.ndarray,
+                       ok: np.ndarray, rows: dict) -> None:
+        """Merge checkpointed sketch rows into the live planes on the
+        device: `index_add_` for the DDSketch grid and zeros and the
+        moments count and sums, `scatter_reduce_` amax for the two
+        moments bound columns (the cross-shard combine). Caller holds the
+        registry state lock; `sketch_meta_check` already ran."""
+        for key, sel_key, roles in (("dd", "dd_sel", ((_DD_COUNTS,
+                                                        "dd_counts"),
+                                                       (_DD_ZEROS,
+                                                        "dd_zeros"))),
+                                    ("mom", "mom_sel", ((_MOMENTS,
+                                                         "mom_rows"),))):
+            if meta.get(key) is None or sel_key not in rows:
+                continue
+            sel = rows[sel_key].astype(np.int64)
+            keep = ok[sel]
+            ls = live_slots[sel][keep]
+            within = ls < self._sketch_rows
+            ls = ls[within]
+            if not ls.size:
+                continue
+            for role, name in roles:
+                data, idx = self._sketch_target(ls, role)
+                vals = torch.from_numpy(np.ascontiguousarray(
+                    rows[name][keep][within])).to(data.device, data.dtype)
+                if role == _MOMENTS:
+                    moments.moments_merge_into(data, idx, vals,
+                                               self._mom_meta[0])
+                else:
+                    data.index_add_(0, idx, vals)
+
     def device_state_bytes(self) -> int:
         """Device bytes of the processor-owned sketch sidecars (paged:
         backed pages only; dense: whole arenas, trash pages included); the

@@ -17,9 +17,8 @@ log-depth pointer jumping — producing per-span critical-path membership
 and per-errored-span root-cause attribution in one device dispatch.
 
 Results land in standard registry planes, so paging, eviction, sched
-coalescing and remote write apply unchanged (fleet checkpoint/restore
-and WAL replay call the `aux_*` methods and `push_batch` the same way
-once they are ported, ROADMAP section 1, item 12):
+coalescing and remote write apply unchanged (the fleet checkpoint calls
+the `aux_*` methods and WAL replay calls `push_batch` the same way):
 
 - ``tempo_critical_path_seconds_total{service, operation}`` — per-span
   self-time on the path bounding its trace's end-to-end latency;
@@ -527,29 +526,25 @@ class TraceAnalyticsProcessor:
         idx = torch.from_numpy(np.ascontiguousarray(slots, np.int64))
         return self.mom.data[idx.to(self.mom.data.device)].cpu().numpy()
 
-    # -- fleet checkpoint/restore (its caller, `fleet/checkpoint`, comes
-    # with ROADMAP section 1, item 12) --------------------------------------
+    # -- fleet checkpoint/restore (fleet/checkpoint.py) ---------------------
 
     def aux_family(self):
         return self.cp
 
     def aux_checkpoint(self, slots: np.ndarray) -> tuple[dict | None, dict]:
         """(meta, rows) for the share-sketch rows of the given cp-table
-        slots. Caller holds the registry state lock. Live (un-cut)
-        traces are NOT state here — they ride the ingest WAL, exactly
-        like localblocks live traces."""
+        slots, host arrays (one copy of the selected rows). Caller holds
+        the registry state lock. Live (un-cut) traces are NOT state here:
+        they ride the ingest WAL, exactly like local-blocks live traces."""
         if self._mom_meta is None:
             return None, {}
-        from tempo_tpu_torch.registry.registry import _pad_len
         mk, mlo, mhi = self._mom_meta
         lim = self._pmom[4] if self._pmom is not None \
             else self.mom.data.shape[0]
         sel = np.flatnonzero(slots < lim)
         ss = slots[sel]
         if self._pmom is not None:
-            padded = np.full(_pad_len(max(ss.size, 1)), -1, np.int32)
-            padded[:ss.size] = ss
-            mrows = np.asarray(self._pmom[0].gather(padded))[:ss.size]
+            mrows = self._pmom[0].gather(ss.astype(np.int32))
         else:
             mrows = self._dense_rows(ss)
         meta = {"mom": {"k": int(mk), "lo": float(mlo), "hi": float(mhi)}}
@@ -594,24 +589,16 @@ class TraceAnalyticsProcessor:
         if not ls.size:
             return
         if self._pmom is not None:
+            from tempo_tpu_torch.fleet.checkpoint import _paged_phys
+
             mp = self._pmom[0]
-            shift = mp.pool.page_shift
-            pages = mp.page_map[ls >> shift].astype(np.int64)
-            if (pages < 0).any():
-                raise ValueError("trace-analytics restore hit an unbacked "
-                                 "share-sketch page")
-            idx = (pages << shift) | (ls & (mp.pool.page_rows - 1))
-            data = mp.data
+            idx, data = _paged_phys(mp, ls), mp.data
         else:
             idx, data = ls.astype(np.int64), self.mom.data
-        i = torch.from_numpy(np.ascontiguousarray(idx)).to(data.device)
-        m = torch.from_numpy(np.ascontiguousarray(mrows)).to(data.device)
-        # sums ADD, the two bound columns MAX (in place, duplicates fold)
-        data[:, :mk + 1].index_add_(0, i, m[:, :mk + 1])
-        bounds = m[:, mk + 1:]
-        data[:, mk + 1:].scatter_reduce_(
-            0, i[:, None].expand_as(bounds), bounds, "amax",
-            include_self=True)
+        moments.moments_merge_into(
+            data, torch.from_numpy(np.ascontiguousarray(idx)).to(data.device),
+            torch.from_numpy(np.ascontiguousarray(mrows)).to(data.device),
+            mk)
 
     # -- accounting --------------------------------------------------------
 

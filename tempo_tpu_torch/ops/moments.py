@@ -173,6 +173,18 @@ def moments_merge_rows(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def moments_merge_into(data: torch.Tensor, rows: torch.Tensor,
+                       vals: torch.Tensor, k: int) -> None:
+    """Merge moments rows `vals` [n, k+3] into `data` at the distinct
+    physical rows `rows` (int64), in place on `data`'s device: the count
+    and sums add (`index_add_`), the two bound columns take the max
+    (`scatter_reduce_` amax) — the cross-shard combine, as a restore."""
+    data[:, :k + 1].index_add_(0, rows, vals[:, :k + 1])
+    bounds = vals[:, k + 1:]
+    data[:, k + 1:].scatter_reduce_(0, rows[:, None].expand_as(bounds),
+                                    bounds, "amax", include_self=True)
+
+
 def moments_zero_slots(state: MomentsSketch, slots) -> MomentsSketch:
     """Zero evicted slots' rows in place (ids outside the plane drop)."""
     s = torch.as_tensor(slots, device=state.data.device).to(torch.int64)

@@ -229,6 +229,52 @@ def hll_step(ar, table, slots, h1, h2, *, precision: int,
     max_rows(ar.view(-1), r * ar.shape[1] + idx, keep, rho)
 
 
+NUM_LOG2_BUCKETS = 64
+
+
+def log2_bucket(values: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Power-of-two bucket of f32 values, int64: 0 for v <= 0, else
+    floor(log2 v) + 1 + offset, clipped to [0, 63]. As in the reference,
+    the f32 log2 takes a 1e-4 nudge so an exact power of two (2^62
+    included) lands in its own bucket; the nudge is a device tensor, not
+    a host scalar."""
+    v = torch.clamp(values.to(torch.float32), min=0.0)
+    nudge = torch.tensor(1e-4, dtype=torch.float32, device=v.device)
+    b = torch.floor(torch.log2(torch.clamp(v, min=1e-30)) + nudge) \
+        + (1.0 + offset)
+    b = torch.where(v > 0, b, torch.zeros((), dtype=b.dtype, device=b.device))
+    return b.clamp(0, NUM_LOG2_BUCKETS - 1).to(torch.int64)
+
+
+def native_hist_step(a_sums, a_counts, a_zeros, ah, t_hist, t_sums, t_counts,
+                     t_zeros, slots, values, weights, *, offset: int,
+                     page_shift: int) -> None:
+    """Exponential (native) histogram over f32 arenas, in place: the log2
+    counts in the wide arena `ah` [rows, 64], the sum, count and
+    zero-count each in their own role arena."""
+    dev = ah.device
+    s = torch.as_tensor(slots, device=dev)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    _hist_scatter(ah, t_hist, s, log2_bucket(v, offset), w, page_shift)
+    _add1(a_sums, t_sums, s, v * w, page_shift)
+    _add1(a_counts, t_counts, s, w, page_shift)
+    _add1(a_zeros, t_zeros, s, torch.where(v == 0, w, w.new_zeros(())),
+          page_shift)
+
+
+def log2_hist_step(ah, table, slots, values, weights, *, offset: int,
+                   page_shift: int) -> None:
+    """The bare paged log2-histogram update, in place (the paged twin of
+    `ops.sketches.log2_hist_update`)."""
+    dev = ah.device
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    _hist_scatter(ah, table, torch.as_tensor(slots, device=dev),
+                  log2_bucket(v, offset),
+                  torch.as_tensor(weights, dtype=torch.float32, device=dev),
+                  page_shift)
+
+
 def zero_step(arena, table, slots, *, page_shift: int) -> None:
     """Zero the slots' rows in place (eviction sweep)."""
     r = translate(table, slots, page_shift, arena.shape[0])

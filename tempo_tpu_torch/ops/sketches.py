@@ -23,7 +23,14 @@ The HyperLogLog half (`hll_init`, `hll_update`, `hll_merge`,
 device: registers are int32 and bit-identical to the reference's (hashes
 ride in int64, rho comes from an integer bit length, the update is a
 `scatter_reduce_` max), the estimate is float32 as the reference's is.
-Log2 and Count-Min sketches come with later slices.
+The log2 half (`Log2Histogram`, `log2_bucket`, `log2_hist_init`,
+`log2_hist_update`, `log2_hist_merge`, `log2_quantile`) is the
+per-series power-of-two histogram that native histograms keep: the
+reference's f32 `log2` with its 1e-4 nudge (`ops.pages.log2_bucket`)
+and a scatter-add into the series' row. torch's f32 `log2` and XLA's can
+differ by one ulp, so within one ulp below a nudged edge a value may
+land one bucket apart from the reference's; exact powers of two land
+where the reference's do. Count-Min comes with a later slice.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, add_cells, add_rows,
-                                      dd_index, dense_zeros, hll_cells,
+from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, NUM_LOG2_BUCKETS,
+                                      add_cells, add_rows, dd_index,
+                                      dense_zeros, hll_cells, log2_bucket,
                                       max_rows, u32_on)
 
 
@@ -98,6 +106,86 @@ def dd_update(state: DDSketch, series_ids, values, mask=None,
     add_cells(counts, sids, idx, keep, torch.where(is_zero, zero, w))
     add_rows(state.zeros, sids, keep, torch.where(is_zero, w, zero))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Log2 histogram (power-of-two buckets)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Log2Histogram:
+    """Per-series power-of-two histograms: counts[S, 64] f32.
+
+    Bucket 0 holds zeros (and underflow below 2^-offset); bucket b > 0
+    holds values in [2^(b-1-offset), 2^(b-offset)), i.e. b = floor(log2
+    v) + 1 + offset clipped to 63. `offset` (static) shifts the covered
+    range down so second-scale floats keep sub-second resolution."""
+
+    counts: torch.Tensor
+    offset: int = 0
+
+
+def log2_hist_init(num_series: int, offset: int = 0, device=None,
+                   page_rows: int = DENSE_PAGE_ROWS) -> Log2Histogram:
+    """Empty rows on `device` (`cuda` unless `"cpu"` is asked for), a row
+    view of a trash-paged arena."""
+    return Log2Histogram(
+        counts=dense_zeros(num_series, NUM_LOG2_BUCKETS, page_rows=page_rows,
+                           device=resolve_device(device)),
+        offset=offset)
+
+
+def log2_hist_update(state: Log2Histogram, series_ids, values, mask=None,
+                     weights=None) -> Log2Histogram:
+    """Add a batch of observations into the series' rows, in place: one
+    `index_add_` over (row, bucket) cells. A masked span goes to row 0
+    with weight 0, as in the reference; ids outside [0, S) drop (the
+    reference's scatter wraps a negative id to the last rows)."""
+    counts = state.counts
+    dev = counts.device
+    sids = torch.as_tensor(series_ids, device=dev).to(torch.int64)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = torch.ones_like(v) if weights is None \
+        else torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    if mask is not None:
+        m = torch.as_tensor(mask, device=dev)
+        w = torch.where(m, w, w.new_zeros(()))
+        sids = torch.where(m, sids, 0)
+    keep = (sids >= 0) & (sids < counts.shape[0])
+    add_cells(counts, sids, log2_bucket(v, state.offset), keep, w)
+    return state
+
+
+def log2_hist_merge(a: Log2Histogram, b: Log2Histogram) -> Log2Histogram:
+    """Combine = elementwise add."""
+    _merge_check("log2_hist_merge", ("offset", a.offset),
+                 ("offset", b.offset), tuple(a.counts.shape),
+                 tuple(b.counts.shape))
+    return dataclasses.replace(a, counts=a.counts + b.counts)
+
+
+def log2_quantile(state: Log2Histogram, q: float) -> torch.Tensor:
+    """Interpolated quantile per series, [S] f32: the position within the
+    selected bucket interpolates the exponent, value = 2^(b-1-offset+frac)
+    for bucket b spanning [2^(b-1-offset), 2^(b-offset)); an empty row
+    or bucket 0 reads 0."""
+    counts = state.counts
+    f32 = dict(dtype=torch.float32, device=counts.device)
+    total = counts.sum(dim=-1)
+    target = torch.tensor(q, **f32) * total
+    cum = torch.cumsum(counts, dim=-1)
+    b = torch.argmax((cum >= target[..., None]).to(torch.uint8), dim=-1)
+    before = torch.gather(cum, -1, (b - 1).clamp(min=0)[..., None])[..., 0]
+    zero = torch.zeros((), **f32)
+    cum_before = torch.where(b > 0, before, zero)
+    in_bucket = torch.gather(counts, -1, b[..., None])[..., 0]
+    frac = torch.where(in_bucket > 0, (target - cum_before)
+                       / torch.clamp(in_bucket, min=1e-30),
+                       torch.ones((), **f32))
+    val = torch.exp2(b.to(torch.float32) - torch.tensor(
+        1.0 + state.offset, **f32) + frac)
+    val = torch.where(b == 0, zero, val)
+    return torch.where(total > 0, val, zero)
 
 
 def _merge_check(kind: str, a_meta: tuple, b_meta: tuple,
@@ -226,6 +314,9 @@ def hll_estimate(state: HyperLogLog) -> torch.Tensor:
     return torch.where(use_linear, linear, raw)
 
 
-__all__ = ["DDSketch", "dd_params", "dd_init", "dd_update", "dd_merge",
-           "dd_quantile", "dd_value_table", "_merge_check", "HyperLogLog",
-           "hll_init", "hll_update", "hll_merge", "hll_estimate"]
+__all__ = ["Log2Histogram", "NUM_LOG2_BUCKETS", "log2_bucket",
+           "log2_hist_init", "log2_hist_update", "log2_hist_merge",
+           "log2_quantile", "DDSketch", "dd_params", "dd_init", "dd_update",
+           "dd_merge", "dd_quantile", "dd_value_table", "_merge_check",
+           "HyperLogLog", "hll_init", "hll_update", "hll_merge",
+           "hll_estimate"]

@@ -27,8 +27,9 @@ import dataclasses
 import torch
 
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.ops import sketches
 from tempo_tpu_torch.ops.pages import (DENSE_PAGE_ROWS, add_cells, add_rows,
-                                      dense_zeros, hist_bucket)
+                                      dense_zeros, hist_bucket, log2_bucket)
 
 
 def _kept_slots(slots, mask, capacity: int, device):
@@ -142,14 +143,70 @@ def histogram_update(state: HistogramState, slots, values, weights=None,
     return state
 
 
+# -- native (exponential) histogram -----------------------------------------
+
+@dataclasses.dataclass
+class NativeHistogramState:
+    """Exponential-bucket histogram (`registry/native_histogram.go:85,195`):
+    the log2 sketch (Prometheus native histogram schema 0, one bucket per
+    power of two) plus sum, count and zero count. The sketch's bucket
+    offset (default 32) keeps sub-second resolution for second-scale
+    latencies; the exporter shifts bucket indices back by it."""
+
+    hist: sketches.Log2Histogram  # [S, 64]
+    sums: torch.Tensor            # [S]
+    counts: torch.Tensor          # [S]
+    zeros: torch.Tensor           # [S]
+
+
+NATIVE_HISTOGRAM_OFFSET = 32
+
+
+def native_histogram_init(capacity: int,
+                          offset: int = NATIVE_HISTOGRAM_OFFSET, device=None,
+                          page_rows: int = DENSE_PAGE_ROWS
+                          ) -> NativeHistogramState:
+    """Zero rows on `device` (`cuda` unless `"cpu"` is asked for)."""
+    dev = resolve_device(device)
+    return NativeHistogramState(
+        hist=sketches.log2_hist_init(capacity, offset=offset, device=dev,
+                                     page_rows=page_rows),
+        sums=dense_zeros(capacity, None, page_rows=page_rows, device=dev),
+        counts=dense_zeros(capacity, None, page_rows=page_rows, device=dev),
+        zeros=dense_zeros(capacity, None, page_rows=page_rows, device=dev))
+
+
+def native_histogram_update(state: NativeHistogramState, slots, values,
+                            weights=None, mask=None) -> NativeHistogramState:
+    """Observe values into the slots' rows, in place; -1, out-of-range
+    and masked slots drop."""
+    dev = state.sums.device
+    s, keep = _kept_slots(slots, mask, state.sums.shape[0], dev)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = _weights(weights, s, dev)
+    add_cells(state.hist.counts, s, log2_bucket(v, state.hist.offset), keep,
+              w)
+    add_rows(state.sums, s, keep, v * w)
+    add_rows(state.counts, s, keep, w)
+    add_rows(state.zeros, s, keep, torch.where(v == 0, w, w.new_zeros(())))
+    return state
+
+
+def state_tensors(state):
+    """Every tensor of a metric state, nested sketch states included."""
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if isinstance(t, torch.Tensor):
+            yield t
+        elif dataclasses.is_dataclass(t):
+            yield from state_tensors(t)
+
+
 def zero_slots(state, slots):
     """Zero the rows of evicted slots in every tensor of a metric state;
     slots outside [0, capacity) are ignored (the registry pads eviction
     batches with `capacity`)."""
-    for f in dataclasses.fields(state):
-        arr = getattr(state, f.name)
-        if not isinstance(arr, torch.Tensor):
-            continue
+    for arr in state_tensors(state):
         s = torch.as_tensor(slots, device=arr.device).to(torch.int64)
         s = s[(s >= 0) & (s < arr.shape[0])]
         arr[s] = 0.0

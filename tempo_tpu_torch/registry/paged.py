@@ -23,12 +23,14 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.ops import pages as op
+from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.pages import PageBacking, PagedPlane
 from tempo_tpu_torch.registry.registry import (
     DEFAULT_HISTOGRAM_EDGES,
     Counter,
     Gauge,
     Histogram,
+    NativeHistogram,
     _MetricBase,
     _pad_len,
 )
@@ -177,4 +179,40 @@ class PagedHistogram(_PagedBase, Histogram):
                 self._gather_full(self.counts))
 
 
-__all__ = ["PagedCounter", "PagedGauge", "PagedHistogram"]
+class PagedNativeHistogram(_PagedBase, NativeHistogram):
+    def __init__(self, registry, name, label_names, capacity):
+        super().__init__(registry, name, label_names, capacity)
+        self.offset = m.NATIVE_HISTOGRAM_OFFSET
+        self.hist = self._plane("hist", op.NUM_LOG2_BUCKETS)
+        self.sums = self._plane("sums", 1)
+        self.counts = self._plane("counts", 1)
+        self.zeros = self._plane("zeros", 1)
+
+    def hist_offset(self) -> int:
+        return self.offset
+
+    def observe_slots(self, slots: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None) -> None:
+        w = np.ones(len(slots), np.float32) if weights is None else weights
+        with self.registry.state_lock:
+            op.native_hist_step(
+                self.sums.data, self.counts.data, self.zeros.data,
+                self.hist.data, self.hist.device_map(),
+                self.sums.device_map(), self.counts.device_map(),
+                self.zeros.device_map(), self._dev(slots, torch.int32),
+                self._dev(values, torch.float32), self._dev(w, torch.float32),
+                offset=self.offset, page_shift=self.pool.page_shift)
+
+    def _snap(self) -> tuple:
+        return (self._gather_full(self.sums), self._gather_full(self.counts))
+
+    def native_payload(self):
+        padded, n = self._padded_active()
+        slots = padded[:n]
+        return (slots, [self.labels_of(s) for s in slots.tolist()],
+                *(p.gather(padded)[:n]
+                  for p in (self.hist, self.sums, self.counts, self.zeros)))
+
+
+__all__ = ["PagedCounter", "PagedGauge", "PagedHistogram",
+           "PagedNativeHistogram"]

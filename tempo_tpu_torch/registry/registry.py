@@ -17,8 +17,9 @@ The families here are the dense layout: each holds its rows in a
 active and a capacity that splits into whole pages, the registry builds
 the paged families of `registry/paged.py` instead, which keep these
 classes' host halves (series tables, exemplars, staleness markers,
-collect formatting) and swap the device half. Native histograms come
-with a later slice.
+collect formatting) and swap the device half. Native histograms
+(`new_native_histogram`, `native_histograms()`) keep the log2 sketch of
+`ops/sketches.py`; no processor makes one, as in the reference.
 """
 
 from __future__ import annotations
@@ -156,11 +157,9 @@ class _MetricBase:
 def _state_bytes(state, page_rows: int) -> int:
     """Bytes of the arenas behind a dense state's tensors."""
     total = 0
-    for f in dataclasses.fields(state):
-        t = getattr(state, f.name)
-        if isinstance(t, torch.Tensor):
-            a = arena_of(t, page_rows)
-            total += a.numel() * a.element_size()
+    for t in m.state_tensors(state):
+        a = arena_of(t, page_rows)
+        total += a.numel() * a.element_size()
     return total
 
 
@@ -307,6 +306,58 @@ class Histogram(_MetricBase):
         return out + self._drain_stale_markers(ts_ms)
 
 
+class NativeHistogram(_MetricBase):
+    """Exponential histogram family (remote-write native histogram
+    payloads); `_snap()` returns (sums, counts)."""
+
+    def __init__(self, registry, name, label_names, capacity):
+        super().__init__(registry, name, label_names, capacity)
+        self.state = m.native_histogram_init(capacity, **self._dense(False))
+
+    def observe_batch(self, label_rows: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None,
+                      valid: np.ndarray | None = None) -> np.ndarray:
+        slots = self.resolve_slots(label_rows, valid)
+        self.observe_slots(slots, values, weights)
+        return slots
+
+    def observe_slots(self, slots: np.ndarray, values: np.ndarray,
+                      weights: np.ndarray | None = None) -> None:
+        """Device half with slots already resolved; -1 drops."""
+        with self.registry.state_lock:
+            m.native_histogram_update(self.state, slots, values, weights)
+
+    def _snap(self) -> tuple:
+        return (_host(self.state.sums), _host(self.state.counts))
+
+    def collect(self, ts_ms: int, snap: tuple | None = None) -> list[Sample]:
+        # scalar samples for visibility; the remote-write encoder reads
+        # `native_payload()` for the native-histogram protos
+        sums, counts = snap if snap is not None else self._snap()
+        out = []
+        for s in self.table.active_slots().tolist():
+            base = self.labels_of(s)
+            out.append(Sample(self.name + "_count", base, float(counts[s]),
+                              ts_ms))
+            out.append(Sample(self.name + "_sum", base, float(sums[s]),
+                              ts_ms))
+        return out + self._drain_stale_markers(ts_ms)
+
+    def hist_offset(self) -> int:
+        return self.state.hist.offset
+
+    def native_payload(self):
+        """(slots, labels, log2 counts, sums, counts, zeros) of the active
+        series, host arrays; the rows are selected on the device."""
+        slots = self.table.active_slots()
+        idx = torch.from_numpy(slots.astype(np.int64)).to(
+            self.state.sums.device)
+        st = self.state
+        return (slots, [self.labels_of(s) for s in slots.tolist()],
+                *(t[idx].cpu().numpy()
+                  for t in (st.hist.counts, st.sums, st.counts, st.zeros)))
+
+
 def _fmt_le(e: float) -> str:
     return repr(round(e, 9)) if e != int(e) else str(int(e))
 
@@ -360,8 +411,9 @@ class ManagedRegistry:
     def _family_types(self) -> tuple:
         if self.pages is not None:
             from tempo_tpu_torch.registry import paged
-            return paged.PagedCounter, paged.PagedGauge, paged.PagedHistogram
-        return Counter, Gauge, Histogram
+            return (paged.PagedCounter, paged.PagedGauge,
+                    paged.PagedHistogram, paged.PagedNativeHistogram)
+        return Counter, Gauge, Histogram, NativeHistogram
 
     def new_counter(self, name: str, label_names: Sequence[str],
                     compact: bool = False) -> Counter:
@@ -386,10 +438,11 @@ class ManagedRegistry:
             compact=compact)
         return h
 
-    def new_native_histogram(self, name: str, label_names: Sequence[str]):
-        raise NotImplementedError(
-            "native histograms come with a later slice of the port (the "
-            "processors that use them)")
+    def new_native_histogram(self, name: str,
+                             label_names: Sequence[str]) -> NativeHistogram:
+        h = self._metrics[name] = self._family_types()[3](
+            self, name, label_names, self.overrides.max_active_series)
+        return h
 
     @property
     def active_series(self) -> int:
@@ -449,6 +502,22 @@ class ManagedRegistry:
         """Device bytes of this registry's families (dense: whole arenas,
         trash pages included; paged: backed pages only)."""
         return sum(mt.device_state_bytes() for mt in self._metrics.values())
+
+    def native_histograms(self, ts_ms: int | None = None) -> list[tuple]:
+        """(labels, log2_counts, sum, count, zeros, ts, offset) per active
+        native-histogram series, the shape `encode_write_request` takes."""
+        ts = int(self.now() * 1000) if ts_ms is None else ts_ms
+        with self.state_lock:
+            payloads = [(mt, mt.native_payload())
+                        for mt in self._metrics.values()
+                        if hasattr(mt, "native_payload")]
+        out = []
+        for mt, (_slots, labels, hists, sums, counts, zeros) in payloads:
+            offset = mt.hist_offset()
+            for i in range(len(labels)):
+                out.append((labels[i], hists[i], float(sums[i]),
+                            float(counts[i]), float(zeros[i]), ts, offset))
+        return out
 
     def metric(self, name: str) -> _MetricBase:
         return self._metrics[name]

@@ -273,6 +273,7 @@ def test_all_target_hands_its_device_to_every_module(tmp_path):
 def _later_cases():
     def wal(c):
         c.wal.enabled = True
+        c.wal.dir = os.path.join(os.path.dirname(c.storage.wal_path), "gwal")
 
     def fleet(c):
         c.fleet.enabled = True
@@ -303,7 +304,9 @@ def _later_cases():
     def grpc_peer(c):
         c.peers.ingesters = {"ingester-1": "grpc://127.0.0.1:9095"}
 
-    return [(wal, "12", False), (fleet, "12", False), (mesh, "13", False),
+    # item None: ported (item 12), the App boots, takes a push and shows
+    # the part on /status
+    return [(wal, None, False), (fleet, None, False), (mesh, "13", False),
             (kafka, "14", False), (agent, "14", True), (grpc, "9b", True),
             (worker, "9b", True), (selftrace, "9b", True),
             (endpoint, "9b", True), (grpc_peer, "9b", False)]
@@ -315,9 +318,30 @@ def test_unported_configurations_raise_naming_their_item(
         tmp_path, patch, item, at_start):
     """Each unported configuration raises `NotImplementedError` naming its
     ROADMAP item where the reference first builds the part: at
-    construction, or in `start_loops`."""
+    construction, or in `start_loops`. The ported ones (`wal`, `fleet`;
+    item 12) boot, take a push into the generator and report their part
+    on /status."""
     cfg = _cfg(tmp_path)
     patch(cfg)
+    if item is None:
+        from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+        app = App(cfg, device="cpu")
+        try:
+            app.overrides.set_tenant_patch("single-tenant", {
+                "generator": {"processors": ["span-metrics"]}})
+            app.start_loops()
+            spans = synthetic_spans(32, seed=3,
+                                    now_ns=int((time.time() - 5) * 1e9))
+            assert app.generator.push_otlp(
+                "single-tenant", encode_spans_otlp(spans)) == 32
+            part = app.generator.wal.status() if cfg.wal.enabled \
+                else app.fleet.status()
+            assert part["appended_batches" if cfg.wal.enabled
+                        else "held_tenants"] >= 1
+            assert app.ready
+        finally:
+            app.shutdown()
+        return
     if not at_start:
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             App(cfg, device="cpu")
@@ -531,19 +555,11 @@ def test_metrics_summary_without_generator(tmp_path):
         app.shutdown()
 
 
-# the names the port's registries lack or add, each with its reason: the
-# generator fleet and ingest WAL (item 12) and mesh serving (item 13) are
-# not ported; the port compiles no graphs (no jit-compile families), and
-# keeps no gather timer for paged rows; it counts its hand-kernel
-# launches and launch plans
+# the names the port's registries lack or add, each with its reason: mesh
+# serving (item 13) is not ported; the port compiles no graphs (no
+# jit-compile families), and keeps no gather timer for paged rows; it
+# counts its hand-kernel launches and launch plans
 REF_ONLY = {
-    "tempo_fleet_checkpoint_bytes_total", "tempo_fleet_checkpoint_restores_total",
-    "tempo_fleet_checkpoint_retries_total",
-    "tempo_fleet_checkpoint_seconds_total", "tempo_fleet_checkpoints_total",
-    "tempo_fleet_handoffs_total", "tempo_wal_appended_batches_total",
-    "tempo_wal_appended_bytes_total", "tempo_wal_dead_letters_total",
-    "tempo_wal_fsyncs_total", "tempo_wal_replay_lag_seconds",
-    "tempo_wal_replayed_batches_total", "tempo_wal_truncated_segments_total",
     "tempo_mesh_data_shards", "tempo_mesh_devices", "tempo_mesh_series_shards",
     "tempo_jax_jit_compile_seconds_total", "tempo_jax_jit_compile_total",
     "tempo_pages_gather_overhead_seconds_total",
@@ -555,7 +571,7 @@ PORT_ONLY = {"tempo_torch_k1_launch_plans_total",
 def test_ops_files_reference_only_emitted_metrics(server):
     """The drift gate (`tests/test_app.py:384`) on the port's registries:
     every `tempo_*` name in `operations/` is registered, except exactly
-    the fleet/WAL (item 12) and jit-compile names of `REF_ONLY`; the core
+    the jit-compile names of `REF_ONLY`; the core
     write-path names appear on /metrics after traffic; the bail-cause
     gate holds against the port's `block/device_scan.py`."""
     from tempo_tpu_torch.obs import drift
@@ -573,8 +589,7 @@ def test_ops_files_reference_only_emitted_metrics(server):
     problems = drift.check_drift(ops_dir, [app.obs, RUNTIME])
     missing = {p.split()[0] for p in problems}
     assert missing and missing <= REF_ONLY, missing
-    assert all(n.startswith(("tempo_fleet_", "tempo_wal_", "tempo_jax_"))
-               for n in missing)
+    assert all(n.startswith("tempo_jax_") for n in missing)
     assert drift.check_bail_causes(os.path.abspath(ops_dir)) == []
     with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
         text = r.read().decode()

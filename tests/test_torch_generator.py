@@ -12,8 +12,9 @@ samples by label set, `consume_bus` on a static bus (skipping a tenant
 with generation disabled, `tests/test_ingest_bus.py:91,111`), and the
 obs family names. Also: the push fence against `pop_instance`,
 `reattach_instance`, `remove_instance` returning a paged tenant's pages,
-`start` / `shutdown`, and every surface this slice does not carry
-raising `NotImplementedError` naming its ROADMAP item.
+`start` / `shutdown`, the ingest WAL's append and replay, native
+histograms sent under `send_native_histograms`, and the Kafka consumer
+group raising `NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -331,14 +332,36 @@ def test_start_and_shutdown_collect():
     assert tg.collect_duration.snapshot()["count"] == n
 
 
-def test_unported_surfaces_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TGen(wal=object(), device="cpu")
+def test_unported_surfaces_raise_naming_their_item(tmp_path):
+    """The ingest WAL and the fleet names came with item 12 and work: a
+    WAL generator appends each push and replays it into a second one; the
+    Kafka consumer group still raises naming item 14."""
+    from tempo_tpu_torch.generator.wal import GeneratorWal, IngestWalConfig
+
+    def walgen():
+        # the WAL stamps records on the generator's pinned clock, which
+        # replay's slack filter reads
+        return TGen(TGenCfg(), overrides=TOv(), now=lambda: T0,
+                    device="cpu", wal=GeneratorWal(IngestWalConfig(
+                        enabled=True, dir=str(tmp_path / "wal")),
+                        now=lambda: T0))
+
+    g1 = walgen()
+    g1.overrides.set_tenant_patch("t", tenant_patch(SM_ONLY))
+    assert g1.push_otlp("t", payload(k6_spans(40, 7))) == 40
+    g2 = walgen()
+    g2.overrides.set_tenant_patch("t", tenant_patch(SM_ONLY))
+    assert g2.replay_wal_all() == {"tenants": 1, "batches": 1,
+                                   "dead_letters": 0}
+    assert state_by_labels(g2.instance("t"), True) == \
+        state_by_labels(g1.instance("t"), True)
+    assert g2.replay_wal("t", past_seq=0) == {"batches": 0,
+                                             "dead_letters": 0}
+    g2.truncate_wal("t", 0)
+    assert g2.wal._tw("t").segments() == []
     _, tg = gens({"t": tenant_patch(SM_ONLY)})
-    for call in (lambda: tg.replay_wal("t"), tg.replay_wal_all,
-                 lambda: tg.truncate_wal("t", 3)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    assert tg.replay_wal_all() == {"tenants": 0, "batches": 0,
+                                   "dead_letters": 0}
     # a tenant with no instance answers the empty summary, as in the
     # reference (tests/test_torch_querier.py holds it against it)
     assert tg.get_metrics("nobody", "{}", ()).results() == []
@@ -350,26 +373,53 @@ def test_unported_surfaces_raise_naming_their_item():
         tg.get_metrics("t", "{}", ())
     tg.instance("t").tick(immediate=True)           # no processor cuts
     from tempo_tpu_torch import fleet, ingest
-    for mod, name, item in ((fleet, "FleetController", "item 12"),
-                            (ingest, "ConsumerGroup", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(mod, name)
+    from tempo_tpu_torch.fleet.controller import FleetController
+    assert fleet.FleetController is FleetController
+    with pytest.raises(NotImplementedError, match="item 14"):
+        getattr(ingest, "ConsumerGroup")
 
 
 def test_send_native_histograms_raises_naming_item_6():
-    """The reference's collect sends `registry.native_histograms()` when
-    `remote_write.send_native_histograms` is set; the port holds no
-    native histogram yet (ROADMAP section 2, item 6), so the flag raises
-    rather than being ignored."""
+    """`remote_write.send_native_histograms` (ROADMAP section 2, item 6,
+    ported): the collection sends `registry.native_histograms()` beside
+    the samples, as the reference's does; the payload equals the
+    reference's native histograms series for series."""
+    from tempo_tpu.generator.instance import GeneratorInstance as JInst
+    from tempo_tpu.generator.remote_write import (
+        RemoteWriteConfig as JRwCfg)
+
     from tempo_tpu_torch.generator import GeneratorConfig, GeneratorInstance
     from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
 
-    inst = GeneratorInstance("t", GeneratorConfig(
-        processors=("span-metrics",),
-        remote_write=RemoteWriteConfig(send_native_histograms=True)),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="section 2, item 6"):
-        inst.collect_and_push()
+    got = {}
+    rng = np.random.default_rng(5)
+    vals = np.concatenate([[0.0, 2.0 ** -32, 1.0, 2.0 ** 30],
+                           rng.lognormal(-3, 2, 60)]).astype(np.float32)
+    for port in (True, False):
+        if port:
+            inst = GeneratorInstance("t", GeneratorConfig(
+                processors=("span-metrics",),
+                remote_write=RemoteWriteConfig(send_native_histograms=True)),
+                now=lambda: T0, device="cpu")
+        else:
+            inst = JInst("t", JGenCfg(processors=("span-metrics",),
+                                      remote_write=JRwCfg(
+                                          send_native_histograms=True)),
+                         now=lambda: T0)
+        sent = []
+        inst.remote_write.send = lambda s, n=(): sent.append(list(n)) or True
+        nh = inst.registry.new_native_histogram("nh", ("svc",))
+        rows = np.array([[inst.registry.interner.intern(f"s{i % 3}")]
+                         for i in range(len(vals))], np.int32)
+        nh.observe_batch(rows, vals)
+        assert inst.collect_and_push(ts_ms=7) > 0
+        got[port] = {tuple(lab): (np.asarray(h), s, c, z, ts, off)
+                     for lab, h, s, c, z, ts, off in sent[0]}
+    assert got[True].keys() == got[False].keys() and len(got[True]) == 3
+    for lab, (h, s, c, z, ts, off) in got[False].items():
+        ph, ps, pc, pz, pts, poff = got[True][lab]
+        assert np.array_equal(ph, h) and (pc, pz, pts, poff) == (c, z, ts, off)
+        assert ps == pytest.approx(s, rel=1e-6)
     off = GeneratorInstance("t", GeneratorConfig(
         processors=("span-metrics",)), device="cpu")
     assert off.collect_and_push() == 0

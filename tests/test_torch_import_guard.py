@@ -40,6 +40,10 @@
   `serve`, a push, a find and a query over HTTP, one compaction sweep,
   shutdown) with the same result; `load_config(text=...)` loads PyYAML
   and nothing else of the list.
+- A fresh interpreter drives an App with `wal` and `fleet` on (a push,
+  the App abandoned, a second App replaying the WAL at boot), and
+  another the `--kv-only` worker's server holding the ring of two fleet
+  controllers that hand a tenant off, with the same result.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -721,8 +725,10 @@ def test_dense_layout_and_other_entry_points_raise():
             registry=tt.RegistryOverrides(max_active_series=1000)),
             device="cpu")
         assert g.state_layout == "dense"
-        with pytest.raises(NotImplementedError, match="later slice"):
-            g.registry.new_native_histogram("h", ("a",))
+        # native histograms came with ROADMAP section 2, item 6: a dense
+        # family here (the capacity splits into no whole pages)
+        nh = g.registry.new_native_histogram("h", ("a",))
+        assert type(nh).__name__ == "NativeHistogram"
         lb = tt.GeneratorInstance("t", tt.GeneratorConfig(
             processors=("span-metrics", "local-blocks"),
             registry=tt.RegistryOverrides(max_active_series=512)),
@@ -833,3 +839,107 @@ def test_load_config_text_loads_yaml_and_no_reference():
     """`load_config(text=...)` is the one path that imports PyYAML; it
     loads no `jax`, `tempo_tpu` or `pyarrow`."""
     _fresh(_CONFIG_DRIVE)
+
+
+_WAL_FLEET_DRIVE = """
+import sys
+import tempfile
+import time
+from tempo_tpu_torch.app import App
+from tempo_tpu_torch.app.config import Config
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+now = time.time()
+payload = encode_spans_otlp(synthetic_spans(48, seed=2,
+                                            now_ns=int((now - 5) * 1e9)))
+with tempfile.TemporaryDirectory() as root:
+    def boot():
+        cfg = Config()
+        cfg.target = "metrics-generator"
+        cfg.storage.local_path = root + "/blocks"
+        cfg.storage.wal_path = root + "/wal"
+        cfg.wal.enabled = True
+        cfg.wal.dir = root + "/gwal"
+        cfg.fleet.enabled = True
+        cfg.usage_stats_enabled = False
+        cfg.overrides_defaults.generator.processors = ["span-metrics"]
+        cfg.overrides_defaults.generator.max_active_series = 1024
+        app = App(cfg, now=lambda: now, device="cpu")
+        app.start_loops()
+        return app
+    def state(app):
+        inst = app.generator.instance("t")
+        inst.drain()                     # the scheduler's window landed
+        return sorted((s.name, s.labels, s.value)
+                      for s in inst.registry.collect(1))
+    a = boot()
+    assert a.generator.push_otlp("t", payload) == 48
+    want = state(a)
+    a.fleet._stop.set()                  # abandoned: no shutdown
+    b = boot()                           # boot tick replays the WAL
+    assert state(b) == want
+    b.fleet.cfg.checkpoint_on_shutdown = False
+    b.shutdown()
+""" + _DRIVE_TAIL
+
+_KV_WORKER_DRIVE = """
+import sys
+import threading
+import time
+from tempo_tpu_torch.backend.mem import MemBackend
+from tempo_tpu_torch.fleet import checkpoint as ck
+from tempo_tpu_torch.fleet.controller import FleetController
+from tempo_tpu_torch.fleet.placement import TenantPlacement
+from tempo_tpu_torch.fleet.worker import make_kv_server
+from tempo_tpu_torch.generator import Generator, GeneratorConfig
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.registry import RegistryOverrides
+from tempo_tpu_torch.ring import Lifecycler, Ring
+from tempo_tpu_torch.ring.kv import RemoteKVStore
+
+srv = make_kv_server(0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+kv = RemoteKVStore(f"http://127.0.0.1:{srv.kv_port}", poll_interval_s=0.05)
+now = time.time()
+payload = encode_spans_otlp(synthetic_spans(48, seed=2,
+                                            now_ns=int((now - 5) * 1e9)))
+be = MemBackend()
+members = {}
+for iid in ("g-a", "g-b"):
+    g = Generator(GeneratorConfig(
+        processors=("span-metrics",),
+        registry=RegistryOverrides(max_active_series=1024)),
+        instance_id=iid, now=lambda: now, device="cpu")
+    ring = Ring(kv=kv, key="generator", replication_factor=1,
+                now=lambda: now)
+    lc = Lifecycler(kv, iid, key="generator", now=lambda: now)
+    members[iid] = (g, lc, FleetController(g, ring, iid, be, be,
+                                           now=lambda: now))
+own = "g-a" if TenantPlacement(members["g-a"][2].ring, "g-a").owns("h") \\
+    else "g-b"
+other = "g-b" if own == "g-a" else "g-a"
+members[own][0].push_otlp("h", payload)
+members[own][1].leave()
+members[own][2].tick()
+members[other][2].tick()
+assert "h" in members[other][0].tenants()
+assert ck.list_checkpoints(be, "fleet-checkpoints") == {}
+kv.shutdown()
+srv.shutdown()
+""" + _DRIVE_TAIL
+
+
+def test_wal_fleet_drive_loads_no_reference_yaml_or_pyarrow():
+    """An App at target `metrics-generator` with `wal` and `fleet` on, on
+    the CPU: a push, the App abandoned, a second App over the same dirs
+    replaying the WAL in its boot tick. No `jax`, `tempo_tpu`, `yaml` or
+    `pyarrow` is loaded."""
+    _fresh(_WAL_FLEET_DRIVE)
+
+
+def test_kv_only_worker_drive_loads_no_reference_yaml_or_pyarrow():
+    """The `--kv-only` worker's server (`fleet.worker.make_kv_server`)
+    holding the ring of two `FleetController`s (through `RemoteKVStore`)
+    that hand a tenant off over a `MemBackend` loads none of them
+    either."""
+    _fresh(_KV_WORKER_DRIVE)
