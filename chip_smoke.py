@@ -40,8 +40,8 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    points, each on the card against the same path on the host (plain
    versions), with kernel launch counts zeroed just before and read just
    after: 3 seeded OTLP payloads of 16,384 spans → `otlp_proto_to_batch` →
-   `GeneratorInstance.push_batch` → `collect_and_push()` to a local
-   remote-write receiver → quantiles;
+   `GeneratorInstance.push_batch` → `registry.collect()` (every family's
+   rows compared with the host's by label set) → quantiles;
    a. `sketch: dd` with f32 state (quantiles exactly equal);
    b. `sketch: both` with compact state (DDSketch quantiles exactly
       equal, every series' moments row within the moments tolerance of
@@ -162,9 +162,9 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    the ingester leg's share, K1's device time a push;
 9. the ingester's own cycle at the reference's default `IngesterConfig`
    and `InstanceConfig`: one tenant through one `Distributor` into 3 real
-   ingesters (rf=3, no generator tee), 2 payloads of 16,384 spans of
-   seeded trace trees of 32 spans (512 traces a payload, 1,024 in all;
-   span and resource attributes of every type, events and links), then
+   ingesters (rf=3, no generator tee), one payload of 16,384 spans of
+   seeded trace trees of 32 spans (512 traces; span and resource
+   attributes of every type, events and links), then
    `sweep_all(immediate=True)` (cut: one fsynced WAL segment a trace,
    then seal) and `flush_tick()` (complete: the WAL read back, combined
    and written as a gzip Parquet block of one row group; flush: the
@@ -173,8 +173,9 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    complete local block, the flushed copy through `BackendBlock`) equal
    to the host decode; every span of a flushed block read back through
    the port's reader equal to what was sent, by trace; an ingester
-   abandoned with one head WAL block (payload 1) and one complete
-   unflushed block (payload 0), then a fresh `Ingester` over its data
+   abandoned with one head WAL block (the second half of the traces
+   sent) and one complete unflushed block (the first half), then a
+   fresh `Ingester` over its data
    directory: `replay()` and
    `flush_tick()` find the same traces and flush each block once; 10,001
    one-span traces to a fresh tenant at the default limits: each
@@ -201,7 +202,8 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       generator and seed) into a `LocalBackend` under `build/`; rate by
       service, quantile_over_time(duration, .99) by service and the
       search `{ span.http.status_code >= 400 }` (limit 20), the plane on
-      and off, each timed after one warm-up and equal on and off; the
+      and off, each equal on and off, the plane-on ones timed after one
+      warm-up; the
       quantile under the moments tier (fused; its moment rows equal to
       the host engine's within ROADMAP section 3's row tolerance; each
       cell's q99 equal to the host engine's at the reference's rtol 5e-2
@@ -212,12 +214,12 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       shape: the block's views repeated to >= 1,000,000 resident spans,
       `{ name =~ "op-1." && duration > 20ms }` as a device mask equal to
       `condition_mask` on every row, and `metrics_grid` rate by service
-      equal to the host engine row by row. Printed: ms a query on and
-      off, adoption seconds and bytes, mask ms and spans/s against numpy,
+      equal to the host engine row by row. Printed: ms a query with the
+      plane on, adoption seconds and bytes, mask ms and spans/s against numpy,
       grid ms, device time and device ops of a grid and of a mask
       dispatch (torch.profiler), H2D bytes a warm query, the plane
       cache's device bytes against its budget, and the card's idle share
-      across a warm query_range. The profiler readings come from a second
+      across a warm query_range, the plane on and off. The profiler readings come from a second
       process (`chip_smoke.py --phase10-profiles`, the bench block again
       in memory), which the smoke starts and waits for: in the smoke's
       own process, after the earlier phases' profiler sessions, the
@@ -338,6 +340,30 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       the same directories, and answers the oracle's samples and q99;
    d. a native histogram on dense and paged state, card against host,
       and `send_native_histograms`' payload, card against host.
+
+16. the rest of the App's surface, on the card against a CPU twin:
+   a. `App(Config())` at target `all` with `server.grpc_listen_port` and
+      the default processors on dense state: 3 pushes of 16,384 k6-like
+      spans over OTLP/gRPC `Export`, the first again over `POST
+      /v1/traces`, its spans over Jaeger `PostSpans` (gRPC), over `POST
+      /api/traces` (Jaeger Thrift, one batch a service) and over one
+      OpenCensus stream of 4 messages; K1 launches equal to the merged
+      dispatches on each route; every family equal to a CPU twin App's
+      that took the same bytes over the same routes (counts and buckets
+      exact, sums at rtol 1e-5, DDSketch q50/q99 equal); K1 at the last
+      window of the Export and the PostSpans routes against its plain
+      version, with its bound;
+   b. `FindTraceByID`, the streaming search, the streaming metrics
+      `query_range` and the streaming tags over gRPC, each equal to the
+      HTTP API's answer from the same App;
+   c. a query-frontend App and a querier App joined by
+      `querier_worker.frontend_address: grpc://...` over the same store:
+      a backend `query_range` through the remote worker equal to the
+      single binary's; one `vulture` cycle against the card's App;
+   d. an App with `selftrace.enabled`: its own spans through loopback
+      into the reserved tenant, whose span metrics run K1 (launches
+      equal to dispatches), found by that tenant's search, and
+      `tempo_selftrace_*` nonzero.
    Then one process of its own takes every captured K1 window's device
    time (`--final-profiles`: the windows are saved under `build/`; read
    in the smoke's own process after other profiles, the trace lost
@@ -348,7 +374,8 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 
 `python3 chip_smoke.py --phase14` builds as above and runs phase 14
 alone (about 100 s); `--phase15` runs phase 15 alone, then its final
-profiles.
+profiles; `--phase16` runs phase 16 alone, then K1's device time on
+its windows.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -1276,11 +1303,10 @@ def trace_tree_spans(n, *, seed, now_ns, n_services=32, n_ops=32,
     return [spans[i] for i in order]
 
 
-def _instances(rx, now, sm, names, paged=True):
+def _instances(now, sm, names, paged=True):
     """One generator instance per (name, device), each on its own pool
-    (`paged`) or on dense state, remote-writing to `rx` under /<name>."""
+    (`paged`) or on dense state, with no remote write."""
     import tempo_tpu_torch as tt
-    from tempo_tpu_torch.generator.remote_write import RemoteWriteConfig
     from tempo_tpu_torch.registry import pages
 
     insts = {}
@@ -1291,8 +1317,7 @@ def _instances(rx, now, sm, names, paged=True):
             insts[name] = tt.GeneratorInstance(
                 "smoke", tt.GeneratorConfig(
                     processors=("span-metrics",),
-                    spanmetrics=tt.SpanMetricsConfig(**sm),
-                    remote_write=RemoteWriteConfig(url=f"{rx.url}/{name}")),
+                    spanmetrics=tt.SpanMetricsConfig(**sm)),
                 now=lambda: now, device=device)
         if insts[name].state_layout != ("paged" if paged else "dense"):
             raise AssertionError(f"{name}: {insts[name].state_layout} state")
@@ -1318,44 +1343,6 @@ def _push_all(inst, payloads, sizes, weights):
     if inst.device.type == "cuda":
         torch.cuda.synchronize()
     return time.perf_counter() - t0, decode_s
-
-
-def _compare_samples(rx, compact, ctx, host_samples):
-    """The card's WriteRequest against the host's collected samples (each
-    label set's values in write order): counts exact, the size counter at
-    rtol 1e-5, the latency `_sum` at rtol 1e-5 (f32) or 1e-2 (folded from
-    the bf16 pair under compact). Returns (label sets, calls total)."""
-    from tempo_tpu_torch.generator.remote_write import decode_write_request
-
-    card = rx.bodies.get(f"/{ctx}-card")
-    if not card:
-        raise AssertionError(f"{ctx}: remote write received "
-                             f"{list(rx.bodies)}")
-    gpu = decode_write_request(card)
-    cpu: dict = {}
-    for smp in host_samples:
-        cpu.setdefault(tuple(sorted(smp.labels)), []).append(smp.value)
-    if not gpu or set(gpu) != set(cpu):
-        raise AssertionError(f"{ctx}: card and host wrote different series sets")
-    for k, vs in gpu.items():
-        labels = dict(k)
-        for i, (v, h) in enumerate(zip(vs, cpu[k], strict=True)):
-            # float sums: the size counter and the latency `_sum` (second
-            # sample of a bucketless latency label set); the rest count
-            size = labels["__name__"] == "traces_spanmetrics_size_total"
-            lat_sum = labels["__name__"] == "traces_spanmetrics_latency" \
-                and "le" not in labels and i == 1
-            if lat_sum and compact:
-                ok = abs(v - h) <= 1e-2 * abs(h) + 1e-6
-            elif size or lat_sum:
-                ok = abs(v - h) <= 1e-5 * abs(h) + 1e-6
-            else:
-                ok = v == h
-            if not ok:
-                raise AssertionError(f"{ctx} sample {k}[{i}]: card {v} vs host {h}")
-    total = sum(v[0] for k, v in gpu.items()
-                if dict(k)["__name__"] == "traces_spanmetrics_calls_total")
-    return len(gpu), total
 
 
 def _moment_rows(proc):
@@ -1393,10 +1380,8 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
     compact state, dyadic sample weights; DDSketch q50/q99 exactly equal,
     moments q50/q99 (one solve per row for both) compared and the series
     outside rtol 1e-3 counted. `tier` "dense_dd": as "dd" with no page
-    pool, on dense state. Returns a result dict."""
-    import torch
-
-    from tempo_tpu_torch.generator.remote_write import LocalReceiver
+    pool, on dense state. Each tier compares the card's collected rows
+    with the host's by label set. Returns a result dict."""
     from tempo_tpu_torch.ops import cuda_kernels as ck
 
     compact = tier == "both_compact"
@@ -1406,64 +1391,49 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
     payloads, sizes, int_w, dyadic_w = _payloads(now, n_payloads)
     weights = dyadic_w if compact else int_w
     res = {}
-    # the remote write's encode, snappy and decode (15-20 s at 516,325
-    # samples) run once, on the card's "dd" tier, checked against the
-    # host's collected samples; the other tiers compare the collected rows
-    # by label set under the same tolerances (the smoke's time, ROADMAP
-    # "The smoke's time")
-    remote = tier == "dd"
-    host_samples = None
-    with LocalReceiver() as rx:
-        names = ((f"{tier}-card", "cuda"), (f"{tier}-host", "cpu"))
-        insts = _instances(rx, now, sm, names, paged=paged)
-        for name, inst in insts.items():
-            on_card = name.endswith("card")
-            if on_card:
-                ck.reset_launch_counts()
-                ck.paged_fused_update.plans = 0
-            push_s, decode_s = _push_all(inst, payloads, sizes, weights)
-            if on_card:
-                launches = ck.paged_fused_update.launches
-                plans = ck.paged_fused_update.plans
-            tc = time.perf_counter()
-            if remote and on_card:
-                n_samples = inst.collect_and_push()
-            else:
-                inst.drain()
-                collected = inst.registry.collect()
-                n_samples = len(collected)
-                if remote:
-                    host_samples = collected
-            collect_s = time.perf_counter() - tc
-            proc = inst.processors["span-metrics"]
-            tq = time.perf_counter()
-            dd_q = proc.dd_quantiles((0.5, 0.99))
-            dd_s = time.perf_counter() - tq
-            tq = time.perf_counter()
-            mom_q = proc.quantiles((0.5, 0.99)) if compact else None
-            mom_s = time.perf_counter() - tq
-            res[name] = {"push_s": push_s, "dd_q": dd_q, "mom_q": mom_q,
-                         "mom_rows": _moment_rows(proc) if compact else None,
-                         "series": inst.registry.active_series,
-                         "state_bytes": inst.device_state_bytes(),
-                         "scratch_bytes": proc.scratch_bytes()}
-            print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
-                  f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
-                  f"push_batch {push_s - decode_s:.3f} s), "
-                  f"{res[name]['series']} series; "
-                  f"{'collect_and_push' if remote and on_card else 'collect'} "
-                  f"{n_samples} samples in {collect_s:.3f} s; DDSketch "
-                  f"q50+q99 in {dd_s:.3f} s"
-                  + (f"; moments q50+q99 in {mom_s:.3f} s" if compact else ""))
-        if remote:
-            n_sets, total = _compare_samples(rx, compact, tier, host_samples)
-        else:
-            rows = [_family_rows([insts[n]]) for n, _ in names]
-            n_sets, _ = _compare_rows(*rows, tier,
-                                      hist_rtol=1e-2 if compact else None)
-            total = float(sum(
-                v[0].sum() for v in
-                rows[0]["traces_spanmetrics_calls_total"].values()))
+    # no remote write here: its encode of 516,325 samples took 15-20 s
+    # (the smoke's time, ROADMAP "The smoke's time"); phase 6's far
+    # window runs `collect_and_push` on the card
+    names = ((f"{tier}-card", "cuda"), (f"{tier}-host", "cpu"))
+    insts = _instances(now, sm, names, paged=paged)
+    for name, inst in insts.items():
+        on_card = name.endswith("card")
+        if on_card:
+            ck.reset_launch_counts()
+            ck.paged_fused_update.plans = 0
+        push_s, decode_s = _push_all(inst, payloads, sizes, weights)
+        if on_card:
+            launches = ck.paged_fused_update.launches
+            plans = ck.paged_fused_update.plans
+        tc = time.perf_counter()
+        inst.drain()
+        n_samples = len(inst.registry.collect())
+        collect_s = time.perf_counter() - tc
+        proc = inst.processors["span-metrics"]
+        tq = time.perf_counter()
+        dd_q = proc.dd_quantiles((0.5, 0.99))
+        dd_s = time.perf_counter() - tq
+        tq = time.perf_counter()
+        mom_q = proc.quantiles((0.5, 0.99)) if compact else None
+        mom_s = time.perf_counter() - tq
+        res[name] = {"push_s": push_s, "dd_q": dd_q, "mom_q": mom_q,
+                     "mom_rows": _moment_rows(proc) if compact else None,
+                     "series": inst.registry.active_series,
+                     "state_bytes": inst.device_state_bytes(),
+                     "scratch_bytes": proc.scratch_bytes()}
+        print(f"phase 4 {name}: {len(payloads)} pushes of {N_SPANS} spans "
+              f"in {push_s:.3f} s (OTLP decode {decode_s:.3f} s, "
+              f"push_batch {push_s - decode_s:.3f} s), "
+              f"{res[name]['series']} series; collect {n_samples} "
+              f"samples in {collect_s:.3f} s; DDSketch q50+q99 in "
+              f"{dd_s:.3f} s"
+              + (f"; moments q50+q99 in {mom_s:.3f} s" if compact else ""))
+    rows = [_family_rows([insts[n]]) for n, _ in names]
+    n_sets, _ = _compare_rows(*rows, tier,
+                              hist_rtol=1e-2 if compact else None)
+    total = float(sum(
+        v[0].sum() for v in
+        rows[0]["traces_spanmetrics_calls_total"].values()))
     card, host = res[f"{tier}-card"], res[f"{tier}-host"]
     want = float(sum(w.sum() for w in weights))
     if not compact and total != want:
@@ -1496,8 +1466,8 @@ def phase_main_path(tier, n_payloads=N_DISPATCH):
                                  f"{MOM_OUTSIDE_MAX}")
     n_q = len(card["dd_q"][0])
     print(f"phase 4 {tier} checks: {n_sets} label sets in the card's "
-          f"{'WriteRequest' if remote else 'largest family'} equal the "
-          f"host's collected ones under the stated tolerances; calls "
+          f"largest family equal the host's collected ones under the "
+          f"stated tolerances; calls "
           f"total {total} (weighted spans {want}); DDSketch q50/q99 of "
           f"{n_q} series equal"
           + (f"; moments rows of {n_rows} series within the moments "
@@ -3158,7 +3128,7 @@ def _phase_distributor(card, root, t_phase):
 # phase 9: the ingester's cycle (live traces → WAL → complete block → flush)
 # ---------------------------------------------------------------------------
 
-N_INGEST_PAYLOADS = 2            # cut from 4 to make room for phase 10
+N_INGEST_PAYLOADS = 1            # cut from 4, then 2, for the smoke's time
 SPANS_PER_TRACE = 32
 INGEST_TENANT = "ingest-0"
 LIMIT_TENANT = "ingest-limits"
@@ -3297,9 +3267,9 @@ def _phase_ingester(card, root):
     t_phase = time.perf_counter()
     ctx = "phase 9"
     now_ns = time.time_ns()
-    payloads = [encode_spans_otlp(deep_trace_spans(
-        N_SPANS, seed=SEED + 90 + k, now_ns=now_ns))
-        for k in range(N_INGEST_PAYLOADS)]
+    sent = [deep_trace_spans(N_SPANS, seed=SEED + 90 + k, now_ns=now_ns)
+            for k in range(N_INGEST_PAYLOADS)]
+    payloads = [encode_spans_otlp(spans) for spans in sent]
     host = _host_traces(payloads)
     n_traces = len(host)
     n_spans = N_INGEST_PAYLOADS * N_SPANS
@@ -3440,19 +3410,25 @@ def _phase_ingester(card, root):
                     keypath.parts[-1], 0) + 1
             return store.write(name, keypath, data)
 
-    # payload 0 ends in a complete block, payload 1 in the head WAL block
-    taken = _host_traces(payloads[:2])
+    # the traces sent, in two halves: the first ends in a complete block,
+    # the second in the head WAL block
+    spans = [s for ss in sent for s in ss]
+    first = set(ids[:len(ids) // 2])
+    halves = [encode_spans_otlp([s for s in spans
+                                 if (s["trace_id"] in first) == h])
+              for h in (True, False)]
+    taken = _host_traces(halves)
     r_picks = [tid for tid in picks if tid in taken]
     late = next(bytes([b]) * 16 for b in range(256)
                 if bytes([b]) * 16 not in host)
     ing = Ingester(rdir, flush_writer=CountingStore(), cfg=IngesterConfig(),
                    overrides=ov, now=now_fn, instance_id="ingester-r")
-    if ing.push_otlp(t, payloads[0]):
+    if ing.push_otlp(t, halves[0]):
         raise AssertionError(f"{ctx}: abandoned ingester push")
     inst = ing.instance(t)
     inst.cut_complete_traces(immediate=True)
     inst.complete_block(inst.cut_block_if_ready(immediate=True))
-    if ing.push_otlp(t, payloads[1]):
+    if ing.push_otlp(t, halves[1]):
         raise AssertionError(f"{ctx}: abandoned ingester push")
     inst.cut_complete_traces(immediate=True)       # the head WAL block
     if len(inst.complete) != 1 or inst.head is None:
@@ -4047,10 +4023,9 @@ def _phase_query_bench(card, root):
     out["quantile_ms"] = _timed_ms(lambda: db.query_range(B, qreq))
     out["search_ms"] = _timed_ms(lambda: run_search(db))
     _check_fused(db, f0, 8, f"{ctx} timed plane-on queries")
-    out["rate_host_ms"] = _timed_ms(lambda: db_host.query_range(B, req), 1)
-    out["quantile_host_ms"] = _timed_ms(lambda: db_host.query_range(B, qreq),
-                                        1)
-    out["search_host_ms"] = _timed_ms(lambda: run_search(db_host), 1)
+    # the plane-off queries are checked above and not timed here (the
+    # smoke's time, ROADMAP "The smoke's time"); the profiling process
+    # times the plane-off rate query
     # the moments query tier rides the fused moments grid
     f0 = db.plane_stats["fused_metric_blocks"]
     with use_query_tier("moments"):
@@ -4124,11 +4099,10 @@ def _phase_query_bench(card, root):
           f"{out['write_s']:.2f} s; "
           f"adoption (first rate query: block read + column uploads of "
           f"{out['adopt_h2d_bytes']} bytes) {out['adopt_s']:.3f} s; ms a "
-          f"query, plane on / off: rate by service {out['rate_ms']:.3f} / "
-          f"{out['rate_host_ms']:.3f}, quantile_over_time(duration, .99) "
-          f"{out['quantile_ms']:.3f} / {out['quantile_host_ms']:.3f}, search "
-          f"(span.http.status_code >= 400, limit 20) {out['search_ms']:.3f} "
-          f"/ {out['search_host_ms']:.3f}; moments tier quantile "
+          f"query, plane on: rate by service {out['rate_ms']:.3f}, "
+          f"quantile_over_time(duration, .99) {out['quantile_ms']:.3f}, "
+          f"search (span.http.status_code >= 400, limit 20) "
+          f"{out['search_ms']:.3f}; moments tier quantile "
           f"{out['quantile_moments_ms']:.3f} ms (fused), q99 against the "
           f"exact quantile median rel err {out['moments_err_median']:.4f}, "
           f"max {out['moments_err_max']:.4f}, against the log2 tier's "
@@ -5753,7 +5727,8 @@ class _AppRig:
     the same."""
 
     def __init__(self, device, root, t0,
-                 processors=("span-metrics", "local-blocks"), wal=False):
+                 processors=("span-metrics", "local-blocks"), wal=False,
+                 grpc=False, selftrace=False, patch=None):
         from tempo_tpu_torch.app import App
         from tempo_tpu_torch.app.api import serve
         from tempo_tpu_torch.app.config import Config
@@ -5767,15 +5742,31 @@ class _AppRig:
         if wal:
             cfg.wal.enabled = True
             cfg.wal.dir = os.path.join(root, "generator-wal")
+        if grpc:
+            cfg.server.grpc_listen_port = _free_port()
+        if selftrace:
+            # loopback into this App's distributor, flushed by hand; the
+            # reserved tenant takes the default limits' processors
+            cfg.selftrace.enabled = True
+            cfg.selftrace.flush_interval_s = 3600.0
+            cfg.overrides_defaults.generator.processors = tuple(processors)
+        if grpc or selftrace:
+            # phase 16 reads its traces live and drops them at shutdown:
+            # no cut loop writes WAL segments during the phase (16c moves
+            # the clock to the wall's, which would make every trace idle)
+            cfg.ingester.flush_check_period_s = 3600.0
         self.clock = [t0]
-        self.app = App(cfg, now=lambda: self.clock[0], device=device)
+        # t0 None: the wall clock
+        self.app = App(cfg, now=(time.time if t0 is None
+                                 else lambda: self.clock[0]), device=device)
         # the default limits hold: 4 pushes of ~2.8 MB stay within the
-        # 20 MB ingestion burst
+        # 20 MB ingestion burst (`patch` raises them where a phase needs)
         self.app.overrides.set_tenant_patch(APP_TENANT, {
-            "generator": {"processors": list(processors)}})
+            "generator": {"processors": list(processors)}, **(patch or {})})
         self.app.start_loops()
         self.srv = serve(self.app, block=False)
         self.base = f"http://127.0.0.1:{cfg.server.http_listen_port}"
+        self.grpc = f"127.0.0.1:{self.app.grpc_port}" if grpc else None
         self.inst = self.app.generator.instance(APP_TENANT)
 
     def post(self, payload) -> float:
@@ -5794,13 +5785,17 @@ class _AppRig:
                                          f"{r.status} {body}")
         return (time.perf_counter() - t) * 1e3
 
-    def get(self, path):
-        """(ms, decoded body) of one GET: JSON, or the text of /metrics."""
+    def get(self, path, tenant=None):
+        """(ms, decoded body) of one GET (as `tenant` when given): JSON, or
+        the text of /metrics."""
         import urllib.request
 
+        req = urllib.request.Request(
+            self.base + path,
+            headers={"X-Scope-OrgID": tenant} if tenant else {})
         t = time.perf_counter()
         with _http_errors(f"GET {path}"):
-            with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            with urllib.request.urlopen(req, timeout=120) as r:
                 raw = r.read()
         ms = (time.perf_counter() - t) * 1e3
         return ms, (raw.decode() if path == "/metrics" else json.loads(raw))
@@ -5823,6 +5818,10 @@ class _AppRig:
         if not keep_live:
             self.app.ingester.flush_all = lambda: None
         self.app.shutdown()
+        # App.shutdown waits 5 s a loop; a cut still writing WAL segments
+        # after that would race the removal of the phase's directory
+        for t in self.app.ingester._threads:
+            t.join()
 
 
 def _app_paths(spans, t0):
@@ -7014,15 +7013,635 @@ def _print_15d(d, card, seconds):
 def moments_state_bytes(n_payloads=N_DISPATCH):
     """Device state bytes per active series of the `sketch: moments` tier
     (f32 state) after the same pushes, on the card."""
-    from tempo_tpu_torch.generator.remote_write import LocalReceiver
-
     now = time.time()
     payloads, sizes, int_w, _ = _payloads(now, n_payloads)
-    with LocalReceiver() as rx:
-        inst = _instances(rx, now, dict(sketch="moments"),
-                          (("moments-card", "cuda"),))["moments-card"]
-        _push_all(inst, payloads, sizes, int_w)
+    inst = _instances(now, dict(sketch="moments"),
+                      (("moments-card", "cuda"),))["moments-card"]
+    _push_all(inst, payloads, sizes, int_w)
     return inst.device_state_bytes() / inst.registry.active_series
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the App's surface: the gRPC plane (OTLP, Jaeger and
+# OpenCensus receivers, the query streams, the frontend worker), the
+# Jaeger Thrift collector route, the vulture and self-tracing
+# ---------------------------------------------------------------------------
+
+N_GRPC_PUSHES = 3
+N_OC_MESSAGES = 4
+N_PULL_BLOCKS = 6
+PULL_TENANT = "pull"
+# 16,384 one-span traces a push: the ingester's live-trace limit and the
+# ingestion rate are raised for the tenant, as phase 8 does
+GRPC_PATCH = {"ingestion": {"rate_limit_bytes": 1 << 40,
+                            "burst_size_bytes": 1 << 40,
+                            "max_traces_per_user": 1 << 20}}
+EXPORT = "/opentelemetry.proto.collector.trace.v1.TraceService/Export"
+JAEGER_KIND = {1: "internal", 2: "server", 3: "client", 4: "producer",
+               5: "consumer"}
+
+
+def _jaeger_thrift_batches(spans):
+    """`jaeger.thrift` Batches in TBinaryProtocol, one a service (a Batch
+    carries one Process): the collector route's bodies for `spans`."""
+    import struct
+
+    def field(fid, typ, body):
+        return struct.pack(">bh", typ, fid) + body
+
+    def tstr(v):
+        b = v.encode()
+        return struct.pack(">i", len(b)) + b
+
+    def tag(key, v):
+        if isinstance(v, bool):
+            val = field(2, 8, struct.pack(">i", 2)) + \
+                field(5, 2, b"\x01" if v else b"\x00")
+        else:
+            val = field(2, 8, struct.pack(">i", 0)) + field(3, 11, tstr(v))
+        return field(1, 11, tstr(key)) + val + b"\x00"
+
+    by_service = {}
+    for s in spans:
+        by_service.setdefault(s["service"], []).append(s)
+    out = []
+    for service, group in by_service.items():
+        enc = []
+        for s in group:
+            hi, lo = struct.unpack(">qq", s["trace_id"])
+            (sid,) = struct.unpack(">q", s["span_id"])
+            tags = [tag("span.kind", JAEGER_KIND[s["kind"]])]
+            if s["status_code"] == 2:
+                tags.append(tag("error", True))
+            start = s["start_unix_nano"]
+            enc.append(field(1, 10, struct.pack(">q", lo)) +
+                       field(2, 10, struct.pack(">q", hi)) +
+                       field(3, 10, struct.pack(">q", sid)) +
+                       field(4, 10, struct.pack(">q", 0)) +
+                       field(5, 11, tstr(s["name"])) +
+                       field(7, 8, struct.pack(">i", 1)) +
+                       field(8, 10, struct.pack(">q", start // 1000)) +
+                       field(9, 10, struct.pack(
+                           ">q", (s["end_unix_nano"] - start) // 1000)) +
+                       field(10, 15, struct.pack(">bi", 12, len(tags)) +
+                             b"".join(tags)) + b"\x00")
+        process = field(1, 11, tstr(service)) + b"\x00"
+        out.append(field(1, 12, process) +
+                   field(2, 15, struct.pack(">bi", 12, len(enc)) +
+                         b"".join(enc)) + b"\x00")
+    return out
+
+
+def _jaeger_proto_request(spans):
+    """`jaeger.api_v2.PostSpansRequest` of `spans`, each with its own
+    process (the tempo-query plugin's encoder)."""
+    from tempo_tpu_torch.model import proto_wire as pw
+    from tempo_tpu_torch.tempoquery.plugin import _jaeger_span
+
+    batch = b"".join(pw.enc_field_msg(1, _jaeger_span(s, s["trace_id"]))
+                     for s in spans)
+    return pw.enc_field_msg(1, batch)
+
+
+def _opencensus_messages(spans, n_messages=N_OC_MESSAGES):
+    """One OpenCensus agent stream: `n_messages` ExportTraceServiceRequests
+    of consecutive slices of `spans`, the node on the first, each span's
+    service in its own resource."""
+    from tempo_tpu_torch.model import proto_wire as pw
+
+    def ts(ns):
+        return pw.enc_field_varint(1, ns // 10**9) + \
+            pw.enc_field_varint(2, ns % 10**9)
+
+    def span(s):
+        kind = {2: 1, 3: 2}.get(s["kind"], 0)      # OC SERVER, CLIENT
+        label = pw.enc_field_str(1, "service.name") + \
+            pw.enc_field_str(2, s["service"])
+        out = (pw.enc_field_bytes(1, s["trace_id"]) +
+               pw.enc_field_bytes(2, s["span_id"]) +
+               pw.enc_field_msg(5, pw.enc_field_str(1, s["name"])) +
+               pw.enc_field_varint(6, kind) +
+               pw.enc_field_msg(7, ts(s["start_unix_nano"])) +
+               pw.enc_field_msg(8, ts(s["end_unix_nano"])) +
+               pw.enc_field_msg(14, pw.enc_field_msg(2, label)))
+        if s["status_code"] == 2:
+            out += pw.enc_field_msg(13, pw.enc_field_varint(1, 2))
+        return out
+
+    node = pw.enc_field_msg(1, pw.enc_field_msg(
+        3, pw.enc_field_str(1, "opencensus")))
+    per = -(-len(spans) // n_messages)
+    return [(node if k == 0 else b"") + b"".join(
+        pw.enc_field_msg(2, span(s)) for s in spans[k * per:(k + 1) * per])
+        for k in range(n_messages)]
+
+
+def _grpc_payloads(t0):
+    """The k6-like spans of phase 16a and their bytes on every route: the
+    OTLP payloads, and the first payload's spans as a Jaeger proto
+    request, Jaeger Thrift batches and an OpenCensus stream."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+    spans = [synthetic_spans(N_SPANS, seed=SEED + 160 + k,
+                             now_ns=int(t0 * 1e9))
+             for k in range(N_GRPC_PUSHES)]
+    return dict(spans=spans, otlp=[encode_spans_otlp(s) for s in spans],
+                jaeger=_jaeger_proto_request(spans[0]),
+                thrift=_jaeger_thrift_batches(spans[0]),
+                oc=_opencensus_messages(spans[0]))
+
+
+def _post_raw(rig, path, body, ctype, want):
+    """One POST of `body` to the App; ms with the reply."""
+    import urllib.request
+
+    req = urllib.request.Request(rig.base + path, data=body,
+                                 headers={"Content-Type": ctype})
+    t = time.perf_counter()
+    with _http_errors(f"POST {path}"):
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != want:
+                raise AssertionError(f"phase 16: POST {path} answered "
+                                     f"{r.status}")
+            r.read()
+    return (time.perf_counter() - t) * 1e3
+
+
+def _grpc_routes(rig, p):
+    """Every route of phase 16a into `rig`'s App, in order: the OTLP
+    payloads over gRPC `Export`, the first again over HTTP, the Jaeger
+    proto request over gRPC `PostSpans`, the Thrift batches over `POST
+    /api/traces`, the OpenCensus stream over its bidirectional `Export`.
+    Each route settles before the next. Returns {route: ms} and {route:
+    (captured windows before it, after it)} (`rig.mats`)."""
+    import grpc
+
+    ms, marks = {}, {}
+    mats = rig.mats
+
+    def route(name, fn):
+        n0 = len(mats)
+        t = time.perf_counter()
+        fn()
+        ms[name] = (time.perf_counter() - t) * 1e3
+        rig.settle()
+        marks[name] = (n0, len(mats))
+
+    with grpc.insecure_channel(rig.grpc) as ch:
+        export = ch.unary_unary(EXPORT)
+        post = ch.unary_unary("/jaeger.api_v2.CollectorService/PostSpans")
+        oc = ch.stream_stream(
+            "/opencensus.proto.agent.trace.v1.TraceService/Export")
+
+        def otlp_grpc():
+            ms["otlp_each"] = []
+            for body in p["otlp"]:
+                t = time.perf_counter()
+                if export(body, timeout=120) != b"":
+                    raise AssertionError("phase 16a: Export answered a body")
+                ms["otlp_each"].append((time.perf_counter() - t) * 1e3)
+
+        route("otlp_grpc", otlp_grpc)
+        route("otlp_http", lambda: _post_raw(
+            rig, "/v1/traces", p["otlp"][0], "application/x-protobuf", 200))
+        route("jaeger_grpc", lambda: post(p["jaeger"], timeout=120))
+        route("jaeger_thrift", lambda: [
+            _post_raw(rig, "/api/traces", b, "application/x-thrift", 202)
+            for b in p["thrift"]])
+
+        def oc_stream():
+            got = list(oc(iter(p["oc"]), timeout=120))
+            if len(got) != len(p["oc"]):
+                raise AssertionError(f"phase 16a: OpenCensus answered "
+                                     f"{len(got)} of {len(p['oc'])} messages")
+
+        route("opencensus_grpc", oc_stream)
+    return ms, marks
+
+
+def _grpc_reads(rig, p, t_base):
+    """16b: FindTraceByID, the streaming search, the streaming metrics
+    query_range (over `PULL_TENANT`'s backend blocks: the default
+    processors keep no local blocks, so the generators answer no recent
+    window) and the streaming tags over gRPC, each against the HTTP
+    API's answer from the same App."""
+    import urllib.parse
+
+    from tempo_tpu_torch.grpcplane.client import (
+        GrpcIngesterClient, streaming_metrics_query_range, streaming_search,
+        streaming_search_tags)
+    from tempo_tpu_torch.traceql.engine_metrics import QueryRangeRequest
+
+    ctx = "phase 16b"
+    ms = {}
+
+    def span_key(s, hexed):
+        sid = s["span_id"] if hexed else s["span_id"].hex()
+        return (sid, s["name"], s["service"], int(s["start_unix_nano"]),
+                int(s["end_unix_nano"]))
+
+    ing = GrpcIngesterClient(rig.grpc)
+    try:
+        picks = [s["trace_id"] for s in p["spans"][1][::4096]]
+        t = time.perf_counter()
+        got = [ing.find_trace_by_id(APP_TENANT, tid) for tid in picks]
+        ms["find"] = (time.perf_counter() - t) * 1e3 / len(picks)
+    finally:
+        ing.close()
+    for tid, spans in zip(picks, got):
+        _, doc = rig.get(f"/api/traces/{tid.hex()}")
+        if not spans or sorted(span_key(s, False) for s in spans) != \
+                sorted(span_key(s, True) for s in doc["spans"]):
+            raise AssertionError(f"{ctx}: FindTraceByID {tid.hex()} differs "
+                                 f"from GET /api/traces")
+    q = '{ resource.service.name = "service-3" && span:status = error }'
+    t = time.perf_counter()
+    msgs = list(streaming_search(rig.grpc, APP_TENANT, q, limit=100))
+    ms["search"] = (time.perf_counter() - t) * 1e3
+    _, doc = rig.get("/api/search?limit=100&q=" + urllib.parse.quote(q))
+    final = msgs[-1]
+
+    def norm(mds):
+        # protobuf drops an empty repeated field: a span with no
+        # attributes comes back without the key
+        for md in mds:
+            for ss in md.get("spanSets", []):
+                for sp in ss.get("spans", []):
+                    sp.setdefault("attributes", [])
+        return sorted(mds, key=lambda md: md["traceID"])
+
+    a = norm([md.to_json() for md in final[0]])
+    b = norm(doc["traces"])
+    if not final[1] or not b or a != b:
+        diff = next(((x, y) for x, y in zip(a, b) if x != y), None)
+        raise AssertionError(f"{ctx}: the streaming search differs from GET "
+                             f"/api/search ({len(a)} / {len(b)} traces; "
+                             f"first difference {diff})")
+    ms["search_messages"] = len(msgs)
+    qr = "{ } | rate() by (resource.service.name)"
+    start, end, step = t_base - 60, t_base + 3600, 300.0
+    t = time.perf_counter()
+    msgs = list(streaming_metrics_query_range(
+        rig.grpc, PULL_TENANT, qr, start_s=start, end_s=end, step_s=step))
+    ms["query_range"] = (time.perf_counter() - t) * 1e3
+    _, doc = rig.get(f"/api/metrics/query_range?q={urllib.parse.quote(qr)}"
+                     f"&start={start}&end={end}&step={step}",
+                     tenant=PULL_TENANT)
+    ts_ms = QueryRangeRequest(qr, int(start * 1e9), int(end * 1e9),
+                              int(step * 1e9)).step_timestamps_ms()
+    # the wire's QueryRangeResponse carries labels and samples; the HTTP
+    # answer adds the exemplars
+    mine = [{k: v for k, v in s.items() if k != "exemplars"} for s in
+            json.loads(json.dumps([s.to_json(ts_ms) for s in msgs[-1]]))]
+    http = [{k: v for k, v in s.items() if k != "exemplars"}
+            for s in doc["series"]]
+    key = lambda s: json.dumps(s["labels"], sort_keys=True)  # noqa: E731
+    if not mine or sorted(mine, key=key) != sorted(http, key=key):
+        raise AssertionError(f"{ctx}: the streaming query_range differs from "
+                             f"GET /api/metrics/query_range: "
+                             f"{sorted(mine, key=key)[:1]} vs "
+                             f"{sorted(http, key=key)[:1]}")
+    ms["query_range_messages"] = len(msgs)
+    t = time.perf_counter()
+    msgs = list(streaming_search_tags(rig.grpc, APP_TENANT))
+    ms["tags"] = (time.perf_counter() - t) * 1e3
+    _, doc = rig.get("/api/v2/search/tags")
+    want = {sc["name"]: sorted(sc["tags"]) for sc in doc["scopes"]}
+    if not msgs[-1][1] or {k: sorted(v) for k, v in msgs[-1][0].items()} \
+            != want:
+        raise AssertionError(f"{ctx}: the streaming tags differ from GET "
+                             f"/api/v2/search/tags")
+    return ms
+
+
+def _pull_blocks(rig):
+    """`N_PULL_BLOCKS` blocks of 64 one-span traces, two hours back, into
+    the App's store (RF1, as metrics read); returns their base time."""
+    t_base = time.time() - 7200
+    for traces in _pull_traces(t_base):
+        rig.app.db.write_block(PULL_TENANT, traces, replication_factor=1)
+    rig.app.db.poll_now()
+    return t_base
+
+
+def _pull_traces(t_base):
+    """`N_PULL_BLOCKS` blocks of 64 one-span traces from `t_base`."""
+    rng = np.random.default_rng(SEED + 16)
+    blocks = []
+    for b in range(N_PULL_BLOCKS):
+        traces = []
+        for i in range(64):
+            tid = rng.bytes(16)
+            start = int((t_base + b * 300 + i) * 1e9)
+            traces.append((tid, [{
+                "trace_id": tid, "span_id": rng.bytes(8), "name": f"op-{b % 3}",
+                "service": f"svc-{i % 4}", "kind": 2, "status_code": 0,
+                "start_unix_nano": start,
+                "end_unix_nano": start + int(rng.integers(1, 50)) * 10**6}]))
+        blocks.append(sorted(traces, key=lambda t: t[0]))
+    return blocks
+
+
+def _worker_pull(rig, root, t_base):
+    """16c: a query-frontend App and a querier App joined by
+    `querier_worker.frontend_address: grpc://…` over the card App's
+    store: a backend query_range through the remote worker equals the
+    single binary's; one vulture cycle against the card's App."""
+    import contextlib
+    import io
+
+    from tempo_tpu_torch.app import App
+    from tempo_tpu_torch.app.config import Config
+    from tempo_tpu_torch.vulture.__main__ import main as vulture_main
+
+    ctx = "phase 16c"
+    tenant = PULL_TENANT
+    store = rig.app.cfg.storage.local_path
+    apps = []
+    try:
+        fe_cfg = Config(target="query-frontend")
+        fe_cfg.storage.local_path = store
+        fe_cfg.storage.wal_path = os.path.join(root, "fe-wal")
+        fe_cfg.server.grpc_listen_port = _free_port()
+        fe = App(fe_cfg, device="cuda")
+        apps.append(fe)
+        fe.start_loops()
+        fe.db.poll_now()
+        q_cfg = Config(target="querier")
+        q_cfg.storage.local_path = store
+        q_cfg.storage.wal_path = os.path.join(root, "q-wal")
+        q_cfg.querier_worker.frontend_address = \
+            f"grpc://127.0.0.1:{fe.grpc_port}"
+        qa = App(q_cfg, device="cuda")
+        apps.append(qa)
+        qa.start_loops()
+        qa.db.poll_now()
+        deadline = time.time() + 30
+        while fe.frontend.remote_workers < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        if fe.frontend.remote_workers < 1:
+            raise AssertionError(f"{ctx}: no querier worker attached")
+        q = "{ } | rate() by (name)"
+        args = dict(start_s=t_base - 60, end_s=t_base + 3600, step_s=300.0)
+        t = time.perf_counter()
+        got = fe.frontend.query_range(tenant, q, **args)
+        pull_ms = (time.perf_counter() - t) * 1e3
+        jobs = qa.frontend_worker.jobs_executed
+        t = time.perf_counter()
+        want = rig.app.frontend.query_range(tenant, q, **args)
+        single_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for a in reversed(apps):
+            a.shutdown()
+    if not jobs:
+        raise AssertionError(f"{ctx}: the remote querier ran no job")
+    a = {s.labels: np.asarray(s.samples) for s in got}
+    b = {s.labels: np.asarray(s.samples) for s in want}
+    if len(a) != 3 or a.keys() != b.keys() or not all(
+            np.array_equal(a[k], b[k], equal_nan=True) for k in a):
+        raise AssertionError(f"{ctx}: the worker-pull query_range differs "
+                             f"from the single binary's")
+    # the vulture writes at the wall clock: the App's pinned clock
+    # catches up so its search window holds those traces
+    rig.clock[0] = time.time()
+    report = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        rc = vulture_main(["--url", rig.base, "--tenant", "vulture",
+                           "--cycles", "1", "--interval", "0",
+                           "--read-delay", "0", "--seed", str(SEED)])
+    vulture_ms = (time.perf_counter() - t) * 1e3
+    cycle = json.loads(report.getvalue())
+    if rc or not cycle["ok"] or cycle["read_ok"] != cycle["written"]:
+        raise AssertionError(f"{ctx}: the vulture cycle failed: {cycle}")
+    return dict(jobs=jobs, pull_ms=pull_ms, single_ms=single_ms,
+                vulture_ms=vulture_ms, series=len(a),
+                vulture_traces=cycle["written"])
+
+
+def _self_tracing(root):
+    """16d: an App with `selftrace.enabled`, on the wall clock (its own
+    spans are stamped by it), takes a push and a search; its tracer's
+    flush goes through loopback into its own distributor under the
+    reserved tenant, whose span metrics run K1; the `tempo_selftrace_*`
+    families count the spans."""
+    import urllib.parse
+
+    import torch
+
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.utils import tracing
+
+    ctx = "phase 16d"
+    payload = encode_spans_otlp(synthetic_spans(
+        N_SPANS // 8, seed=SEED + 169, now_ns=time.time_ns()))
+    _reset_singletons()
+    rig = _AppRig("cuda", os.path.join(root, "self"), None,
+                  processors=DEFAULT_PROCESSORS, selftrace=True,
+                  patch=GRPC_PATCH)
+    try:
+        tr = tracing.tracer()
+        if not isinstance(tr, tracing.SelfTracer) or not tr.loopback:
+            raise AssertionError(f"{ctx}: no loopback tracer installed")
+        rig.post(payload)
+        rig.settle()
+        rig.get("/api/search?q=" + urllib.parse.quote("{ }"))
+        sc = rig.app.sched
+        b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+        ck.reset_launch_counts()
+        before = tr.stats["spans"]
+        exported = tr.flush()
+        sc.flush()
+        inst = rig.app.generator.instances.get(tr.tenant)
+        if inst is None or not exported:
+            raise AssertionError(f"{ctx}: {exported} spans exported, tenant "
+                                 f"{tr.tenant} not on the generator")
+        inst.drain()
+        torch.cuda.synchronize()
+        launches = ck.paged_fused_update.launches
+        dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+        if tr.stats["spans"] != before or not launches or \
+                launches != dispatches:
+            raise AssertionError(f"{ctx}: {tr.stats['spans'] - before} spans "
+                                 f"made while self-ingesting, K1 {launches} "
+                                 f"launches for {dispatches} dispatches")
+        received = inst.spans_received
+        _, text = rig.get("/metrics")
+        fams = {ln.split()[0]: float(ln.split()[1])
+                for ln in text.splitlines()
+                if ln.startswith("tempo_selftrace_")}
+        if not fams.get("tempo_selftrace_spans_total") or \
+                not fams.get("tempo_selftrace_loopback_batches_total"):
+            raise AssertionError(f"{ctx}: tempo_selftrace_* {fams}")
+        q = urllib.parse.quote('{ name = "distributor.PushSpans" }')
+        found = rig.get(f"/api/search?q={q}", tenant=tr.tenant)[1]["traces"]
+        if not found:
+            raise AssertionError(f"{ctx}: the reserved tenant's search found "
+                                 f"none of the App's own push spans")
+        return dict(exported=exported, received=received, launches=launches,
+                    families=fams, found=len(found))
+    finally:
+        rig.shutdown(keep_live=False)
+        _reset_singletons()
+
+
+def phase_grpc(card):
+    """Phase 16: the gRPC plane and the rest of the App's surface on the
+    card (16a-16d) against a CPU twin. Returns (results, [K1's kernel
+    entries for the Export and the push_spans routes])."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase16-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_grpc(card, root)
+
+
+def _phase_grpc(card, root):
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    ctx = "phase 16a"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    p = _grpc_payloads(t0)
+    _reset_singletons()
+    rig = _AppRig("cuda", os.path.join(root, "card"), t0,
+                  processors=DEFAULT_PROCESSORS, grpc=True, patch=GRPC_PATCH)
+    try:
+        if rig.inst.state_layout != "dense":
+            raise AssertionError(f"{ctx}: {rig.inst.state_layout} state")
+        proc = rig.inst.processors["span-metrics"]
+        rig.mats = _capture_windows(proc)
+        sc = rig.app.sched
+        counts = {}
+        inner_settle = rig.settle
+
+        def settle():
+            inner_settle()
+            counts.setdefault("launches", []).append(
+                ck.paged_fused_update.launches)
+            counts.setdefault("dispatches", []).append(
+                sc.batches_total.get(SCHED_KERNEL, 0))
+
+        rig.settle = settle
+        ck.reset_launch_counts()
+        b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+        push_ms, marks = _grpc_routes(rig, p)
+        launches = [b - a for a, b in zip([0] + counts["launches"][:-1],
+                                          counts["launches"])]
+        dispatches = [b - a for a, b in zip([b0] + counts["dispatches"][:-1],
+                                            counts["dispatches"])]
+        for name, n, d in zip(marks, launches, dispatches):
+            if n != d or not n:
+                raise AssertionError(f"{ctx}: {name}: K1 launched {n} times "
+                                     f"for {d} merged dispatches")
+        rows = []
+        for name, route, label in (
+                ("otlp_grpc", "gRPC TraceService/Export → Distributor."
+                 "push_otlp", "Export"),
+                ("jaeger_grpc", "gRPC CollectorService/PostSpans → "
+                 "Distributor.push_spans", "push_spans")):
+            a, b = marks[name]
+            k1, row = _dist_k1_row(
+                f"paged_fused_update (the App's {route} → the generator's "
+                f"SpanBatch route, scheduler, dense state, default "
+                f"processors, sketch dd, f32)", proc, rig.mats[b - 1],
+                launches[list(marks).index(name)], f"{ctx} {label} window")
+            rows.append((label, k1, row))
+        t_base = _pull_blocks(rig)
+        reads = _grpc_reads(rig, p, t_base)
+        pull = _worker_pull(rig, root, t_base)
+        card_inst = rig.inst
+        rig.shutdown(keep_live=False)
+        rig.inst = None
+    except BaseException:
+        rig.shutdown(keep_live=False)
+        raise
+    del proc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CPU twin: the same bytes over the same routes
+    _reset_singletons()
+    twin = _AppRig("cpu", os.path.join(root, "twin"), t0,
+                   processors=DEFAULT_PROCESSORS, grpc=True, patch=GRPC_PATCH)
+    try:
+        twin.mats = []
+        _grpc_routes(twin, p)
+        n_fams, n_series, rel = _compare_by_labels(card_inst, twin.inst,
+                                                   f"{ctx} card vs CPU twin")
+        _same_quantiles(card_inst, twin.inst, f"{ctx} card vs CPU twin")
+    finally:
+        twin.shutdown(keep_live=False)
+        _reset_singletons()
+    del card_inst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    selftrace = _self_tracing(root)
+    selftrace["seconds"] = time.perf_counter() - t
+    out = dict(push_ms=push_ms, launches=dict(zip(marks, launches)),
+               rows=[(label, k1["ms"][1], k1["device_ms"], k1["bound_ms"],
+                      k1["bound_by"], k1["bound_bytes"], k1["plain_ms"][1])
+                     for label, k1, _ in rows],
+               reads=reads, pull=pull, selftrace=selftrace,
+               families=n_fams, series=n_series, max_rel=rel,
+               payload_bytes={"otlp": len(p["otlp"][0]),
+                              "jaeger": len(p["jaeger"]),
+                              "thrift": sum(map(len, p["thrift"])),
+                              "thrift_posts": len(p["thrift"]),
+                              "opencensus": sum(map(len, p["oc"]))})
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, [row for _, _, row in rows]
+
+
+def _print_phase16(r, card):
+    ms, n = r["push_ms"], r["launches"]
+    print(f"phase 16a [{card}]: the App at target all, default processors "
+          f"on dense state, {N_GRPC_PUSHES} pushes of {N_SPANS} k6-like spans "
+          f"over gRPC Export: "
+          f"{', '.join(f'{m:.1f}' for m in ms['otlp_each'])} ms a push "
+          f"({r['payload_bytes']['otlp']} bytes); the first again over POST "
+          f"/v1/traces {ms['otlp_http']:.1f} ms; its spans over Jaeger "
+          f"PostSpans {ms['jaeger_grpc']:.1f} ms "
+          f"({r['payload_bytes']['jaeger']} bytes), over POST /api/traces "
+          f"(Thrift, {r['payload_bytes']['thrift_posts']} batches, one a "
+          f"service) {ms['jaeger_thrift']:.1f} ms, over one OpenCensus "
+          f"stream of {N_OC_MESSAGES} messages {ms['opencensus_grpc']:.1f} ms")
+    print(f"phase 16a [{card}]: K1 launches = merged dispatches on every "
+          f"route: {json.dumps(n)}; {r['families']} families, "
+          f"{r['series']} series equal to the CPU twin's (counts and buckets "
+          f"exact, DDSketch quantiles equal, sums within rtol 1e-5, largest "
+          f"{r['max_rel']:.2e})")
+    for label, k1_ms, dev, bms, by, nbytes, plain in r["rows"]:
+        print(f"phase 16a [{card}]: K1 on the {label} route's last window: "
+              f"{k1_ms:.4f} ms with the host (CUDA events), device {dev} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} "
+              f"bytes)")
+    b = r["reads"]
+    print(f"phase 16b [{card}]: over gRPC, each equal to the HTTP API's "
+          f"answer: FindTraceByID {b['find']:.2f} ms a trace, streaming "
+          f"search {b['search']:.2f} ms ({b['search_messages']} messages), "
+          f"streaming query_range {b['query_range']:.2f} ms "
+          f"({b['query_range_messages']} messages), streaming tags "
+          f"{b['tags']:.2f} ms")
+    c = r["pull"]
+    print(f"phase 16c [{card}]: a query-frontend App and a querier App "
+          f"over querier_worker.frontend_address (gRPC): query_range of "
+          f"{N_PULL_BLOCKS} backend blocks {c['pull_ms']:.1f} ms through the "
+          f"remote worker ({c['jobs']} jobs), equal to the single binary's "
+          f"({c['single_ms']:.1f} ms, {c['series']} series); one vulture "
+          f"cycle {c['vulture_ms']:.1f} ms ({c['vulture_traces']} traces "
+          f"written, read back and found)")
+    d = r["selftrace"]
+    print(f"phase 16d [{card}]: selftrace.enabled: {d['exported']} own spans "
+          f"through loopback into the reserved tenant ({d['received']} "
+          f"received, {d['found']} traces found by its search), K1 "
+          f"{d['launches']} launches for them; {json.dumps(d['families'])}; "
+          f"{d['seconds']:.1f} s")
+    print(f"phase 16 [{card}]: {r['seconds']:.1f} s")
 
 
 def main() -> int:
@@ -7080,7 +7699,8 @@ def _main() -> int:
             ck._lib(src)
         print("PROFILES " + json.dumps(final_profiles(sys.argv[2])))
         return 0
-    if sys.argv[1:] not in ([], ["--phase14"], ["--phase15"]):
+    if sys.argv[1:] not in ([], ["--phase14"], ["--phase15"],
+                            ["--phase16"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     card = smi_line()
@@ -7111,6 +7731,17 @@ def _main() -> int:
         s15, k15 = phase_durability(card)
         _resolve_later(phase15=True)
         print(json.dumps(k15, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--phase16"]:
+        # phase 16 alone, K1's device time on its windows from a process
+        # of its own
+        s16, k16 = phase_grpc(card)
+        _print_phase16(s16, card)
+        _resolve_later(phase15=False)
+        print(json.dumps(k16, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -7261,6 +7892,8 @@ def _main() -> int:
     _print_phase14(s14, s12["prof"]["phase14"], card)
     print(f"phase 14 [{card}]: {s14['seconds']:.1f} s")
     s15, k15 = phase_durability(card)
+    s16, k16 = phase_grpc(card)
+    _print_phase16(s16, card)
     t_late = time.perf_counter()
     _resolve_later(phase15=True)
     print(f"the final profiles (every K1 window's device time, phase 15's "
@@ -7271,7 +7904,7 @@ def _main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
                                             *k8, k12, k13a, k13b, k14,
-                                            k15)]}))
+                                            k15, *k16)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

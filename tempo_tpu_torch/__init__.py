@@ -109,6 +109,8 @@ the outputs (`db.compactor`, `compactor.Compactor`).
 kernel no path of the system runs.
 """
 
+__version__ = "0.1.0"
+
 from tempo_tpu_torch import device  # noqa: F401  (sets the TF32 policy)
 from tempo_tpu_torch import native, sched
 from tempo_tpu_torch.generator import GeneratorConfig, GeneratorInstance

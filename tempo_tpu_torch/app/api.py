@@ -3,8 +3,8 @@
 Counterpart of `tempo_tpu/app/api.py`, copied with its imports moved to
 the port. `/metrics` renders the App's registry and the port's
 process-wide `obs.runtime.RUNTIME`. The Jaeger Thrift collector route
-(`POST /api/traces`) answers 501: its decoder, `model/jaeger`, comes
-with ROADMAP section 1, item 9b.
+(`POST /api/traces`) decodes with the port's `model/jaeger` and answers
+202, as the reference's does.
 
 Paths (Tempo-compatible):
   POST /v1/traces                      OTLP HTTP ingest (json or protobuf)
@@ -367,11 +367,18 @@ class Handler(BaseHTTPRequestHandler):
         self._reply(200, _json_bytes({"errors": errs} if errs else {}))
 
     def _push_jaeger(self, tenant: str) -> None:
-        """Jaeger collector endpoint (`/api/traces`, TBinaryProtocol
-        Batch): not implemented until the Jaeger wire model is ported."""
-        self._ingest_body()
-        self._err(501, "the Jaeger Thrift collector route comes with "
-                       "ROADMAP section 1, item 9b")
+        """Jaeger collector endpoint (`/api/traces`, TBinaryProtocol Batch)
+        — the thrift_http receiver of the reference's jaeger shim. Jaeger
+        collectors reply 202 Accepted."""
+        body = self._ingest_body()
+        if body is None:
+            return
+        from tempo_tpu_torch.model.jaeger import spans_from_jaeger_thrift
+        try:
+            spans = spans_from_jaeger_thrift(body)
+        except (ValueError, KeyError, TypeError) as e:
+            return self._err(400, f"malformed jaeger payload: {e}")
+        self._push_decoded(tenant, spans, 202)
 
     def _push_zipkin(self, tenant: str) -> None:
         body = self._ingest_body()

@@ -9,9 +9,10 @@ and loops are the reference's. Configurations whose parts are not
 ported raise `NotImplementedError` naming their ROADMAP item where the
 reference first builds the part: `mesh.enabled` (item 13),
 `ingest.kafka_bootstrap` and
-`distributor.jaeger_agent_port` (item 14), and `grpc://` peers,
-`server.grpc_listen_port`, `querier_worker.frontend_address`,
-`selftrace.enabled` and `self_tracing_endpoint` (item 9b).
+`distributor.jaeger_agent_port` (item 14). The gRPC plane
+(`server.grpc_listen_port`, `grpc://` peers, the frontend worker at
+`querier_worker.frontend_address`) and self-tracing (`selftrace.enabled`
+loopback, `self_tracing_endpoint`) are wired as in the reference.
 
 Analog of `cmd/tempo/app/app.go:165-253` (`App.Run`) and the module DAG of
 `modules.go:679-757`. Modules are constructed lazily in dependency order;
@@ -73,10 +74,15 @@ def later(what: str, item: str) -> NotImplementedError:
 def _make_remote_client(addr: str, kind: str):
     """Transport by URL scheme: grpc:// → gRPC plane, else HTTP RPC."""
     if addr.startswith("grpc://"):
-        raise later(f"the gRPC plane ({addr})", "9b")
-    from tempo_tpu_torch.rpc import RemoteGeneratorClient, RemoteIngesterClient
-    cls = RemoteIngesterClient if kind == "ingesters" \
-        else RemoteGeneratorClient
+        from tempo_tpu_torch.grpcplane import (GrpcGeneratorClient,
+                                               GrpcIngesterClient)
+        cls = GrpcIngesterClient if kind == "ingesters" \
+            else GrpcGeneratorClient
+    else:
+        from tempo_tpu_torch.rpc import (RemoteGeneratorClient,
+                                         RemoteIngesterClient)
+        cls = RemoteIngesterClient if kind == "ingesters" \
+            else RemoteGeneratorClient
     return cls(addr)
 
 
@@ -162,6 +168,9 @@ class App:
         self.usage_reporter = None
         self.bus = None
         self.blockbuilder = None
+        self.grpc_server = None
+        self.grpc_port: int = 0
+        self.frontend_worker = None
         self._lifecyclers: list[Lifecycler] = []
         # warm the native layer at startup so the first proto push never
         # pays the g++ compile inside a request handler
@@ -643,10 +652,17 @@ class App:
     def start_loops(self) -> None:
         """Background loops for the enabled modules (`App.Run`)."""
         if self.cfg.server.grpc_listen_port:
-            raise later("the gRPC server (server.grpc_listen_port)", "9b")
+            from tempo_tpu_torch.grpcplane import build_grpc_server
+            self.grpc_server, self.grpc_port = build_grpc_server(
+                self, f"{self.cfg.server.grpc_listen_address}:"
+                      f"{self.cfg.server.grpc_listen_port}")
         if self.querier and self.cfg.querier_worker.frontend_address:
-            raise later("the frontend worker "
-                        "(querier_worker.frontend_address)", "9b")
+            from tempo_tpu_torch.grpcplane import FrontendWorker
+            self.frontend_worker = FrontendWorker(
+                self.cfg.querier_worker.frontend_address, self.querier,
+                worker_id=f"querier-{id(self) & 0xffff:x}",
+                parallelism=self.cfg.querier_worker.parallelism)
+            self.frontend_worker.start()
         if self.distributor is not None and \
                 self.cfg.distributor.jaeger_agent_port:
             raise later("the Jaeger agent receiver "
@@ -661,11 +677,32 @@ class App:
                 self.db.enable_compaction(self.cfg.compaction_interval_s)
         stc = self.cfg.selftrace
         st_endpoint = stc.endpoint or self.cfg.self_tracing_endpoint
-        if (stc.enabled and self.distributor is not None) or st_endpoint:
-            # the reference installs its SelfTracer here (loopback into
-            # this process's distributor, or an OTLP endpoint)
-            raise later("self-tracing (selftrace.enabled, "
-                        "self_tracing_endpoint)", "9b")
+        st_tenant = stc.tenant if stc.tenant != "tempo-self" \
+            else self.cfg.self_tracing_tenant
+        st_sink = None
+        if stc.enabled and self.distributor is not None:
+            # loopback: export batches go straight into this process's
+            # own distributor under the reserved ops tenant (recursion-
+            # guarded inside the tracer and span_for_tenant); from there
+            # they take the push path onto the device like any tenant's
+            def st_sink(payload, _dist=self.distributor,
+                        _tenant=st_tenant):
+                _dist.push_otlp(_tenant, payload)
+        if st_sink is not None or st_endpoint:
+            from tempo_tpu_torch.utils import tracing
+            # service.name is the fleet-wide identity ("tempo-tpu"); the
+            # process role rides as a resource attribute
+            self._self_tracer = tracing.SelfTracer(
+                st_endpoint, service_name="tempo-tpu", tenant=st_tenant,
+                flush_interval_s=stc.flush_interval_s,
+                max_buffer=stc.max_buffer,
+                head_sample_rate=stc.head_sample_rate,
+                max_trace_spans=stc.max_trace_spans,
+                max_open_traces=stc.max_open_traces,
+                sink=st_sink,
+                resource_attrs={"tempo.target": self.cfg.target},
+                now=self.now)
+            tracing.install(self._self_tracer)
         if self.bus is not None and (self.blockbuilder is not None
                                      or self.generator is not None):
             ic = self.cfg.ingest
@@ -724,6 +761,18 @@ class App:
             self.sched.flush()
         if getattr(self, "usage_reporter", None) is not None:
             self.usage_reporter.shutdown()
+        mine = getattr(self, "_self_tracer", None)
+        if mine is not None:
+            from tempo_tpu_torch.utils import tracing
+            mine.shutdown()
+            # uninstall the global only while it is still this App's:
+            # another App in the process may have installed its own since
+            if tracing.tracer() is mine:
+                tracing.install(tracing.NoopTracer())
+        if self.frontend_worker:
+            self.frontend_worker.shutdown()
+        if self.grpc_server:
+            self.grpc_server.stop(grace=1).wait(2)
         if self.distributor:
             self.distributor.forwarders.shutdown()  # drain queued tees
         if self.ingester:

@@ -965,6 +965,18 @@ class ParquetFile:
         """Uncompressed size of row group `i` (`RowGroup.total_byte_size`)."""
         return int(self._row_groups[i].get(2, 0))
 
+    def column_chunk_sizes(self, i: int) -> list[tuple[str, int, int]]:
+        """(dotted path in the schema, compressed bytes, uncompressed
+        bytes) of each column chunk of row group `i`, from its
+        `ColumnMetaData` (what pyarrow's `metadata.row_group(i)` reports)."""
+        out = []
+        for chunk in self._row_groups[i][1]:
+            cm = chunk[3]
+            path = ".".join(p.decode() if isinstance(p, bytes) else str(p)
+                            for p in cm[3])
+            out.append((path, int(cm[7]), int(cm[6])))
+        return out
+
     def read_row_group(self, i: int,
                        columns: Sequence[str] | None = None) -> ColumnTable:
         rg = self._row_groups[i]

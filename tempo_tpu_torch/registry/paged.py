@@ -92,9 +92,10 @@ class _PagedBase(_MetricBase):
 
 def _compact_write(name: str) -> None:
     raise NotImplementedError(
-        f"{name}: non-fused writes to a compact-state family come with a "
-        "later slice of the port (the span-metrics processor writes its "
-        "compact families through ops.pages.fused_step)")
+        f"{name}: the port has no per-span compact tier (a deliberate "
+        "difference, ROADMAP section 3, \"Compact tier\": compact families "
+        "are written only through ops.pages.fused_step, K1's compact "
+        "branch)")
 
 
 class PagedCounter(_PagedBase, Counter):

@@ -185,6 +185,30 @@ class PagePool:
                         out[owner] = out.get(owner, 0) + pb
         return out
 
+    def status(self) -> dict:
+        """The /status "pages" object, with the reference's keys.
+        `series_shards` is 1: the port has no serving mesh (ROADMAP
+        section 1, item 13)."""
+        with self.lock:
+            arenas = [{
+                "role": a.role, "dtype": a.dtype, "width": a.width,
+                "pages": a.n_pages - 1, "reserved": 1,
+                "free": len(a.free),
+                "page_bytes": a.page_bytes,
+                "bytes": a.page_bytes * a.n_pages,
+            } for a in self.arenas.values()]
+        top = sorted(self.tenant_bytes().items(), key=lambda kv: -kv[1])[:10]
+        return {
+            "page_rows": self.page_rows,
+            "arena_pages": self._arena_pages,
+            "series_shards": 1,
+            "allocated_total": self.allocated_total,
+            "evicted_total": self.evicted_total,
+            "alloc_failures": self.alloc_failures,
+            "arenas": arenas,
+            "top_tenant_bytes": [{"tenant": t, "bytes": b} for t, b in top],
+        }
+
 
 class PagedPlane:
     """One family plane's logical slot space over a pooled arena."""

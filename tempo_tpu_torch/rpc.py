@@ -1,8 +1,8 @@
 """Inter-service RPC: remote clients for the in-process seams.
 
 Counterpart of `tempo_tpu/rpc.py`, copied with its imports moved to the
-port. The App builds these clients for static `http://` peers; the gRPC
-plane (`grpc://` peers) comes with ROADMAP section 1, item 9b.
+port. The App builds these clients for static `http://` peers; `grpc://`
+peers get the gRPC plane's clients (`grpcplane/client.py`) instead.
 
 Analog of the reference's gRPC plane (`pkg/tempopb/tempo.proto` services
 Pusher / MetricsGenerator / Querier, carried by dskit server): every

@@ -551,8 +551,8 @@ class DeviceScheduler:
         """
         if align != 1 or shards:
             raise NotImplementedError(
-                "submit_rows align/shards (the serving mesh) come with a "
-                "later slice of the port (mesh serving)")
+                "submit_rows align/shards (the serving mesh) come with "
+                "ROADMAP section 1, item 13")
         pads = tuple(pads) if pads is not None else \
             (-1,) + (0,) * (len(arrays) - 1)
         job = Job(priority=PRIO_INGEST, kernel=kernel, merge_key=merge_key,

@@ -10,12 +10,12 @@ tests left for the App, `tests/test_matview.py:591`
 (`test_config_check_matview_bounds`) and `tests/test_traceanalytics.py:467`
 (`test_quantile_endpoint_serves_latency_shares`).
 
-Left out, with their items: `test_jaeger_receiver` (the Jaeger Thrift
-decoder `model/jaeger` is ROADMAP section 1, item 9b; the port's route
-answers 501, held below), and `test_jaeger_agent_udp_receiver`,
-`test_jaeger_agent_wired_into_app` and
-`test_jaeger_agent_dos_datagram_rejected_fast` (the UDP agent receiver,
-item 14, over `model/jaeger`, item 9b).
+`test_jaeger_receiver` (`tests/test_app.py:311`) runs on both Apps of
+the differential pair. Left out, with their item:
+`test_jaeger_agent_udp_receiver` and `test_jaeger_agent_wired_into_app`
+(the UDP agent receiver, item 14; its datagram decoder is held in
+`test_torch_wire_models.py`, with
+`test_jaeger_agent_dos_datagram_rejected_fast`).
 
 The differential test pushes the same seeded OTLP protobuf over HTTP
 into the reference's App (JAX on the CPU) and the port's, and compares
@@ -305,11 +305,40 @@ def _later_cases():
         c.peers.ingesters = {"ingester-1": "grpc://127.0.0.1:9095"}
 
     # item None: ported (item 12), the App boots, takes a push and shows
-    # the part on /status
+    # the part on /status; item "9b": ported with item 9b (the gRPC plane
+    # and self-tracing), the App boots and builds the part
     return [(wal, None, False), (fleet, None, False), (mesh, "13", False),
             (kafka, "14", False), (agent, "14", True), (grpc, "9b", True),
             (worker, "9b", True), (selftrace, "9b", True),
             (endpoint, "9b", True), (grpc_peer, "9b", False)]
+
+
+def _check_ported_surface(cfg):
+    """The App builds the part the reference builds for `cfg`: the gRPC
+    server, the frontend worker, the self-tracer (loopback or endpoint)
+    or the gRPC peer clients."""
+    from tempo_tpu_torch.grpcplane import (FrontendWorker,
+                                           GrpcIngesterClient)
+    from tempo_tpu_torch.utils import tracing
+
+    app = App(cfg, device="cpu")
+    try:
+        app.start_loops()
+        assert app.ready
+        if cfg.server.grpc_listen_port:
+            assert app.grpc_server is not None and app.grpc_port
+        if cfg.querier_worker.frontend_address:
+            assert isinstance(app.frontend_worker, FrontendWorker)
+        if cfg.selftrace.enabled or cfg.self_tracing_endpoint:
+            t = tracing.tracer()
+            assert isinstance(t, tracing.SelfTracer)
+            assert t.loopback == cfg.selftrace.enabled
+        if cfg.peers.ingesters:
+            assert isinstance(app.distributor.ingester_clients["ingester-1"],
+                              GrpcIngesterClient)
+    finally:
+        app.shutdown()
+    assert isinstance(tracing.tracer(), tracing.NoopTracer)
 
 
 @pytest.mark.parametrize("patch,item,at_start", _later_cases(),
@@ -320,9 +349,14 @@ def test_unported_configurations_raise_naming_their_item(
     ROADMAP item where the reference first builds the part: at
     construction, or in `start_loops`. The ported ones (`wal`, `fleet`;
     item 12) boot, take a push into the generator and report their part
-    on /status."""
+    on /status; the gRPC plane and self-tracing boot and build their
+    part."""
     cfg = _cfg(tmp_path)
     patch(cfg)
+    if item == "9b":
+        if cfg.server.grpc_listen_port:
+            cfg.server.grpc_listen_port = free_port()
+        return _check_ported_surface(cfg)
     if item is None:
         from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
         app = App(cfg, device="cpu")
@@ -521,19 +555,6 @@ def test_otlp_malformed_and_gzip(server):
                  "Content-Encoding": "gzip"})
     assert _code(lambda: urllib.request.urlopen(bad, timeout=10).status
                  and (200,)) == 400
-
-
-def test_jaeger_thrift_route_answers_501_naming_item_9b(server):
-    """The Jaeger Thrift collector route is the one public route left out
-    (its decoder is item 9b): 501 with the item named, not a 404 or 500."""
-    app, base = server
-    req = urllib.request.Request(f"{base}/api/traces", data=b"\x0b\x00\x01",
-                                 headers={"Content-Type":
-                                          "application/x-thrift"})
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        urllib.request.urlopen(req, timeout=10)
-    assert ei.value.code == 501
-    assert "item 9b" in json.loads(ei.value.read())["error"]
 
 
 def test_metrics_summary_without_generator(tmp_path):
@@ -931,3 +952,107 @@ def test_trace_with_links_renders_hex_where_the_reference_answers_500(pair):
     assert code == 200
     assert doc["spans"][0]["links"] == [{"trace_id": "07" * 16,
                                          "span_id": "09" * 8}]
+
+
+def test_jaeger_receiver(pair):
+    """`tests/test_app.py:311` on both Apps of the pair: a Thrift batch
+    through `POST /api/traces` answers 202 and lands with span.kind and
+    error tags mapped; the trace, the search and the generator's tee
+    agree with the reference's; a malformed batch answers 400."""
+    from tests.test_app import _jaeger_batch
+
+    start_us = int((time.time() - 3) * 1e6)
+    batch = _jaeger_batch("jaeger-svc", [{
+        "tid_lo": 0x0102030405060708, "tid_hi": 0x1112131415161718,
+        "sid": 0x0A0B0C0D0E0F1011, "name": "jg-op",
+        "start_us": start_us, "dur_us": 75_000,
+        "tags": {"span.kind": "server", "http.status_code": 500,
+                 "error": True, "peer.address": "10.0.0.9"},
+    }])
+    hdr = {"X-Scope-OrgID": "jaeger", "Content-Type": "application/x-thrift"}
+    tid_hex = "1112131415161718" + "0102030405060708"
+    got = {}
+    for n in ("port", "ref"):
+        app, _, base = pair[n]
+        app.overrides.set_tenant_patch("jaeger", {
+            "generator": {"processors": ["span-metrics"]}})
+        req = urllib.request.Request(f"{base}/api/traces", data=batch,
+                                     headers=hdr)
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert r.status == 202
+        q = {"X-Scope-OrgID": "jaeger"}
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/api/traces/{tid_hex}", headers=q), timeout=10) as r:
+            tr = json.loads(r.read())
+        sp = tr["spans"][0]
+        assert (sp["name"], sp["service"], sp["kind"], sp["status_code"]) \
+            == ("jg-op", "jaeger-svc", 2, 2)
+        assert sp["attrs"]["http.status_code"] == 500
+        assert sp["attrs"]["peer.address"] == "10.0.0.9"
+        assert "span.kind" not in sp["attrs"]
+        assert sp["res_attrs"]["hostname"] == "h1"
+        assert sp["end_unix_nano"] - sp["start_unix_nano"] == 75_000_000
+        app.sched.flush()
+        assert app.generator.instance("jaeger").spans_received >= 1
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{base}/api/search?q=" + urllib.parse.quote(
+                    '{ resource.service.name = "jaeger-svc" }'),
+                headers=q), timeout=10) as r:
+            res = json.loads(r.read())
+        assert len(res["traces"]) == 1
+        bad = urllib.request.Request(f"{base}/api/traces",
+                                     data=b"\x0b\x00\x01", headers=hdr)
+        assert _code(lambda: urllib.request.urlopen(bad, timeout=10).status
+                     and (200,)) == 400
+        got[n] = (tr["spans"], res["traces"])
+    assert got["port"] == got["ref"]
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["f32", "compact"])
+def test_differential_status_pages(tmp_path, compact):
+    """With the page pool on (and compact state, K1's compact branch, on
+    the reference's interpreted Pallas kernel), `/status` answers 200 on
+    both Apps after the same push, and its "pages" object (page rows,
+    arena pages, series shards, the totals, every arena and the top
+    tenants' bytes) equals the reference's."""
+    from tempo_tpu.app import App as JApp
+    from tempo_tpu.app import load_config as jload
+    from tempo_tpu.app.api import serve as jserve
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp
+
+    text = ("pages: {enabled: true, page_rows: 64, arena_slots: 1024}\n"
+            "generator: {spanmetrics: {sketch_max_series: 256")
+    text += (", compact_state: true, kernel: pallas, pallas_interpret: true"
+             if compact else "") + "}}\n"
+    payload = encode_spans_otlp(_seeded_spans(int(time.time() * 1e9))[:64])
+    got = {}
+    for name, A, load, S in (("port", App, load_config, serve),
+                             ("ref", JApp, jload, jserve)):
+        cfg = load(text=text)
+        cfg.storage.backend = "mem"
+        cfg.storage.wal_path = str(tmp_path / name / "wal")
+        cfg.generator.localblocks.data_dir = str(tmp_path / name / "lb")
+        cfg.generator.registry.max_active_series = 256
+        cfg.server.http_listen_port = free_port()
+        app = A(cfg, device="cpu") if name == "port" else A(cfg)
+        srv = S(app, block=False)
+        try:
+            app.overrides.set_tenant_patch("single-tenant", {"generator": {
+                "processors": ["span-metrics"], "max_active_series": 256}})
+            base = f"http://127.0.0.1:{cfg.server.http_listen_port}"
+            code, _ = _post(f"{base}/v1/traces", payload,
+                            "application/x-protobuf")
+            assert code == 200
+            app.sched.flush()
+            code, st = _get(f"{base}/status")
+            assert code == 200
+            got[name] = st["pages"]
+        finally:
+            srv.shutdown()
+            app.shutdown()
+            _reset_port()
+    assert got["port"] == got["ref"]
+    assert got["port"]["allocated_total"] > 0
+    assert got["port"]["series_shards"] == 1
+    assert {a["dtype"] for a in got["port"]["arenas"]} >= (
+        {"int32", "bfloat16"} if compact else {"float32"})

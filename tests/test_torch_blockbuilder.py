@@ -77,6 +77,22 @@ def traces_at(rng, now_s, n_traces=24, spans=4):
     return out
 
 
+def balanced(traces, per_partition=12, n_partitions=2):
+    """The first `per_partition` traces that land in each partition: every
+    block of a cycle holds the same number of spans, so the reference's
+    jitted sidecar build compiles once for all four blocks."""
+    from tempo_tpu_torch.ingest.encoding import partition_for
+
+    mat = np.stack([np.frombuffer(t, np.uint8) for t, _ in traces])
+    parts = partition_for(token_for(TENANT, mat), n_partitions)
+    out = []
+    for p in range(n_partitions):
+        picked = [tr for tr, q in zip(traces, parts) if q == p]
+        assert len(picked) >= per_partition
+        out += picked[:per_partition]
+    return out
+
+
 def produce(side, bus, traces):
     mat = np.stack([np.frombuffer(t, np.uint8) for t, _ in traces])
     mod(side, "ingest.encoding").produce_traces(bus, TENANT, traces,
@@ -147,8 +163,8 @@ def stacks(tmp_path_factory):
     leg (the local blocks still uncut)."""
     root = tmp_path_factory.mktemp("bb")
     rng = np.random.default_rng(20261017)
-    history = traces_at(rng, T0)
-    recent = traces_at(rng, T0 + RECENT_S)
+    history = balanced(traces_at(rng, T0, n_traces=48))
+    recent = balanced(traces_at(rng, T0 + RECENT_S, n_traces=48))
     out = {side: Stack(side, root) for side in ("ref", "port")}
     for st in out.values():
         st.push(history)

@@ -242,25 +242,24 @@ ov.set_tenant_patch("a", {"generator": {"processors": ["span-metrics"],
 spans = trace_tree_spans(24, seed=3, now_ns=time.time_ns())
 data = encode_spans_otlp(spans)
 tid = spans[0]["trace_id"]
-for n_gen in (1, 2):
-    ings = {f"i{k}": Ingester(f"{root}/{n_gen}/i{k}", flush_writer=store,
-                              overrides=ov, instance_id=f"i{k}")
-            for k in range(3)}
-    gens = {f"g{k}": Generator(tt.GeneratorConfig(
-        spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
-        overrides=ov, instance_id=f"g{k}", device="cpu") for k in range(n_gen)}
-    d = Distributor(ring(ings, 3), ings, overrides=ov,
-                    generator_ring=ring(gens, 1), generator_clients=gens)
-    assert d.push_otlp("a", data) == {}
-    for ing in ings.values():
-        assert ing.find_trace_by_id("a", tid)
-        ing.sweep_all(immediate=True)
-        assert ing.find_trace_by_id("a", tid)
-        assert ing.flush_tick() == 2
-        (entry,) = ing.instance("a").complete.values()
-        assert entry.flushed_ts and ing.find_trace_by_id("a", tid)
-        meta = read_block_meta(store, entry.meta.block_id, "a")
-        assert BackendBlock(store, meta).find_trace_by_id(tid)
+ings = {f"i{k}": Ingester(f"{root}/i{k}", flush_writer=store,
+                          overrides=ov, instance_id=f"i{k}")
+        for k in range(3)}
+gens = {"g0": Generator(tt.GeneratorConfig(
+    spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
+    overrides=ov, instance_id="g0", device="cpu")}
+d = Distributor(ring(ings, 3), ings, overrides=ov,
+                generator_ring=ring(gens, 1), generator_clients=gens)
+assert d.push_otlp("a", data) == {}
+for ing in ings.values():
+    assert ing.find_trace_by_id("a", tid)
+    ing.sweep_all(immediate=True)
+    assert ing.find_trace_by_id("a", tid)
+    assert ing.flush_tick() == 2
+    (entry,) = ing.instance("a").complete.values()
+    assert entry.flushed_ts and ing.find_trace_by_id("a", tid)
+    meta = read_block_meta(store, entry.meta.block_id, "a")
+    assert BackendBlock(store, meta).find_trace_by_id(tid)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
              or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
@@ -424,7 +423,7 @@ with tempfile.TemporaryDirectory() as root:
     d = Distributor(Ring(replication_factor=1), {}, overrides=ov, bus=bus,
                     now=now)
     for leg in range(2):
-        spans = synthetic_spans(200, seed=leg, now_ns=int((clock[0] - 5) * 1e9))
+        spans = synthetic_spans(32, seed=leg, now_ns=int((clock[0] - 5) * 1e9))
         assert d.push_otlp("t", encode_spans_otlp(spans)) == {}
         assert gen.consume_bus(bus) > 0 and bb.consume_cycle() > 0
         clock[0] += 1200.0
@@ -438,7 +437,7 @@ with tempfile.TemporaryDirectory() as root:
     got = fe.query_range("t", "{ } | rate()", start_s=T0 - 600,
                          end_s=clock[0], step_s=clock[0] - T0 + 600)
     assert round(sum(float(s.samples.sum()) for s in got)
-                 * (clock[0] - T0 + 600)) == 400
+                 * (clock[0] - T0 + 600)) == 64
     assert db.compaction_stats["sidecar_folds"] > 0
     fe.shutdown()
     db.shutdown()
@@ -695,7 +694,7 @@ def test_unsupported_spanmetrics_configs_raise(sm):
         assert sc.pending() == 1
         sc.flush()
         for kw in (dict(align=2), dict(shards=2)):
-            with pytest.raises(NotImplementedError, match="later slice"):
+            with pytest.raises(NotImplementedError, match="item 13"):
                 sc.submit_rows("k", "m", (np.zeros(4, np.int32),), 4,
                                lambda s: None, **kw)
 
@@ -943,3 +942,53 @@ def test_kv_only_worker_drive_loads_no_reference_yaml_or_pyarrow():
     that hand a tenant off over a `MemBackend` loads none of them
     either."""
     _fresh(_KV_WORKER_DRIVE)
+
+
+_GRPC_CLI_DRIVE = """
+import contextlib
+import io
+import sys
+import tempfile
+import time
+import grpc
+from tempo_tpu_torch.app import App
+from tempo_tpu_torch.app.config import Config
+from tempo_tpu_torch.cli.__main__ import main as cli_main
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+with tempfile.TemporaryDirectory() as root:
+    cfg = Config()
+    cfg.storage.local_path = root + "/blocks"
+    cfg.storage.wal_path = root + "/wal"
+    cfg.generator.localblocks.data_dir = root + "/lb"
+    cfg.server.grpc_listen_port = 0
+    app = App(cfg, device="cpu")
+    app.overrides.set_tenant_patch("single-tenant", {"generator": {
+        "processors": ["span-metrics"]}})
+    from tempo_tpu_torch.grpcplane import build_grpc_server
+    srv, port = build_grpc_server(app)
+    spans = synthetic_spans(16, seed=1, now_ns=int((time.time() - 5) * 1e9))
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        export = ch.unary_unary(
+            "/opentelemetry.proto.collector.trace.v1.TraceService/Export")
+        assert export(encode_spans_otlp(spans), timeout=10) == b""
+    app.sched.flush()
+    assert app.generator.instance("single-tenant").spans_received == 16
+    assert app.ingester.find_trace_by_id("single-tenant",
+                                         spans[0]["trace_id"])
+    srv.stop(0)
+    app.shutdown()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli_main(["--path", root + "/blocks", "--device", "cpu",
+                         "list", "blocks", "single-tenant"]) == 0
+    # the ingester flushed the pushed traces into one block at shutdown
+    assert "total: 1 blocks, 16 traces" in out.getvalue()
+""" + _DRIVE_TAIL
+
+
+def test_grpc_export_and_cli_drive_loads_no_reference_yaml_or_pyarrow():
+    """An App's gRPC OTLP `Export` round trip (distributor, ingester, the
+    generator's tee) and one `cli` command, in a fresh interpreter: no
+    `jax`, `tempo_tpu`, `yaml` or `pyarrow` is loaded."""
+    _fresh(_GRPC_CLI_DRIVE)

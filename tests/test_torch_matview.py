@@ -737,7 +737,11 @@ def test_steady_state_appends_allocate_no_new_grid(tmp_path):
     clock = [T0]
     now = lambda: clock[0]
     ids = itertools.count(1)
-    inst = mkgen("port", now, tmp_path).instance("t1")
+    gen = mkgen("port", now, tmp_path)
+    # a small dense registry: each push folds the whole of it on the CPU
+    gen.overrides.set_tenant_patch("t1", {
+        "generator": {"max_active_series": 1024}})
+    inst = gen.instance("t1")
     mv = configure("port", now, max_staleness_s=1e9)
     mv.subscribe("t1", RATE_Q, 10.0)
     for _ in range(3):                   # warm: the grid is built
