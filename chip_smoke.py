@@ -364,6 +364,37 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
       into the reserved tenant, whose span metrics run K1 (launches
       equal to dispatches), found by that tenant's search, and
       `tempo_selftrace_*` nonzero.
+17. Kafka ingest and the Jaeger agent, on the card against CPU twins,
+   over the repository's mock broker (`tests/mock_kafka.py`, loaded by
+   its path; it checks every batch's CRC32C):
+   a. 3 OTLP payloads of 16,384 k6-like spans produced to a topic and
+      consumed by `KafkaReceiver` into `App(Config())` at target `all`
+      (default processors, dense state);
+   b. the ingest-storage path over a 4-partition `KafkaBus`: a
+      `Distributor` produces two of those payloads, a `Generator` and a
+      `BlockBuilder` consume in consumer-group mode, a second generator
+      joins between them and the group rebalances; every record is
+      consumed once (the members' state
+      summed equals a CPU twin's over an in-memory bus, the blocks hold
+      every trace);
+   c. 64 Jaeger agent datagrams of 64 spans over loopback UDP into the
+      same App;
+   K1 launches equal to merged dispatches on each route, every family
+   equal to the twin's; K1 at each route's last window;
+   d. `App(Config())` at target `all` with `ingest.kafka_bootstrap`,
+      `distributor.jaeger_agent_port` and `mesh.enabled` together: one
+      payload through the distributor, the bus and the App's group-mode
+      consume loop into K1 on the mesh.
+18. the serving mesh at the default widths (`sketch: both`), 3 pushes of
+   16,384 k6-like spans under the default scheduler, on logical shards
+   (`ServingMesh(cfg, devices=[cuda:0] * 4)`): a. 4 series shards on
+   dense state; b. 2 data x 2 series shards; c. a page pool split over 4
+   series shards; each with K1 launches equal to shards x dispatches,
+   `collect()` equal to the unsharded card's (counts, buckets, DDSketch
+   rows and quantiles exact; sums within 1e-6, 1e-5 on the data axis)
+   and to a CPU twin's, and one shard's K1 on the last window; d. a rate
+   and a quantile `query_range` through `TempoDB(plane_mesh=...)` with
+   the in-mesh combine, equal to the same queries with the mesh off.
    Then one process of its own takes every captured K1 window's device
    time (`--final-profiles`: the windows are saved under `build/`; read
    in the smoke's own process after other profiles, the trace lost
@@ -374,8 +405,8 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 
 `python3 chip_smoke.py --phase14` builds as above and runs phase 14
 alone (about 100 s); `--phase15` runs phase 15 alone, then its final
-profiles; `--phase16` runs phase 16 alone, then K1's device time on
-its windows.
+profiles; `--phase16`, `--phase17` and `--phase18` run that phase
+alone, then K1's device time on its windows.
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -1793,17 +1824,21 @@ def _fmt_later(v) -> str:
     return json.dumps(v) if isinstance(v, (dict, list)) else str(v)
 
 
+_PHASE18_PROFILES: list = []   # set when phase 18 ran: its profiles are due
+
+
 def _resolve_later(phase15: bool) -> None:
     """Run `chip_smoke.py --final-profiles` in a process of its own: every
     saved K1 window's device time and, with `phase15`, phase 15's
     profiles; their tokens' texts go to `_LATER`, and one line a window
     is printed."""
-    if not _K1_JOBS and not phase15:
+    if not _K1_JOBS and not phase15 and not _PHASE18_PROFILES:
         return
     listing = os.path.join(ROOT, "build", f"k1-jobs-{os.getpid()}.json")
     os.makedirs(os.path.dirname(listing), exist_ok=True)
     with open(listing, "w") as f:
-        json.dump({"k1": _K1_JOBS, "phase15": phase15}, f)
+        json.dump({"k1": _K1_JOBS, "phase15": phase15,
+                   "phase18": bool(_PHASE18_PROFILES)}, f)
     got = _profiles_in_child("the final profiles", "--final-profiles",
                              listing)
     os.remove(listing)
@@ -1825,11 +1860,14 @@ def final_profiles(listing) -> dict:
     out = k1_device_times(want["k1"])
     if want["phase15"]:
         out.update(phase15_profiles())
+    if want.get("phase18"):
+        out.update({f"p18-{k}": v for k, v in phase18_profiles().items()})
     return out
 
 
-def _k1_on_window(proc, mat, ctx):
-    """K1 at a merged window's shape on a copy of the processor's state:
+def _k1_on_window(proc, mat, ctx, operands=None):
+    """K1 at a merged window's shape on a copy of the processor's state
+    (or of `operands`, one mesh shard's (arenas, tables, page rows)):
     held against its plain version on the card, timed through the main
     path's call (`ops.pages.fused_step`, the window already on the card)
     and as the scheduler's dispatch makes it (host matrix → card, then
@@ -1841,7 +1879,10 @@ def _k1_on_window(proc, mat, ctx):
 
     skw = proc._step_kw
     with proc.registry.state_lock:
-        if proc._paged:
+        if operands is not None:
+            arenas, tables, pr = operands
+            tables = tables.clone()
+        elif proc._paged:
             planes = proc._paged_planes()
             arenas = tuple(p.data for p in planes)
             tables = proc._stacked_tables(planes).clone()
@@ -1864,11 +1905,20 @@ def _k1_on_window(proc, mat, ctx):
     idle = (5,) if skw["dd_rows"] and not (
         mat[1][live & (mat[0] < skw["dd_rows"])] <= skw["min_value"]).any() \
         else ()
+    # a window whose every series lies past the sketch planes (new series
+    # of a tenant that already holds more than their rows) touches neither
+    if skw["dd_rows"] and not (live & (mat[0] < skw["dd_rows"])).any():
+        idle += (6,)
+    mom = {}
+    if skw.get("mom_rows"):
+        mom = {len(base) - 1: _moments_ok}
+        if not (live & (mat[0] < skw["mom_rows"])).any():
+            idle += (len(base) - 1,)
     # a window of pushes without span sizes (the dict route's
     # `push_spans`) adds nothing to the size counter, role 3
     if not mat[2][live].any():
         idle += (3,)
-    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), {}, ctx, page_rows=pr,
+    max_abs = _check_planes(k_ar, p_ar, base, (1, 3), mom, ctx, page_rows=pr,
                             idle_roles=idle)
 
     def k1():
@@ -2440,25 +2490,31 @@ def _compare_by_labels(ga, gb, ctx, rtol=1e-5, prefix=""):
     counts and buckets exact, sums (a histogram's sums, the size counter)
     at `rtol` (0: exact). Returns (families, series, max relative sum
     error)."""
+    return _compare_states(_label_state(ga, prefix),
+                           _label_state(gb, prefix), ctx, rtol)
+
+
+def _label_state(g, prefix=""):
+    """(every family's rows whose name starts with `prefix`, the DDSketch
+    rows) of an instance by label set, for `_compare_states`."""
     from tempo_tpu_torch.generator.processors.spanmetrics import (_DD_COUNTS,
                                                                   _DD_ZEROS)
 
-    def dd(g):
-        proc = g.processors["span-metrics"]
-        with g.registry.state_lock:
-            slots = proc._sketch_slots()
-            rows = [proc._rows(slots, r).cpu().numpy()
-                    for r in (_DD_COUNTS, _DD_ZEROS)]
-        return {proc.calls.labels_of(int(s)): (rows[0][i], rows[1][i])
-                for i, s in enumerate(slots)}
+    proc = g.processors["span-metrics"]
+    with g.registry.state_lock:
+        slots = proc._sketch_slots()
+        rows = [proc._rows(slots, r).cpu().numpy()
+                for r in (_DD_COUNTS, _DD_ZEROS)]
+    dd = {proc.calls.labels_of(int(s)): (rows[0][i], rows[1][i])
+          for i, s in enumerate(slots)}
+    return ({k: v for k, v in _family_rows([g]).items()
+             if k.startswith(prefix)}, dd)
 
-    def rows(g):
-        return {k: v for k, v in _family_rows([g]).items()
-                if k.startswith(prefix)}
 
-    fa = rows(ga)
-    n_series, max_rel = _compare_rows(fa, rows(gb), ctx, rtol)
-    da, db = dd(ga), dd(gb)
+def _compare_states(sa, sb, ctx, rtol=1e-5):
+    """`_compare_by_labels` over two `_label_state`s."""
+    (fa, da), (fb, db) = sa, sb
+    n_series, max_rel = _compare_rows(fa, fb, ctx, rtol)
     if da.keys() != db.keys() or not all(
             np.array_equal(x, y) for k, xs in da.items()
             for x, y in zip(xs, db[k])):
@@ -5728,7 +5784,7 @@ class _AppRig:
 
     def __init__(self, device, root, t0,
                  processors=("span-metrics", "local-blocks"), wal=False,
-                 grpc=False, selftrace=False, patch=None):
+                 grpc=False, selftrace=False, patch=None, agent=False):
         from tempo_tpu_torch.app import App
         from tempo_tpu_torch.app.api import serve
         from tempo_tpu_torch.app.config import Config
@@ -5744,14 +5800,17 @@ class _AppRig:
             cfg.wal.dir = os.path.join(root, "generator-wal")
         if grpc:
             cfg.server.grpc_listen_port = _free_port()
+        if agent:
+            # the UDP Jaeger agent receiver on its loopback default
+            cfg.distributor.jaeger_agent_port = _free_port()
         if selftrace:
             # loopback into this App's distributor, flushed by hand; the
             # reserved tenant takes the default limits' processors
             cfg.selftrace.enabled = True
             cfg.selftrace.flush_interval_s = 3600.0
             cfg.overrides_defaults.generator.processors = tuple(processors)
-        if grpc or selftrace:
-            # phase 16 reads its traces live and drops them at shutdown:
+        if grpc or selftrace or agent:
+            # phases 16 and 17 read their traces live and drops them at shutdown:
             # no cut loop writes WAL segments during the phase (16c moves
             # the clock to the wall's, which would make every trace idle)
             cfg.ingester.flush_check_period_s = 3600.0
@@ -6099,11 +6158,13 @@ def phase_app(card):
 def _reset_singletons():
     from tempo_tpu_torch import matview, sched
     from tempo_tpu_torch.ops import moments as msk
+    from tempo_tpu_torch.parallel import serving
     from tempo_tpu_torch.registry import pages
 
     sched.reset()
     matview.reset()
     pages.reset()
+    serving.reset()
     msk.set_query_tier("log2")
 
 
@@ -7644,6 +7705,1060 @@ def _print_phase16(r, card):
     print(f"phase 16 [{card}]: {r['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: Kafka ingest and the Jaeger agent receiver
+# ---------------------------------------------------------------------------
+
+N_KAFKA_PUSHES = 3
+N_AGENT_DATAGRAMS = 64
+AGENT_SPANS = 64                   # spans a datagram (one service each)
+AGENT_GROUP = 8                    # datagrams sent before waiting on them
+KAFKA_TENANT = "kafka-0"
+ALL_RECORDS = 1 << 20              # a consumer's fetch: a partition's tail
+N_STORAGE_PUSHES = 2               # 17b: one before the join, one after
+KAFKA_PATCH = {"generator": {"processors": list(DEFAULT_PROCESSORS),
+                             # the group's heartbeats move the clock
+                             "ingestion_time_range_slack_s": 600.0},
+               "ingestion": dict(UNLIMITED)}
+
+
+def _mock_kafka():
+    """The repository's mock broker (`tests/mock_kafka.py`, standard
+    library only), loaded by its path: it checks every batch's CRC32C
+    with its own table."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_mock_kafka", os.path.join(ROOT, "tests", "mock_kafka.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _c_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        x = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(x | 0x80)
+        else:
+            out.append(x)
+            return bytes(out)
+
+
+def _c_zig(v: int) -> bytes:
+    return _c_varint((v << 1) ^ (v >> 63))
+
+
+def _c_field(last: int, fid: int, ctype: int) -> bytes:
+    return bytes([((fid - last) << 4) | ctype])
+
+
+def _c_str(s: str) -> bytes:
+    b = s.encode()
+    return _c_varint(len(b)) + b
+
+
+def _c_list(structs: list) -> bytes:
+    n = len(structs)
+    hdr = bytes([(n << 4) | 12]) if n < 15 else \
+        bytes([0xF0 | 12]) + _c_varint(n)
+    return hdr + b"".join(structs)
+
+
+def _c_tag(key: str, v) -> bytes:
+    out = _c_field(0, 1, 8) + _c_str(key)
+    if isinstance(v, int):
+        return out + _c_field(1, 2, 5) + _c_zig(3) + \
+            _c_field(2, 6, 6) + _c_zig(v) + b"\x00"     # LONG
+    return out + _c_field(1, 2, 5) + _c_zig(0) + \
+        _c_field(2, 3, 8) + _c_str(v) + b"\x00"         # STRING
+
+
+def _agent_datagram(service: str, spans: list) -> bytes:
+    """One `Agent.emitBatch` call in the Thrift compact protocol: a
+    Batch of one Process (`service`) and its spans."""
+    structs = []
+    for sp in spans:
+        b = (_c_field(0, 1, 6) + _c_zig(sp["tid_lo"]) +
+             _c_field(1, 2, 6) + _c_zig(sp["tid_hi"]) +
+             _c_field(2, 3, 6) + _c_zig(sp["sid"]) +
+             _c_field(3, 4, 6) + _c_zig(sp["psid"]) +
+             _c_field(4, 5, 8) + _c_str(sp["name"]) +
+             _c_field(5, 8, 6) + _c_zig(sp["start_us"]) +
+             _c_field(8, 9, 6) + _c_zig(sp["dur_us"]) +
+             _c_field(9, 10, 9) + _c_list([_c_tag(k, v) for k, v in
+                                           sp["tags"].items()]))
+        structs.append(b + b"\x00")
+    process = (_c_field(0, 1, 8) + _c_str(service) +
+               _c_field(1, 2, 9) + _c_list([_c_tag("hostname", "agent-h")]) +
+               b"\x00")
+    batch = (_c_field(0, 1, 12) + process +
+             _c_field(1, 2, 9) + _c_list(structs) + b"\x00")
+    return (b"\x82" + bytes([(4 << 5) | 1]) + _c_varint(7) +
+            _c_str("emitBatch") + _c_field(0, 1, 12) + batch + b"\x00")
+
+
+def _agent_datagrams(t0) -> list:
+    """`N_AGENT_DATAGRAMS` seeded datagrams of `AGENT_SPANS` spans each,
+    one service a datagram, ending within 10 s before t0."""
+    rng = np.random.default_rng(SEED + 170)
+    kinds = ("server", "client", "internal")
+    out = []
+    for i in range(N_AGENT_DATAGRAMS):
+        spans = []
+        for j in range(AGENT_SPANS):
+            dur = max(int(rng.lognormal(10.0, 1.0)), 1)
+            end = int(t0 * 1e6) - int(rng.random() * 10e6)
+            spans.append(dict(
+                tid_lo=int(rng.integers(1, 1 << 62)),
+                tid_hi=int(rng.integers(0, 1 << 62)),
+                sid=int(rng.integers(1, 1 << 62)), psid=0,
+                name=f"agent-op-{int(rng.integers(0, 32))}",
+                start_us=end - dur, dur_us=dur,
+                tags={"span.kind": kinds[j % 3],
+                      "http.status_code": int(rng.choice([200, 404, 500]))}))
+        out.append(_agent_datagram(f"agent-svc-{i % 16}", spans))
+    return out
+
+
+def _kafka_payloads(t0):
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+    return [encode_spans_otlp(synthetic_spans(
+        N_SPANS, seed=SEED + 175 + k, now_ns=int(t0 * 1e9)))
+        for k in range(N_KAFKA_PUSHES)]
+
+
+def _receiver_routes(rig, payloads, grams, port):
+    """17a and 17c into `rig`'s App: the OTLP payloads produced to a topic
+    of the mock broker at `port` and consumed by a `KafkaReceiver` into
+    the App's distributor, record by record, then the agent's datagrams
+    over loopback UDP (`AGENT_GROUP` at a time, each group received
+    before the next leaves: the receiver pushes each datagram while the
+    socket buffers the rest). Each route settles. Returns ({route: ms},
+    {route: (windows before, after)}, the receiver)."""
+    import socket
+
+    from tempo_tpu_torch.distributor.receiver_kafka import (
+        KafkaReceiver, KafkaReceiverConfig)
+    from tempo_tpu_torch.ingest.kafka import KafkaBus
+
+    ms, marks = {}, {}
+    topic = KafkaBus(f"127.0.0.1:{port}", topic="otlp",
+                     n_partitions=1, timeout_s=30.0)
+    try:
+        n0 = len(rig.mats)
+        t = time.perf_counter()
+        for body in payloads:
+            topic.produce(0, APP_TENANT, body)
+        ms["kafka_produce"] = (time.perf_counter() - t) * 1e3
+        rx = KafkaReceiver(topic, rig.app.distributor, KafkaReceiverConfig(
+            partitions=(0,)))
+        t = time.perf_counter()
+        while rx.run_once():
+            pass
+        ms["kafka_receiver"] = (time.perf_counter() - t) * 1e3
+        rig.settle()
+        marks["kafka_receiver"] = (n0, len(rig.mats))
+        if (rx.records_consumed, rx.errors) != (len(payloads), 0) or \
+                topic.committed(rx.cfg.group, 0) != len(payloads):
+            raise AssertionError(
+                f"phase 17a: the receiver consumed {rx.records_consumed} "
+                f"records ({rx.errors} errors), committed "
+                f"{topic.committed(rx.cfg.group, 0)} of {len(payloads)}")
+    finally:
+        topic.close()
+    agent = rig.app.jaeger_agent
+    n0 = len(rig.mats)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    t = time.perf_counter()
+    try:
+        for lo in range(0, len(grams), AGENT_GROUP):
+            for g in grams[lo:lo + AGENT_GROUP]:
+                s.sendto(g, ("127.0.0.1", agent.port))
+            want = min(lo + AGENT_GROUP, len(grams))
+            deadline = time.time() + 60
+            while agent.batches_received + agent.errors < want:
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"phase 17c: the agent received "
+                        f"{agent.batches_received} of {want} datagrams")
+                time.sleep(0.002)
+    finally:
+        s.close()
+    ms["agent"] = (time.perf_counter() - t) * 1e3
+    rig.settle()
+    marks["agent"] = (n0, len(rig.mats))
+    if agent.errors or agent.spans_received != len(grams) * AGENT_SPANS:
+        raise AssertionError(f"phase 17c: {agent.spans_received} agent spans, "
+                             f"{agent.errors} errors")
+    return ms, marks, rx
+
+
+class _KafkaStorage:
+    """17b on `device`: the ingest-storage path over a 4-partition
+    `KafkaBus` of the mock broker: a `Distributor` producing to it, a
+    `Generator` (span metrics and service graphs on dense state) and a
+    `BlockBuilder` (a `LocalBackend` store) consuming in group mode, and a
+    second generator that joins the group later; on a clock that moves
+    16 s a round, past the group's heartbeat gate."""
+
+    def __init__(self, device, root, broker, t0):
+        from tempo_tpu_torch.backend import LocalBackend
+        from tempo_tpu_torch.blockbuilder import (BlockBuilder,
+                                                  BlockBuilderConfig)
+        from tempo_tpu_torch.distributor import Distributor
+        from tempo_tpu_torch.generator import Generator
+        from tempo_tpu_torch.ingest.kafka import KafkaBus
+        from tempo_tpu_torch.overrides import Overrides
+        from tempo_tpu_torch.ring import Ring
+
+        self.clock = [t0]
+        now = self.now = lambda: self.clock[0]
+        self.device = device
+        self.ov = Overrides()
+        self.ov.set_tenant_patch(KAFKA_TENANT, KAFKA_PATCH)
+        srv, port, self.broker = broker
+        self.bus = KafkaBus(f"127.0.0.1:{port}", topic="tempo-ingest",
+                            n_partitions=N_BUS_PARTITIONS, timeout_s=30.0)
+        self.dist = Distributor(Ring(replication_factor=1, now=now), {},
+                                overrides=self.ov, bus=self.bus, now=now)
+        self.gens = [Generator(overrides=self.ov, now=now, device=device,
+                               instance_id="generator-0")]
+        self.store = LocalBackend(os.path.join(root, "store"))
+        # each consumer reads a partition's whole tail a call: the mock
+        # broker encodes and CRCs that tail in Python on every fetch
+        self.bb = BlockBuilder(self.bus, self.store, BlockBuilderConfig(
+            partitions=None, consume_cycle_records=ALL_RECORDS), now=now,
+            device=device)
+
+    def join(self):
+        from tempo_tpu_torch.generator import Generator
+
+        self.gens.append(Generator(overrides=self.ov, now=self.now,
+                                   device=self.device,
+                                   instance_id="generator-1"))
+
+    def round(self):
+        """One consume round of every member; returns records consumed."""
+        n = sum(g.consume_bus(self.bus, max_records=ALL_RECORDS)
+                for g in self.gens)
+        n += self.bb.consume_cycle()
+        _settle({g.id: g for g in self.gens})
+        self.clock[0] += 16.0
+        return n
+
+    def lag(self):
+        """Each group's lag a partition, the high watermarks read off the
+        mock broker's logs (the client's `high_watermark` is a fetch the
+        mock encodes and CRCs in Python)."""
+        logs = self.broker.cluster.logs
+        return [len(logs.get((self.bus.topic, p), ())) -
+                self.bus.committed(grp, p)
+                for grp in ("metrics-generator", "blockbuilder")
+                for p in range(N_BUS_PARTITIONS)]
+
+    def close(self):
+        self.bus.close()
+
+
+def _kafka_storage(rig, payloads, ctx):
+    """17b's drive: payload 0 produced and consumed by the first
+    generator and the block-builder alone; the second generator joins
+    and rounds run until the group has rebalanced (both members own
+    partitions); the other payloads are produced and rounds run until
+    every partition is drained. Returns (ms of the first produce,
+    rounds, the members' assignments)."""
+    def push(body):
+        if rig.dist.push_otlp(KAFKA_TENANT, body):
+            raise AssertionError(f"{ctx}: push refused")
+
+    t = time.perf_counter()
+    push(payloads[0])
+    produce_ms = (time.perf_counter() - t) * 1e3
+    rounds = 0
+    while rig.round():
+        rounds += 1
+    rig.join()
+
+    def parts():
+        return [g._cgroups["metrics-generator"].assignment
+                for g in rig.gens if "metrics-generator" in g._cgroups]
+
+    for _ in range(8):
+        rounds += 1
+        rig.round()
+        if len(parts()) == 2 and all(parts()):
+            break
+    else:
+        raise AssertionError(f"{ctx}: no rebalance: {parts()}")
+    for body in payloads[1:]:
+        push(body)
+    while rig.round():
+        rounds += 1
+    got = parts()
+    if any(rig.lag()) or sorted(got[0] + got[1]) != \
+            list(range(N_BUS_PARTITIONS)):
+        raise AssertionError(f"{ctx}: lag {rig.lag()}, assignments {got}")
+    return produce_ms, rounds, got
+
+
+def _app_new_configs(root, t0, body, port):
+    """17d: `App(Config())` at target `all` on the card with the three
+    configurations this slice brought, together: `ingest.kafka_bootstrap`
+    (the mock broker at `port`; the App's consume loop runs the
+    block-builder and the generator in consumer-group mode),
+    `distributor.jaeger_agent_port` and `mesh.enabled` (a mesh over the
+    visible cards). One payload pushed through the distributor lands in
+    the generator through Kafka and K1. Returns its readings."""
+    import torch
+
+    from tempo_tpu_torch.app import App
+    from tempo_tpu_torch.app.config import Config
+    from tempo_tpu_torch.ingest.kafka import KafkaBus
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = Config()
+    cfg.storage.local_path = os.path.join(root, "blocks")
+    cfg.storage.wal_path = os.path.join(root, "data", "wal")
+    cfg.generator.localblocks.data_dir = os.path.join(root, "lb")
+    cfg.server.http_listen_port = _free_port()
+    cfg.ingester.flush_check_period_s = 3600.0
+    cfg.ingest.enabled = True
+    cfg.ingest.kafka_bootstrap = f"127.0.0.1:{port}"
+    cfg.ingest.n_partitions = N_BUS_PARTITIONS
+    cfg.ingest.consume_interval_s = 0.2
+    cfg.distributor.jaeger_agent_port = _free_port()
+    cfg.mesh.enabled = True
+    _reset_singletons()
+    app = App(cfg, now=lambda: t0, device="cuda")
+    try:
+        sm = app.mesh
+        if not isinstance(app.bus, KafkaBus) or sm is None or \
+                app.jaeger_agent is not None or \
+                app.db.planes.mesh is not sm.plane_mesh:
+            raise AssertionError("phase 17d: the App did not build its "
+                                 "Kafka bus, mesh or plane mesh")
+        app.overrides.set_tenant_patch(APP_TENANT, {
+            "generator": {"processors": ["span-metrics"]},
+            "ingestion": dict(UNLIMITED)})
+        ck.reset_launch_counts()
+        app.start_loops()
+        if app.jaeger_agent is None or \
+                app.jaeger_agent.cfg.host != "127.0.0.1":
+            raise AssertionError("phase 17d: no agent on loopback")
+        t = time.perf_counter()
+        if app.distributor.push_otlp(APP_TENANT, body):
+            raise AssertionError("phase 17d: push refused")
+        deadline = time.time() + 120
+        while True:
+            inst = app.generator.instances.get(APP_TENANT)
+            if inst is not None and inst.spans_received >= N_SPANS:
+                break
+            if time.time() > deadline:
+                raise AssertionError("phase 17d: the generator took "
+                                     f"{inst and inst.spans_received} of "
+                                     f"{N_SPANS} spans off the bus")
+            time.sleep(0.05)
+        ms = (time.perf_counter() - t) * 1e3
+        app.sched.flush()
+        inst.drain()
+        torch.cuda.synchronize()
+        proc = inst.processors["span-metrics"]
+        launches = ck.paged_fused_update.launches
+        if proc._mesh is not sm or not launches or \
+                app.bus_consume_errors:
+            raise AssertionError(f"phase 17d: mesh {proc._mesh}, K1 "
+                                 f"{launches} launches, "
+                                 f"{app.bus_consume_errors} consume errors")
+        return dict(ms=ms, launches=launches,
+                    mesh=(sm.n_devices, sm.data_shards, sm.series_shards),
+                    spans=inst.spans_received)
+    finally:
+        app.ingester.flush_all = lambda: None
+        app.shutdown()
+        for th in app.ingester._threads:
+            th.join()
+        _reset_singletons()
+
+
+def _spanmetrics_rows(insts):
+    return {k: v for k, v in _family_rows(insts).items()
+            if k.startswith("traces_spanmetrics")}
+
+
+def _bus_twin(t0, payloads):
+    """17b's CPU twin: the same pushes through a `Distributor` onto an
+    in-memory `Bus` of the same partitions, drained by one generator
+    (the group's members' state, summed, must equal its own)."""
+    from tempo_tpu_torch.distributor import Distributor
+    from tempo_tpu_torch.generator import Generator
+    from tempo_tpu_torch.ingest import Bus
+    from tempo_tpu_torch.overrides import Overrides
+    from tempo_tpu_torch.ring import Ring
+
+    now = lambda: t0  # noqa: E731
+    ov = Overrides()
+    ov.set_tenant_patch(KAFKA_TENANT, KAFKA_PATCH)
+    bus = Bus(N_BUS_PARTITIONS)
+    dist = Distributor(Ring(replication_factor=1, now=now), {},
+                       overrides=ov, bus=bus, now=now)
+    gen = Generator(overrides=ov, now=now, device="cpu")
+    for body in payloads:
+        if dist.push_otlp(KAFKA_TENANT, body):
+            raise AssertionError("phase 17b twin: push refused")
+    while gen.consume_bus(bus, max_records=ALL_RECORDS):
+        pass
+    _settle({"g": gen})
+    return gen.instance(KAFKA_TENANT)
+
+
+def phase_kafka(card):
+    """Phase 17: Kafka ingest and the Jaeger agent on the card (17a-17c)
+    against CPU twins. Returns (results, [K1's kernel entries for the
+    Kafka receiver, the group-mode consume_bus and the agent routes])."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase17-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_kafka(card, root)
+
+
+def _phase_kafka(card, root):
+    import torch
+
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.backend.meta import read_block_meta
+    from tempo_tpu_torch.backend.raw import blocks as list_blocks
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+
+    ctx = "phase 17"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    payloads = _kafka_payloads(t0)
+    grams = _agent_datagrams(t0)
+    mk = _mock_kafka()
+    # one broker for each side and stage: the card's and the twin's
+    # consumer groups and offsets must not meet
+    brokers = [mk.start_mock_kafka(n_partitions=N_BUS_PARTITIONS)
+               for _ in range(4)]
+    try:
+        # 17a + 17c: the receivers into the App at target all
+        _reset_singletons()
+        rig = _AppRig("cuda", os.path.join(root, "card"), t0,
+                      processors=DEFAULT_PROCESSORS, agent=True,
+                      patch={"ingestion": dict(UNLIMITED)})
+        try:
+            if rig.inst.state_layout != "dense":
+                raise AssertionError(f"{ctx}: {rig.inst.state_layout} state")
+            proc = rig.inst.processors["span-metrics"]
+            rig.mats = _capture_windows(proc)
+            sc = rig.app.sched
+            counts = {}
+            inner_settle = rig.settle
+
+            def settle():
+                inner_settle()
+                counts.setdefault("launches", []).append(
+                    ck.paged_fused_update.launches)
+                counts.setdefault("dispatches", []).append(
+                    sc.batches_total.get(SCHED_KERNEL, 0))
+
+            rig.settle = settle
+            ck.reset_launch_counts()
+            b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+            ms, marks, _ = _receiver_routes(rig, payloads, grams,
+                                            brokers[0][1])
+            launches = [b - a for a, b in zip(
+                [0] + counts["launches"][:-1], counts["launches"])]
+            dispatches = [b - a for a, b in zip(
+                [b0] + counts["dispatches"][:-1], counts["dispatches"])]
+            for name, n, d in zip(marks, launches, dispatches):
+                if n != d or not n:
+                    raise AssertionError(f"{ctx}: {name}: K1 launched {n} "
+                                         f"times for {d} merged dispatches")
+            rows = []
+            for (name, (a, b)), n, route in zip(
+                    marks.items(), launches,
+                    ("Kafka topic → KafkaReceiver → Distributor.push_otlp",
+                     "UDP Agent.emitBatch → JaegerAgentReceiver → "
+                     "Distributor.push_spans")):
+                k1, row = _dist_k1_row(
+                    f"paged_fused_update ({route} → the generator's "
+                    f"SpanBatch route, scheduler, dense state, default "
+                    f"processors, sketch dd, f32)", proc, rig.mats[b - 1], n,
+                    f"{ctx} {name} window")
+                rows.append((name, k1, row))
+            card_inst = rig.inst
+            rig.shutdown(keep_live=False)
+            rig.inst = None
+        except BaseException:
+            rig.shutdown(keep_live=False)
+            raise
+        del proc
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_singletons()
+        twin = _AppRig("cpu", os.path.join(root, "twin"), t0,
+                       processors=DEFAULT_PROCESSORS, agent=True,
+                       patch={"ingestion": dict(UNLIMITED)})
+        try:
+            twin.mats = []
+            _receiver_routes(twin, payloads, grams, brokers[1][1])
+            n_fams, n_series, rel = _compare_by_labels(
+                card_inst, twin.inst, f"{ctx}a/c card vs CPU twin")
+            _same_quantiles(card_inst, twin.inst,
+                            f"{ctx}a/c card vs CPU twin")
+        finally:
+            twin.shutdown(keep_live=False)
+            _reset_singletons()
+        del card_inst
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 17b: the ingest-storage path over Kafka, group mode
+        t17b = time.perf_counter()
+        sc = sched.configure(sched.SchedConfig())
+        ks = _KafkaStorage("cuda", os.path.join(root, "17b-card"),
+                           brokers[2], t0)
+        try:
+            caps = []
+            b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+            ck.reset_launch_counts()
+            inst0 = ks.gens[0].instance(KAFKA_TENANT)
+            caps.append(_capture_windows(inst0.processors["span-metrics"]))
+            inner_join = ks.join
+
+            def join():
+                inner_join()
+                caps.append(_capture_windows(ks.gens[1].instance(
+                    KAFKA_TENANT).processors["span-metrics"]))
+
+            ks.join = join
+            produce_ms, rounds, parts = _kafka_storage(
+                ks, payloads[:N_STORAGE_PUSHES], f"{ctx}b")
+            _settle({g.id: g for g in ks.gens})
+            launches_b = ck.paged_fused_update.launches
+            dispatches_b = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+            if launches_b != dispatches_b or not launches_b:
+                raise AssertionError(f"{ctx}b: K1 launched {launches_b} "
+                                     f"times for {dispatches_b} dispatches")
+            insts = [g.instance(KAFKA_TENANT) for g in ks.gens]
+            spans = sum(i.spans_received for i in insts)
+            if spans != N_STORAGE_PUSHES * N_SPANS or not all(
+                    i.spans_received for i in insts):
+                raise AssertionError(f"{ctx}b: {[i.spans_received for i in insts]}"
+                                     f" spans over the members")
+            objs = sum(read_block_meta(ks.store, b, KAFKA_TENANT).total_objects
+                       for b in list_blocks(ks.store, KAFKA_TENANT))
+            n_traces = len(_host_traces(payloads[:N_STORAGE_PUSHES]))
+            if objs != n_traces:
+                raise AssertionError(f"{ctx}b: the block-builder wrote "
+                                     f"{objs} of {n_traces} traces")
+            # span metrics only: the service graphs' unpaired edges
+            # expire on the members' clock, which the rounds move
+            card_rows = _spanmetrics_rows(insts)
+            mat = next(m[-1] for m in reversed(caps) if m)
+            proc1 = insts[-1].processors["span-metrics"]
+            k1b, rowb = _dist_k1_row(
+                "paged_fused_update (Distributor → KafkaBus (4 partitions) "
+                "→ Generator.consume_bus in consumer-group mode → "
+                "push_spans, scheduler, dense state, default processors, "
+                "sketch dd, f32)", proc1, mat, launches_b,
+                f"{ctx}b window")
+        finally:
+            ks.close()
+        del ks, insts, proc1
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_singletons()
+        sched.configure(sched.SchedConfig())
+        try:
+            n_b, rel_b = _compare_rows(
+                card_rows, _spanmetrics_rows([_bus_twin(
+                    t0, payloads[:N_STORAGE_PUSHES])]),
+                f"{ctx}b card vs CPU twin")
+        finally:
+            _reset_singletons()
+        t17b = time.perf_counter() - t17b
+        gc.collect()
+        torch.cuda.empty_cache()
+        t17d = time.perf_counter()
+        new_cfgs = _app_new_configs(os.path.join(root, "17d"), t0,
+                                    payloads[-1], brokers[3][1])
+        new_cfgs["seconds"] = time.perf_counter() - t17d
+    finally:
+        for srv, _, _ in brokers:
+            srv.shutdown()
+            srv.server_close()
+    out = dict(ms=ms, launches=dict(zip(marks, launches)),
+               rows=[(name, k1["ms"][1], k1["device_ms"], k1["bound_ms"],
+                      k1["bound_by"], k1["bound_bytes"], k1["plain_ms"][1])
+                     for name, k1, _ in rows + [("consume_bus", k1b, None)]],
+               families=n_fams, series=n_series, max_rel=rel,
+               storage=dict(produce_ms=produce_ms, rounds=rounds,
+                            assignments=parts, launches=launches_b,
+                            series=n_b, max_rel=rel_b, traces=n_traces,
+                            seconds=t17b),
+               app=new_cfgs,
+               batches=sum(b.produce_batches for _, _, b in brokers),
+               payload_bytes=sum(map(len, payloads)),
+               datagram_bytes=sum(map(len, grams)))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, [row for _, _, row in rows] + [rowb]
+
+
+def _print_phase17(r, card):
+    ms, n = r["ms"], r["launches"]
+    print(f"phase 17a [{card}]: {N_KAFKA_PUSHES} OTLP payloads of {N_SPANS} "
+          f"k6-like spans ({r['payload_bytes']} bytes) produced to a topic "
+          f"of the mock broker in {ms['kafka_produce']:.1f} ms, consumed by "
+          f"the KafkaReceiver into the App (target all, default processors, "
+          f"dense state) in {ms['kafka_receiver']:.1f} ms")
+    print(f"phase 17c [{card}]: {N_AGENT_DATAGRAMS} Jaeger agent datagrams "
+          f"of {AGENT_SPANS} spans ({r['datagram_bytes']} bytes) over "
+          f"loopback UDP in {ms['agent']:.1f} ms")
+    print(f"phase 17a/c [{card}]: K1 launches = merged dispatches on each "
+          f"route: {json.dumps(n)}; {r['families']} families, "
+          f"{r['series']} series equal to the CPU twin's (counts and buckets "
+          f"exact, DDSketch quantiles equal, sums within rtol 1e-5, largest "
+          f"{r['max_rel']:.2e})")
+    b = r["storage"]
+    print(f"phase 17b [{card}]: Distributor → KafkaBus ({N_BUS_PARTITIONS} "
+          f"partitions): the first push produced in {b['produce_ms']:.1f} ms; "
+          f"a second generator joined the group and {b['rounds']} consume "
+          f"rounds rebalanced it to {json.dumps(b['assignments'])} with "
+          f"every record consumed once: {b['traces']} traces in the "
+          f"block-builder's blocks, K1 {b['launches']} launches = merged "
+          f"dispatches, the two members' span-metrics series "
+          f"({b['series']}) summed equal the CPU twin's (largest sum error "
+          f"{b['max_rel']:.2e}); "
+          f"{b['seconds']:.1f} s")
+    for name, k1_ms, dev, bms, by, nbytes, plain in r["rows"]:
+        print(f"phase 17 [{card}]: K1 on the {name} route's last window: "
+              f"{k1_ms:.4f} ms with the host (CUDA events), device {dev} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} "
+              f"bytes)")
+    d = r["app"]
+    print(f"phase 17d [{card}]: App(Config()) at target all with "
+          f"ingest.kafka_bootstrap, distributor.jaeger_agent_port and "
+          f"mesh.enabled (devices, data, series = {d['mesh']}): a push of "
+          f"{d['spans']} spans reached the generator through Kafka in "
+          f"{d['ms']:.1f} ms, K1 {d['launches']} launches on the mesh; "
+          f"{d['seconds']:.1f} s")
+    print(f"phase 17 [{card}]: {r['batches']} record batches CRC-checked by "
+          f"the broker; {r['seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the serving mesh at the reference's default widths
+# ---------------------------------------------------------------------------
+
+N_MESH_PUSHES = 3
+MESH_SHARDS = 4
+MESH_TENANT = "mesh-0"
+MESH_SM = dict(sketch="both", moments_k=MOM_K)   # every other width default
+MESH_RATE = LB_RATE
+MESH_QUANT = "{ } | quantile_over_time(duration, .5, .99) by (resource.service.name)"
+MESH_WINDOW_S = 600.0
+
+
+def _mesh_devices() -> list:
+    """The mesh's logical shards: the card, `MESH_SHARDS` times."""
+    from tempo_tpu_torch.parallel.mesh import device_of
+
+    return [device_of("cuda")] * MESH_SHARDS
+
+
+def _mesh_payloads(t0):
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
+    spans = [synthetic_spans(N_SPANS, seed=SEED + 180 + k,
+                             now_ns=int(t0 * 1e9))
+             for k in range(N_MESH_PUSHES)]
+    return spans, [encode_spans_otlp(s) for s in spans]
+
+
+def _mesh_rows(proc):
+    """{labels: moments row} of the dense moments plane's active slots."""
+    with proc.registry.state_lock:
+        slots = proc._sketch_slots()
+        rows = proc.mom.data[torch_index(slots, proc.mom.data)].cpu().numpy()
+    return {proc.calls.labels_of(int(s)): rows[i]
+            for i, s in enumerate(slots)}
+
+
+def torch_index(slots, like):
+    import torch
+
+    return torch.from_numpy(np.asarray(slots, np.int64)).to(like.device)
+
+
+def _mesh_layout(device, t0, payloads, sm, paged=False):
+    """One tenant (span metrics, `sketch: both`, the default widths) on
+    `device` under the default scheduler, on the serving mesh `sm` (None:
+    unsharded), dense or on a page pool made under the mesh; every
+    payload pushed through the staged fast route. Returns (instance,
+    processor, K1 launches, merged dispatches, the captured windows,
+    push seconds)."""
+    import torch
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.parallel import serving
+    from tempo_tpu_torch.registry import pages
+
+    _reset_singletons()
+    sc = sched.configure(sched.SchedConfig())
+    with serving.use(sm):
+        pool = pages.PagePool(tt.PagePoolConfig(enabled=True),
+                              device=device) if paged else None
+        with pages.use(pool):
+            inst = tt.GeneratorInstance(
+                MESH_TENANT, tt.GeneratorConfig(
+                    processors=("span-metrics",),
+                    spanmetrics=tt.SpanMetricsConfig(**MESH_SM)),
+                now=lambda: t0, device=device)
+        proc = inst.processors["span-metrics"]
+        if paged != proc._paged or (paged and pool.mesh is not sm):
+            raise AssertionError(f"phase 18: {inst.state_layout} state, "
+                                 f"pool mesh {pool and pool.mesh}")
+        mats = _capture_windows(proc)
+        ck.reset_launch_counts()
+        b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+        t = time.perf_counter()
+        for body in payloads:
+            if inst.push_otlp_staged(body) != N_SPANS:
+                raise AssertionError("phase 18: the staged route refused "
+                                     "a payload")
+        inst.drain()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if sm is not None and not paged and proc._mesh is not sm:
+            raise AssertionError("phase 18: the tenant is not on the mesh")
+    launches = ck.paged_fused_update.launches
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    sched.reset()
+    return inst, proc, launches, dispatches, mats, secs
+
+
+def _mesh_k1_row(name, proc, mat, launches, ctx, data_shards):
+    """K1 on the last window as one shard's launch makes it: series shard
+    0's windows and localized tables; on the data axis, a zeroed delta
+    window and the first data shard's chunk of the window."""
+    import torch
+
+    with proc.registry.state_lock:
+        if proc._paged:
+            planes = proc._paged_planes()
+            plan = proc._pool_shards(tuple(p.data for p in planes),
+                                     proc._stacked_tables(planes))
+        else:
+            plan = proc._mesh_plan
+    arenas = plan.arenas[0]
+    if data_shards > 1:
+        mat = np.ascontiguousarray(mat[:, :mat.shape[1] // data_shards])
+        arenas = tuple(torch.zeros_like(a) for a in arenas)
+    k1 = _k1_on_window(proc, mat, ctx,
+                       operands=(arenas, plan.tables[0], plan.page_rows))
+    return k1, {
+        "name": name, "route": "cuda",
+        "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": launches, "max_abs_err": k1["max_abs"],
+        "ms": k1["ms"][1], "plain_ms": k1["plain_ms"][1],
+        "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+    }
+
+
+def _mesh_queries(root, spans, t0, sm_read):
+    """18d: the payloads' traces written as one backend block a payload,
+    then a rate and a quantile_over_time `query_range` by service through
+    `TempoDB(plane_mesh=...)` with the in-mesh combine (`sm_read` active,
+    every fold on the device), against the same queries with the mesh
+    off. Returns {query: (ms mesh, ms off, series, combines)}."""
+    from tempo_tpu_torch.backend import LocalBackend
+    from tempo_tpu_torch.block.schema import spans_by_trace
+    from tempo_tpu_torch.db import TempoDB
+    from tempo_tpu_torch.db.tempodb import TempoDBConfig
+    from tempo_tpu_torch.parallel import serving
+    from tempo_tpu_torch.traceql.engine_metrics import (QueryRangeRequest,
+                                                        metrics_kind)
+
+    be = LocalBackend(os.path.join(root, "mesh-store"))
+    db_off = TempoDB(be, be, device="cuda")
+    for s in spans:
+        db_off.write_block(MESH_TENANT, spans_by_trace(s),
+                           replication_factor=1)
+    db_mesh = TempoDB(be, be, TempoDBConfig(plane_mesh=sm_read.plane_mesh),
+                      device="cuda")
+    combines = [0]
+    inner = sm_read.combine
+
+    def counted(stacked, op):
+        combines[0] += 1
+        return inner(stacked, op)
+
+    sm_read.combine = counted
+    out = {}
+    try:
+        for db in (db_off, db_mesh):
+            db.poll_now()
+        for q in (MESH_RATE, MESH_QUANT):
+            req = QueryRangeRequest(query=q,
+                                    start_ns=int((t0 - MESH_WINDOW_S) * 1e9),
+                                    end_ns=int((t0 + 60) * 1e9),
+                                    step_ns=int(60e9))
+            got = {}
+            for name, db, sm in (("off", db_off, None),
+                                 ("mesh", db_mesh, sm_read)):
+                with serving.use(sm):
+                    db.query_range(MESH_TENANT, req)     # adopt the columns
+                    c0 = combines[0]
+                    t = time.perf_counter()
+                    final = _final(db.query_range(MESH_TENANT, req), req)
+                    ms = (time.perf_counter() - t) * 1e3
+                got[name] = (ms, _series_map(final), combines[0] - c0)
+                if db.plane_stats.get("host_metric_blocks") or \
+                        _fallbacks(db):
+                    raise AssertionError(f"phase 18d {name}: {q}: the "
+                                         f"plane fell back: "
+                                         f"{db.plane_stats}")
+            if not got["off"][1]:
+                raise AssertionError(f"phase 18d: {q}: no series")
+            _same_series(got["mesh"][1], got["off"][1], True,
+                         f"phase 18d: {q}: mesh vs mesh off")
+            if not got["mesh"][2] or got["off"][2]:
+                raise AssertionError(f"phase 18d: {q}: in-mesh combines "
+                                     f"{got['mesh'][2]} / {got['off'][2]}")
+            out[q] = (got["mesh"][0], got["off"][0], len(got["off"][1]),
+                      got["mesh"][2])
+    finally:
+        sm_read.combine = inner
+        for db in (db_off, db_mesh):
+            db.shutdown()
+    return out
+
+
+def phase18_profiles() -> dict:
+    """The mesh's device code besides K1, torch.profiler in the final
+    profiles' process: (1) a merged window's shape (16,384 Zipf-skewed
+    spans) through `ServingMesh.fused_update` on 2 data x 2 series
+    logical shards of a dense `sketch: both` tenant at the default
+    widths, K1's events apart from the rest (each delta window's
+    zeroing, the reduce over 'data' in shard order, the fold into the
+    base); (2)
+    `ServingMesh.combine` of a [series, contributions, steps] matrix of
+    18d's quantile fold's size (4,096 bucket series x 4 x 11 steps)."""
+    import torch
+
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.parallel import serving
+
+    sm = serving.ServingMesh(serving.MeshConfig(enabled=True,
+                                                series_shards=2),
+                             devices=_mesh_devices())
+    out = {}
+    with serving.use(sm):
+        inst = tt.GeneratorInstance(
+            MESH_TENANT, tt.GeneratorConfig(
+                processors=("span-metrics",),
+                spanmetrics=tt.SpanMetricsConfig(**MESH_SM)),
+            device="cuda")
+        proc = inst.processors["span-metrics"]
+        if proc._serving_mesh() is not sm:
+            raise AssertionError("phase 18 profiles: the tenant is not on "
+                                 "the mesh")
+        plan = proc._mesh_plan
+    # a merged window's shape: 16,384 Zipf-skewed spans over the series
+    rng = np.random.default_rng(SEED + 182)
+    mat = np.stack([zipf_slots(rng, N_SPANS, proc.calls.table.capacity),
+                    rng.lognormal(-3.7, 1.0, N_SPANS),
+                    rng.integers(200, 2000, N_SPANS),
+                    np.ones(N_SPANS)]).astype(np.float32)
+    b = torch.from_numpy(mat).cuda()
+
+    def update():
+        sm.fused_update(plan, b, **proc._step_kw)
+
+    events = {}
+    (out["reduce_total_ms"], out["reduce_ops"], out["reduce_wall_ms"],
+     _top) = _profile(update)
+    _device_ms(update, events)
+    out["reduce_ops"] = int(round(out["reduce_ops"]))
+    k1 = sum(t for name, t in events.items() if "pfu_" in name)
+    out["reduce_k1_ms"] = k1
+    out["reduce_rest_ms"] = None if out["reduce_total_ms"] is None \
+        else out["reduce_total_ms"] - k1
+    out["reduce_events"] = {k[:60]: round(v, 6)
+                            for k, v in events.items()}
+    pr = plan.page_rows
+    window = sum(a[pr:].numel() * a.element_size()
+                 for a in plan.arenas[0])
+    nbytes = (sm.data_shards * sm.series_shards
+              + 2 * sm.series_shards) * window
+    out["reduce_bound_bytes"] = nbytes
+    out["reduce_bound_ms"], out["reduce_bound_by"] = bound(nbytes, 0)
+    rng = np.random.default_rng(SEED + 181)
+    stacked = rng.integers(0, 50, (4096, 4, 11)).astype(np.float32)
+    comb = serving.ServingMesh(serving.MeshConfig(
+        enabled=True, combine_min_elements=1), devices=_mesh_devices())
+    (out["combine_ms"], out["combine_ops"], out["combine_wall_ms"],
+     _top) = _profile(lambda: comb.combine(stacked, "sum"))
+    out["combine_ops"] = int(round(out["combine_ops"]))
+    nbytes = stacked.nbytes + stacked.shape[0] * stacked.shape[2] * 4
+    out["combine_bound_bytes"] = nbytes
+    out["combine_bound_ms"], out["combine_bound_by"] = bound(nbytes, 0)
+    if not np.array_equal(comb.combine(stacked, "sum"),
+                          stacked.sum(axis=1)):
+        raise AssertionError("phase 18 profiles: the in-mesh combine "
+                             "disagrees with numpy")
+    return out
+
+
+def phase_mesh(card):
+    """Phase 18: the serving mesh on the card at the reference's default
+    widths (65,536 series, DDSketch over 16,384, 15 latency buckets,
+    moments k 12): 18a 4 series shards, 18b 2 data x 2 series shards,
+    18c paged arenas over 4 shards (each over `[cuda:0] * 4`, logical
+    shards on the one card), each against the unsharded tenant on the
+    card and a CPU twin; 18d the read plane and the in-mesh combine.
+    Returns (results, [K1's kernel entries, one a layout])."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase18-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_mesh(card, root)
+
+
+def _phase_mesh(card, root):
+    import torch
+
+    from tempo_tpu_torch.parallel import serving
+
+    ctx = "phase 18"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    spans, payloads = _mesh_payloads(t0)
+
+    def mesh(series, **cfg):
+        return serving.ServingMesh(serving.MeshConfig(
+            enabled=True, series_shards=series, **cfg),
+            devices=_mesh_devices())
+
+    base, bproc, bl, bd, _, base_s = _mesh_layout("cuda", t0, payloads, None)
+    if bl != bd:
+        raise AssertionError(f"{ctx}: unsharded K1 {bl} launches for {bd}")
+    twin, tproc, *_ = _mesh_layout("cpu", t0, payloads, None)
+    # each instance's rows by label set, read once
+    s_base, s_twin = _label_state(base), _label_state(twin)
+    q_base = _quantiles(base)
+    m_twin = _mesh_rows(tproc)
+    n_fams, n_series, rel_twin = _compare_states(
+        s_base, s_twin, f"{ctx} unsharded card vs CPU twin")
+    if q_base != _quantiles(twin):
+        raise AssertionError(f"{ctx} unsharded card vs CPU twin: DDSketch "
+                             f"q50/q99 differ")
+    _compare_moment_rows(_mesh_rows(bproc), m_twin,
+                         f"{ctx} unsharded card vs CPU twin")
+    layouts = []
+    for label, sm, paged, rtol in (
+            ("4 series shards, dense", mesh(MESH_SHARDS), False, 1e-6),
+            ("2 data x 2 series shards, dense", mesh(2), False, 1e-5),
+            ("4 series shards, paged", mesh(MESH_SHARDS), True, 1e-6)):
+        lctx = f"{ctx} {label}"
+        inst, proc, launches, dispatches, mats, secs = _mesh_layout(
+            "cuda", t0, payloads, sm, paged=paged)
+        shards = sm.data_shards * sm.series_shards
+        if not dispatches or launches != shards * dispatches:
+            raise AssertionError(f"{lctx}: K1 launched {launches} times for "
+                                 f"{dispatches} dispatches on {shards} "
+                                 f"shards")
+        s_lay = _label_state(inst)
+        _, _, rel_base = _compare_states(s_lay, s_base,
+                                         f"{lctx} vs unsharded", rtol=rtol)
+        if _quantiles(inst) != q_base:
+            raise AssertionError(f"{lctx} vs unsharded: DDSketch q50/q99 "
+                                 f"differ")
+        _, _, rel_cpu = _compare_states(s_lay, s_twin, f"{lctx} vs CPU twin")
+        if not paged:
+            _compare_moment_rows(_mesh_rows(proc), m_twin,
+                                 f"{lctx} vs CPU twin")
+        del s_lay
+        k1, row = _mesh_k1_row(
+            f"paged_fused_update (the serving mesh, {label} over "
+            f"[cuda:0] * {MESH_SHARDS}: one launch a shard a merged window, "
+            f"scheduler, staged route, sketch both, f32, default widths)",
+            proc, mats[-1], launches, f"{lctx} shard window",
+            sm.data_shards)
+        layouts.append(dict(label=label, launches=launches,
+                            dispatches=dispatches, shards=shards,
+                            push_s=secs, rel_base=rel_base,
+                            rel_cpu=rel_cpu, k1=k1, row=row))
+        del inst, proc, mats
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base, bproc, twin, tproc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18d = time.perf_counter()
+    queries = _mesh_queries(root, spans, t0,
+                            mesh(MESH_SHARDS, combine_min_elements=1))
+    _PHASE18_PROFILES.append(True)
+    out = dict(families=n_fams, series=n_series, rel_twin=rel_twin,
+               base_s=base_s, layouts=[{k: v for k, v in lay.items()
+                                        if k != "row"} for lay in layouts],
+               queries=queries, query_s=time.perf_counter() - t18d)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, [lay["row"] for lay in layouts]
+
+
+def _print_phase18(r, card):
+    print(f"phase 18 [{card}]: {N_MESH_PUSHES} pushes of {N_SPANS} k6-like "
+          f"spans, `sketch: both` at the default widths, unsharded on the "
+          f"card in {r['base_s']:.3f} s; {r['families']} families, "
+          f"{r['series']} series equal to the CPU twin's (largest sum error "
+          f"{r['rel_twin']:.2e})")
+    for lay in r["layouts"]:
+        k1 = lay["k1"]
+        print(f"phase 18 [{card}]: {lay['label']}: K1 {lay['launches']} "
+              f"launches = {lay['shards']} shards x {lay['dispatches']} "
+              f"merged dispatches; pushes {lay['push_s']:.3f} s; counts, "
+              f"buckets, DDSketch rows and quantiles equal the unsharded "
+              f"card's, sums within {lay['rel_base']:.2e} of it and "
+              f"{lay['rel_cpu']:.2e} of the CPU twin's; one shard's K1 on "
+              f"the last window {k1['ms'][1]:.4f} ms with the host, device "
+              f"{k1['device_ms']} ms, plain {k1['plain_ms'][1]:.4f} ms, "
+              f"bound {k1['bound_ms']:.6f} ms by {k1['bound_by']} "
+              f"({k1['bound_bytes']} bytes)")
+    for q, (m, off, n, comb) in r["queries"].items():
+        print(f"phase 18d [{card}]: {q}: {m:.2f} ms through TempoDB("
+              f"plane_mesh) over {MESH_SHARDS} data shards and the in-mesh "
+              f"combine ({comb} device folds), {off:.2f} ms with the mesh "
+              f"off; {n} series, equal")
+    p = {k: _Later(f"p18-{k}") for k in (
+        "reduce_total_ms", "reduce_ops", "reduce_wall_ms", "reduce_k1_ms",
+        "reduce_rest_ms", "reduce_bound_ms", "reduce_bound_by",
+        "reduce_bound_bytes", "combine_ms", "combine_ops",
+        "combine_wall_ms", "combine_bound_ms", "combine_bound_by",
+        "reduce_events")}
+    print(f"phase 18 [{card}]: in the final profiles' process, a window "
+          f"through 2 x 2 shards: {p['reduce_total_ms']} ms device in "
+          f"{p['reduce_ops']} ops ({p['reduce_wall_ms']} ms with the host), "
+          f"of it K1 {p['reduce_k1_ms']} ms and the deltas' zeroing, the "
+          f"reduce over 'data' and the fold {p['reduce_rest_ms']} ms (bound "
+          f"{p['reduce_bound_ms']} ms by {p['reduce_bound_by']}, "
+          f"{p['reduce_bound_bytes']} bytes); the in-mesh combine of [4096, "
+          f"4, 11] {p['combine_ms']} ms device in {p['combine_ops']} ops "
+          f"({p['combine_wall_ms']} ms with the host; bound "
+          f"{p['combine_bound_ms']} ms by {p['combine_bound_by']}); device "
+          f"ms by op {p['reduce_events']}")
+    print(f"phase 18 [{card}]: 18d {r['query_s']:.1f} s; {r['seconds']:.1f} s")
+
+
 def main() -> int:
     """`_main` with its standard output held until the end: the readings
     taken in a later process (`_Later`) replace their tokens first, or
@@ -7700,7 +8815,7 @@ def _main() -> int:
         print("PROFILES " + json.dumps(final_profiles(sys.argv[2])))
         return 0
     if sys.argv[1:] not in ([], ["--phase14"], ["--phase15"],
-                            ["--phase16"]):
+                            ["--phase16"], ["--phase17"], ["--phase18"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     card = smi_line()
@@ -7742,6 +8857,21 @@ def _main() -> int:
         _print_phase16(s16, card)
         _resolve_later(phase15=False)
         print(json.dumps(k16, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] in (["--phase17"], ["--phase18"]):
+        # phase 17 or 18 alone, K1's device time on its windows from a
+        # process of its own
+        if sys.argv[1:] == ["--phase17"]:
+            s, k = phase_kafka(card)
+            _print_phase17(s, card)
+        else:
+            s, k = phase_mesh(card)
+            _print_phase18(s, card)
+        _resolve_later(phase15=False)
+        print(json.dumps(k, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -7894,6 +9024,10 @@ def _main() -> int:
     s15, k15 = phase_durability(card)
     s16, k16 = phase_grpc(card)
     _print_phase16(s16, card)
+    s17, k17 = phase_kafka(card)
+    _print_phase17(s17, card)
+    s18, k18 = phase_mesh(card)
+    _print_phase18(s18, card)
     t_late = time.perf_counter()
     _resolve_later(phase15=True)
     print(f"the final profiles (every K1 window's device time, phase 15's "
@@ -7904,7 +9038,7 @@ def _main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
                                             *k8, k12, k13a, k13b, k14,
-                                            k15, *k16)]}))
+                                            k15, *k16, *k17, *k18)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,10 +6,11 @@ everything that holds device state: the page pool, the materializer,
 the generator (span metrics through K1), `TempoDB` (the read plane and
 the compaction merge) and the block-builder. The wiring, targets, rings
 and loops are the reference's. Configurations whose parts are not
-ported raise `NotImplementedError` naming their ROADMAP item where the
-reference first builds the part: `mesh.enabled` (item 13),
-`ingest.kafka_bootstrap` and
-`distributor.jaeger_agent_port` (item 14). The gRPC plane
+ported would raise `NotImplementedError` naming their ROADMAP item where
+the reference first builds the part; since items 13 and 14 none is left:
+`mesh.enabled` configures the serving mesh over the App's device,
+`ingest.kafka_bootstrap` builds a `KafkaBus` and
+`distributor.jaeger_agent_port` starts the UDP agent receiver. The gRPC plane
 (`server.grpc_listen_port`, `grpc://` peers, the frontend worker at
 `querier_worker.frontend_address`) and self-tracing (`selftrace.enabled`
 loopback, `self_tracing_endpoint`) are wired as in the reference.
@@ -63,12 +64,6 @@ TARGETS = {
     # kafka-path persister (`modules.go:386-406`, gated on Ingest.Enabled)
     BLOCKBUILDER: [OVERRIDES, STORE, BLOCKBUILDER],
 }
-
-
-def later(what: str, item: str) -> NotImplementedError:
-    """The error an unported configuration raises, naming its item."""
-    return NotImplementedError(
-        f"{what} comes with ROADMAP section 1, item {item}")
 
 
 def _make_remote_client(addr: str, kind: str):
@@ -171,6 +166,7 @@ class App:
         self.grpc_server = None
         self.grpc_port: int = 0
         self.frontend_worker = None
+        self.jaeger_agent = None
         self._lifecyclers: list[Lifecycler] = []
         # warm the native layer at startup so the first proto push never
         # pays the g++ compile inside a request handler
@@ -291,9 +287,10 @@ class App:
         from tempo_tpu_torch import sched
         self.sched = sched.configure(self.cfg.sched)
         # the serving mesh is process-wide for the same reason: None
-        # when `mesh.enabled` is off; on, it raises naming item 13
+        # when `mesh.enabled` is off, else a mesh over this App's
+        # device (every visible card under `cuda`)
         from tempo_tpu_torch.parallel import serving
-        self.mesh = serving.configure(self.cfg.mesh)
+        self.mesh = serving.configure(self.cfg.mesh, device=self.device)
         # the device page pool comes AFTER the mesh (arenas shard
         # page-aligned over 'series' when the mesh is on) and BEFORE any
         # registry is built: tenants created from here on page their
@@ -353,7 +350,9 @@ class App:
             return
         ic = self.cfg.ingest
         if ic.kafka_bootstrap:
-            raise later("the Kafka bus (ingest.kafka_bootstrap)", "14")
+            from tempo_tpu_torch.ingest.kafka import KafkaBus
+            self.bus = KafkaBus(ic.kafka_bootstrap, topic=ic.topic,
+                                n_partitions=ic.n_partitions)
         else:
             from tempo_tpu_torch.ingest import Bus
             self.bus = Bus(n_partitions=ic.n_partitions)
@@ -426,7 +425,12 @@ class App:
             reader = CachingReader(reader, self.cache_provider)
         self.db = TempoDB(reader, self.backend, TempoDBConfig(
             compactor=self.cfg.compactor,
-            pool_workers=self.cfg.storage.pool_workers),
+            pool_workers=self.cfg.storage.pool_workers,
+            # mesh mode: the read plane adopts the serving mesh
+            # data-major (span columns split over 'data', the grids
+            # reduced in shard order)
+            plane_mesh=self.mesh.plane_mesh
+            if getattr(self, "mesh", None) is not None else None),
             registry=self.obs, device=self.device)
 
     def _iid(self, kind: str) -> str:
@@ -665,8 +669,17 @@ class App:
             self.frontend_worker.start()
         if self.distributor is not None and \
                 self.cfg.distributor.jaeger_agent_port:
-            raise later("the Jaeger agent receiver "
-                        "(distributor.jaeger_agent_port)", "14")
+            from tempo_tpu_torch.distributor.receiver_agent import (
+                JaegerAgentConfig,
+                JaegerAgentReceiver,
+            )
+            self.jaeger_agent = JaegerAgentReceiver(
+                self.distributor, JaegerAgentConfig(
+                    host=self.cfg.distributor.jaeger_agent_host,
+                    port=self.cfg.distributor.jaeger_agent_port,
+                    allow_wildcard_bind=self.cfg.distributor
+                        .jaeger_agent_allow_wildcard))
+            self.jaeger_agent.start()
         if self.ingester:
             self.ingester.start()
         if self.generator:
@@ -769,6 +782,8 @@ class App:
             # another App in the process may have installed its own since
             if tracing.tracer() is mine:
                 tracing.install(tracing.NoopTracer())
+        if self.jaeger_agent is not None:
+            self.jaeger_agent.stop()
         if self.frontend_worker:
             self.frontend_worker.shutdown()
         if self.grpc_server:

@@ -141,8 +141,7 @@ class Config:
     # default on; `sched.enabled: false` restores direct dispatch
     sched: SchedConfig = dataclasses.field(default_factory=SchedConfig)
     # serving mesh (tempo_tpu_torch.parallel.serving): registry/sketch
-    # state sharded over 'series'. Default off (single device); on, the
-    # App raises until mesh serving is ported (ROADMAP item 13)
+    # state sharded over 'series'. Default off (single device)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # device page pool (tempo_tpu_torch.registry.pages): registry/sketch state
     # paged into process-wide device arenas allocated on demand per

@@ -36,8 +36,15 @@ expression per predicate signature (`_compiled_mask`) over float32
 numeric columns and int32 dictionary codes with a LUT gather, on the
 view's device (`view.meta["device"]`), with the columns cached on the
 view. It keeps the reference's float32 compares and refuses (None → the
-host plane) the shapes the reference refuses. A mesh (`mesh=`) comes
-with ROADMAP item 13.
+host plane) the shapes the reference refuses.
+
+Over a mesh (`mesh=`, a `parallel.mesh.Mesh`) the plane's span-dimension
+columns split over the 'data' axis in contiguous chunks (whole bytes of
+the packed mask): each data shard runs the mask or grid over its chunk
+on its device, and the grids reduce in shard order onto the (0, 0)
+device (sums and counts add, min/max take the min/max, the moments
+grid's two bound planes the max), the counterpart of the reference's
+`P("data")` column sharding and XLA-inserted reduce.
 """
 
 from __future__ import annotations
@@ -456,10 +463,13 @@ class BlockScanPlane:
         from tempo_tpu_torch.device import resolve_device
 
         if mesh is not None:
-            raise NotImplementedError(
-                "a BlockScanPlane over a mesh comes with mesh serving "
-                "(ROADMAP section 1, item 13)")
+            device = mesh.device(0, 0)     # the grid reduce's owner
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # id() of the resident span-dimension columns (the ones a mesh
+        # splits over 'data'); LUTs and literals replicate
+        self._span_ids: set[int] = set()
+        self._span_chunks: dict[int, list] = {}
         self.views = list(views)
         self.sizes = [int(v.n) for v in self.views]
         self.offsets = np.concatenate(
@@ -490,8 +500,15 @@ class BlockScanPlane:
 
     def _up(self, arr: np.ndarray, is_span_dim: bool = True):
         """One adoption upload (budget-accounted). `is_span_dim` names
-        span-dimension columns, which a mesh would shard (item 13)."""
+        span-dimension columns, which a mesh splits over 'data': the
+        shards on other devices than the owner's keep their chunk there."""
         d = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if self.mesh is not None and is_span_dim and \
+                getattr(arr, "ndim", 0) >= 1 and arr.shape[0] == self.n:
+            self._span_ids.add(id(d))
+            self._span_chunks[id(d)] = [
+                d[sl] if dev == self.device else d[sl].to(dev)
+                for sl, dev in self._data_shards()]
         self.device_bytes += int(arr.nbytes)
         from tempo_tpu_torch.obs.runtime import record_device_put
         record_device_put(int(arr.nbytes), "plane_column")
@@ -500,6 +517,23 @@ class BlockScanPlane:
         from tempo_tpu_torch.obs import querystats
         querystats.add(device_scan_bytes=int(arr.nbytes))
         return d
+
+    def _data_shards(self) -> list[tuple[slice, torch.device]]:
+        """(span slice, device) of each non-empty 'data' shard: chunks of
+        whole bytes of the packed mask, the last one shorter."""
+        dd = self.mesh.shape["data"]
+        per = -(-self.n // dd)
+        per = -(-per // 8) * 8
+        return [(slice(d * per, min((d + 1) * per, self.n)),
+                 self.mesh.device(d, 0))
+                for d in range(dd) if d * per < self.n]
+
+    def _shard_args(self, args, d: int, sl: slice, dev) -> list:
+        """Data shard d's operands: its chunk of each span column, every
+        other tensor on its device."""
+        return [None if a is None else
+                self._span_chunks[id(a)][d] if id(a) in self._span_ids
+                else a.to(dev) for a in args]
 
     def _literals(self, ivals: list) -> torch.Tensor:
         """The one packed int64 literal vector of a call (one H2D)."""
@@ -966,14 +1000,30 @@ class BlockScanPlane:
             return None
         sig, args, ints = plan
         esig, eargs, eints = extra
-        fn = _block_mask_kernel(self.n, sig, esig, all_conditions)
         ivec = self._literals(ints + eints)
         # query-class job on the shared device scheduler: live-ingest
         # batches order ahead of scans, the dispatch is accounted, and
         # the launch stays async (the handle returns without a sync)
         from tempo_tpu_torch import sched
+        if self.mesh is not None:
+            return sched.run(lambda: self._mask_mesh(
+                sig, esig, all_conditions, ivec, (*args, *eargs)),
+                kernel="plane_packed_mask")
+        fn = _block_mask_kernel(self.n, sig, esig, all_conditions)
         return sched.run(lambda: fn(ivec, *args, *eargs),
                          kernel="plane_packed_mask")
+
+    def _mask_mesh(self, sig, esig, all_conditions, ivec, args):
+        """The packed mask over the 'data' shards: each shard's chunk
+        masked on its device, the packed bytes joined on the owner."""
+        parts = []
+        for d, (sl, dev) in enumerate(self._data_shards()):
+            fn = _block_mask_kernel(sl.stop - sl.start, sig, esig,
+                                    all_conditions)
+            parts.append(fn(ivec.to(dev),
+                            *self._shard_args(args, d, sl, dev))
+                         .to(self.device))
+        return torch.cat(parts)
 
     def mask(self, preds: Sequence, all_conditions: bool,
              time_range=None, row_groups=None) -> Optional[np.ndarray]:
@@ -1131,17 +1181,62 @@ class BlockScanPlane:
 
         ivec = self._literals([start_ns, step_ns] + ints + eints)
         times = self._cols[("times",)]
-        # fused grid launch rides the scheduler's query class (async —
-        # the GridHandle fetch is the only sync point)
-        from tempo_tpu_torch import sched
-        packed = sched.run(
-            lambda: fn(times, ivec, gcodes, gex, vcol, vex, *args, *eargs),
-            kernel="plane_query_range_grid")
         main_shape = ((n_groups, n_steps, 64) if kind_tag == "hist"
                       else (n_groups, n_steps, mom_cols)
                       if kind_tag == "mom" else (n_groups, n_steps))
+        # fused grid launch rides the scheduler's query class (async —
+        # the GridHandle fetch is the only sync point)
+        from tempo_tpu_torch import sched
+        if self.mesh is not None:
+            packed = sched.run(lambda: self._grid_mesh(
+                key, (sig, esig, all_conditions, kind_tag, n_groups,
+                      n_steps, mom_k), main_shape,
+                (times, ivec, gcodes, gex, vcol, vex, *args, *eargs)),
+                kernel="plane_query_range_grid")
+        else:
+            packed = sched.run(
+                lambda: fn(times, ivec, gcodes, gex, vcol, vex, *args,
+                           *eargs),
+                kernel="plane_query_range_grid")
         return GridHandle(glabels, packed, main_shape,
                           (n_groups, n_steps)), None
+
+    def _grid_mesh(self, key, shape_args, main_shape, args):
+        """The packed grid over the 'data' shards: each shard's grid from
+        its chunk on its device, reduced on the owner in shard order —
+        counts and sums add, min/max grids take the min/max, the moments
+        grid's sums add and its two bound planes take the max."""
+        kind_tag, mom_k = shape_args[3], shape_args[6]
+        m = int(np.prod(main_shape))
+        acc = None
+        for d, (sl, dev) in enumerate(self._data_shards()):
+            n_d = sl.stop - sl.start
+            ck = key + ("mesh", n_d)
+            with self._lock:
+                fn = self._qr_cache.get(ck)
+            if fn is None:
+                fn = _grid_fn(n_d, *shape_args)
+                with self._lock:
+                    fn = self._qr_cache.setdefault(ck, fn)
+            part = fn(*self._shard_args(args, d, sl, dev)).to(self.device)
+            if acc is None:
+                acc = part
+                continue
+            main, rest = acc[:m], acc[m:] + part[m:]
+            if kind_tag == "min":
+                main = torch.minimum(main, part[:m])
+            elif kind_tag == "max":
+                main = torch.maximum(main, part[:m])
+            elif kind_tag == "mom":
+                a, b = main.view(-1, mom_k + 3), part[:m].view(-1, mom_k + 3)
+                main = torch.cat([a[:, :mom_k + 1] + b[:, :mom_k + 1],
+                                  torch.maximum(a[:, mom_k + 1:],
+                                                b[:, mom_k + 1:])],
+                                 dim=1).reshape(-1)
+            else:
+                main = main + part[:m]
+            acc = torch.cat([main, rest])
+        return acc
 
     # -- back-compat wrapper (bench/tests of the reference) -----------------
 

@@ -4,9 +4,8 @@ Counterpart of `tempo_tpu/blockbuilder/blockbuilder.py`, host code over
 the port's in-memory `ingest.Bus`, `ingest.encoding.decode_push`,
 `utils.livetraces` and block writer. Each cut's sketch sidecar
 (`block/sidecar.py`) is built on the builder's `device` (`cuda` unless
-`"cpu"` is asked for). The consumer-group mode of a Kafka bus
-(`partitions=None` on a bus with `group_request`) comes with the Kafka
-ingest item (ROADMAP section 1, item 14).
+`"cpu"` is asked for). `partitions=None` on a Kafka bus (one with
+`group_request`) enters the consumer-group mode of `ingest.kafka`.
 """
 
 from __future__ import annotations
@@ -28,8 +27,8 @@ CONSUMER_GROUP = "blockbuilder"
 
 @dataclasses.dataclass
 class BlockBuilderConfig:
-    # owned partitions; None = every partition of a static bus (the
-    # consumer-group mode of a Kafka bus is ROADMAP section 1, item 14)
+    # owned partitions; None = consumer-group mode on a Kafka bus (the
+    # group protocol assigns + re-assigns partitions across replicas)
     partitions: "tuple[int, ...] | None" = (0,)
     consume_cycle_records: int = 1000        # per-cycle fetch budget
     max_block_objects: int = 100_000
@@ -51,24 +50,29 @@ class BlockBuilder:
         self.device = resolve_device(device)
         self.blocks_flushed = 0
         self.records_consumed = 0
+        self._cg = None                      # lazy ConsumerGroup
 
-    def _owned(self) -> list[int]:
-        """This cycle's partitions: the static assignment, or every
-        partition of a static bus."""
+    def _owned(self):
+        """(partitions, group) for this cycle: static assignment, or the
+        consumer-group's current assignment (rebalances between cycles
+        as replicas come and go — reader_client.go's franz-go group)."""
         if self.cfg.partitions is not None:
-            return list(self.cfg.partitions)
+            return list(self.cfg.partitions), None
         if hasattr(self.bus, "group_request"):
-            raise NotImplementedError(
-                "consumer-group consumption of a Kafka bus comes with the "
-                "Kafka ingest item (ROADMAP section 1, item 14)")
-        return list(range(getattr(self.bus, "n_partitions", 1)))
+            if self._cg is None:
+                from tempo_tpu_torch.ingest.kafka import ConsumerGroup
+                self._cg = ConsumerGroup(self.bus, CONSUMER_GROUP,
+                                         now=self.now)
+            return self._cg.ensure_active(), self._cg
+        return list(range(getattr(self.bus, "n_partitions", 1))), None
 
     def consume_cycle(self) -> int:
         """One cycle: per owned partition, drain from the committed offset,
         build+flush one block per tenant, then commit. Returns records."""
-        return sum(self._consume_partition(p) for p in self._owned())
+        parts, cg = self._owned()
+        return sum(self._consume_partition(p, cg) for p in parts)
 
-    def _consume_partition(self, partition: int) -> int:
+    def _consume_partition(self, partition: int, cg=None) -> int:
         start = self.bus.committed(CONSUMER_GROUP, partition)
         recs = self.bus.fetch(partition, start, self.cfg.consume_cycle_records)
         if not recs:
@@ -102,7 +106,10 @@ class BlockBuilder:
                     write_block_meta(self.writer, meta)
                 self.blocks_flushed += 1
         next_offset = recs[-1].offset + 1
-        self.bus.commit(CONSUMER_GROUP, partition, next_offset)
+        if cg is not None:
+            cg.commit(partition, next_offset)    # generation-fenced
+        else:
+            self.bus.commit(CONSUMER_GROUP, partition, next_offset)
         n = len(recs)
         self.records_consumed += n
         return n

@@ -123,11 +123,8 @@ class PlaneCache:
                  max_folds: int = 1024, device=None):
         from tempo_tpu_torch.device import resolve_device
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a plane cache over a mesh comes with mesh serving "
-                "(ROADMAP section 1, item 13)")
         self.device = resolve_device(device)
+        self.mesh = mesh              # multi-device planes (BlockScanPlane)
         self.budget_bytes = budget_bytes
         self.max_blocks = max_blocks
         self.host_budget_bytes = host_budget_bytes
@@ -158,7 +155,7 @@ class PlaneCache:
                 return entry
         # build outside the lock (full-block read); a racing duplicate
         # build is wasted work, not a correctness problem — last one wins
-        entry = CachedBlock(block, device=self.device)
+        entry = CachedBlock(block, mesh=self.mesh, device=self.device)
         with self._lock:
             self.misses += 1
             self._entries[key] = entry

@@ -7,8 +7,9 @@ fold tier's read half (`sidecar_plan`, `sidecar_series` over sidecars
 already in the store), and so is the cold tier: compaction (the merge on
 the instance's device, through the scheduler's compaction class),
 retention and the sidecar backfill. The device plane lives on the
-instance's torch device (`cuda` unless `device="cpu"`); `plane_mesh`
-comes with mesh serving (item 13). Unlike the reference, a failed device
+instance's torch device (`cuda` unless `device="cpu"`), or with
+`plane_mesh` over a mesh's 'data' shards (`parallel.mesh.Mesh`; the grid
+reduces onto the (0, 0) device). Unlike the reference, a failed device
 compaction does not fall back to the host merge: the failure reaches
 the compaction loop, which logs it; the host merge runs only under
 `compactor.device: false`.
@@ -57,8 +58,8 @@ class TempoDBConfig:
     plane_budget_bytes: int = 1 << 30
     plane_max_blocks: int = 64
     plane_host_budget_bytes: int = 4 << 30
-    # the reference's jax Mesh for a sharded read plane: mesh serving
-    # comes with ROADMAP section 1, item 13 (any value but None raises)
+    # a `parallel.mesh.Mesh` for a sharded read plane (span columns split
+    # over its 'data' axis), or None
     plane_mesh: object = None
 
 
@@ -71,10 +72,6 @@ class TempoDB:
         from tempo_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)
-        if (cfg or TempoDBConfig()).plane_mesh is not None:
-            raise NotImplementedError(
-                "TempoDBConfig.plane_mesh shards the read plane over a mesh, "
-                "which comes with mesh serving (ROADMAP section 1, item 13)")
         self.r = r
         self.w = w
         self.cfg = cfg or TempoDBConfig()
@@ -93,6 +90,7 @@ class TempoDB:
             self.planes = PlaneCache(self.cfg.plane_budget_bytes,
                                      self.cfg.plane_max_blocks,
                                      self.cfg.plane_host_budget_bytes,
+                                     mesh=self.cfg.plane_mesh,
                                      device=self.device)
         # read-plane routing counters: how many block scans took the fused
         # device path vs the host engine (tests + /metrics)

@@ -9,9 +9,8 @@ replicates to ingesters over the ring with RF quorum
 (`sendToIngestersViaBytes` `distributor.go:490`), and tees to the
 metrics-generators (`sendToGenerators` `distributor.go:563`).
 
-The Kafka and Jaeger-agent receivers (`receiver_kafka.py`,
-`receiver_agent.py`) come with the Kafka ingest item (ROADMAP section 1,
-item 14).
+The Kafka and Jaeger-agent receivers are `receiver_kafka.py` and
+`receiver_agent.py`.
 """
 
 from tempo_tpu_torch.distributor.distributor import Distributor, DistributorConfig

@@ -16,8 +16,8 @@ GeneratorWal`) every push route appends its record before the ack,
 `replay_wal` / `replay_wal_all` push recorded batches back through the
 same routes (the scheduler and K1 on the device), and `truncate_wal`
 drops what a written fleet checkpoint covers; `pop_instance` /
-`end_handoff` bound the fleet handoff's window. Not carried yet: the
-Kafka consumer group of `consume_bus` (item 14). `query_range` and
+`end_handoff` bound the fleet handoff's window. `consume_bus` on a
+Kafka bus with `partitions=None` joins a consumer group. `query_range` and
 `get_metrics` read a tenant's local blocks (the `local-blocks`
 processor); for a tenant with no instance they answer empty, as in the
 reference. `query_range` is the query frontend's `generator_query_range`
@@ -62,6 +62,7 @@ class Generator:
         self.overrides = overrides or Overrides()
         self.id = instance_id
         self.now = now
+        self._cgroups: dict = {}      # group name → ConsumerGroup (kafka)
         # ingest WAL (generator/wal.py, None = off): every acked push is
         # appended before the ack returns and replayed on boot past the
         # fleet-checkpoint watermark
@@ -538,17 +539,24 @@ class Generator:
         applies (`distributor.go:563` + overrides), since the bus carries
         every trace for the blockbuilder's sake.
 
-        A static bus reads `partitions` (all of them when None). The
-        reference's consumer-group mode (a Kafka bus with
-        `partitions=None`) comes with the Kafka ingest item."""
+        `partitions=None` on a Kafka bus enters CONSUMER-GROUP mode: the
+        group protocol (JoinGroup/SyncGroup/Heartbeat) assigns partitions
+        and re-assigns them when replicas join or die; commits are
+        generation-fenced. With a static bus (or explicit partitions) the
+        token→partition assignment stays as configured."""
         from tempo_tpu_torch.ingest.encoding import decode_push
 
+        cg = None
         if partitions is None:
             if hasattr(bus, "group_request"):
-                raise NotImplementedError(
-                    "consumer-group consumption of a Kafka bus comes with "
-                    "the Kafka ingest item (ROADMAP section 1, item 14)")
-            partitions = range(getattr(bus, "n_partitions", 1))
+                cg = self._cgroups.get(group)
+                if cg is None:
+                    from tempo_tpu_torch.ingest.kafka import ConsumerGroup
+                    cg = self._cgroups[group] = ConsumerGroup(
+                        bus, group, now=self.now)
+                partitions = cg.ensure_active()
+            else:
+                partitions = range(getattr(bus, "n_partitions", 1))
         total = 0
         skip: set[str] = set()
         for p in partitions:
@@ -572,7 +580,10 @@ class Generator:
                 # durable=False: the bus commit below is these spans'
                 # replay log; a WAL record too would apply them twice
                 self.push_spans(tenant, spans, durable=False)
-            bus.commit(group, p, recs[-1].offset + 1)
+            if cg is not None:
+                cg.commit(p, recs[-1].offset + 1)    # generation-fenced
+            else:
+                bus.commit(group, p, recs[-1].offset + 1)
             total += len(recs)
         return total
 

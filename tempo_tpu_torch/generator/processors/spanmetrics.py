@@ -81,6 +81,7 @@ from tempo_tpu_torch.model.span_batch import SpanBatch, _pad_rows
 from tempo_tpu_torch.ops import cuda_kernels, moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
+from tempo_tpu_torch.parallel import serving
 from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.pages import PagedPlane
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
@@ -178,6 +179,12 @@ class SpanMetricsProcessor:
             raise ValueError(f"pallas_interpret must be a bool, not "
                              f"{cfg.pallas_interpret!r}")
         self.registry = registry
+        sm = serving.active()
+        if sm is not None:
+            # dense shard windows must be whole pages (`_serving_mesh`)
+            cap = registry.overrides.max_active_series
+            registry.shard_dense_pages(
+                (cap, min(cap, cfg.sketch_max_series)), sm.series_shards)
         dims = [d for d in cfg.intrinsic_dimensions] + [
             _sanitize(d) for d in cfg.dimensions]
         self._labels = tuple(dims)
@@ -293,6 +300,13 @@ class SpanMetricsProcessor:
         # the staging-buffer ring (generator/pipeline.py), made at first
         # use on the scheduler route
         self._pipe = None
+        # the serving mesh (parallel/serving.py), resolved at first use;
+        # dense state's per-shard K1 operands, and the paged state's
+        # localized tables per page-map version
+        self._mesh = None
+        self._mesh_checked = False
+        self._mesh_plan = None
+        self._pool_plan: "tuple | None" = None
 
     def name(self) -> str:
         return "span-metrics"
@@ -350,16 +364,21 @@ class SpanMetricsProcessor:
         state), so one merged window is one fused update. Below the 2^24
         gate the window ships as the coalescer's one packed [4, bucket]
         f32 matrix."""
+        sm = self._serving_mesh()
         packed = self._packed()
         arrays = (np.asarray(slots, np.float32 if packed else np.int32),
                   np.asarray(dur_s, np.float32),
                   np.asarray(sizes, np.float32),
                   np.asarray(weights, np.float32))
+        # on the serving mesh the coalescer aligns the window to the
+        # 'data' shard count, so each data shard's K1 takes an equal chunk
         return sc.submit_rows(
             self._sched_kernel, self, arrays, len(slots),
             self._dispatch_packed if packed else self._dispatch_vec,
             pads=(-1.0, 0.0, 0.0, 0.0) if packed else (-1, 0.0, 0.0, 0.0),
-            tenant=self.registry.tenant, pack=packed)
+            tenant=self.registry.tenant, pack=packed,
+            align=sm.data_shards if sm is not None else 1,
+            shards=sm.data_shards if sm is not None else 0)
 
     def _pipeline(self, sc):
         """The staging pipeline riding scheduler `sc`, or None when the
@@ -388,10 +407,37 @@ class SpanMetricsProcessor:
             views += (self.mom.data,)
         return views
 
+    # -- serving-mesh route (tempo_tpu_torch.parallel.serving) -------------
+
+    def _serving_mesh(self):
+        """The process serving mesh this processor's dense state is
+        sharded over, or None (single-device dispatch). Resolved ONCE at
+        first use: the placement builds each series shard's K1 operands
+        under the state_lock, and the processor stays on that mesh for
+        its lifetime. Paged state shards at the pool instead (its
+        arenas split page-aligned over 'series')."""
+        if self._paged:
+            return None
+        if self._mesh_checked:
+            return self._mesh
+        sm = serving.active()
+        if sm is not None:
+            with self.registry.state_lock:
+                if not serving.place_spanmetrics_state(self, sm):
+                    sm = None
+        self._mesh = sm
+        self._mesh_checked = True
+        return sm
+
     def _dense_fused(self, batch) -> None:
         """One fused update of dense state, in place under the registry's
-        lock: K1 over the identity tables (one launch on the card)."""
+        lock: K1 over the identity tables (one launch on the card), or on
+        the serving mesh K1 once per shard over its window."""
+        sm = self._serving_mesh()
         with self.registry.state_lock:
+            if sm is not None:
+                sm.fused_update(self._mesh_plan, batch, **self._step_kw)
+                return
             op.fused_step(self._dense_arenas, self._dense_tables, batch,
                           page_shift=self._dense_shift, **self._step_kw)
 
@@ -439,10 +485,37 @@ class SpanMetricsProcessor:
                     tables, arenas, page_rows=self._pool.page_rows,
                     edges=self._step_kw["edges"],
                     dd_rows=self._step_kw["dd_rows"])
+            mesh = self._pool.mesh
+            if mesh is not None:
+                mesh.fused_update(self._pool_shards(arenas, tables), batch,
+                                  compact=self._compact,
+                                  scratch=self._scratch, **self._step_kw)
+                return
             op.fused_step(arenas, tables, batch,
                           page_shift=self._pool.page_shift,
                           compact=self._compact, scratch=self._scratch,
                           **self._step_kw)
+
+    def _pool_shards(self, arenas, tables):
+        """Each series shard's K1 operands over the mesh-split pool: its
+        page window of every arena and the stacked tables localized to
+        its pages, refreshed in place when a page map changed (the
+        tensors live as long as the processor). Caller holds the pool
+        lock."""
+        from tempo_tpu_torch.parallel.mesh import pool_plan
+
+        key = self._tables_key
+        if self._pool_plan is not None and self._pool_plan[0] == key:
+            return self._pool_plan[1]
+        plan = pool_plan(self._pool.mesh.registry_mesh, arenas, tables,
+                         self._pool._arena_pages, self._pool.page_rows)
+        if self._pool_plan is not None:
+            old = self._pool_plan[1]
+            for t_old, t_new in zip(old.tables, plan.tables):
+                t_old.copy_(t_new)
+            plan = old
+        self._pool_plan = (key, plan)
+        return plan
 
     def scratch_bytes(self) -> int:
         """Device bytes of K1's compact working memory (not state: it is

@@ -8,22 +8,13 @@ records onto partitions chosen by trace token (`sendToKafka`
 commits offsets only after its output is applied.
 
 The in-memory `Bus` is both the test double and the single-process
-implementation. The Kafka wire client (`kafka.py`, with its
-`ConsumerGroup`) comes with the Kafka ingest item (ROADMAP section 1,
-item 14): `KafkaBus` and `ConsumerGroup` raise `NotImplementedError`
-until then.
+implementation; `kafka.KafkaBus` speaks the Kafka wire protocol to a real
+broker with the same produce/fetch/commit surface, and
+`kafka.ConsumerGroup` balances partitions between its members.
 """
 
 from tempo_tpu_torch.ingest.bus import Bus, Record
 from tempo_tpu_torch.ingest.encoding import decode_push, encode_push
-
-
-def __getattr__(name: str):
-    if name in ("KafkaBus", "ConsumerGroup", "kafka"):
-        raise NotImplementedError(
-            f"tempo_tpu_torch.ingest.{name} comes with the Kafka ingest item "
-            f"(ROADMAP section 1, item 14)")
-    raise AttributeError(name)
 
 
 __all__ = ["Bus", "Record", "encode_push", "decode_push"]

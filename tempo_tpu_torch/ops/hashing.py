@@ -8,14 +8,17 @@ the same functions, vectorized over byte matrices, so ring tokens, trace
 tokens and placement are bit-identical between the two packages: the
 same trace lands on the same member.
 
-The reference's device mixers (`murmur_fmix32`, `splitmix32`,
-`hash_columns32`, `hash_columns_pair`) feed HyperLogLog and count-min,
-which the port does not carry yet (ROADMAP section 2).
+The device mixers (`murmur_fmix32`, `splitmix32`, `hash_columns32`,
+`hash_columns_pair`) are the reference's uint32 avalanche mixes as torch
+ops, bit-exact: torch has no wrapping uint32 multiply, so each runs on
+int64 lanes holding values in [0, 2^32), the products split in 16-bit
+halves, and returns int64 tensors of those values.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _FNV1_32_OFFSET = np.uint32(2166136261)
 _FNV1_32_PRIME = np.uint32(16777619)
@@ -84,4 +87,67 @@ def token_for(tenant: str, trace_ids: np.ndarray) -> np.ndarray:
     return h
 
 
-__all__ = ["fnv1_32", "fnv1a_32", "fnv1a_64", "token_for"]
+# ---------------------------------------------------------------------------
+# Device-side integer mixers (uint32 values on int64 lanes)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _u32(h) -> torch.Tensor:
+    """uint32 values as an int64 tensor on `h`'s device (numpy arrays,
+    ints and integer tensors; negative int32 lanes wrap)."""
+    from tempo_tpu_torch.ops.pages import u32_on
+
+    return u32_on(h, h.device if isinstance(h, torch.Tensor) else "cpu")
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for h in [0, 2^32): two 16-bit partial products,
+    each below 2^48."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def murmur_fmix32(h) -> torch.Tensor:
+    """Murmur3 32-bit finalizer. Full-avalanche mix of a uint32 lane."""
+    h = _u32(h)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def splitmix32(h) -> torch.Tensor:
+    """splitmix-style 32-bit mixer (distinct constants from fmix32)."""
+    h = (_u32(h) + 0x9E3779B9) & _M32
+    h = _mul32(h ^ (h >> 16), 0x21F0AAAD)
+    h = _mul32(h ^ (h >> 15), 0x735A2D97)
+    return h ^ (h >> 15)
+
+
+def hash_columns32(cols, seed: int = 0) -> torch.Tensor:
+    """Hash a [n, k] integer matrix row-wise to uint32 values: a
+    murmur-style combine per column (each column offset by i * golden
+    ratio before its fmix), FNV-prime folding, an fmix finalizer."""
+    cols = _u32(cols)
+    if cols.dim() == 1:
+        cols = cols[:, None]
+    h = torch.full(cols.shape[:1], (seed ^ 0x811C9DC5) & _M32,
+                   dtype=torch.int64, device=cols.device)
+    for i in range(cols.shape[1]):
+        k = murmur_fmix32((cols[:, i] + ((i * 0x9E3779B9) & _M32)) & _M32)
+        h = _mul32(h ^ k, 0x01000193)
+    return murmur_fmix32(h)
+
+
+def hash_columns_pair(cols, seed: int = 0):
+    """Two independent uint32 row hashes (64 hash bits)."""
+    return (hash_columns32(cols, seed=seed),
+            hash_columns32(cols, seed=seed ^ 0x5BD1E995))
+
+
+__all__ = ["fnv1_32", "fnv1a_32", "fnv1a_64", "token_for", "murmur_fmix32",
+           "splitmix32", "hash_columns32", "hash_columns_pair"]

@@ -165,6 +165,16 @@ def merge_meta_check(a: MomentsSketch, b: MomentsSketch) -> None:
             f"shape={tuple(a.data.shape)}/{tuple(b.data.shape)})")
 
 
+def moments_merge(a: MomentsSketch, b: MomentsSketch) -> MomentsSketch:
+    """Combine: ADD for the count and moment sums, MAX for the two bound
+    columns (the cross-shard merge)."""
+    merge_meta_check(a, b)
+    k = a.k
+    return dataclasses.replace(a, data=torch.cat(
+        [a.data[..., :k + 1] + b.data[..., :k + 1],
+         torch.maximum(a.data[..., k + 1:], b.data[..., k + 1:])], dim=-1))
+
+
 def moments_merge_rows(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
     """Host-side row merge (frontend combine, sidecar folds): [.., k+3]
     f64 rows; sums add, the two bound columns take the max."""
@@ -408,10 +418,15 @@ class use_query_tier:
         _query_tier = self._prev
 
 
-def moments_place(*_args, **_kwargs):
-    raise NotImplementedError(
-        "moments_place shards sketch state over a mesh, which comes with "
-        "mesh serving (ROADMAP section 1, item 13)")
+def moments_place(state: MomentsSketch, device,
+                  page_rows: int) -> MomentsSketch:
+    """Place the plane for the serving mesh: its rows as a row view of a
+    trash-paged arena on `device` (series shards take row windows of
+    it). Idempotent."""
+    from tempo_tpu_torch.ops.pages import place_view
+
+    return dataclasses.replace(
+        state, data=place_view(state.data, device, page_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +458,8 @@ RUNTIME.counter_func(
 
 
 __all__ = ["MomentsSketch", "moments_params", "moments_init",
-           "moments_update", "moments_merge_rows", "moments_zero_slots",
+           "moments_update", "moments_merge", "moments_merge_rows",
+           "moments_zero_slots",
            "moments_basis",
            "basis_constants", "chebyshev_basis", "merge_meta_check",
            "solve_quantiles", "quantiles_for_rows", "reset_solver_cache",

@@ -275,6 +275,24 @@ def log2_hist_step(ah, table, slots, values, weights, *, offset: int,
                   page_shift)
 
 
+def dd_step(a_zeros, ad, t_counts, t_zeros, slots, values, weights, *,
+            gamma: float, min_value: float, page_shift: int) -> None:
+    """The paged DDSketch update, in place: log-γ bucket counts into the
+    wide arena `ad` [Rd, B] through `t_counts`, zero counts into their
+    width-1 arena through `t_zeros`. Masking slots past a plane smaller
+    than the series table is the caller's job (pass -1)."""
+    dev = ad.device
+    slots = torch.as_tensor(slots, device=dev).to(torch.int64)
+    v = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    is_zero = v <= torch.tensor(min_value, dtype=torch.float32, device=dev)
+    idx = dd_index(v, gamma, min_value, ad.shape[-1])
+    _hist_scatter(ad, t_counts, slots, idx, torch.where(is_zero, zero, w),
+                  page_shift)
+    _add1(a_zeros, t_zeros, slots, torch.where(is_zero, w, zero), page_shift)
+
+
 def zero_step(arena, table, slots, *, page_shift: int) -> None:
     """Zero the slots' rows in place (eviction sweep)."""
     r = translate(table, slots, page_shift, arena.shape[0])
@@ -339,6 +357,24 @@ def arena_of(view: torch.Tensor, page_rows: int) -> torch.Tensor:
         raise ValueError("not a row view of a trash-paged arena "
                          f"(page_rows {page_rows})")
     return base
+
+
+def place_view(view: torch.Tensor, device, page_rows: int) -> torch.Tensor:
+    """`view` as a row view of a trash-paged arena on `device` with
+    `page_rows`-row pages: itself when it already is one, else a copy
+    into a new `dense_zeros` arena (the serving mesh's placement)."""
+    dev = torch.device(device)
+    try:
+        arena_of(view, page_rows)
+        if view.device == dev:
+            return view
+    except ValueError:
+        pass
+    out = dense_zeros(view.shape[0], view.shape[1] if view.dim() > 1
+                      else None, page_rows=page_rows, device=dev,
+                      dtype=view.dtype)
+    out.copy_(view)
+    return out
 
 
 def identity_tables(rows: Sequence[int], page_rows: int,

@@ -82,6 +82,17 @@ def dd_init(num_series: int, rel_err: float = 0.01, min_value: float = 1e-9,
         gamma=gamma, min_value=min_value)
 
 
+def dd_place(state: DDSketch, device, page_rows: int) -> DDSketch:
+    """Place the sketch plane for the serving mesh: its tensors as row
+    views of trash-paged arenas on `device`, whose series shards' K1
+    launches take row windows of them. Idempotent."""
+    from tempo_tpu_torch.ops.pages import place_view
+
+    return dataclasses.replace(
+        state, counts=place_view(state.counts, device, page_rows),
+        zeros=place_view(state.zeros, device, page_rows))
+
+
 def dd_update(state: DDSketch, series_ids, values, mask=None,
               weights=None) -> DDSketch:
     """Add a batch of observations into the series' rows, in place. As in
@@ -314,9 +325,79 @@ def hll_estimate(state: HyperLogLog) -> torch.Tensor:
     return torch.where(use_linear, linear, raw)
 
 
+# ---------------------------------------------------------------------------
+# Count-min (per-series heavy-hitter frequency plane)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CountMinSketch:
+    """Per-series count-min tables [S, d, w] f32. Kirsch-Mitzenmacher
+    double hashing: row i uses (h1 + i * h2) & (w - 1). Merge = add."""
+
+    table: torch.Tensor
+    depth: int
+    width: int        # a power of two
+
+
+def cms_init(num_series: int, depth: int = 4, width: int = 2048,
+             device=None) -> CountMinSketch:
+    if width & (width - 1):
+        raise ValueError("width must be a power of two")
+    return CountMinSketch(
+        table=torch.zeros((num_series, depth, width), dtype=torch.float32,
+                          device=resolve_device(device)),
+        depth=depth, width=width)
+
+
+def _cms_flat(state: CountMinSketch, series_ids, h1, h2) -> torch.Tensor:
+    """[n, d] flat table indices from two uint32 hashes (int64 lanes)."""
+    dev = state.table.device
+    h1, h2 = u32_on(h1, dev)[:, None], u32_on(h2, dev)[:, None]
+    i = torch.arange(state.depth, dtype=torch.int64, device=dev)[None, :]
+    cols = ((h1 + i * h2) & 0xFFFFFFFF) & (state.width - 1)
+    sids = torch.as_tensor(series_ids, device=dev).to(torch.int64)
+    return (sids[:, None] * state.depth + i) * state.width + cols
+
+
+def cms_update(state: CountMinSketch, series_ids, h1, h2, counts=None,
+               mask=None) -> CountMinSketch:
+    """Add each observation at its `depth` hashed columns, in place; a
+    masked observation adds zero to row 0, ids outside [0, S) drop."""
+    dev = state.table.device
+    sids = torch.as_tensor(series_ids, device=dev).to(torch.int64)
+    n = sids.shape[0]
+    w = torch.ones(n, dtype=torch.float32, device=dev) if counts is None \
+        else torch.as_tensor(counts, dtype=torch.float32, device=dev)
+    keep = (sids >= 0) & (sids < state.table.shape[0])
+    if mask is not None:
+        m = torch.as_tensor(mask, device=dev)
+        w = torch.where(m, w, torch.zeros((), device=dev))
+        sids = torch.where(m, sids, 0)
+        keep = (sids >= 0) & (sids < state.table.shape[0])
+    flat = _cms_flat(state, torch.where(keep, sids, 0), h1, h2)
+    add = torch.where(keep, w, torch.zeros((), device=dev))
+    state.table.view(-1).index_add_(
+        0, flat.reshape(-1), add[:, None].expand(n, state.depth).reshape(-1))
+    return state
+
+
+def cms_merge(a: CountMinSketch, b: CountMinSketch) -> CountMinSketch:
+    _merge_check("cms_merge", ("depth", a.depth, "width", a.width),
+                 ("depth", b.depth, "width", b.width),
+                 tuple(a.table.shape), tuple(b.table.shape))
+    return dataclasses.replace(a, table=a.table + b.table)
+
+
+def cms_estimate(state: CountMinSketch, series_ids, h1, h2) -> torch.Tensor:
+    """Point frequency estimates, [n] f32 (min over depth rows)."""
+    flat = _cms_flat(state, series_ids, h1, h2)
+    return state.table.reshape(-1)[flat].amin(dim=-1)
+
+
 __all__ = ["Log2Histogram", "NUM_LOG2_BUCKETS", "log2_bucket",
            "log2_hist_init", "log2_hist_update", "log2_hist_merge",
            "log2_quantile", "DDSketch", "dd_params", "dd_init", "dd_update",
            "dd_merge", "dd_quantile", "dd_value_table", "_merge_check",
            "HyperLogLog", "hll_init", "hll_update", "hll_merge",
-           "hll_estimate"]
+           "hll_estimate", "CountMinSketch", "cms_init", "cms_update",
+           "cms_merge", "cms_estimate", "dd_place"]

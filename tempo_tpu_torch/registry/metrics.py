@@ -107,6 +107,18 @@ def _arena_rows(view: torch.Tensor) -> tuple[torch.Tensor, int]:
     return base, off
 
 
+def gauge_add(state: GaugeState, slots, values, mask=None) -> GaugeState:
+    """Add `values` into the slots' rows, in place (a scatter-add: rows
+    repeated in the batch accumulate); masked and out-of-range slots
+    drop."""
+    vals = state.values
+    dev = vals.device
+    s, keep = _kept_slots(slots, mask, vals.shape[0], dev)
+    add_rows(vals, s, keep, torch.as_tensor(values, dtype=torch.float32,
+                                            device=dev))
+    return state
+
+
 @dataclasses.dataclass
 class HistogramState:
     """Classic histogram rows (`registry/histogram.go:107-189`): device
@@ -200,6 +212,19 @@ def state_tensors(state):
             yield t
         elif dataclasses.is_dataclass(t):
             yield from state_tensors(t)
+
+
+def place_state(state, device, page_rows: int):
+    """A metric state with every tensor a row view of a trash-paged arena
+    on `device` (the serving mesh's placement, `ops.pages.place_view`);
+    static meta (histogram edges) rides along. Idempotent: a state
+    already placed comes back unchanged."""
+    from tempo_tpu_torch.ops.pages import place_view
+
+    return dataclasses.replace(state, **{
+        f.name: place_view(getattr(state, f.name), device, page_rows)
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
 
 
 def zero_slots(state, slots):

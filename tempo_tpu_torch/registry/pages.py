@@ -34,6 +34,7 @@ the reference (`registry/registry.py`).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import weakref
 
@@ -42,6 +43,10 @@ import torch
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops import pages as op
+from tempo_tpu_torch.parallel import serving
+from tempo_tpu_torch.parallel.mesh import device_of
+
+_LOG = logging.getLogger("tempo_tpu_torch.pages")
 
 _TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32,
                  "bfloat16": torch.bfloat16}
@@ -127,8 +132,26 @@ class PagePool:
         self.allocated_total = 0
         self.evicted_total = 0
         self.alloc_failures = 0
+        # serving-mesh composition: arenas split page-aligned over
+        # 'series', each shard's K1 owning a range of physical pages.
+        # Needs data axis 1 (the serving default): the paged update is an
+        # owned-pages write with no data-axis delta.
+        sm = serving.active()
+        if sm is not None and sm.data_shards != 1:
+            _LOG.warning(
+                "page pool: serving mesh has data_shards=%d — paged "
+                "arenas need the series-only layout (data=1); arenas "
+                "stay single-device", sm.data_shards)
+            sm = None
+        if sm is not None and sm.device != device_of(self.device):
+            raise NotImplementedError(serving.MULTI_DEVICE_STATE)
+        self.mesh = sm
+        shards = sm.series_shards if sm is not None else 1
         # +1: physical page 0 is the reserved trash page
-        self._arena_pages = -(-cfg.arena_slots // cfg.page_rows) + 1
+        pages = -(-cfg.arena_slots // cfg.page_rows) + 1
+        if pages % shards:
+            pages += shards - pages % shards  # page-aligned shard ranges
+        self._arena_pages = pages
 
     def arena(self, dtype: str, width: int, role: str) -> _Arena:
         """Get-or-create the (dtype, width, role) arena."""
@@ -186,9 +209,7 @@ class PagePool:
         return out
 
     def status(self) -> dict:
-        """The /status "pages" object, with the reference's keys.
-        `series_shards` is 1: the port has no serving mesh (ROADMAP
-        section 1, item 13)."""
+        """The /status "pages" object, with the reference's keys."""
         with self.lock:
             arenas = [{
                 "role": a.role, "dtype": a.dtype, "width": a.width,
@@ -201,7 +222,7 @@ class PagePool:
         return {
             "page_rows": self.page_rows,
             "arena_pages": self._arena_pages,
-            "series_shards": 1,
+            "series_shards": self.mesh.series_shards if self.mesh else 1,
             "allocated_total": self.allocated_total,
             "evicted_total": self.evicted_total,
             "alloc_failures": self.alloc_failures,

@@ -408,6 +408,24 @@ class ManagedRegistry:
             self.state_lock = threading.RLock()
             self.dense_page_rows = dense_page_rows(cap)
 
+    def shard_dense_pages(self, rows, shards: int) -> None:
+        """Under the serving mesh: shrink the dense page, before any
+        family exists, until each of `shards` equal ranges of every row
+        count in `rows` is whole pages (the shard windows K1 addresses),
+        as long as K1's page tables still fit. Pages never grow."""
+        from tempo_tpu_torch.ops.cuda_kernels import (MAX_ROLES,
+                                                      MAX_TABLE_BYTES)
+
+        if self.pages is not None or self._metrics or shards <= 1:
+            return
+        cap = self.overrides.max_active_series
+        pr = self.dense_page_rows
+        for r in rows:
+            while pr > 1 and (r // shards) % pr and \
+                    MAX_ROLES * 4 * -(-cap // (pr >> 1)) <= MAX_TABLE_BYTES:
+                pr >>= 1
+        self.dense_page_rows = pr
+
     def _family_types(self) -> tuple:
         if self.pages is not None:
             from tempo_tpu_torch.registry import paged

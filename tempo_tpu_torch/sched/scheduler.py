@@ -34,8 +34,9 @@ and feeds the online dispatch cost model that `tuning: auto` consults
 
 The dispatch runs on the worker thread (or inline on a shedding
 producer); a failed dispatch lands on each of its jobs' `Job.error` and
-in `dispatch_errors`, never on a fallback. The serving mesh's `align` /
-`shards` options come with the mesh slice of the port and raise.
+in `dispatch_errors`, never on a fallback. Under the serving mesh,
+`submit_rows(align=, shards=)` rounds the merged bucket up to the mesh's
+'data' shard count and records occupancy and padding per shard.
 The scheduler is config-gated (`SchedConfig.enabled`); callers keep
 their synchronous direct route, taken when it is off or absent.
 """
@@ -319,10 +320,11 @@ class _MergeGroup:
     one dispatch closure, one eventual padded tensor."""
 
     __slots__ = ("kernel", "pads", "dispatch", "jobs", "rows", "first_t",
-                 "pack")
+                 "pack", "align", "shards")
 
     def __init__(self, kernel: str, pads: tuple, dispatch: Callable,
-                 first_t: float, pack: bool = False) -> None:
+                 first_t: float, pack: bool = False, align: int = 1,
+                 shards: int = 0) -> None:
         self.kernel = kernel
         self.pads = pads
         self.dispatch = dispatch
@@ -330,6 +332,8 @@ class _MergeGroup:
         self.rows = 0
         self.first_t = first_t
         self.pack = pack
+        self.align = align
+        self.shards = shards
 
 
 class DeviceScheduler:
@@ -366,6 +370,11 @@ class DeviceScheduler:
         self.batches_total: dict[str, int] = {}
         self.coalesced_total: dict[str, int] = {}
         self.padding_waste_bytes: dict[str, int] = {}
+        # serving-mesh split of the padding waste, keyed (kernel, shard):
+        # only mesh dispatches (submits with shards set) populate it; the
+        # exposition renders it as `shard` label rows next to the
+        # non-mesh aggregate (shard="") without double counting
+        self.padding_waste_shard: dict[tuple[str, str], int] = {}
         self.bucket_warmups: dict[str, int] = {}
         self.dispatch_errors = 0
         # compaction-class anti-starvation: consecutive drains that left
@@ -540,26 +549,26 @@ class DeviceScheduler:
         round trip (slot ids do while the series capacity is < 2^24; the
         caller owns that gate).
 
-        `align` > 1 and `shards` > 0 are the reference's serving-mesh
-        options; they come with the mesh slice of the port and raise
-        `NotImplementedError` here.
+        `align` (serving-mesh mode) rounds the merged pow-2 bucket UP to
+        a multiple of it, so the single padded window splits evenly
+        across the mesh's 'data' shards: ONE merged window feeds every
+        shard's K1 launch. `shards` is the mesh dispatch's data-shard
+        count for observability (0 = non-mesh): mesh dispatches emit one
+        occupancy sample per shard under the `shard` label, non-mesh
+        batches keep the aggregate under shard="".
 
         Never blocks and never drops data: on a saturated queue the job
         executes inline on the caller (shed, counted) — ADMISSION control
         lives at the distributor boundary, which consults
         `ingest_retry_after()` before accepting the bytes at all.
         """
-        if align != 1 or shards:
-            raise NotImplementedError(
-                "submit_rows align/shards (the serving mesh) come with "
-                "ROADMAP section 1, item 13")
         pads = tuple(pads) if pads is not None else \
             (-1,) + (0,) * (len(arrays) - 1)
         job = Job(priority=PRIO_INGEST, kernel=kernel, merge_key=merge_key,
                   arrays=tuple(arrays), pads=pads, n_rows=int(n_rows),
                   dispatch=dispatch, tenant=tenant)
         if not self.cfg.enabled:
-            self._run_group(_group_of(job, pack))
+            self._run_group(_group_of(job, pack, align, shards))
             return job
         if self.cfg.tuning == "auto":
             # arrival-rate accounting for the window tuner (outside
@@ -575,7 +584,8 @@ class DeviceScheduler:
                 g = self._groups.get(merge_key)
                 if g is None:
                     g = self._groups[merge_key] = _MergeGroup(
-                        kernel, pads, dispatch, job.enqueue_t, pack=pack)
+                        kernel, pads, dispatch, job.enqueue_t, pack=pack,
+                        align=align, shards=shards)
                 g.jobs.append(job)
                 g.rows += job.n_rows
                 self.jobs_total["ingest"] += 1
@@ -590,7 +600,7 @@ class DeviceScheduler:
                     self._cond.notify_all()
                 return job
         # shed path: dispatch inline, outside the lock
-        self._run_group(_group_of(job, pack))
+        self._run_group(_group_of(job, pack, align, shards))
         return job
 
     def run(self, fn: Callable, kernel: str = "fn",
@@ -861,6 +871,10 @@ class DeviceScheduler:
             if faults.ARMED:
                 faults.fire("sched.dispatch")
             bucket = bucket_rows(max(rows, 1), self.cfg.min_bucket_rows)
+            if g.align > 1 and bucket % g.align:
+                # serving mesh: the padded window must split evenly over
+                # the 'data' shards of the one merged dispatch
+                bucket = -(-bucket // g.align) * g.align
             waste = 0
             if g.pack:
                 # one row-major f32 matrix = ONE H2D for the whole batch
@@ -901,7 +915,19 @@ class DeviceScheduler:
                     self.coalesced_total.get(g.kernel, 0) + len(chunk)
                 self.padding_waste_bytes[g.kernel] = \
                     self.padding_waste_bytes.get(g.kernel, 0) + waste
-            _OCCUPANCY.observe(occ, (g.kernel, ""))
+                if g.shards:
+                    self._note_shard_stats(g, bucket, rows, waste)
+            if g.shards:
+                # mesh mode: one occupancy sample PER 'data' shard — rows
+                # pack contiguously, so the tail shard carries the
+                # padding; a persistently cold last shard means the batch
+                # window is closing under-full for this mesh width
+                per = bucket // g.shards
+                for i in range(g.shards):
+                    real = min(max(rows - i * per, 0), per)
+                    _OCCUPANCY.observe(real / per, (g.kernel, str(i)))
+            else:
+                _OCCUPANCY.observe(occ, (g.kernel, ""))
             h2d_bytes = sum(int(a.nbytes) for a in padded)
             # slow dispatches are findable by trace: same span surface
             # as distributor.push / frontend.Search (NoopTracer default
@@ -914,7 +940,7 @@ class DeviceScheduler:
             # guard: an all-reserved-tenant batch (loopback self-ingest)
             # must not re-trace itself.
             attrs = {"kernel": g.kernel, "bucket": bucket, "rows": rows,
-                     "shard": ""}
+                     "shard": str(g.shards) if g.shards else ""}
             links = sorted({j.traceparent for j in chunk
                             if j.traceparent is not None})
             if links:
@@ -940,7 +966,7 @@ class DeviceScheduler:
         # build failure cannot poison the fit
         devtime.LEDGER.record_batch(
             kernel=g.kernel, bucket=bucket, prio=PRIO_INGEST,
-            shards=0, wall_ns=int(wall_s * 1e9), rows=rows,
+            shards=g.shards, wall_ns=int(wall_s * 1e9), rows=rows,
             padded_rows=max(bucket - rows, 0),
             queue_wait_ns=queue_wait_ns, h2d_bytes=h2d_bytes,
             tenant_rows=tenant_rows)
@@ -958,6 +984,23 @@ class DeviceScheduler:
             j.error = err
             j.event.set()
 
+
+    def _note_shard_stats(self, g: _MergeGroup, bucket: int, rows: int,
+                          waste: int) -> None:
+        """Per-'data'-shard padding split of a mesh dispatch (caller
+        holds _stats_lock). Rows pack contiguously across the shards, so
+        padding concentrates on the tail shard."""
+        pad_rows = bucket - rows
+        if pad_rows <= 0:
+            return
+        per = bucket // g.shards
+        for i in range(g.shards):
+            shard_pad = per - min(max(rows - i * per, 0), per)
+            if shard_pad:
+                key = (g.kernel, str(i))
+                self.padding_waste_shard[key] = \
+                    self.padding_waste_shard.get(key, 0) \
+                    + waste * shard_pad // pad_rows
     def _note_dispatch_error(self, kernel: str, e: BaseException) -> None:
         """Dispatch failures must never be silent: ingest-route jobs are
         fire-and-forget, so the error is counted (exported as
@@ -1015,9 +1058,10 @@ class DeviceScheduler:
         job.event.set()
 
 
-def _group_of(job: Job, pack: bool = False) -> _MergeGroup:
+def _group_of(job: Job, pack: bool = False, align: int = 1,
+              shards: int = 0) -> _MergeGroup:
     g = _MergeGroup(job.kernel, job.pads, job.dispatch, job.enqueue_t,
-                    pack=pack)
+                    pack=pack, align=align, shards=shards)
     g.jobs.append(job)
     g.rows = job.n_rows
     return g
@@ -1163,24 +1207,37 @@ RUNTIME.counter_func(
          "(coalesced/batches = jobs amortized per dispatch)",
     labels=("kernel",))
 def _padding_waste_rows():
-    """Padding waste per kernel under shard="" (the reference's label
-    set; its per-shard rows come with the serving mesh)."""
+    """Padding waste with the serving-mesh `shard` split: per-shard rows
+    for mesh dispatches, the remaining (non-mesh) waste under shard="" —
+    the label values sum to the true per-kernel total, no double count."""
     sc = _default
     if sc is None:
         return []
-    # snapshot under the stats lock: a concurrent scrape iterating a
-    # resizing dict would raise
+    # snapshot under the stats lock: padding_waste_shard grows at
+    # dispatch time and a concurrent scrape iterating a resizing dict
+    # would raise and 500 the whole /metrics render
     with sc._stats_lock:
+        shard_items = list(sc.padding_waste_shard.items())
         kernel_items = list(sc.padding_waste_bytes.items())
-    return [((k, ""), float(v)) for k, v in kernel_items]
+    out = []
+    sharded_by_kernel: dict[str, int] = {}
+    for (k, sh), v in shard_items:
+        out.append(((k, sh), float(v)))
+        sharded_by_kernel[k] = sharded_by_kernel.get(k, 0) + v
+    for k, v in kernel_items:
+        rest = v - sharded_by_kernel.get(k, 0)
+        if rest or k not in sharded_by_kernel:
+            out.append(((k, ""), float(max(rest, 0))))
+    return out
 
 
 RUNTIME.counter_func(
     "tempo_sched_padding_waste_bytes_total",
     _padding_waste_rows,
     help="Bytes of pow-2 padding dispatched beyond real rows, by kernel "
-         "(the price of the pow-2 shape buckets); shard=\"\" off the "
-         "serving mesh",
+         "(the price of the pow-2 shape buckets); serving-mesh "
+         "dispatches additionally split by 'data' shard (non-mesh waste "
+         "keeps shard=\"\")",
     labels=("kernel", "shard"))
 RUNTIME.counter_func(
     "tempo_sched_bucket_warmups_total", _per_kernel("bucket_warmups"),
@@ -1223,8 +1280,9 @@ RUNTIME.gauge_func(
          "(TempoSchedCostModelStale only fires while this is 1)")
 _OCCUPANCY = RUNTIME.histogram(
     "tempo_sched_batch_occupancy_ratio",
-    "Real rows / padded bucket rows per merged batch; shard=\"\" off "
-    "the serving mesh",
+    "Real rows / padded bucket rows per merged batch; serving-mesh "
+    "dispatches observe one sample per 'data' shard (non-mesh batches "
+    "keep shard=\"\")",
     labels=("kernel", "shard"),
     buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0))
 _DISPATCH_SECONDS = RUNTIME.histogram(

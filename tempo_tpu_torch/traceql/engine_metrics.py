@@ -56,6 +56,13 @@ _LABEL_META = "__meta_type"
 _LABEL_MOMENT = "__moment"
 
 
+def _moment_labels(labels) -> bool:
+    for k, _v in labels:
+        if k == _LABEL_MOMENT:
+            return True
+    return False
+
+
 def _moment_bound_labels(labels) -> bool:
     """True for the two max-merged support-bound series of a moments
     quantile group (every other series in a combine sums)."""
@@ -923,15 +930,38 @@ def _fmt_label(v, t: str) -> str:
 # combiner + final pass (frontend level)
 # ---------------------------------------------------------------------------
 
+# metric kinds whose cross-shard merge is EXACT in f32 — integer-valued
+# counts (the engine's rate/count/compare/histogram grids accumulate
+# weight-1 observations) and min/max (pmin/pmax of f32-origin grid
+# values). Only these ride the in-mesh combine, and sum kinds
+# additionally fall back to the host f64 fold when the worst-case
+# reduced sum (max contribution magnitude x widest per-key contribution
+# count) could reach f32's 2^24 integer-exact ceiling; sum/avg_over_time
+# accumulate float values and always keep the host fold.
+_MESH_MERGE_OPS = {
+    A.MetricsKind.RATE: "sum",
+    A.MetricsKind.COUNT_OVER_TIME: "sum",
+    A.MetricsKind.QUANTILE_OVER_TIME: "sum",
+    A.MetricsKind.HISTOGRAM_OVER_TIME: "sum",
+    A.MetricsKind.COMPARE: "sum",
+    A.MetricsKind.MIN_OVER_TIME: "min",
+    A.MetricsKind.MAX_OVER_TIME: "max",
+}
+_MESH_FILL = {"sum": 0.0, "min": np.inf, "max": -np.inf}
+
+
 class SeriesCombiner:
     """Cross-job series merge: tensor adds (min/max for those aggregates),
     the `SimpleAggregator`/`HistogramAggregator` combine step
     (engine_metrics.go:1124,1287).
 
     Sub-results accumulate LAZILY and merge on first read (`series` /
-    `final()`) in the per-series numpy fold. The reference's in-mesh
-    reduce under the serving mesh comes with ROADMAP section 1, item 13
-    (`_merge_mesh` raises until then)."""
+    `final()`). On a single device the merge is the per-series numpy
+    fold; under the serving mesh (`parallel.serving.active()`) the fold
+    of count-exact kinds collapses into ONE in-mesh reduce — every key's
+    contributions stack into a [series, contribs, steps] tensor split
+    over 'series', each shard reduces its rows on its device, and the
+    merged series leave the mesh once instead of per (job, series)."""
 
     def __init__(self, kind: A.MetricsKind, n_steps: int):
         self.kind = kind
@@ -955,6 +985,37 @@ class SeriesCombiner:
         if not self._pending:
             return
         pend, self._pending = self._pending, []
+        op = _MESH_MERGE_OPS.get(self.kind)
+        if op is not None:
+            from tempo_tpu_torch.parallel import serving
+            sm = serving.active()
+            if sm is not None and \
+                    sum(len(x) for x in pend) * self.n_steps >= \
+                    sm.cfg.combine_min_elements:
+                if self.kind == A.MetricsKind.QUANTILE_OVER_TIME:
+                    # moments tier: the whole __moment family peels onto
+                    # the host f64 fold — the bounds merge by MAX, and
+                    # the fractional moment sums would break the mesh
+                    # gate's exactness invariant (amax*cmax < 2^24 only
+                    # guarantees integer-count payloads; a fractional
+                    # sum rounds in f32 at ANY magnitude, making the
+                    # answer depend on which route the combine took).
+                    # The tier's combine win is the PAYLOAD shrink
+                    # (~15 series/group vs 64 bucket series), which the
+                    # host fold keeps; log2 bucket grids still ride the
+                    # in-mesh reduce below.
+                    mom = [[ts for ts in lst if _moment_labels(ts.labels)]
+                           for lst in pend]
+                    pend = [[ts for ts in lst
+                             if not _moment_labels(ts.labels)]
+                            for lst in pend]
+                    for lst in mom:
+                        if lst:
+                            self._merge_host(lst)
+                    pend = [lst for lst in pend if lst]
+                if pend:
+                    self._merge_mesh(sm, pend, op)
+                return
         for lst in pend:
             self._merge_host(lst)
 
@@ -984,9 +1045,71 @@ class SeriesCombiner:
         its already-merged value, if any) and reduce once on the mesh.
         Keys with a single fresh contribution and no prior value skip
         the device entirely (nothing to combine)."""
-        raise NotImplementedError(
-            "SeriesCombiner's in-mesh combine needs the serving mesh "
-            "(ROADMAP section 1, item 13)")
+        groups: dict[tuple, list[TimeSeries]] = {}
+        order: list[tuple] = []
+        for lst in pend:
+            for ts in lst:
+                k = ts.key()
+                if k not in groups:
+                    groups[k] = []
+                    order.append(k)
+                groups[k].append(ts)
+        if op == "sum":
+            # exactness gate: f32 addition of integer counts is exact
+            # only while the REDUCED sum stays below 2^24, so bound the
+            # worst case — max contribution magnitude times the widest
+            # per-key contribution count — and let the host f64 fold
+            # take over past it. Min/max stay exact at any magnitude
+            # (values originate from f32 grids).
+            amax, cmax = 0.0, 1
+            for k, lst in groups.items():
+                cur = self._series.get(k)
+                contribs = ([cur] if cur is not None else []) + lst
+                if len(contribs) > cmax:
+                    cmax = len(contribs)
+                for ts in contribs:
+                    a = float(np.max(np.abs(ts.samples), initial=0.0))
+                    if a > amax:
+                        amax = a
+            if amax * cmax >= float(1 << 24):
+                for lst in pend:
+                    self._merge_host(lst)
+                return
+        multi = [k for k in order if len(groups[k]) > 1 or k in self._series]
+        for k in order:
+            if len(groups[k]) == 1 and k not in self._series:
+                ts = groups[k][0]
+                self._series[k] = TimeSeries(ts.labels, ts.samples.copy(),
+                                             list(ts.exemplars))
+        if not multi:
+            return
+        n_contrib = max(len(groups[k]) + (1 if k in self._series else 0)
+                        for k in multi)
+        # pad both dims to stable pow-2-ish shapes: K to a multiple of
+        # the series shards rounded to pow2, C to pow2
+        K = max(len(multi), sm.series_shards)
+        K = 1 << (K - 1).bit_length()
+        C = 1 << (n_contrib - 1).bit_length()
+        fill = _MESH_FILL[op]
+        mat = np.full((K, C, self.n_steps), fill, np.float32)
+        for i, k in enumerate(multi):
+            j = 0
+            if k in self._series:
+                mat[i, 0] = self._series[k].samples
+                j = 1
+            for ts in groups[k]:
+                mat[i, j] = ts.samples
+                j += 1
+        out = sm.combine(mat, op).astype(np.float64)
+        for i, k in enumerate(multi):
+            cur = self._series.get(k)
+            if cur is None:
+                base = groups[k][0]
+                cur = self._series[k] = TimeSeries(base.labels, out[i], [])
+            else:
+                cur.samples = out[i]
+            for ts in groups[k]:
+                cur.exemplars.extend(ts.exemplars)
 
     def final(self, req: QueryRangeRequest) -> list[TimeSeries]:
         """Final pass: rate division, avg division, quantiles from buckets."""

@@ -11,11 +11,11 @@ tests left for the App, `tests/test_matview.py:591`
 (`test_quantile_endpoint_serves_latency_shares`).
 
 `test_jaeger_receiver` (`tests/test_app.py:311`) runs on both Apps of
-the differential pair. Left out, with their item:
-`test_jaeger_agent_udp_receiver` and `test_jaeger_agent_wired_into_app`
-(the UDP agent receiver, item 14; its datagram decoder is held in
+the differential pair. `test_jaeger_agent_udp_receiver` and
+`test_jaeger_agent_wired_into_app` are mirrored in
+`test_torch_kafka.py`; the agent's datagram decoder is held in
 `test_torch_wire_models.py`, with
-`test_jaeger_agent_dos_datagram_rejected_fast`).
+`test_jaeger_agent_dos_datagram_rejected_fast`.
 
 The differential test pushes the same seeded OTLP protobuf over HTTP
 into the reference's App (JAX on the CPU) and the port's, and compares
@@ -47,6 +47,7 @@ from tempo_tpu_torch.app.api import serve
 from tempo_tpu_torch.app.config import Config
 from tempo_tpu_torch.generator.processors import traceanalytics as tta
 from tempo_tpu_torch.ops import moments as tmoments
+from tempo_tpu_torch.parallel import serving as tserving
 from tempo_tpu_torch.registry import pages as tpages
 from tempo_tpu_torch.utils import dataquality as tdq
 from tempo_tpu_torch.utils import faults as tfaults
@@ -60,6 +61,7 @@ def _reset_port():
     tmoments.set_query_tier("log2")
     tta.reset_counters()
     tdq.reset_orphan_spans()
+    tserving.reset()
 
 
 @pytest.fixture(autouse=True)
@@ -345,12 +347,14 @@ def _check_ported_surface(cfg):
                          ids=lambda v: getattr(v, "__name__", str(v)))
 def test_unported_configurations_raise_naming_their_item(
         tmp_path, patch, item, at_start):
-    """Each unported configuration raises `NotImplementedError` naming its
-    ROADMAP item where the reference first builds the part: at
-    construction, or in `start_loops`. The ported ones (`wal`, `fleet`;
-    item 12) boot, take a push into the generator and report their part
-    on /status; the gRPC plane and self-tracing boot and build their
-    part."""
+    """The configurations once unported, by the item that brought them
+    (the name and the cases are kept from when they raised). `wal` and
+    `fleet` (item 12) boot, take a push into the generator and report
+    their part on /status; the gRPC plane and self-tracing (9b) boot and
+    build their part; the Kafka bus and the Jaeger agent (14) boot and
+    carry a push into the generator; the serving mesh (13) boots as a
+    1 x 1 mesh over the App's device, shows on /status and the `/metrics`
+    gauges, and carries a push."""
     cfg = _cfg(tmp_path)
     patch(cfg)
     if item == "9b":
@@ -376,17 +380,95 @@ def test_unported_configurations_raise_naming_their_item(
         finally:
             app.shutdown()
         return
-    if not at_start:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            App(cfg, device="cpu")
-        return
+    if item == "14":
+        return _check_item_14(cfg)
+    return _check_item_13(cfg)
+
+
+def _check_item_13(cfg):
+    """`mesh.enabled`: the process mesh over the App's device, its
+    /status block and gauges, and a push that lands through it."""
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+
     app = App(cfg, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            app.start_loops()
-        assert not app.ready
+        assert app.mesh is tserving.active()
+        assert app.db.planes.mesh is app.mesh.plane_mesh
+        app.overrides.set_tenant_patch("single-tenant", {
+            "generator": {"processors": ["span-metrics"]}})
+        app.start_loops()
+        srv = serve(app, block=False)
+        base = f"http://127.0.0.1:{cfg.server.http_listen_port}"
+        try:
+            assert _get(base + "/status")[1]["mesh"] == {
+                "devices": 1, "data_shards": 1, "series_shards": 1}
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                assert b"tempo_mesh_series_shards 1" in r.read()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        spans = synthetic_spans(32, seed=3,
+                                now_ns=int((time.time() - 5) * 1e9))
+        assert app.generator.push_otlp("single-tenant",
+                                       encode_spans_otlp(spans)) == 32
+        proc = app.generator.instance("single-tenant").processors[
+            "span-metrics"]
+        app.sched.flush()
+        assert proc._mesh is app.mesh
     finally:
         app.shutdown()
+
+
+def _check_item_14(cfg):
+    """The Kafka bus (on the mock broker) and the Jaeger agent receiver
+    boot; a push reaches the generator through each."""
+    from tempo_tpu_torch.ingest.kafka import KafkaBus
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+    from tests.mock_kafka import start_mock_kafka
+    from tests.test_app import _agent_datagram
+
+    srv = None
+    if cfg.ingest.kafka_bootstrap:
+        srv, kport, _ = start_mock_kafka(n_partitions=cfg.ingest.n_partitions)
+        cfg.ingest.kafka_bootstrap = f"127.0.0.1:{kport}"
+    if cfg.distributor.jaeger_agent_port:
+        cfg.distributor.jaeger_agent_port = free_port()
+    app = App(cfg, device="cpu")
+    try:
+        app.overrides.set_tenant_patch("single-tenant", {
+            "generator": {"processors": ["span-metrics"]}})
+        app.start_loops()
+        assert app.ready
+        gen = app.generator
+        if srv is not None:
+            assert isinstance(app.bus, KafkaBus)
+            spans = synthetic_spans(16, seed=3,
+                                    now_ns=int((time.time() - 5) * 1e9))
+            app.distributor.push_otlp("single-tenant",
+                                      encode_spans_otlp(spans))
+            while gen.consume_bus(app.bus, range(app.bus.n_partitions)):
+                pass
+            want = 16
+        else:
+            assert app.jaeger_agent.cfg.host == "127.0.0.1"
+            gram = _agent_datagram("agent-svc", [{
+                "tid_lo": 7, "tid_hi": 0, "sid": 1, "name": "agent-op",
+                "start_us": int((time.time() - 2) * 1e6), "dur_us": 1000,
+                "tags": {}}])
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.sendto(gram, ("127.0.0.1", app.jaeger_agent.port))
+            s.close()
+            want = 1
+        deadline = time.time() + 5
+        while time.time() < deadline and (
+                "single-tenant" not in gen.instances or
+                gen.instance("single-tenant").spans_received < want):
+            time.sleep(0.02)
+        assert gen.instance("single-tenant").spans_received == want
+    finally:
+        app.shutdown()
+        if srv is not None:
+            srv.shutdown()
 
 
 def test_http_peer_builds_rpc_clients(tmp_path):
@@ -576,12 +658,11 @@ def test_metrics_summary_without_generator(tmp_path):
         app.shutdown()
 
 
-# the names the port's registries lack or add, each with its reason: mesh
-# serving (item 13) is not ported; the port compiles no graphs (no
-# jit-compile families), and keeps no gather timer for paged rows; it
-# counts its hand-kernel launches and launch plans
+# the names the port's registries lack or add, each with its reason: the
+# port compiles no graphs (no jit-compile families), and keeps no gather
+# timer for paged rows; it counts its hand-kernel launches and launch
+# plans. (The `tempo_mesh_*` gauges came with item 13.)
 REF_ONLY = {
-    "tempo_mesh_data_shards", "tempo_mesh_devices", "tempo_mesh_series_shards",
     "tempo_jax_jit_compile_seconds_total", "tempo_jax_jit_compile_total",
     "tempo_pages_gather_overhead_seconds_total",
 }
@@ -890,8 +971,8 @@ def test_differential_query_range(pair):
 
 
 def test_differential_metrics_family_names(pair):
-    """`/metrics` family names: equal but for `REF_ONLY` (unported or
-    jit families) and `PORT_ONLY` (the port's launch counters)."""
+    """`/metrics` family names: equal but for `REF_ONLY` (the jit and
+    gather families) and `PORT_ONLY` (the port's launch counters)."""
     names = {}
     for n in ("port", "ref"):
         with urllib.request.urlopen(pair[n][2] + "/metrics",

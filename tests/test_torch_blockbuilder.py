@@ -272,18 +272,50 @@ def test_blockbuilder_emits_sidecar_at_cut_and_splits_blocks():
 
 
 def test_consumer_group_mode_raises_naming_item_14():
-    from tempo_tpu_torch.backend.mem import MemBackend
-    from tempo_tpu_torch.blockbuilder import BlockBuilder, BlockBuilderConfig
-    from tempo_tpu_torch.ingest.bus import Bus
+    """`BlockBuilderConfig(partitions=None)` on a Kafka bus: the name is
+    kept from when the mode raised; since item 14 the block-builder joins
+    the consumer group and builds the same blocks as the reference's
+    (`tests/test_ingest_bus.py:589`), committing with the generation."""
+    import importlib
 
-    class GroupBus(Bus):
-        def group_request(self, *a, **k):
-            raise AssertionError("not reached")
+    from tests.mock_kafka import start_mock_kafka
 
-    bb = BlockBuilder(GroupBus(1), MemBackend(),
-                      BlockBuilderConfig(partitions=None), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        bb.consume_cycle()
+    rng = np.random.default_rng(14)
+    traces = []
+    for i in range(6):
+        tid = rng.bytes(16)
+        traces.append((tid, [{"trace_id": tid, "span_id": rng.bytes(8),
+                              "name": f"op-{i}", "service": "svc",
+                              "start_unix_nano": int(T0 * 1e9) + i,
+                              "end_unix_nano": int(T0 * 1e9) + 10 ** 6 + i,
+                              "kind": 2, "status_code": 0}]))
+    out = []
+    for pkg in ("tempo_tpu", "tempo_tpu_torch"):
+        m = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+        srv, port, _ = start_mock_kafka(n_partitions=2)
+        bus = m("ingest.kafka").KafkaBus(f"127.0.0.1:{port}",
+                                         n_partitions=2, timeout_s=5.0)
+        try:
+            for k, (tid, spans) in enumerate(traces):
+                bus.produce(k % 2, "t", m("ingest.encoding").encode_push(
+                    [(tid, spans)])[0])
+            be = m("backend.mem").MemBackend()
+            bbm = m("blockbuilder")
+            kw = {"device": "cpu"} if pkg == "tempo_tpu_torch" else {}
+            bb = bbm.BlockBuilder(bus, be, bbm.BlockBuilderConfig(
+                partitions=None, sidecars=False), now=lambda: T0, **kw)
+            n = bb.consume_cycle()
+            metas = [m("backend.meta").read_block_meta(be, b, "t")
+                     for b in m("backend.raw").blocks(be, "t")]
+            out.append((n, bb._cg.assignment, bb._cg.generation >= 0,
+                        sorted(x.total_objects for x in metas),
+                        [bus.committed("blockbuilder", p) for p in (0, 1)],
+                        bb.consume_cycle()))
+        finally:
+            bus.close()
+            srv.shutdown()
+    assert out[0] == out[1]
+    assert out[1] == (6, [0, 1], True, [3, 3], [3, 3], 0)
 
 
 def test_sidecar_merge_and_cardinality_match_reference():

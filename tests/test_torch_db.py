@@ -37,6 +37,7 @@ from tempo_tpu_torch.db import (CompactorConfig as TCompCfg, List as TList,
                                 Pool as TPool, TempoDB as TDB,
                                 TempoDBConfig as TCfg,
                                 TimeWindowBlockSelector as TSel)
+from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.traceql import engine_metrics as tem
 from tests.test_block import trace
 from tests.test_torch_engine_metrics import assert_series_equal, smap
@@ -89,14 +90,37 @@ def test_unported_surfaces_raise_naming_their_item(tmp_path):
     assert db.compact_tenant_once("t") == 0
     assert db.retention_once("t") == ([], [])
     assert db.backfill_sidecars_once("t") == 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TDB(be, be, TCfg(plane_mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tem.SeriesCombiner(tem.A.MetricsKind.RATE, 1)._merge_mesh(None, [],
-                                                                  "sum")
+    # the mesh surfaces came with item 13 (the name is kept from when
+    # they raised): a plane mesh reaches the plane cache, the in-mesh
+    # combine folds as the reference's does, and moments_place puts a
+    # plane into a trash-paged arena (a no-op once it is one)
+    from tempo_tpu.parallel import serving as jserving
     from tempo_tpu_torch.ops import moments
-    with pytest.raises(NotImplementedError, match="item 13"):
-        moments.moments_place(None)
+    from tempo_tpu_torch.parallel import make_mesh, serving
+    m = make_mesh(4, devices=["cpu"] * 4)
+    mdb = TDB(be, be, TCfg(plane_mesh=m), device="cpu")
+    assert mdb.planes.mesh is m
+    mdb.shutdown()
+    rng = np.random.default_rng(5)
+    pend = [[(((("name", f"op-{i}"),), rng.integers(0, 9, 3)
+               .astype(np.float64))) for i in range(5)] for _ in range(3)]
+    got = []
+    for mod, sm in ((jem, jserving.ServingMesh(jserving.MeshConfig(
+            enabled=True, devices=4, series_shards=2))),
+            (tem, serving.ServingMesh(serving.MeshConfig(
+                enabled=True, series_shards=2), devices=["cpu"] * 4))):
+        comb = mod.SeriesCombiner(mod.A.MetricsKind.RATE, 3)
+        comb._merge_mesh(sm, [[mod.TimeSeries(lab, v.copy()) for lab, v
+                               in lst] for lst in pend], "sum")
+        got.append({k: v.samples.tolist() for k, v in comb.series.items()})
+    assert got[0] == got[1] and got[1]
+    st = moments.moments_init(32, device="cpu")
+    assert moments.moments_place(st, "cpu", 64).data is st.data
+    loose = moments.MomentsSketch(torch.ones(32, st.data.shape[1]), st.k,
+                                  st.lo, st.hi)
+    placed = moments.moments_place(loose, "cpu", 64)
+    assert torch.equal(placed.data, loose.data)
+    assert op.arena_of(placed.data, 64).shape[0] == 128
     # the sidecar fold (tests/test_torch_sidecar.py) and its writer, the
     # block-builder (tests/test_torch_blockbuilder.py), hold both halves
     # against the reference; the backfill is tests/test_torch_compact.py

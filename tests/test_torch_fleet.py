@@ -465,6 +465,66 @@ def test_port_blob_restores_into_the_reference():
     _assert_merge_equal(_ref_samples(ref), _samples(oracle), rel=1e-6)
 
 
+def _sharded_inst(shards: int = 4):
+    """A port tenant whose span-metrics state is placed on a serving mesh
+    of `shards` logical CPU series shards."""
+    from tempo_tpu_torch.parallel import serving
+
+    sm = serving.ServingMesh(serving.MeshConfig(enabled=True),
+                             devices=["cpu"] * shards)
+    with serving.use(sm):
+        inst = _inst()
+        proc = inst.processors["span-metrics"]
+        assert proc._serving_mesh() is sm
+    return inst
+
+
+def test_reference_blob_restores_into_a_sharded_tenant():
+    """The reference's blob restores into a tenant sharded over 4 series
+    shards exactly; after the next push (the shards' K1 launches) the
+    tenant equals the reference to the contract and an unsharded port
+    tenant that took the same restore and push bit for bit, quantiles
+    included."""
+    from tempo_tpu.fleet import checkpoint as jck
+
+    ref = _ref_inst()
+    _ref_push(ref, 1)
+    blob = jck.snapshot_instance(ref)
+    port, plain = _sharded_inst(), _inst()
+    for inst in (port, plain):
+        ck.restore_instance(inst, blob)
+    assert _samples(port) == _ref_samples(ref)
+    _ref_push(ref, 2)
+    for inst in (port, plain):
+        _push(inst, 2)
+    _assert_merge_equal(_samples(port), _ref_samples(ref), rel=1e-6)
+    assert _samples(port) == _samples(plain)
+    for q in (0.5, 0.99):
+        assert port.processors["span-metrics"].quantile(q) == \
+            plain.processors["span-metrics"].quantile(q)
+
+
+def test_sharded_snapshot_restores_bit_for_bit():
+    """A sharded tenant's snapshot restores bit for bit into an unsharded
+    port tenant and into the reference, and equals an unsharded
+    tenant's snapshot of the same pushes."""
+    from tempo_tpu.fleet import checkpoint as jck
+
+    sharded = _sharded_inst()
+    plain = _inst()
+    for seed in (2, 3):
+        _push(sharded, seed)
+        _push(plain, seed)
+    blob = ck.snapshot_instance(sharded)
+    assert _samples(sharded) == _samples(plain)
+    port = _inst()
+    ck.restore_instance(port, blob)
+    assert _samples(port) == _samples(sharded)
+    ref = _ref_inst()
+    jck.restore_instance(ref, blob)
+    assert _ref_samples(ref) == _samples(sharded)
+
+
 # ---------------------------------------------------------------------------
 # trace-analytics aux planes (tests/test_traceanalytics.py:346-411)
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ with generation disabled, `tests/test_ingest_bus.py:91,111`), and the
 obs family names. Also: the push fence against `pop_instance`,
 `reattach_instance`, `remove_instance` returning a paged tenant's pages,
 `start` / `shutdown`, the ingest WAL's append and replay, native
-histograms sent under `send_native_histograms`, and the Kafka consumer
-group raising `NotImplementedError` naming its ROADMAP item.
+histograms sent under `send_native_histograms`, and `consume_bus` in the
+Kafka consumer group's mode against the mock broker.
 """
 
 from __future__ import annotations
@@ -228,12 +228,33 @@ def test_consume_bus_matches_reference_and_skips_disabled():
     assert out[1][1] == ["acme"] and out[1][2] == 41 and out[1][4] == 0
     assert_same_state(jg.instance("acme"), tg.instance("acme"))
 
-    class KafkaLike(TBus):
-        def group_request(self, *a):
-            raise AssertionError("not reached")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tg.consume_bus(KafkaLike())
-    assert tg.consume_bus(KafkaLike(), partitions=[0]) == 0
+    # a Kafka bus with partitions=None: the consumer group assigns both
+    # partitions, and the generation-fenced commits land as on the
+    # static bus (tests/test_ingest_bus.py:589 on both packages)
+    from tempo_tpu.ingest.kafka import KafkaBus as JKafka
+    from tempo_tpu_torch.ingest.kafka import KafkaBus as TKafka
+    from tests.mock_kafka import start_mock_kafka
+
+    jg, tg = gens({"acme": tenant_patch(SM_ONLY)}, defaults=defaults)
+    out = []
+    for g, kafka_cls, produce in ((jg, JKafka, j_produce),
+                                  (tg, TKafka, t_produce)):
+        srv, port, _broker = start_mock_kafka(n_partitions=2)
+        bus = kafka_cls(f"127.0.0.1:{port}", n_partitions=2, timeout_s=5.0)
+        try:
+            traces = [_mktrace(i, 1 + i % 3) for i in range(1, 9)]
+            mat = np.stack([np.frombuffer(t, np.uint8) for t, _ in traces])
+            produce(bus, "acme", traces, token_for("acme", mat))
+            out.append((g.consume_bus(bus),
+                        g._cgroups["metrics-generator"].assignment,
+                        [bus.lag("metrics-generator", p) for p in range(2)],
+                        g.consume_bus(bus)))
+        finally:
+            bus.close()
+            srv.shutdown()
+    assert out[0] == out[1]
+    assert out[1][1] == [0, 1] and out[1][2] == [0, 0] and out[1][3] == 0
+    assert_same_state(jg.instance("acme"), tg.instance("acme"))
 
 
 def test_push_fence_pop_reattach_remove_and_pages():
@@ -335,7 +356,8 @@ def test_start_and_shutdown_collect():
 def test_unported_surfaces_raise_naming_their_item(tmp_path):
     """The ingest WAL and the fleet names came with item 12 and work: a
     WAL generator appends each push and replays it into a second one; the
-    Kafka consumer group still raises naming item 14."""
+    Kafka consumer group came with item 14 and sits in `ingest.kafka`, as
+    in the reference (the package exports the same names)."""
     from tempo_tpu_torch.generator.wal import GeneratorWal, IngestWalConfig
 
     def walgen():
@@ -375,8 +397,13 @@ def test_unported_surfaces_raise_naming_their_item(tmp_path):
     from tempo_tpu_torch import fleet, ingest
     from tempo_tpu_torch.fleet.controller import FleetController
     assert fleet.FleetController is FleetController
-    with pytest.raises(NotImplementedError, match="item 14"):
-        getattr(ingest, "ConsumerGroup")
+    import tempo_tpu.ingest as jingest
+    from tempo_tpu_torch.ingest import kafka as tkafka
+    assert sorted(ingest.__all__) == sorted(jingest.__all__)
+    assert not hasattr(ingest, "ConsumerGroup")
+    assert sorted(tkafka.__all__) == sorted(
+        __import__("tempo_tpu.ingest.kafka", fromlist=["x"]).__all__)
+    assert isinstance(tkafka.ConsumerGroup, type)
 
 
 def test_send_native_histograms_raises_naming_item_6():

@@ -44,10 +44,14 @@
   the App abandoned, a second App replaying the WAL at boot), and
   another the `--kv-only` worker's server holding the ring of two fleet
   controllers that hand a tenant off, with the same result.
+- A fresh interpreter drives a `KafkaBus` produce and a group-mode
+  `consume_bus` against the mock broker, and another an App with
+  `mesh.enabled` pushing and collecting on logical CPU series shards,
+  with the same result.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
-- Every configuration this slice does not carry raises
+- Every configuration the port does not carry raises
   `NotImplementedError` instead of quietly doing something else.
 """
 
@@ -676,8 +680,10 @@ def _instance(**sm):
                                 dict(compact_state=True), dict()])
 def test_unsupported_spanmetrics_configs_raise(sm):
     """Under every sketch and state tier the scheduler route (the
-    default) builds and queues a push, and the options of a later slice
-    raise: the scheduler's serving-mesh `align` / `shards`."""
+    default) builds and queues a push. The name is kept from when the
+    scheduler's serving-mesh options raised: since item 13 `align`
+    rounds the merged window up to its multiple and `shards` splits the
+    occupancy per shard."""
     import numpy as np
 
     import tempo_tpu_torch as tt
@@ -693,10 +699,13 @@ def test_unsupported_spanmetrics_configs_raise(sm):
             data, tt.SpanBatchBuilder(g.registry.interner)))
         assert sc.pending() == 1
         sc.flush()
-        for kw in (dict(align=2), dict(shards=2)):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                sc.submit_rows("k", "m", (np.zeros(4, np.int32),), 4,
-                               lambda s: None, **kw)
+        for kw, want in ((dict(align=3), 66), (dict(shards=2), 64)):
+            got = []
+            sc.submit_rows("k", "m", (np.zeros(48, np.int32),), 48,
+                           lambda s: got.append(s.shape[0]), **kw)
+            sc.drain_once(force=True)
+            assert got == [max(want, sc.cfg.min_bucket_rows)
+                           if "shards" in kw else want]
 
 
 @pytest.mark.parametrize("sm", [dict(sketch="moments"), dict(sketch="both"),
@@ -985,6 +994,92 @@ with tempfile.TemporaryDirectory() as root:
     # the ingester flushed the pushed traces into one block at shutdown
     assert "total: 1 blocks, 16 traces" in out.getvalue()
 """ + _DRIVE_TAIL
+
+
+_KAFKA_DRIVE = """
+import sys
+import time
+from tempo_tpu_torch.generator import Generator
+from tempo_tpu_torch.generator.instance import GeneratorConfig
+from tempo_tpu_torch.generator.processors.spanmetrics import SpanMetricsConfig
+from tempo_tpu_torch.ingest.encoding import encode_push
+from tempo_tpu_torch.ingest.kafka import KafkaBus
+from tempo_tpu_torch.overrides import Overrides
+from tests.mock_kafka import start_mock_kafka
+
+srv, port, broker = start_mock_kafka(n_partitions=2)
+bus = KafkaBus(f"127.0.0.1:{port}", n_partitions=2, timeout_s=5.0)
+t0 = int((time.time() - 3) * 1e9)
+for p in range(2):
+    tid = bytes([p + 1]) * 16
+    bus.produce(p, "t", encode_push([(tid, [{
+        "trace_id": tid, "span_id": b"s" * 8, "name": "op", "service": "svc",
+        "start_unix_nano": t0, "end_unix_nano": t0 + 10 ** 6}])])[0])
+assert broker.produce_batches == 2
+ov = Overrides()
+ov.set_tenant_patch("t", {"generator": {"processors": ["span-metrics"]}})
+gen = Generator(GeneratorConfig(processors=("span-metrics",),
+                                spanmetrics=SpanMetricsConfig(
+                                    sketch_max_series=128)),
+                overrides=ov, device="cpu")
+assert gen.consume_bus(bus) == 2
+assert gen._cgroups["metrics-generator"].assignment == [0, 1]
+assert [bus.committed("metrics-generator", p) for p in range(2)] == [1, 1]
+assert gen.instance("t").spans_received == 2
+bus.close()
+srv.shutdown()
+""" + _DRIVE_TAIL
+
+_MESH_DRIVE = """
+import sys
+import tempfile
+import time
+from tempo_tpu_torch.app import App
+from tempo_tpu_torch.app.config import Config
+from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+from tempo_tpu_torch.parallel import serving
+
+with tempfile.TemporaryDirectory() as root:
+    cfg = Config(target="metrics-generator")
+    cfg.storage.backend = "mem"
+    cfg.storage.wal_path = root + "/wal"
+    cfg.mesh.enabled = True
+    cfg.sched.enabled = False
+    app = App(cfg, device="cpu")
+    assert app.mesh is serving.active() and app.mesh.series_shards == 1
+    # logical shards: the App's mesh over 4 CPU shards
+    sm = serving.ServingMesh(cfg.mesh, devices=["cpu"] * 4)
+    with serving.use(sm):
+        app.overrides.set_tenant_patch("single-tenant", {"generator": {
+            "processors": ["span-metrics"], "max_active_series": 1024}})
+        spans = synthetic_spans(32, seed=1,
+                                now_ns=int((time.time() - 5) * 1e9))
+        assert app.generator.push_otlp("single-tenant",
+                                       encode_spans_otlp(spans)) == 32
+        proc = app.generator.instance("single-tenant").processors[
+            "span-metrics"]
+        assert proc._mesh is sm and len(proc._mesh_plan.arenas) == 4
+        got = sum(s.value for s in
+                  app.generator.instance("single-tenant").registry.collect(1)
+                  if s.name == "traces_spanmetrics_calls_total")
+        assert got == 32, got
+    app.shutdown()
+""" + _DRIVE_TAIL
+
+
+def test_kafka_drive_loads_no_reference_yaml_or_pyarrow():
+    """A `KafkaBus` produce against the mock broker and a group-mode
+    `Generator.consume_bus`, in a fresh interpreter: no `jax`,
+    `tempo_tpu`, `yaml` or `pyarrow` is loaded."""
+    _fresh(_KAFKA_DRIVE)
+
+
+def test_mesh_app_drive_loads_no_reference_yaml_or_pyarrow():
+    """An App with `mesh.enabled` (a 1 x 1 mesh over its CPU device), then
+    a push and a collect with the tenant on 4 logical CPU series shards,
+    in a fresh interpreter: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`
+    is loaded."""
+    _fresh(_MESH_DRIVE)
 
 
 def test_grpc_export_and_cli_drive_loads_no_reference_yaml_or_pyarrow():

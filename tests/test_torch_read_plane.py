@@ -688,8 +688,17 @@ def test_plane_cache_lru_budget(tmp_path):
     big = PlaneCache(device="cpu")
     assert (big.budget_bytes, big.max_blocks, big.host_budget_bytes) == \
         (1 << 30, 64, 4 << 30)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PlaneCache(mesh=object(), device="cpu")
+    # a plane cache over a mesh (item 13) builds its planes on the
+    # mesh's 'data' shards and answers as the single-device cache does
+    from tempo_tpu_torch.parallel import make_mesh
+    want = w.query(w.port, "{ } | rate() by (name)", T0, T0 + 100, 50e9)
+    w.port.planes = PlaneCache(mesh=make_mesh(4, devices=["cpu"] * 4),
+                               device="cpu")
+    got = w.query(w.port, "{ } | rate() by (name)", T0, T0 + 100, 50e9)
+    assert sorted((s.labels, s.samples.tolist()) for s in got) == \
+        sorted((s.labels, s.samples.tolist()) for s in want)
+    assert all(e.plane.mesh is not None
+               for e in w.port.planes._entries.values())
 
 
 def test_search_rides_the_device_first_pass(world):
@@ -711,8 +720,10 @@ def test_search_rides_the_device_first_pass(world):
 def test_per_row_group_offload_raises_until_6b(planes, monkeypatch):
     """`TEMPO_TPU_DEVICE_SCAN=1` runs the reference's opt-in per-row-group
     offload on the view's device (the CPU here): `condition_mask` gives
-    the host plane's answer through it. A mesh still raises naming item
-    13 (the differential cases are `test_offload_mask_*` below)."""
+    the host plane's answer through it (the differential cases are
+    `test_offload_mask_*` below). The name is kept from when a plane
+    over a mesh raised: since item 13 its mask, run per 'data' shard,
+    equals the single-device plane's."""
     tc, _ = planes
     _, req = tengine.compile_query('{ name = "op-1" }')
     host = condition_mask(tc.views[0], req)
@@ -722,8 +733,14 @@ def test_per_row_group_offload_raises_until_6b(planes, monkeypatch):
     np.testing.assert_array_equal(condition_mask(tc.views[0], req), host)
     assert tds.device_pred_mask.launches == before + 1
     assert tc.views[0].meta["device"].type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tds.BlockScanPlane(tc.views, mesh=object(), device="cpu")
+    from tempo_tpu_torch.parallel import make_mesh
+    one = tds.BlockScanPlane(tc.views, device="cpu")
+    for n in (2, 8):
+        sharded = tds.BlockScanPlane(
+            tc.views, mesh=make_mesh(n, devices=["cpu"] * n), device="cpu")
+        np.testing.assert_array_equal(
+            sharded.mask(req.conditions, req.all_conditions),
+            one.mask(req.conditions, req.all_conditions))
 
 
 # ---------------------------------------------------------------------------
