@@ -258,7 +258,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 12. the ingest-storage path at the frontend's defaults: one span-metrics
    + local-blocks tenant behind a `Distributor` onto a 4-partition bus,
    drained by `Generator.consume_bus` and a `BlockBuilder` (sidecars on
-   the card), one push of 16,384 spans a leg (history, then the clock
+   the card), one push of 8,192 spans a leg (history, then the clock
    +20 min, recent), against a CPU twin fed the same records; rate and
    quantiles by service through the frontend over both legs;
 13. the materialized grids and trace analytics:
@@ -295,7 +295,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    pinned clock, the compaction loop's interval raised to an hour so it
    does not race the phase's own sweep), its tenant given span metrics
    and local blocks:
-   a. 3 pushes of 16,384 `deep_trace_spans` spans (32-span traces) as
+   a. 2 pushes of 16,384 `deep_trace_spans` spans (32-span traces) as
       OTLP protobuf through `POST /v1/traces` (the default limits hold),
       then 64 finds, a search, the tags and a tag's values, a rate and
       a `quantile_over_time` by service, the span-metrics summary and
@@ -319,7 +319,7 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 
 15. durability and fleet, on the card against CPU twins:
    a. `App(Config())` at target `all` with `wal.enabled` (fsync batch)
-      and the default processors on dense state: 3 pushes of 16,384
+      and the default processors on dense state: 2 pushes of 16,384
       `deep_trace_spans` spans over HTTP, then the App abandoned with no
       shutdown; a second App over the same directories replays the WAL
       at its boot through the scheduler and K1 (launches equal to the
@@ -395,6 +395,24 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
    and to a CPU twin's, and one shard's K1 on the last window; d. a rate
    and a quantile `query_range` through `TempoDB(plane_mesh=...)` with
    the in-mesh combine, equal to the same queries with the mesh off.
+   Every plane of the sharded state is one tensor a series shard, each
+   behind its own trash page (`parallel.mesh.ShardedPlane`).
+19. resident state one tensor a series shard, and a mesh across
+   processes: a. one tenant at the default widths (`sketch: both`) on 4
+   series shards over `[cuda:0] * 4`, dense and then on a page pool
+   split over 4 shards: the shards' arenas are separate allocations, 3
+   pushes of 16,384 k6-like spans through the staged route and the
+   scheduler, `collect()`, the quantiles, an eviction sweep (every
+   shard's rows zero, then a push reusing them) and a checkpoint
+   restored bit for bit into an unsharded tenant and back, each equal to
+   the unsharded tenant on the card; b. two ranks spawned into a gloo
+   group on the card, `make_multihost_mesh(series_shards=2)` over
+   `[cuda:0] * 2` each (2 data x 2 series shards), 19a's windows through
+   `sharded_serving_step`, each rank updating from its half of every
+   window and reducing over the group, every rank's state equal to the
+   unsharded card's K1 over the same windows, then `merge_sketch_states`
+   over the group (HLL registers exact); K1 launches = 2 series shards
+   x windows in each rank, the `all_reduce` calls timed.
    Then one process of its own takes every captured K1 window's device
    time (`--final-profiles`: the windows are saved under `build/`; read
    in the smoke's own process after other profiles, the trace lost
@@ -405,8 +423,9 @@ over 16,384 series, 15 latency buckets; paged state in a page pool of
 
 `python3 chip_smoke.py --phase14` builds as above and runs phase 14
 alone (about 100 s); `--phase15` runs phase 15 alone, then its final
-profiles; `--phase16`, `--phase17` and `--phase18` run that phase
-alone, then K1's device time on its windows.
+profiles; `--phase16`, `--phase17`, `--phase18` and `--phase19` run
+that phase alone, then K1's device time on its windows (`--phase19`
+spawns its two ranks as the whole smoke does).
 
 Before phase 1 a line reports whether `pyarrow`, `zstandard` and `yaml`
 can be imported on the machine; nothing branches on it (the port reads
@@ -4594,6 +4613,9 @@ LB_TENANT = "lb-0"
 N_BUS_PARTITIONS = 4
 N_LB_PUSHES = 1                  # history pushes, then as many recent ones
                                  # (2 before phase 13, cut to make room)
+N_LB_SPANS = N_SPANS // 2        # spans a push (16,384 before PR 18:
+                                 # halved for the smoke's time; the local
+                                 # cut fsyncs a segment a trace)
 LB_RECENT_S = 1200.0             # the clock moves 20 minutes between legs
 LB_RATE = "{ } | rate() by (resource.service.name)"
 LB_QUANT = ("{ } | quantile_over_time(duration, .5, .99) by "
@@ -4608,7 +4630,8 @@ def _lb_payloads(t0):
     from tempo_tpu_torch.model.otlp import encode_spans_otlp
 
     return [[encode_spans_otlp(deep_trace_spans(
-        N_SPANS, seed=SEED + 120 + 2 * leg + k, now_ns=int(at * 1e9)))
+        N_LB_SPANS, seed=SEED + 120 + 2 * leg + k,
+        now_ns=int(at * 1e9)))
         for k in range(N_LB_PUSHES)]
         for leg, at in enumerate((t0, t0 + LB_RECENT_S))]
 
@@ -4777,7 +4800,7 @@ def phase12_profiles(root, t0, clock) -> dict:
 
 def _print_phase12(r, card):
     p = r["prof"]
-    n = 2 * N_LB_PUSHES * N_SPANS
+    n = 2 * N_LB_PUSHES * N_LB_SPANS
     sec = r["secs"]
 
     def dev(ms):
@@ -4936,7 +4959,7 @@ def _phase_ingest_storage(card, root):
     t0 = time.time()
     legs = _lb_payloads(t0)
     host = _host_traces(legs[0] + legs[1])
-    n_spans = 2 * N_LB_PUSHES * N_SPANS
+    n_spans = 2 * N_LB_PUSHES * N_LB_SPANS
     n_hist = len(_host_traces(legs[0]))
     durs: dict = {}
     for spans in host.values():
@@ -5721,7 +5744,7 @@ def _print_phase13(a, b, p, card):
 # ---------------------------------------------------------------------------
 
 APP_TENANT = "single-tenant"       # the HTTP API's tenant without a header
-N_APP_PUSHES = 3
+N_APP_PUSHES = 2                   # 3 before PR 18, cut for the smoke's time
 N_APP_FIND = 64                    # trace ids found over HTTP and direct
 APP_RATE = LB_RATE
 APP_QUANT = ("{ } | quantile_over_time(duration, .5, .9) by "
@@ -6342,9 +6365,9 @@ def _print_phase14(r, p, card):
 # ---------------------------------------------------------------------------
 
 DEFAULT_PROCESSORS = ("span-metrics", "service-graphs")
-N_WAL_PUSHES = 3
+N_WAL_PUSHES = 2                 # 3 before PR 18, cut for the smoke's time
 N_WORKER_PUSHES = 2
-N_CKPT_PUSHES = 2
+N_CKPT_PUSHES = 1                # 2 before PR 18, cut for the smoke's time
 FLEET_TENANT = "handoff-0"
 NATIVE_OBS = N_SPANS
 
@@ -8381,18 +8404,16 @@ def _mesh_payloads(t0):
 
 
 def _mesh_rows(proc):
-    """{labels: moments row} of the dense moments plane's active slots."""
+    """{labels: moments row} of the moments plane's active slots (read
+    shard by shard on the serving mesh, through the page table on a
+    pool)."""
+    from tempo_tpu_torch.generator.processors.spanmetrics import _MOMENTS
+
     with proc.registry.state_lock:
         slots = proc._sketch_slots()
-        rows = proc.mom.data[torch_index(slots, proc.mom.data)].cpu().numpy()
+        rows = proc._rows(slots, _MOMENTS).cpu().numpy()
     return {proc.calls.labels_of(int(s)): rows[i]
             for i, s in enumerate(slots)}
-
-
-def torch_index(slots, like):
-    import torch
-
-    return torch.from_numpy(np.asarray(slots, np.int64)).to(like.device)
 
 
 def _mesh_layout(device, t0, payloads, sm, paged=False):
@@ -8447,8 +8468,9 @@ def _mesh_layout(device, t0, payloads, sm, paged=False):
 
 def _mesh_k1_row(name, proc, mat, launches, ctx, data_shards):
     """K1 on the last window as one shard's launch makes it: series shard
-    0's windows and localized tables; on the data axis, a zeroed delta
-    window and the first data shard's chunk of the window."""
+    0's arenas and localized tables; on the data axis, zeroed delta
+    arenas of their shapes and the first data shard's chunk of the
+    window."""
     import torch
 
     with proc.registry.state_lock:
@@ -8626,8 +8648,13 @@ def phase_mesh(card):
     moments k 12): 18a 4 series shards, 18b 2 data x 2 series shards,
     18c paged arenas over 4 shards (each over `[cuda:0] * 4`, logical
     shards on the one card), each against the unsharded tenant on the
-    card and a CPU twin; 18d the read plane and the in-mesh combine.
-    Returns (results, [K1's kernel entries, one a layout])."""
+    card and a CPU twin; 18d the read plane and the in-mesh combine. On
+    every layout each plane is one tensor a series shard, on the shard's
+    device behind its own trash page (`parallel.mesh.ShardedPlane`; the
+    pool's arenas one a shard's range of pages), which each shard's K1
+    updates through its localized tables: the same code that runs on
+    distinct cards. Returns (results, [K1's kernel entries, one a
+    layout])."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="phase18-",
                                      dir=os.path.join(ROOT, "build")) as root:
@@ -8759,6 +8786,505 @@ def _print_phase18(r, card):
     print(f"phase 18 [{card}]: 18d {r['query_s']:.1f} s; {r['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: resident state one tensor a series shard, and a mesh across
+# processes
+# ---------------------------------------------------------------------------
+
+P19_TIMEOUT_S = 20.0     # the group's timeout: a dead rank cannot hang it
+P19_DEVICE = "cuda"      # where phase 19 runs ("cpu" in a rehearsal)
+P19_RANK_WAIT_S = 240.0  # spawn, torch and CUDA in each rank, then the run
+P19_HLL_SERIES, P19_HLL_PRECISION, P19_HLL_ITEMS = 256, 14, 16384
+
+
+def _arenas_disjoint(planes, ctx):
+    """Every shard arena of `planes` (`ShardedPlane`s) is an allocation
+    of its own: no two byte ranges overlap. Returns the arena count."""
+    spans = sorted((a.data_ptr(), a.data_ptr() + a.numel() * a.element_size())
+                   for p in planes for a in p.arenas)
+    if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+        raise AssertionError(f"{ctx}: shard arenas overlap")
+    return len(spans)
+
+
+def _tenant19(clock, sm, paged, name=MESH_TENANT):
+    """A `sketch: both` tenant at the default widths on the card, on the
+    serving mesh `sm` (None: unsharded), dense or on a page pool made
+    under the mesh, its mesh resolved. Returns (instance, processor,
+    pool)."""
+    import tempo_tpu_torch as tt
+    from tempo_tpu_torch.parallel import serving
+    from tempo_tpu_torch.registry import pages
+
+    with serving.use(sm):
+        pool = pages.PagePool(tt.PagePoolConfig(enabled=True),
+                              device=P19_DEVICE) if paged else None
+        with pages.use(pool):
+            inst = tt.GeneratorInstance(
+                name, tt.GeneratorConfig(
+                    processors=("span-metrics",),
+                    spanmetrics=tt.SpanMetricsConfig(**MESH_SM)),
+                now=lambda: clock[0], device=P19_DEVICE)
+        proc = inst.processors["span-metrics"]
+        on_mesh = proc._serving_mesh() is sm if not paged \
+            else pool.mesh is sm
+    if paged != proc._paged or (sm is not None and not on_mesh):
+        raise AssertionError(f"phase 19: {inst.state_layout} state, not on "
+                             f"the mesh")
+    return inst, proc, pool
+
+
+def _push19(inst, payloads, ctx):
+    import torch
+
+    for body in payloads:
+        if inst.push_otlp_staged(body) != N_SPANS:
+            raise AssertionError(f"{ctx}: the staged route refused a "
+                                 f"payload")
+    inst.drain()
+    if P19_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _view19(inst):
+    """An instance's span-metrics state by label set, its DDSketch
+    quantiles and its moments rows, read once for `_same19`."""
+    return (_label_state(inst), _quantiles(inst),
+            _mesh_rows(inst.processors["span-metrics"]))
+
+
+def _same19(a, b, ctx, rtol):
+    """Two `_view19`s: counts, buckets, DDSketch rows and quantiles
+    exact, sums within `rtol` (0: bit for bit), the moments rows under
+    `_moments_ok` (exact when rtol is 0). Returns (series, largest sum
+    error)."""
+    _, n, rel = _compare_states(a[0], b[0], ctx, rtol=rtol)
+    if a[1] != b[1]:
+        raise AssertionError(f"{ctx}: DDSketch q50/q99 differ")
+    if rtol == 0:
+        if a[2].keys() != b[2].keys() or not all(
+                np.array_equal(v, b[2][k]) for k, v in a[2].items()):
+            raise AssertionError(f"{ctx}: moments rows differ")
+    else:
+        _compare_moment_rows(a[2], b[2], ctx)
+    return n, rel
+
+
+def _layout19(label, paged, t0, payloads, later, ctx):
+    """19a on one layout: a tenant on 4 series shards and the unsharded
+    tenant on the card take the same pushes, an eviction sweep and one
+    more push; the sharded tenant's checkpoint restores bit for bit into
+    an unsharded tenant and that one's into a fresh sharded tenant.
+    Returns (results, the K1 kernel entry, the unsharded tenant's
+    captured windows)."""
+    import gc
+
+    import torch
+
+    from tempo_tpu_torch import sched
+    from tempo_tpu_torch.fleet.checkpoint import (restore_instance,
+                                                  snapshot_instance)
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.parallel import serving
+
+    def mesh4():
+        return serving.ServingMesh(serving.MeshConfig(
+            enabled=True, series_shards=MESH_SHARDS),
+            devices=_mesh_devices())
+
+    _reset_singletons()
+    sc = sched.configure(sched.SchedConfig())
+    clock = [t0]
+    sm = mesh4()
+    base, bproc, _ = _tenant19(clock, None, paged)
+    shd, sproc, spool = _tenant19(clock, sm, paged)
+    planes = [a.data for a in spool.arenas.values()] if paged \
+        else list(sproc._dense_views())
+    n_arenas = _arenas_disjoint(planes, f"{ctx} {label}")
+    mats = _capture_windows(bproc)
+    smats = _capture_windows(sproc)
+    _push19(base, payloads, ctx)
+    ck.reset_launch_counts()
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    t = time.perf_counter()
+    with serving.use(sm):
+        _push19(shd, payloads, ctx)
+    push_s = time.perf_counter() - t
+    # K1's window: the last of the first pushes (after the eviction the
+    # new series take the freed slots from the top, past shard 0's
+    # sketch rows)
+    window = smats[-1]
+    launches = ck.paged_fused_update.launches
+    dispatches = sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if not dispatches or launches != MESH_SHARDS * dispatches:
+        raise AssertionError(f"{ctx} {label}: K1 launched {launches} times "
+                             f"for {dispatches} dispatches")
+    base_mats = list(mats)
+    v_shd = _view19(shd)
+    n_series, rel = _same19(v_shd, _view19(base),
+                            f"{ctx} {label} vs unsharded", 1e-6)
+    # the checkpoint: sharded -> unsharded -> sharded, bit for bit (the
+    # fresh tenants hand out the blob's slots in its order, so every
+    # series keeps its sketch rows)
+    t = time.perf_counter()
+    blob = snapshot_instance(shd)
+    plain, _, _ = _tenant19(clock, None, False, name=MESH_TENANT)
+    restore_instance(plain, blob)
+    _same19(_view19(plain), v_shd, f"{ctx} {label} restored unsharded", 0)
+    back, _, bpool = _tenant19(clock, mesh4(), paged, name=MESH_TENANT)
+    restore_instance(back, snapshot_instance(plain))
+    _same19(_view19(back), v_shd,
+            f"{ctx} {label} restored back onto 4 shards", 0)
+    ckpt_s = time.perf_counter() - t
+    # the eviction sweep: every series goes stale, its rows and pages
+    # zero on every shard, and a push after it reuses them
+    clock[0] += 1000.0
+    n_ev = shd.registry.purge_stale()
+    if n_ev != base.registry.purge_stale() or not n_ev:
+        raise AssertionError(f"{ctx} {label}: evictions differ")
+    if any(v.any() for p in planes for v in p.views):
+        raise AssertionError(f"{ctx} {label}: evicted rows not zero")
+    if paged and spool.free_pages() != spool.total_pages():
+        raise AssertionError(f"{ctx} {label}: pages not returned")
+    from tempo_tpu_torch.model.otlp import encode_spans_otlp, synthetic_spans
+    again = [encode_spans_otlp(synthetic_spans(
+        N_SPANS, seed=SEED + 190, now_ns=int(clock[0] * 1e9)))]
+    _push19(base, again, ctx)
+    l0 = ck.paged_fused_update.launches
+    b0 = sc.batches_total.get(SCHED_KERNEL, 0)
+    with serving.use(sm):
+        _push19(shd, again, ctx)
+    launches += ck.paged_fused_update.launches - l0
+    dispatches += sc.batches_total.get(SCHED_KERNEL, 0) - b0
+    if launches != MESH_SHARDS * dispatches:
+        raise AssertionError(f"{ctx} {label}: K1 launched {launches} times "
+                             f"for {dispatches} dispatches")
+    _same19(_view19(shd), _view19(base),
+            f"{ctx} {label} after the eviction vs unsharded", 1e-6)
+    k1, row = _mesh_k1_row(
+        f"paged_fused_update (phase 19a, resident state one tensor a series "
+        f"shard: {label} over [cuda:0] * {MESH_SHARDS}, one launch a shard "
+        f"a merged window, scheduler, staged route, sketch both, f32, "
+        f"default widths)", sproc, window, launches,
+        f"{ctx} {label} shard window", 1)
+    out = dict(label=label, arenas=n_arenas, launches=launches,
+               dispatches=dispatches, series=n_series, rel=rel,
+               evicted=n_ev, push_s=push_s, ckpt_s=ckpt_s,
+               blob_bytes=len(blob), k1=k1)
+    keep = (bproc, base_mats) if later else None
+    del shd, sproc, spool, plain, back, bpool, planes
+    if not later:
+        del base, bproc
+    sched.reset()
+    gc.collect()
+    if P19_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return out, row, keep
+
+
+def _rank19b(rank, store, job, out_path, device):
+    """One rank of 19b, in a process of its own: a gloo group of two on
+    the one card, `make_multihost_mesh(series_shards=2)` over its two
+    logical shards, the job's windows through `sharded_serving_step`
+    (each rank updating from its half of every window), its state held
+    against the parent's unsharded K1, then `merge_sketch_states` over
+    the group. Raises on any difference."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=2, rank=rank,
+        timeout=datetime.timedelta(seconds=P19_TIMEOUT_S))
+    from tempo_tpu_torch.ops import cuda_kernels as ck
+    from tempo_tpu_torch.ops import sketches
+    from tempo_tpu_torch.parallel import (make_multihost_mesh,
+                                          merge_sketch_states,
+                                          sharded_serving_step)
+
+    ctx = f"phase 19b rank {rank}"
+    with np.load(job) as z:
+        mats = [z[f"mat{i}"] for i in range(int(z["n_mats"]))]
+        ref = [z[f"ref{i}"] for i in range(8)]
+        hll_items = z["hll"]
+        hll_ref = z["hll_ref"]
+        meta = json.loads(bytes(z["meta"]).decode())
+    mesh = make_multihost_mesh(series_shards=2, devices=[
+        torch.device("cuda", 0) if cuda else torch.device("cpu")] * 2)
+    if mesh.devices.shape != (2, 2) or mesh.local_rows != [rank] or \
+            mesh.owners != [0, 1]:
+        raise AssertionError(f"{ctx}: mesh {mesh.devices.shape} rows "
+                             f"{mesh.local_rows} owners {mesh.owners}")
+    mk = meta["mom_meta"][0]
+    step = sharded_serving_step(
+        mesh, tuple(meta["edges"]), meta["gamma"], meta["min_value"],
+        meta["cap"], meta["dd_rows"], packed=True, mom_rows=meta["dd_rows"],
+        mom_meta=tuple(meta["mom_meta"]))
+    states = [torch.zeros(r.shape, device=device) for r in ref]
+    reduces = []
+    inner = torch.distributed.all_reduce
+
+    def timed(t, *a, **k):
+        if not cuda:
+            h = time.perf_counter()
+            got = inner(t, *a, **k)
+            reduces.append(((time.perf_counter() - h) * 1e3, None,
+                            t.numel() * t.element_size()))
+            return got
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h = time.perf_counter()
+        e0.record()
+        got = inner(t, *a, **k)
+        e1.record()
+        torch.cuda.synchronize()
+        reduces.append(((time.perf_counter() - h) * 1e3, e0.elapsed_time(e1),
+                        t.numel() * t.element_size()))
+        return got
+
+    torch.distributed.all_reduce = timed
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    for mat in mats:
+        states = list(step(*states, mat))
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = ck.paged_fused_update.launches
+    torch.distributed.all_reduce = inner
+    got = [x.cpu().numpy() for x in states]
+    # step order: calls, buckets, latency sum, latency count, sizes,
+    # DDSketch grid, DDSketch zeros, moments rows
+    rel = 0.0
+    for r, (a, b) in enumerate(zip(got, ref)):
+        if r in (2, 4):
+            err = np.abs(a.astype(np.float64) - b) / np.maximum(np.abs(b),
+                                                                1e-30)
+            rel = max(rel, float(err[b != 0].max()) if (b != 0).any()
+                      else 0.0)
+            if not np.allclose(a, b, rtol=1e-5, atol=0):
+                raise AssertionError(f"{ctx}: role {r} sums outside rtol "
+                                     f"1e-5 of the unsharded card")
+        elif r == 7:
+            if not _moments_ok(torch.from_numpy(a), torch.from_numpy(b)):
+                raise AssertionError(f"{ctx}: moments rows differ")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{ctx}: role {r} differs from the "
+                                 f"unsharded card")
+    for q in (0.5, 0.99):
+        qa, qb = (sketches.dd_quantile(sketches.DDSketch(
+            torch.from_numpy(c), torch.from_numpy(zr), meta["gamma"],
+            meta["min_value"]), q).numpy() for c, zr in
+            ((got[5], got[6]), (ref[5], ref[6])))
+        if not np.array_equal(qa, qb, equal_nan=True):
+            raise AssertionError(f"{ctx}: DDSketch q{q} differs")
+    hll_states = []
+    for sid, h1, h2 in hll_items[2 * rank:2 * rank + 2]:
+        hll_states.append({"hll": sketches.hll_update(sketches.hll_init(
+            P19_HLL_SERIES, P19_HLL_PRECISION, device=device),
+            torch.from_numpy(sid.astype(np.int64)).to(device), h1, h2)})
+    merged = merge_sketch_states(hll_states,
+                                 group=torch.distributed.group.WORLD)
+    if not np.array_equal(merged["hll"].registers.cpu().numpy(), hll_ref):
+        raise AssertionError(f"{ctx}: merged HLL registers differ")
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "launches": launches,
+                   "windows": len(mats), "rel": rel, "step_s": step_s,
+                   "reduces": reduces, "mk": mk,
+                   "backend": torch.distributed.get_backend()}, f)
+    torch.distributed.destroy_process_group()
+
+
+def _phase19b(bproc, mats, root, ctx):
+    """19b: the unsharded card's K1 over 19a's windows from zero, then two
+    spawned ranks (`_rank19b`) that must equal it. Returns (results, the
+    K1 kernel entry)."""
+    import torch
+
+    from tempo_tpu_torch.ops import pages as op
+    from tempo_tpu_torch.ops import sketches
+    from tempo_tpu_torch.parallel import mesh as pmesh
+
+    skw = bproc._step_kw
+    cap, dd_rows = bproc.calls.table.capacity, skw["dd_rows"]
+    mk = skw["mom_meta"][0]
+    gamma, minv, nb = _dd_meta()
+    widths = (None, None, None, None, len(skw["edges"]) + 1, None, nb,
+              mk + 3)
+    rows = [cap] * 5 + [dd_rows] * 3
+    pr = 64
+    dev = P19_DEVICE
+    views = [op.dense_zeros(r, w, page_rows=pr, device=dev)
+             for r, w in zip(rows, widths)]
+    arenas = [op.arena_of(v, pr) for v in views]
+    tables = op.identity_tables(rows, pr, dev)
+    for mat in mats:
+        op.fused_step(arenas, tables, torch.from_numpy(mat).to(dev),
+                      page_shift=pr.bit_length() - 1, **skw)
+    # the step's order: calls, buckets, latency sum and count, sizes,
+    # DDSketch grid and zeros, moments
+    ref = [views[i].cpu().numpy() for i in (0, 4, 1, 2, 3, 6, 5, 7)]
+    rng = np.random.default_rng(SEED + 191)
+    hll = np.stack([np.stack([
+        rng.integers(0, P19_HLL_SERIES, P19_HLL_ITEMS).astype(np.uint32),
+        rng.integers(0, 1 << 32, P19_HLL_ITEMS, dtype=np.uint64).astype(
+            np.uint32),
+        rng.integers(0, 1 << 32, P19_HLL_ITEMS, dtype=np.uint64).astype(
+            np.uint32)]) for _ in range(4)])
+    union = sketches.hll_init(P19_HLL_SERIES, P19_HLL_PRECISION,
+                              device=dev)
+    for sid, h1, h2 in hll:
+        union = sketches.hll_update(
+            union, torch.from_numpy(sid.astype(np.int64)).to(dev), h1, h2)
+    meta = {"edges": list(skw["edges"]), "gamma": gamma, "min_value": minv,
+            "cap": cap, "dd_rows": dd_rows,
+            "mom_meta": list(skw["mom_meta"])}
+    job = os.path.join(root, "job19b.npz")
+    np.savez(job, n_mats=len(mats), hll=hll,
+             hll_ref=union.registers.cpu().numpy(),
+             meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+             **{f"mat{i}": m for i, m in enumerate(mats)},
+             **{f"ref{i}": r for i, r in enumerate(ref)})
+    del views, arenas
+    outs = [os.path.join(root, f"rank{r}.json") for r in range(2)]
+    t = time.perf_counter()
+    procs = []
+    mp = torch.multiprocessing.get_context("spawn")
+    for r in range(2):
+        p = mp.Process(target=_rank19b,
+                       args=(r, os.path.join(root, "store19b"), job,
+                             outs[r], dev))
+        p.start()
+        procs.append(p)
+    deadline = time.monotonic() + P19_RANK_WAIT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    ranks_s = time.perf_counter() - t
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{ctx}: ranks ended with exit codes "
+                             f"{[p.exitcode for p in procs]} "
+                             f"({len(alive)} killed after "
+                             f"{P19_RANK_WAIT_S} s)")
+    got = []
+    for path in outs:
+        with open(path) as f:
+            got.append(json.load(f))
+    for g in got:
+        if g["launches"] != 2 * g["windows"] or not g["windows"]:
+            raise AssertionError(f"{ctx}: rank {g['rank']} launched K1 "
+                                 f"{g['launches']} times for "
+                                 f"{g['windows']} windows")
+    # K1 as one (data, series) shard of a rank launches it: series shard
+    # 0's zeroed delta arenas and localized tables, the rank's half of the
+    # last window
+    plan = pmesh._delta_plan(pmesh.make_mesh(2, series_shards=2,
+                                             devices=_mesh_devices()[:2]),
+                             rows, widths, dev)
+    half = np.ascontiguousarray(mats[-1][:, :mats[-1].shape[1] // 2])
+    k1 = _k1_on_window(bproc, half, f"{ctx} rank 0's shard window",
+                       operands=(plan.arenas[0], plan.tables[0],
+                                 plan.page_rows))
+    row = {
+        "name": "paged_fused_update (phase 19b, the mesh across two "
+                "processes: a gloo group of 2 ranks on the one card, each "
+                "2 series shards over [cuda:0] * 2 updating zeroed deltas "
+                "from its half of every window, all_reduce over the group; "
+                "sketch both, f32, default widths)",
+        "route": "cuda", "source": "tempo_tpu_torch/csrc/paged_fused_update.cu",
+        "replaces": "tempo_tpu/ops/pallas_kernels.py:196",
+        "launches": got[0]["launches"], "max_abs_err": k1["max_abs"],
+        "ms": k1["ms"][1], "plain_ms": k1["plain_ms"][1],
+        "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None}
+    return dict(ranks=got, ranks_s=ranks_s, k1=k1), row
+
+
+def phase_mesh_state(card):
+    """Phase 19: 19a resident state's whole life one tensor a series shard
+    (dense, then a page pool split over 4 shards), each against the
+    unsharded tenant on the card; 19b a mesh across two processes on the
+    card. Returns (results, [K1's kernel entries])."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase19-",
+                                     dir=os.path.join(ROOT, "build")) as root:
+        return _phase_mesh_state(card, root)
+
+
+def _phase_mesh_state(card, root):
+    ctx = "phase 19"
+    t_phase = time.perf_counter()
+    t0 = float(int(time.time()))
+    _, payloads = _mesh_payloads(t0)
+    dense, row_d, (bproc, mats) = _layout19(
+        "4 series shards, dense", False, t0, payloads, True, f"{ctx}a")
+    t19b = time.perf_counter()
+    b, row_b = _phase19b(bproc, mats, root, f"{ctx}b")
+    b["seconds"] = time.perf_counter() - t19b
+    del bproc
+    paged, row_p, _ = _layout19("4 series shards, paged", True, t0,
+                                payloads, False, f"{ctx}a")
+    out = dict(layouts=[dense, paged], b=b,
+               seconds=time.perf_counter() - t_phase)
+    return out, [row_d, row_p, row_b]
+
+
+def _print_phase19(r, card):
+    for lay in r["layouts"]:
+        k1 = lay["k1"]
+        print(f"phase 19a [{card}]: {lay['label']}: {lay['arenas']} shard "
+              f"arenas, no two overlapping; K1 {lay['launches']} launches "
+              f"= {MESH_SHARDS} shards x {lay['dispatches']} merged "
+              f"dispatches ({N_MESH_PUSHES} pushes, then one after the "
+              f"eviction); pushes {lay['push_s']:.3f} s; {lay['series']} "
+              f"series equal to the unsharded card's (sums within "
+              f"{lay['rel']:.2e}); {lay['evicted']} series evicted, every "
+              f"shard's rows zero; a {lay['blob_bytes']}-byte checkpoint "
+              f"restored bit for bit into an unsharded tenant and back onto "
+              f"4 shards in {lay['ckpt_s']:.3f} s; one shard's K1 on the "
+              f"last window {k1['ms'][1]:.4f} ms with the host, device "
+              f"{k1['device_ms']} ms, plain {k1['plain_ms'][1]:.4f} ms, bound "
+              f"{k1['bound_ms']:.6f} ms by {k1['bound_by']}")
+    b = r["b"]
+    for g in b["ranks"]:
+        # the reduce's calls by size: a series shard's sums, then its
+        # moments bounds, a window
+        by_size: dict = {}
+        for host, ev, nbytes in g["reduces"]:
+            by_size.setdefault(nbytes, []).append((host, ev))
+        calls = "; ".join(
+            f"{len(xs)} of {nbytes} bytes, median "
+            f"{statistics.median(x[0] for x in xs):.3f} ms with the host, "
+            + (f"{statistics.median(x[1] for x in xs):.3f} ms"
+               if all(x[1] is not None for x in xs) else "not measured")
+            + " between CUDA events on the stream"
+            for nbytes, xs in sorted(by_size.items(), reverse=True))
+        print(f"phase 19b [{card}]: rank {g['rank']} ({g['backend']} group "
+              f"of 2, 2 data x 2 series shards): K1 {g['launches']} launches "
+              f"= 2 series shards x {g['windows']} windows; its state equal "
+              f"to the unsharded card's (counts, buckets, DDSketch rows, "
+              f"quantiles and merged HLL registers exact; sums within "
+              f"{g['rel']:.2e}); all_reduce calls: {calls}; the windows' "
+              f"steps {g['step_s']:.3f} s")
+    k1 = b["k1"]
+    print(f"phase 19b [{card}]: one (data, series) shard's K1 on its half "
+          f"of the last window {k1['ms'][1]:.4f} ms with the host, device "
+          f"{k1['device_ms']} ms, plain {k1['plain_ms'][1]:.4f} ms, bound "
+          f"{k1['bound_ms']:.6f} ms by {k1['bound_by']}; the ranks "
+          f"{b['ranks_s']:.1f} s from spawn to exit; 19b {b['seconds']:.1f} s")
+    print(f"phase 19 [{card}]: {r['seconds']:.1f} s")
+
+
 def main() -> int:
     """`_main` with its standard output held until the end: the readings
     taken in a later process (`_Later`) replace their tokens first, or
@@ -8815,7 +9341,8 @@ def _main() -> int:
         print("PROFILES " + json.dumps(final_profiles(sys.argv[2])))
         return 0
     if sys.argv[1:] not in ([], ["--phase14"], ["--phase15"],
-                            ["--phase16"], ["--phase17"], ["--phase18"]):
+                            ["--phase16"], ["--phase17"], ["--phase18"],
+                            ["--phase19"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     card = smi_line()
@@ -8861,15 +9388,18 @@ def _main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
-    if sys.argv[1:] in (["--phase17"], ["--phase18"]):
-        # phase 17 or 18 alone, K1's device time on its windows from a
+    if sys.argv[1:] in (["--phase17"], ["--phase18"], ["--phase19"]):
+        # phase 17, 18 or 19 alone, K1's device time on its windows from a
         # process of its own
         if sys.argv[1:] == ["--phase17"]:
             s, k = phase_kafka(card)
             _print_phase17(s, card)
-        else:
+        elif sys.argv[1:] == ["--phase18"]:
             s, k = phase_mesh(card)
             _print_phase18(s, card)
+        else:
+            s, k = phase_mesh_state(card)
+            _print_phase19(s, card)
         _resolve_later(phase15=False)
         print(json.dumps(k, default=str))
         print(json.dumps({"ok": True, "device": {
@@ -9028,6 +9558,8 @@ def _main() -> int:
     _print_phase17(s17, card)
     s18, k18 = phase_mesh(card)
     _print_phase18(s18, card)
+    s19, k19 = phase_mesh_state(card)
+    _print_phase19(s19, card)
     t_late = time.perf_counter()
     _resolve_later(phase15=True)
     print(f"the final profiles (every K1 window's device time, phase 15's "
@@ -9038,7 +9570,8 @@ def _main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in (k1, k1c, k1d, k2, k2d, *s6, *s7,
                                             *k8, k12, k13a, k13b, k14,
-                                            k15, *k16, *k17, *k18)]}))
+                                            k15, *k16, *k17, *k18,
+                                            *k19)]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

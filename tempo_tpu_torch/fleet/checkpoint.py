@@ -44,6 +44,7 @@ import torch
 from tempo_tpu_torch.backend.raw import (DoesNotExist, KeyPath, RawReader,
                                          RawWriter)
 from tempo_tpu_torch.fleet import STATS
+from tempo_tpu_torch.parallel.mesh import gather_rows, scatter_rows
 
 _LOG = logging.getLogger("tempo_tpu_torch.fleet")
 
@@ -139,10 +140,6 @@ class _Fetch:
         return out
 
 
-def _slot_index(slots: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(slots, np.int64)).to(device)
-
-
 def _plane_rows(plane, slots: np.ndarray) -> torch.Tensor:
     """The slots' rows of a paged plane on its device (real rows only)."""
     rows = plane.gather_dev(np.ascontiguousarray(slots, np.int32))
@@ -200,13 +197,10 @@ def _family_rows(mt, slots: np.ndarray) -> dict[str, torch.Tensor]:
                 rows = rows[:, 0] + rows[:, 1]
             out[role] = rows
         return out
-    idx = None
-    out = {}
-    for role, t in _dense_tensors(mt, kind).items():
-        if idx is None:
-            idx = _slot_index(slots, t.device)
-        out[role] = t.index_select(0, idx)
-    return out
+    # dense planes: indexed on the device, shard by shard on the serving
+    # mesh, every role's rows landing on the registry's device
+    return {role: gather_rows(t, slots, mt.registry.device)
+            for role, t in _dense_tensors(mt, kind).items()}
 
 
 def _paged_phys(plane, slots: np.ndarray) -> np.ndarray:
@@ -221,17 +215,13 @@ def _paged_phys(plane, slots: np.ndarray) -> np.ndarray:
                                & (plane.pool.page_rows - 1))
 
 
-def _scatter(data: torch.Tensor, rows: np.ndarray, vals: np.ndarray,
-             op: str) -> None:
-    """Merge host rows into `data` at distinct physical rows, in place on
-    its device: "add" (`index_add_`) or "set" (`index_copy_`)."""
-    idx = _slot_index(rows, data.device)
-    v = torch.from_numpy(np.ascontiguousarray(vals)).to(data.device)
-    v = v.to(data.dtype)
-    if op == "add":
-        data.index_add_(0, idx, v)
-    else:
-        data.index_copy_(0, idx, v)
+def _scatter(data, rows: np.ndarray, vals: np.ndarray, op: str) -> None:
+    """Merge host rows into a plane at distinct physical rows, in place
+    on its device (each row on its owner shard of a sharded plane):
+    "add" (`index_add_`) or "set" (`index_copy_`)."""
+    scatter_rows(data, rows, vals,
+                 (lambda t, i, v: t.index_add_(0, i, v)) if op == "add"
+                 else (lambda t, i, v: t.index_copy_(0, i, v)))
 
 
 def _family_restore(mt, slots: np.ndarray, rows: dict[str, np.ndarray]

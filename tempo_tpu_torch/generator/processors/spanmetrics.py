@@ -82,6 +82,8 @@ from tempo_tpu_torch.ops import cuda_kernels, moments
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.ops import sketches
 from tempo_tpu_torch.parallel import serving
+from tempo_tpu_torch.parallel.mesh import (gather_rows, plane_width,
+                                           scatter_rows)
 from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.pages import PagedPlane
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
@@ -397,7 +399,8 @@ class SpanMetricsProcessor:
             self._pipe.drain(timeout_s)
 
     def _dense_views(self) -> tuple:
-        """Dense state's role-aligned tensors, in `_paged_planes` order."""
+        """Dense state's role-aligned planes, in `_paged_planes` order:
+        tensors, or on the serving mesh `parallel.mesh.ShardedPlane`s."""
         lat = self.latency.state
         views = (self.calls.state.values, lat.sums, lat.counts,
                  self.sizes.state.values, lat.bucket_counts)
@@ -432,7 +435,7 @@ class SpanMetricsProcessor:
     def _dense_fused(self, batch) -> None:
         """One fused update of dense state, in place under the registry's
         lock: K1 over the identity tables (one launch on the card), or on
-        the serving mesh K1 once per shard over its window."""
+        the serving mesh K1 once per shard over its arenas."""
         sm = self._serving_mesh()
         with self.registry.state_lock:
             if sm is not None:
@@ -479,26 +482,38 @@ class SpanMetricsProcessor:
         with self.registry.state_lock:
             arenas = tuple(p.data for p in planes)
             tables = self._stacked_tables(planes)
-            if self._compact and self._scratch is None \
-                    and self.device.type == "cuda":
-                self._scratch = cuda_kernels.compact_scratch(
-                    tables, arenas, page_rows=self._pool.page_rows,
-                    edges=self._step_kw["edges"],
-                    dd_rows=self._step_kw["dd_rows"])
             mesh = self._pool.mesh
             if mesh is not None:
-                mesh.fused_update(self._pool_shards(arenas, tables), batch,
-                                  compact=self._compact,
+                plan = self._pool_shards(arenas, tables)
+                if self._compact and self._scratch is None \
+                        and self.device.type == "cuda":
+                    # one working memory a device: the shards on it
+                    # launch in turn and each leaves it all zero
+                    self._scratch = {}
+                    for t, a in zip(plan.tables, plan.arenas):
+                        if a[0].device not in self._scratch:
+                            self._scratch[a[0].device] = \
+                                self._compact_scratch(t, a)
+                mesh.fused_update(plan, batch, compact=self._compact,
                                   scratch=self._scratch, **self._step_kw)
                 return
+            if self._compact and self._scratch is None \
+                    and self.device.type == "cuda":
+                self._scratch = self._compact_scratch(tables, arenas)
             op.fused_step(arenas, tables, batch,
                           page_shift=self._pool.page_shift,
                           compact=self._compact, scratch=self._scratch,
                           **self._step_kw)
 
+    def _compact_scratch(self, tables, arenas) -> torch.Tensor:
+        return cuda_kernels.compact_scratch(
+            tables, arenas, page_rows=self._pool.page_rows,
+            edges=self._step_kw["edges"], dd_rows=self._step_kw["dd_rows"])
+
     def _pool_shards(self, arenas, tables):
         """Each series shard's K1 operands over the mesh-split pool: its
-        page window of every arena and the stacked tables localized to
+        arena of every role (`arenas` are the pool's
+        `parallel.mesh.ShardedPlane`s) and the stacked tables localized to
         its pages, refreshed in place when a page map changed (the
         tensors live as long as the processor). Caller holds the pool
         lock."""
@@ -520,8 +535,11 @@ class SpanMetricsProcessor:
     def scratch_bytes(self) -> int:
         """Device bytes of K1's compact working memory (not state: it is
         all zero between dispatches)."""
-        return 0 if self._scratch is None else \
-            self._scratch.numel() * self._scratch.element_size()
+        if self._scratch is None:
+            return 0
+        got = self._scratch.values() if isinstance(self._scratch, dict) \
+            else (self._scratch,)
+        return sum(t.numel() * t.element_size() for t in got)
 
     # -- the staged fast route (dedicated span-metrics generators) --------
 
@@ -740,11 +758,11 @@ class SpanMetricsProcessor:
 
     def _sketch_rows_dev(self, slots: np.ndarray, role: int) -> torch.Tensor:
         """The slots' rows of a sketch role on the device: indexed in dense
-        state, gathered through the plane's page table in paged state
-        (real rows only, no padding)."""
+        state (gathered shard by shard on the serving mesh), gathered
+        through the plane's page table in paged state (real rows only,
+        no padding)."""
         if not self._paged:
-            return self._dense_views()[role].index_select(
-                0, torch.from_numpy(slots.astype(np.int64)).to(self.device))
+            return gather_rows(self._dense_views()[role], slots, self.device)
         return self._paged_planes()[role].gather_dev(slots.astype(np.int32))
 
     def sketch_checkpoint(self, slots: np.ndarray) -> tuple[dict | None, dict]:
@@ -759,7 +777,7 @@ class SpanMetricsProcessor:
         ss = slots[sel]
         if self._dd_on:
             nb = (self._pdd[0].width if self._paged
-                  else self.dd.counts.shape[1])
+                  else plane_width(self.dd.counts))
             meta["dd"] = {"gamma": float(self._step_kw["gamma"]),
                           "min_value": float(self._step_kw["min_value"]),
                           "nb": int(nb)}
@@ -787,7 +805,7 @@ class SpanMetricsProcessor:
                 f"instance {'has' if self._dd_on else 'lacks'} one)")
         if dd is not None:
             nb = (self._pdd[0].width if self._paged
-                  else self.dd.counts.shape[1])
+                  else plane_width(self.dd.counts))
             sketches._merge_check(
                 "fleet_restore/dd",
                 ("gamma", self._step_kw["gamma"],
@@ -814,26 +832,24 @@ class SpanMetricsProcessor:
                     hi=float(mom["hi"])))
 
     def _sketch_target(self, ls: np.ndarray, role: int):
-        """(tensor, row index on its device) a restore merges a sketch
-        role into: the dense view at the slots, or the plane's arena at
-        the physical rows of its host page map."""
+        """(plane, host rows) a restore merges a sketch role into: the
+        dense plane at the slots, or the pool's arena at the physical
+        rows of the plane's host page map."""
         from tempo_tpu_torch.fleet.checkpoint import _paged_phys
 
         if self._paged:
             plane = self._paged_planes()[role]
-            data, idx = plane.data, _paged_phys(plane, ls)
-        else:
-            data, idx = self._dense_views()[role], ls.astype(np.int64)
-        return data, torch.from_numpy(np.ascontiguousarray(idx)).to(
-            data.device)
+            return plane.data, _paged_phys(plane, ls)
+        return self._dense_views()[role], ls.astype(np.int64)
 
     def sketch_restore(self, meta: dict, live_slots: np.ndarray,
                        ok: np.ndarray, rows: dict) -> None:
         """Merge checkpointed sketch rows into the live planes on the
         device: `index_add_` for the DDSketch grid and zeros and the
         moments count and sums, `scatter_reduce_` amax for the two
-        moments bound columns (the cross-shard combine). Caller holds the
-        registry state lock; `sketch_meta_check` already ran."""
+        moments bound columns (the cross-shard combine), each row merged
+        on its owner shard on the serving mesh. Caller holds the registry
+        state lock; `sketch_meta_check` already ran."""
         for key, sel_key, roles in (("dd", "dd_sel", ((_DD_COUNTS,
                                                         "dd_counts"),
                                                        (_DD_ZEROS,
@@ -849,15 +865,14 @@ class SpanMetricsProcessor:
             ls = ls[within]
             if not ls.size:
                 continue
+            mk = self._mom_meta[0] if self._mom_meta is not None else 0
             for role, name in roles:
                 data, idx = self._sketch_target(ls, role)
-                vals = torch.from_numpy(np.ascontiguousarray(
-                    rows[name][keep][within])).to(data.device, data.dtype)
-                if role == _MOMENTS:
-                    moments.moments_merge_into(data, idx, vals,
-                                               self._mom_meta[0])
-                else:
-                    data.index_add_(0, idx, vals)
+                vals = rows[name][keep][within]
+                scatter_rows(data, idx, vals, (
+                    lambda t, i, v: moments.moments_merge_into(t, i, v, mk))
+                    if role == _MOMENTS else
+                    (lambda t, i, v: t.index_add_(0, i, v)))
 
     def device_state_bytes(self) -> int:
         """Device bytes of the processor-owned sketch sidecars (paged:
@@ -888,10 +903,10 @@ class SpanMetricsProcessor:
 
     def _rows(self, slots: np.ndarray, role: int) -> torch.Tensor:
         """The slots' rows of a role of the fused step on the device:
-        indexed in dense state, gathered through a paged plane's table."""
+        indexed in dense state (shard by shard on the serving mesh),
+        gathered through a paged plane's table."""
         if not self._paged:
-            return self._dense_views()[role][torch.from_numpy(
-                slots.astype(np.int64)).to(self.device)]
+            return gather_rows(self._dense_views()[role], slots, self.device)
         plane = self._paged_planes()[role]
         return plane.gather_dev(_padded(slots))[:slots.size]
 

@@ -57,6 +57,7 @@ from tempo_tpu_torch.model.span_batch import STATUS_ERROR, SpanBatch, void_keys
 from tempo_tpu_torch.obs.runtime import RUNTIME, kernel_timer
 from tempo_tpu_torch.obs.registry import exponential_buckets
 from tempo_tpu_torch.ops import moments, structure
+from tempo_tpu_torch.parallel.mesh import ShardedPlane, scatter_rows
 from tempo_tpu_torch.registry.registry import ManagedRegistry
 from tempo_tpu_torch.utils.dataquality import note_orphan_spans
 
@@ -474,8 +475,13 @@ class TraceAnalyticsProcessor:
             phys = np.where(
                 ok, (pages << shift) | (safe & (self._pool.page_rows - 1)),
                 -1).astype(np.int32)
-            sk = moments.MomentsSketch(data=mp.data, k=mk, lo=mlo, hi=mhi)
-            moments.moments_update(sk, phys, shares, weights=weights)
+            # on a mesh-split pool, once a series shard over its arena
+            # with the rows it does not own at -1
+            parts = mp.data.split(phys) if isinstance(mp.data, ShardedPlane) \
+                else [(mp.data, phys)]
+            for data, rows in parts:
+                sk = moments.MomentsSketch(data=data, k=mk, lo=mlo, hi=mhi)
+                moments.moments_update(sk, rows, shares, weights=weights)
         elif self.mom is not None:
             lim = self.mom.data.shape[0]
             s = np.where((slots >= 0) & (slots < lim), slots, -1)
@@ -595,10 +601,9 @@ class TraceAnalyticsProcessor:
             idx, data = _paged_phys(mp, ls), mp.data
         else:
             idx, data = ls.astype(np.int64), self.mom.data
-        moments.moments_merge_into(
-            data, torch.from_numpy(np.ascontiguousarray(idx)).to(data.device),
-            torch.from_numpy(np.ascontiguousarray(mrows)).to(data.device),
-            mk)
+        # each row on its owner shard of a mesh-split pool
+        scatter_rows(data, idx, mrows,
+                     lambda t, i, v: moments.moments_merge_into(t, i, v, mk))
 
     # -- accounting --------------------------------------------------------
 

@@ -420,9 +420,9 @@ class use_query_tier:
 
 def moments_place(state: MomentsSketch, device,
                   page_rows: int) -> MomentsSketch:
-    """Place the plane for the serving mesh: its rows as a row view of a
-    trash-paged arena on `device` (series shards take row windows of
-    it). Idempotent."""
+    """Place the plane (`ops.pages.place_view`): its rows as a row view
+    of a trash-paged arena on `device`, or, given the serving mesh's
+    series devices, one arena a shard on each. Idempotent."""
     from tempo_tpu_torch.ops.pages import place_view
 
     return dataclasses.replace(

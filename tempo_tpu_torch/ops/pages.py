@@ -359,10 +359,15 @@ def arena_of(view: torch.Tensor, page_rows: int) -> torch.Tensor:
     return base
 
 
-def place_view(view: torch.Tensor, device, page_rows: int) -> torch.Tensor:
+def place_view(view, device, page_rows: int):
     """`view` as a row view of a trash-paged arena on `device` with
     `page_rows`-row pages: itself when it already is one, else a copy
-    into a new `dense_zeros` arena (the serving mesh's placement)."""
+    into a new `dense_zeros` arena. Given a list of devices, one a series
+    shard (the serving mesh's placement), a `parallel.mesh.ShardedPlane`
+    over them: each shard's rows in an arena of its own on its device."""
+    if isinstance(device, (list, tuple)):
+        from tempo_tpu_torch.parallel.mesh import place_plane
+        return place_plane(view, device, page_rows)
     dev = torch.device(device)
     try:
         arena_of(view, page_rows)

@@ -83,9 +83,10 @@ def dd_init(num_series: int, rel_err: float = 0.01, min_value: float = 1e-9,
 
 
 def dd_place(state: DDSketch, device, page_rows: int) -> DDSketch:
-    """Place the sketch plane for the serving mesh: its tensors as row
-    views of trash-paged arenas on `device`, whose series shards' K1
-    launches take row windows of them. Idempotent."""
+    """Place the sketch plane (`ops.pages.place_view`): its tensors as
+    row views of trash-paged arenas on `device`, or, given the serving
+    mesh's series devices, one arena a shard on each, which the shards'
+    K1 launches update. Idempotent."""
     from tempo_tpu_torch.ops.pages import place_view
 
     return dataclasses.replace(

@@ -37,29 +37,26 @@ def _cached_step(mesh, edges, gamma, min_value):
 
 def shard_processor_state(proc, mesh) -> None:
     """Place a SpanMetricsProcessor's dense state for `mesh`: every plane
-    a row view of a trash-paged arena on the mesh's device. Idempotent;
-    call once before `sharded_push_batch`. The mesh's shards must share
-    one device (item 13b)."""
+    one tensor a series shard on the shard's device
+    (`parallel.mesh.ShardedPlane`). Idempotent; call once before
+    `sharded_push_batch`."""
     from tempo_tpu_torch.ops.sketches import dd_place
-    from tempo_tpu_torch.parallel.serving import MULTI_DEVICE_STATE
     from tempo_tpu_torch.registry import metrics as rm
 
-    dev = mesh.single_device
-    if dev is None:
-        raise NotImplementedError(MULTI_DEVICE_STATE)
+    homes = mesh.homes
     pr = proc.registry.dense_page_rows
-    proc.calls.state = rm.place_state(proc.calls.state, dev, pr)
-    proc.latency.state = rm.place_state(proc.latency.state, dev, pr)
-    proc.sizes.state = rm.place_state(proc.sizes.state, dev, pr)
+    proc.calls.state = rm.place_state(proc.calls.state, homes, pr)
+    proc.latency.state = rm.place_state(proc.latency.state, homes, pr)
+    proc.sizes.state = rm.place_state(proc.sizes.state, homes, pr)
     if proc.dd is not None:
-        proc.dd = dd_place(proc.dd, dev, pr)
+        proc.dd = dd_place(proc.dd, homes, pr)
 
 
 def sharded_push_batch(proc, mesh, sb, span_sizes=None) -> None:
     """One span-metrics push under the mesh: the processor's host staging,
     then `parallel.mesh.sharded_spanmetrics_step` over its state (K1 once
-    per shard), written back into the processor's planes; exemplars ride
-    the same `note_exemplars`."""
+    per shard), written back into the processor's planes shard by shard;
+    exemplars ride the same `note_exemplars`."""
     from tempo_tpu_torch.ops import sketches
 
     if sb.interner is not proc.registry.interner:
@@ -82,19 +79,21 @@ def sharded_push_batch(proc, mesh, sb, span_sizes=None) -> None:
         dd.gamma if dd is not None else sketches.dd_params(0.01)[0],
         dd.min_value if dd is not None else 1e-9)
     cs, hs, zs = proc.calls.state, proc.latency.state, proc.sizes.state
-    dd_counts = dd.counts if dd is not None else \
-        torch.zeros((cs.values.shape[0], 1), device=cs.values.device)
-    dd_zeros = dd.zeros if dd is not None else \
-        torch.zeros((cs.values.shape[0],), device=cs.values.device)
-    out = step(cs.values, hs.bucket_counts, hs.sums, hs.counts, zs.values,
-               dd_counts, dd_zeros, np.ascontiguousarray(slots, np.int32),
-               dur_s, span_sizes.astype(np.float32), weights)
     with proc.registry.state_lock:
-        targets = (cs.values, hs.bucket_counts, hs.sums, hs.counts,
-                   zs.values) + ((dd.counts, dd.zeros) if dd is not None
-                                 else ())
-        for t, new in zip(targets, out):
-            t.copy_(new)
+        planes = (cs.values, hs.bucket_counts, hs.sums, hs.counts,
+                  zs.values) + ((dd.counts, dd.zeros) if dd is not None
+                                else ())
+        dev = mesh.home(0)
+        full = [p.full(dev) for p in planes]
+    n = full[0].shape[0]
+    if dd is None:
+        full += [torch.zeros((n, 1), device=dev), torch.zeros((n,),
+                                                              device=dev)]
+    out = step(*full, np.ascontiguousarray(slots, np.int32), dur_s,
+               span_sizes.astype(np.float32), weights)
+    with proc.registry.state_lock:
+        for p, new in zip(planes, out):
+            p.load(new)
     ts_ms = int(proc.registry.now() * 1000)
     proc.calls.note_exemplars(slots, sb.trace_id, dur_s, ts_ms)
     proc.latency.exemplars = proc.calls.exemplars

@@ -4,29 +4,28 @@ Counterpart of `tempo_tpu/parallel/serving.py`. With `mesh.enabled` the
 generator's span-metrics state is split over 'series' and every fused
 update launches K1 once per shard (`parallel.mesh.k1_shards`):
 
-- dense state (`place_spanmetrics_state`): each series shard owns an
-  equal slot range of every plane, as a row window of the processor's
-  own trash-paged arenas, updated in place through localized identity
-  page tables;
+- dense state (`place_spanmetrics_state`): every plane one tensor a
+  series shard (`parallel.mesh.ShardedPlane`), each shard's rows behind
+  its own trash page on its device, updated in place through localized
+  identity page tables;
 - paged state: the page pool's arenas split page-aligned over 'series'
-  (`registry.pages.PagePool`), each shard owning a range of physical
-  pages, updated through localized page tables;
+  (`registry.pages.PagePool`), each shard's range of physical pages an
+  arena of its own on its device, updated through localized page
+  tables;
 - the scheduler's coalescer aligns a merged window to the 'data' shard
   count (`submit_rows(align=, shards=)`), and the frontend combiner's
   cross-shard fold of a query's series runs as one device reduce
   (`combine`); the read plane adopts the devices data-major
   (`plane_mesh`).
 
-The mesh is a single-process grid of `torch.device`s. `MeshConfig`
-resolves the visible devices as the reference does (clamped to the
-device count, then to a power of two), so one card gives a 1 x 1 mesh.
-`ServingMesh(cfg, devices=[...])` takes an explicit device list that may
-repeat a device (`[cuda:0] * 4`): logical shards, for tests and the chip
-smoke. Resident state needs every shard on one device (the processor's
-reads and evictions address its planes as one tensor); a mesh over
-distinct devices serves the functional steps of `parallel.mesh` and the
-read side, and a processor on it raises naming ROADMAP section 1, item
-13b.
+The serving mesh is a single-process grid of `torch.device`s over the
+visible devices, as the reference's is over `jax.devices()`.
+`MeshConfig` resolves them as the reference does (clamped to the device
+count, then to a power of two), so one card gives a 1 x 1 mesh and four
+cards shard resident state over four. `ServingMesh(cfg, devices=[...])`
+takes an explicit device list that may repeat a device (`[cuda:0] * 4`):
+logical shards, for tests and the chip smoke, which run the same code
+as distinct cards.
 
 Series sharding keeps collect() bit-identical at every shard count on
 the host (each shard applies the same batch rows in the same order to
@@ -102,10 +101,6 @@ def _pow2_floor(n: int) -> int:
     return p
 
 
-MULTI_DEVICE_STATE = ("resident span-metrics state over a mesh of distinct "
-                      "devices comes with ROADMAP section 1, item 13b")
-
-
 class ServingMesh:
     """The resolved serving mesh and its step caches.
 
@@ -150,12 +145,6 @@ class ServingMesh:
             else pmesh.make_mesh(n, 1, devices=self.devices)
         self._steps: dict[tuple, object] = {}
         self._lock = threading.Lock()
-
-    @property
-    def device(self) -> "torch.device | None":
-        """The one device every shard sits on, or None when the mesh
-        spans distinct devices."""
-        return self.registry_mesh.single_device
 
     # -- write path --------------------------------------------------------
 
@@ -288,12 +277,12 @@ class use:
 
 def place_spanmetrics_state(proc, sm: "ServingMesh | None" = None) -> bool:
     """Shard a SpanMetricsProcessor's dense state over the serving mesh:
-    each series shard's K1 gets a window of every plane and localized
-    identity tables (`proc._mesh_plan`). Idempotent. Returns False (and
-    leaves the processor single-device, with a warning) when the
-    capacities do not split into equal whole-page shard ranges; raises
-    naming item 13b when the mesh's devices are not the one device the
-    state lives on. Caller holds the registry state_lock."""
+    every plane becomes one tensor a series shard on the shard's device
+    (`parallel.mesh.ShardedPlane`), and each shard's K1 gets its arenas
+    and localized identity tables (`proc._mesh_plan`). Idempotent.
+    Returns False (and leaves the processor single-device, with a
+    warning) when the capacities do not split into equal whole-page
+    shard ranges. Caller holds the registry state_lock."""
     from tempo_tpu_torch.ops.moments import moments_place
     from tempo_tpu_torch.ops.sketches import dd_place
     from tempo_tpu_torch.registry import metrics as rm
@@ -305,9 +294,9 @@ def place_spanmetrics_state(proc, sm: "ServingMesh | None" = None) -> bool:
         # paged processors shard at the POOL level: arenas split
         # page-aligned over 'series' when the pool is built
         return False
-    dd_rows = proc.dd.counts.shape[0] if proc.dd is not None else 0
+    dd_rows = pmesh.plane_rows(proc.dd.counts) if proc.dd is not None else 0
     mom = getattr(proc, "mom", None)
-    mom_rows = mom.data.shape[0] if mom is not None else 0
+    mom_rows = pmesh.plane_rows(mom.data) if mom is not None else 0
     cap = proc.calls.table.capacity
     if not sm.fits_state(cap, dd_rows, mom_rows):
         _LOG.warning(
@@ -324,19 +313,18 @@ def place_spanmetrics_state(proc, sm: "ServingMesh | None" = None) -> bool:
             "stays single-device", cap, dd_rows, mom_rows,
             sm.series_shards, pr)
         return False
-    if sm.device != pmesh.device_of(proc.device):
-        raise NotImplementedError(MULTI_DEVICE_STATE)
-    proc.calls.state = rm.place_state(proc.calls.state, sm.device, pr)
-    proc.latency.state = rm.place_state(proc.latency.state, sm.device, pr)
-    proc.sizes.state = rm.place_state(proc.sizes.state, sm.device, pr)
+    homes = sm.registry_mesh.homes
+    proc.calls.state = rm.place_state(proc.calls.state, homes, pr)
+    proc.latency.state = rm.place_state(proc.latency.state, homes, pr)
+    proc.sizes.state = rm.place_state(proc.sizes.state, homes, pr)
     if proc.dd is not None:
-        proc.dd = dd_place(proc.dd, sm.device, pr)
+        proc.dd = dd_place(proc.dd, homes, pr)
     if mom is not None:
-        proc.mom = moments_place(mom, sm.device, pr)
-    views = proc._dense_views()
+        proc.mom = moments_place(mom, homes, pr)
+    # the unsharded arenas are left behind: K1 takes the plan
+    proc._dense_arenas = None
     proc._mesh_plan = pmesh.dense_plan(
-        sm.registry_mesh, proc._dense_arenas, proc._dense_tables,
-        [v.shape[0] for v in views], pr)
+        sm.registry_mesh, proc._dense_views(), proc._dense_tables, pr)
     return True
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tempo_tpu_torch.device import resolve_device
@@ -205,10 +206,14 @@ def native_histogram_update(state: NativeHistogramState, slots, values,
 
 
 def state_tensors(state):
-    """Every tensor of a metric state, nested sketch states included."""
+    """Every plane of a metric state (a tensor, or a
+    `parallel.mesh.ShardedPlane` once placed on the serving mesh),
+    nested sketch states included."""
+    from tempo_tpu_torch.parallel.mesh import ShardedPlane
+
     for f in dataclasses.fields(state):
         t = getattr(state, f.name)
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, (torch.Tensor, ShardedPlane)):
             yield t
         elif dataclasses.is_dataclass(t):
             yield from state_tensors(t)
@@ -216,23 +221,24 @@ def state_tensors(state):
 
 def place_state(state, device, page_rows: int):
     """A metric state with every tensor a row view of a trash-paged arena
-    on `device` (the serving mesh's placement, `ops.pages.place_view`);
-    static meta (histogram edges) rides along. Idempotent: a state
-    already placed comes back unchanged."""
+    on `device`, or over the serving mesh's series devices one arena a
+    shard (`ops.pages.place_view`); static meta (histogram edges) rides
+    along. Idempotent: a state already placed comes back unchanged."""
     from tempo_tpu_torch.ops.pages import place_view
+    from tempo_tpu_torch.parallel.mesh import ShardedPlane
 
     return dataclasses.replace(state, **{
         f.name: place_view(getattr(state, f.name), device, page_rows)
         for f in dataclasses.fields(state)
-        if isinstance(getattr(state, f.name), torch.Tensor)})
+        if isinstance(getattr(state, f.name), (torch.Tensor, ShardedPlane))})
 
 
 def zero_slots(state, slots):
-    """Zero the rows of evicted slots in every tensor of a metric state;
+    """Zero the rows of evicted slots in every plane of a metric state;
     slots outside [0, capacity) are ignored (the registry pads eviction
     batches with `capacity`)."""
+    from tempo_tpu_torch.parallel.mesh import zero_rows
+
     for arr in state_tensors(state):
-        s = torch.as_tensor(slots, device=arr.device).to(torch.int64)
-        s = s[(s >= 0) & (s < arr.shape[0])]
-        arr[s] = 0.0
+        zero_rows(arr, np.asarray(slots))
     return state

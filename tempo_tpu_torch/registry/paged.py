@@ -6,8 +6,10 @@ formatting — inherited) and supplies the device half: rows live in the
 page pool's arenas behind a per-family indirection table, updates go
 through the paged updates of `ops/pages.py` in place, and snapshots
 gather the active slots back through the same table into
-capacity-shaped host arrays. Every device op runs under the registry
-state lock, which is the pool's lock.
+capacity-shaped host arrays. On a mesh-split pool each update runs once
+a series shard over its arena and its localized table
+(`PagedPlane.operands`). Every device op runs under the registry state
+lock, which is the pool's lock.
 
 Under the compact-state tier (`compact=True`) counts and histogram
 buckets are int32 and a histogram's sum is a [2]-wide bf16 Kahan pair
@@ -113,10 +115,10 @@ class PagedCounter(_PagedBase, Counter):
         w = torch.ones(len(slots), device=self.pool.device) \
             if weights is None else weights
         with self.registry.state_lock:
-            op.counter_add_step(self.values.data, self.values.device_map(),
-                                self._dev(slots, torch.int32),
-                                self._dev(w, torch.float32),
-                                page_shift=self.pool.page_shift)
+            s, w = self._dev(slots, torch.int32), self._dev(w, torch.float32)
+            for a, t in self.values.operands():
+                op.counter_add_step(a, t, s.to(a.device), w.to(a.device),
+                                    page_shift=self.pool.page_shift)
 
     def _snap(self) -> tuple:
         return (self._gather_full(self.values),)
@@ -129,10 +131,11 @@ class PagedGauge(_PagedBase, Gauge):
 
     def _device_set(self, slots: np.ndarray, values: np.ndarray) -> None:
         with self.registry.state_lock:
-            op.gauge_set_step(self.values.data, self.values.device_map(),
-                              self._dev(slots, torch.int32),
-                              self._dev(values, torch.float32),
-                              page_shift=self.pool.page_shift)
+            s = self._dev(slots, torch.int32)
+            v = self._dev(values, torch.float32)
+            for a, t in self.values.operands():
+                op.gauge_set_step(a, t, s.to(a.device), v.to(a.device),
+                                  page_shift=self.pool.page_shift)
 
     def _snap(self) -> tuple:
         return (self._gather_full(self.values),)
@@ -158,12 +161,16 @@ class PagedHistogram(_PagedBase, Histogram):
         w = torch.ones(len(slots), device=self.pool.device) \
             if weights is None else weights
         with self.registry.state_lock:
-            op.histogram_observe_step(
-                self.sums.data, self.counts.data, self.buckets.data,
-                self.buckets.device_map(), self.sums.device_map(),
-                self.counts.device_map(), self._dev(slots, torch.int32),
-                self._dev(values, torch.float32), self._dev(w, torch.float32),
-                edges=self.edges, page_shift=self.pool.page_shift)
+            cols = (self._dev(slots, torch.int32),
+                    self._dev(values, torch.float32),
+                    self._dev(w, torch.float32))
+            for (a_s, t_s), (a_c, t_c), (a_b, t_b) in zip(
+                    self.sums.operands(), self.counts.operands(),
+                    self.buckets.operands()):
+                op.histogram_observe_step(
+                    a_s, a_c, a_b, t_b, t_s, t_c,
+                    *(c.to(a_b.device) for c in cols),
+                    edges=self.edges, page_shift=self.pool.page_shift)
 
     def _snap(self) -> tuple:
         if not self.compact:
@@ -196,13 +203,16 @@ class PagedNativeHistogram(_PagedBase, NativeHistogram):
                       weights: np.ndarray | None = None) -> None:
         w = np.ones(len(slots), np.float32) if weights is None else weights
         with self.registry.state_lock:
-            op.native_hist_step(
-                self.sums.data, self.counts.data, self.zeros.data,
-                self.hist.data, self.hist.device_map(),
-                self.sums.device_map(), self.counts.device_map(),
-                self.zeros.device_map(), self._dev(slots, torch.int32),
-                self._dev(values, torch.float32), self._dev(w, torch.float32),
-                offset=self.offset, page_shift=self.pool.page_shift)
+            cols = (self._dev(slots, torch.int32),
+                    self._dev(values, torch.float32),
+                    self._dev(w, torch.float32))
+            for (a_s, t_s), (a_c, t_c), (a_z, t_z), (a_h, t_h) in zip(
+                    self.sums.operands(), self.counts.operands(),
+                    self.zeros.operands(), self.hist.operands()):
+                op.native_hist_step(
+                    a_s, a_c, a_z, a_h, t_h, t_s, t_c, t_z,
+                    *(c.to(a_h.device) for c in cols),
+                    offset=self.offset, page_shift=self.pool.page_shift)
 
     def _snap(self) -> tuple:
         return (self._gather_full(self.sums), self._gather_full(self.counts))

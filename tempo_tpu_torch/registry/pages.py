@@ -3,15 +3,19 @@
 Counterpart of `tempo_tpu/registry/pages.py`. One arena tensor per
 (dtype, width, role) on the pool's device, carved into fixed-size pages
 (pow-2 rows each), allocated on demand as series tables hand out slots
-and returned to the free list by the staleness sweeps.
+and returned to the free list by the staleness sweeps. On the serving
+mesh each series shard's range of physical pages is an arena of its own
+on the shard's device (`parallel.mesh.ShardedPlane`, each behind its own
+trash page); page numbers, free lists and page maps stay the pool's.
 
 - `PagePool` — process-level state: `configure()` builds it from a
   `PagePoolConfig` on a device (`cuda` unless the caller asks for
   `"cpu"`); tests use `use()` / `reset()`. Its re-entrant lock is the
   state lock of every paged tenant: arenas are shared across tenants and
   updated in place, so every device read and update serializes on it.
-- `_Arena` — one tensor `[rows]` or `[rows, width]`; physical page 0 is
-  reserved as the trash page, never allocated and always zero.
+- `_Arena` — one tensor `[rows]` or `[rows, width]` (one a series shard
+  on the mesh); physical page 0 is reserved as the trash page, never
+  allocated and always zero.
 - `PagedPlane` — a family plane's view: host page map (logical page →
   physical page or -1), per-page active-slot refcounts, and a cached
   device copy of the map (re-uploaded only when allocation or eviction
@@ -44,7 +48,7 @@ import torch
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops import pages as op
 from tempo_tpu_torch.parallel import serving
-from tempo_tpu_torch.parallel.mesh import device_of
+from tempo_tpu_torch.parallel.mesh import ShardedPlane
 
 _LOG = logging.getLogger("tempo_tpu_torch.pages")
 
@@ -101,9 +105,17 @@ class _Arena:
         self.role = role
         self.n_pages = pool._arena_pages
         self.rows = self.n_pages * pool.page_rows
-        shape = (self.rows,) if width == 1 else (self.rows, width)
-        self.data = torch.zeros(shape, dtype=_TORCH_DTYPES[dtype],
-                                device=pool.device)
+        dt = _TORCH_DTYPES[dtype]
+        self.itemsize = torch.empty((), dtype=dt).element_size()
+        if pool.mesh is None:
+            shape = (self.rows,) if width == 1 else (self.rows, width)
+            self.data = torch.zeros(shape, dtype=dt, device=pool.device)
+        else:
+            # physical row g lives in series shard g // (rows / S): each
+            # shard's pages an arena of its own on its device
+            self.data = ShardedPlane.zeros(
+                pool.mesh.registry_mesh.homes, self.rows,
+                None if width == 1 else width, pool.page_rows, dtype=dt)
         # physical page 0 is the trash page: never handed out, so every
         # table entry of a backed page is >= 1 and the kernel can skip
         # entries <= 0 without a separate valid bit
@@ -112,7 +124,7 @@ class _Arena:
 
     @property
     def page_bytes(self) -> int:
-        return (self.rows // self.n_pages) * self.width * self.data.element_size()
+        return (self.rows // self.n_pages) * self.width * self.itemsize
 
 
 class PagePool:
@@ -133,9 +145,10 @@ class PagePool:
         self.evicted_total = 0
         self.alloc_failures = 0
         # serving-mesh composition: arenas split page-aligned over
-        # 'series', each shard's K1 owning a range of physical pages.
-        # Needs data axis 1 (the serving default): the paged update is an
-        # owned-pages write with no data-axis delta.
+        # 'series', each shard's K1 owning a range of physical pages in
+        # an arena of its own on its device. Needs data axis 1 (the
+        # serving default): the paged update is an owned-pages write with
+        # no data-axis delta.
         sm = serving.active()
         if sm is not None and sm.data_shards != 1:
             _LOG.warning(
@@ -143,8 +156,6 @@ class PagePool:
                 "arenas need the series-only layout (data=1); arenas "
                 "stay single-device", sm.data_shards)
             sm = None
-        if sm is not None and sm.device != device_of(self.device):
-            raise NotImplementedError(serving.MULTI_DEVICE_STATE)
         self.mesh = sm
         shards = sm.series_shards if sm is not None else 1
         # +1: physical page 0 is the reserved trash page
@@ -179,9 +190,14 @@ class PagePool:
         if not len(pages):
             return
         with self.lock:
-            op.zero_pages_step(arena.data,
-                               torch.as_tensor(np.asarray(pages, np.int64)),
-                               page_rows=self.page_rows)
+            if isinstance(arena.data, ShardedPlane):
+                p = np.asarray(pages, np.int64)
+                arena.data.zero((p[:, None] * self.page_rows
+                                 + np.arange(self.page_rows)).reshape(-1))
+            else:
+                op.zero_pages_step(
+                    arena.data, torch.as_tensor(np.asarray(pages, np.int64)),
+                    page_rows=self.page_rows)
             for page in np.asarray(pages).tolist():
                 arena.owners[page] = None
                 arena.free.append(page)
@@ -250,6 +266,9 @@ class PagedPlane:
         self.page_map = np.full(self.n_lpages, -1, np.int32)
         self.refcnt = np.zeros(self.n_lpages, np.int64)
         self._dev_map: "torch.Tensor | None" = None
+        # each series shard's (arena, localized table) on a mesh-split
+        # pool, by page-map version
+        self._operands: "tuple | None" = None
         # bumped on every page-map change (stacked-table caches key on it)
         self.version = 0
         pool.planes.add(self)
@@ -296,8 +315,40 @@ class PagedPlane:
         return self._dev_map
 
     @property
-    def data(self) -> torch.Tensor:
+    def data(self):
+        """The arena: a tensor indexed by physical row, or on a mesh-split
+        pool the `parallel.mesh.ShardedPlane` of the shards' arenas."""
         return self._arena.data
+
+    def phys_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Physical row per slot through the host page map (int64); -1
+        for a negative slot or an unbacked page."""
+        shift = self.pool.page_shift
+        s = np.asarray(slots, np.int64)
+        lp = s >> shift
+        ok = (s >= 0) & (lp < self.n_lpages)
+        page = np.where(ok, self.page_map[np.clip(lp, 0, self.n_lpages - 1)],
+                        -1).astype(np.int64)
+        return np.where(page >= 0,
+                        (page << shift) | (s & (self.pool.page_rows - 1)), -1)
+
+    def operands(self) -> list:
+        """(arena, page table) a series shard, for the paged updates of
+        `ops.pages`: the arena and `device_map()`, or on a mesh-split pool
+        each shard's arena and the map localized to its pages (others
+        -1, which every update drops). Caller holds pool.lock."""
+        if not isinstance(self.data, ShardedPlane):
+            return [(self.data, self.device_map())]
+        if self._operands is None or self._operands[0] != self.version:
+            from tempo_tpu_torch.parallel.mesh import localize
+
+            per = self._arena.n_pages // len(self.data.views)
+            dmap = self.device_map()[None]
+            self._operands = (self.version, [
+                (a, localize(dmap, [(s * per, (s + 1) * per,
+                                     s * per - 1)])[0].to(a.device))
+                for s, a in enumerate(self.data.arenas)])
+        return self._operands[1]
 
     def gather(self, slots: np.ndarray) -> np.ndarray:
         """Host copy of the slots' rows ([n] or [n, width]); unbacked or
@@ -309,7 +360,9 @@ class PagedPlane:
         return rows.cpu().numpy()
 
     def gather_dev(self, slots: np.ndarray) -> torch.Tensor:
-        """Like `gather` but stays on the device."""
+        """Like `gather` but stays on the (pool's) device."""
+        if isinstance(self.data, ShardedPlane):
+            return self.data.gather(self.phys_rows(slots), self.pool.device)
         s = torch.from_numpy(np.ascontiguousarray(slots, np.int32)).to(
             self.pool.device)
         return op.gather_step(self._arena.data, self.device_map(), s,
@@ -317,6 +370,9 @@ class PagedPlane:
 
     def zero_slots(self, slots: np.ndarray) -> None:
         """Zero the slots' rows in place (eviction sweep)."""
+        if isinstance(self.data, ShardedPlane):
+            self.data.zero(self.phys_rows(slots))
+            return
         s = torch.from_numpy(np.ascontiguousarray(slots, np.int32)).to(
             self.pool.device)
         op.zero_step(self._arena.data, self.device_map(), s,
@@ -409,10 +465,14 @@ def load_reference_state(pool: PagePool, arenas: dict, page_maps: dict,
                     torch.bfloat16)
             else:
                 src = torch.from_numpy(data.copy())
-            if tuple(src.shape) != tuple(a.data.shape):
+            shape = (a.rows,) + (() if a.width == 1 else (a.width,))
+            if tuple(src.shape) != shape:
                 raise ValueError(f"arena {role}: reference shape "
-                                 f"{tuple(src.shape)} vs {tuple(a.data.shape)}")
-            a.data.copy_(src)
+                                 f"{tuple(src.shape)} vs {shape}")
+            if isinstance(a.data, ShardedPlane):
+                a.data.load(src)
+            else:
+                a.data.copy_(src)
         by_key = {(p.tenant, p.role): p for p in pool.planes}
         for key, pmap in page_maps.items():
             plane = by_key.get(key)

@@ -35,7 +35,7 @@ import torch
 
 from tempo_tpu_torch.device import bucket_rows, resolve_device
 from tempo_tpu_torch.model.interner import StringInterner
-from tempo_tpu_torch.ops.pages import arena_of, dense_page_rows
+from tempo_tpu_torch.ops.pages import dense_page_rows
 from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.series import Exemplar, Sample, SeriesBudget, SeriesTable
 
@@ -155,17 +155,19 @@ class _MetricBase:
 
 
 def _state_bytes(state, page_rows: int) -> int:
-    """Bytes of the arenas behind a dense state's tensors."""
-    total = 0
-    for t in m.state_tensors(state):
-        a = arena_of(t, page_rows)
-        total += a.numel() * a.element_size()
-    return total
+    """Bytes of the arenas behind a dense state's planes (every shard's
+    on the serving mesh)."""
+    from tempo_tpu_torch.parallel.mesh import plane_nbytes
+
+    return sum(plane_nbytes(t, page_rows) for t in m.state_tensors(state))
 
 
 def _host(t) -> np.ndarray:
-    """A host copy of a state tensor (never a view of live CPU state)."""
-    return t.cpu().numpy().copy()
+    """A host copy of a state plane (never a view of live CPU state): one
+    device-to-host copy, or one a series shard on the serving mesh."""
+    from tempo_tpu_torch.parallel.mesh import host_plane
+
+    return host_plane(t)
 
 
 class Counter(_MetricBase):
@@ -411,8 +413,9 @@ class ManagedRegistry:
     def shard_dense_pages(self, rows, shards: int) -> None:
         """Under the serving mesh: shrink the dense page, before any
         family exists, until each of `shards` equal ranges of every row
-        count in `rows` is whole pages (the shard windows K1 addresses),
-        as long as K1's page tables still fit. Pages never grow."""
+        count in `rows` is whole pages (a logical page of the identity
+        tables then lies in one shard's arena), as long as K1's page
+        tables still fit. Pages never grow."""
         from tempo_tpu_torch.ops.cuda_kernels import (MAX_ROLES,
                                                       MAX_TABLE_BYTES)
 
@@ -552,6 +555,8 @@ class ManagedRegistry:
         order give the same slots). Paged state carries through
         `registry.pages.load_reference_state`. Raises on an unknown
         family or field, or a shape or dtype mismatch."""
+        from tempo_tpu_torch.parallel.mesh import ShardedPlane
+
         if self.pages is not None:
             raise ValueError("paged families carry through "
                              "registry.pages.load_reference_state")
@@ -560,15 +565,21 @@ class ManagedRegistry:
                 state = self._metrics[name].state
                 for field, data in fields.items():
                     dst = getattr(state, field, None)
-                    if not isinstance(dst, torch.Tensor):
+                    if isinstance(dst, ShardedPlane):
+                        shape = (dst.rows,) + dst.tail
+                    elif isinstance(dst, torch.Tensor):
+                        shape = tuple(dst.shape)
+                    else:
                         raise ValueError(f"{name}: no state tensor {field!r}")
                     src = torch.from_numpy(np.array(data, copy=True))
-                    if src.dtype != dst.dtype or src.shape != dst.shape:
+                    if src.dtype != dst.dtype or tuple(src.shape) != shape:
                         raise ValueError(
                             f"{name}.{field}: reference {src.dtype} "
-                            f"{tuple(src.shape)} vs {dst.dtype} "
-                            f"{tuple(dst.shape)}")
-                    dst.copy_(src)
+                            f"{tuple(src.shape)} vs {dst.dtype} {shape}")
+                    if isinstance(dst, ShardedPlane):
+                        dst.load(src)
+                    else:
+                        dst.copy_(src)
 
 
 def _pad_len(n: int) -> int:

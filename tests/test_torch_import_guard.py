@@ -17,7 +17,7 @@
   ends with no `jax`, no `tempo_tpu` module and no `yaml` loaded; an
   `Overrides()` without a runtime-config path needs no PyYAML, and no
   port module imports `yaml` outside a function.
-- A fresh interpreter drives the ingesters behind `Distributor.push_otlp`
+- A fresh interpreter drives an ingester behind `Distributor.push_otlp`
   (push through the staged and the columnar tee, cut, complete, flush,
   find at every stage) and ends with no `jax`, `tempo_tpu`, `yaml` or
   `pyarrow` module loaded: the port writes and reads Parquet itself.
@@ -48,6 +48,9 @@
   `consume_bus` against the mock broker, and another an App with
   `mesh.enabled` pushing and collecting on logical CPU series shards,
   with the same result.
+- A fresh interpreter forks a 2-rank gloo group whose ranks build
+  `make_multihost_mesh` and run one `sharded_spanmetrics_step` across
+  it, with the same result in the parent and in each rank.
 - No source file of the port, nor `chip_smoke.py`, imports either, and
   none imports `pyarrow` anywhere.
 - Asking for `cuda` without a CUDA device raises.
@@ -189,7 +192,7 @@ for t, procs in (("a", ["span-metrics"]), ("b", ["span-metrics", "service-graphs
                                           "max_active_series": 512},
                             "ingestion": {"max_attribute_bytes": 64 if t == "b" else 0}})
 ings = {f"i{k}": Ing() for k in range(3)}
-data = encode_spans_otlp(synthetic_spans(300, seed=0, now_ns=time.time_ns()))
+data = encode_spans_otlp(synthetic_spans(48, seed=0, now_ns=time.time_ns()))
 for n_gen in (1, 2):
     gens = {f"g{k}": Generator(tt.GeneratorConfig(
         spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
@@ -198,7 +201,7 @@ for n_gen in (1, 2):
                     generator_ring=ring(gens, 1), generator_clients=gens)
     for t in ("a", "b"):
         assert d.push_otlp(t, data) == {}
-    assert sum(g.instance("a").spans_received for g in gens.values()) == 300
+    assert sum(g.instance("a").spans_received for g in gens.values()) == 48
     assert sum(g.collect_all() for g in gens.values()) > 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "tempo_tpu", "yaml")
@@ -248,11 +251,11 @@ data = encode_spans_otlp(spans)
 tid = spans[0]["trace_id"]
 ings = {f"i{k}": Ingester(f"{root}/i{k}", flush_writer=store,
                           overrides=ov, instance_id=f"i{k}")
-        for k in range(3)}
+        for k in range(1)}
 gens = {"g0": Generator(tt.GeneratorConfig(
     spanmetrics=tt.SpanMetricsConfig(sketch_max_series=128)),
     overrides=ov, instance_id="g0", device="cpu")}
-d = Distributor(ring(ings, 3), ings, overrides=ov,
+d = Distributor(ring(ings, 1), ings, overrides=ov,
                 generator_ring=ring(gens, 1), generator_clients=gens)
 assert d.push_otlp("a", data) == {}
 for ing in ings.values():
@@ -1065,6 +1068,69 @@ with tempfile.TemporaryDirectory() as root:
         assert got == 32, got
     app.shutdown()
 """ + _DRIVE_TAIL
+
+
+_MESH_PROCS_DRIVE = """
+import datetime
+import multiprocessing
+import os
+import sys
+import tempfile
+import numpy as np
+import torch
+from tempo_tpu_torch.ops.sketches import dd_params
+from tempo_tpu_torch.parallel import (make_multihost_mesh,
+                                      sharded_spanmetrics_step)
+
+def bad():
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "tempo_tpu", "yaml", "pyarrow")
+                  or m.startswith(("jax.", "tempo_tpu.", "yaml.", "pyarrow.")))
+
+def rank_main(rank, store, conn):
+    try:
+        torch.set_num_threads(1)
+        torch.distributed.init_process_group(
+            "gloo", init_method="file://" + store, world_size=2, rank=rank,
+            timeout=datetime.timedelta(seconds=5))
+        mesh = make_multihost_mesh(series_shards=2, devices=["cpu"] * 2)
+        assert mesh.devices.shape == (2, 2) and mesh.local_rows == [rank]
+        gamma, nb = dd_params(0.01, 1e-9, 1e6)
+        step = sharded_spanmetrics_step(mesh, (0.01, 0.1), gamma, 1e-9)
+        st = [torch.zeros(8), torch.zeros(8, 3), torch.zeros(8),
+              torch.zeros(8), torch.zeros(8), torch.zeros(8, nb),
+              torch.zeros(8)]
+        out = step(*st, np.arange(64, dtype=np.int32) % 8,
+                   np.full(64, 0.05, np.float32), np.ones(64, np.float32),
+                   np.ones(64, np.float32))
+        conn.send((float(out[0].sum()), bad()))
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        conn.send((repr(e), []))
+    os._exit(0)
+
+store = tempfile.mkdtemp() + "/store"
+ctx = multiprocessing.get_context("fork")
+ranks = []
+for r in range(2):
+    recv, send = ctx.Pipe(duplex=False)
+    p = ctx.Process(target=rank_main, args=(r, store, send))
+    p.start()
+    ranks.append((p, recv))
+got = []
+for p, recv in ranks:
+    assert recv.poll(20), "a rank did not answer"
+    got.append(recv.recv())
+    p.join(5)
+assert [g[0] for g in got] == [64.0, 64.0], got
+print("LOADED", sorted(set(bad()).union(*(g[1] for g in got))))
+"""
+
+
+def test_mesh_across_processes_drive_loads_no_reference_yaml_or_pyarrow():
+    """`make_multihost_mesh` and one `sharded_spanmetrics_step` in a
+    forked 2-rank gloo group: no `jax`, `tempo_tpu`, `yaml` or `pyarrow`
+    is loaded in the parent or in either rank."""
+    _fresh(_MESH_PROCS_DRIVE)
 
 
 def test_kafka_drive_loads_no_reference_yaml_or_pyarrow():

@@ -19,6 +19,13 @@ deltas in shard order: counts exact, sums and moments at rtol 1e-5.
 `sharded_spanmetrics_step` and `sharded_query_range_step`, which run
 under jax 0.9.0, are held against the reference's own on its 8 devices
 (counts exact, sums rtol 1e-5 / 1e-6).
+
+Placed state is one tensor a series shard (`parallel.mesh.ShardedPlane`),
+each behind its own trash page, and a pool made under the mesh holds
+each shard's range of pages as an arena of its own: the tests check that
+no two shard arenas overlap, and hold evictions, quantiles and the split
+pool against the reference's single-device processor. The mesh across
+processes is `tests/test_torch_mesh_procs.py`.
 """
 
 from __future__ import annotations
@@ -172,8 +179,8 @@ def test_scheduler_route_bit_identical_across_series_shards():
 
 
 def test_sharded_state_donated_no_copy(monkeypatch):
-    """The port's counterpart of donation: each shard's K1 writes a window
-    of the processor's own planes in place (no state copy, the tensors
+    """The port's counterpart of donation: each shard's K1 writes its own
+    arena of the processor's planes in place (no state copy, the shards
     keep their storage), one launch per shard per dispatch."""
     k1 = count_k1(monkeypatch)
     sm = mesh(4)
@@ -181,21 +188,18 @@ def test_sharded_state_donated_no_copy(monkeypatch):
         reg, proc = mk_proc(True)
         proc.push_batch(batch(reg, 1))
         calls0, dd0 = proc.calls.state.values, proc.dd.counts
-        ptrs = (calls0.data_ptr(), dd0.data_ptr())
+        ptrs = [v.data_ptr() for v in calls0.views + dd0.views]
         plan = proc._mesh_plan
         assert len(plan.arenas) == 4 and len(k1) == 4
-        arena = op.arena_of(calls0, reg.dense_page_rows)
-        for s, wins in enumerate(plan.arenas):
-            w = wins[0]
-            assert w.untyped_storage().data_ptr() == \
-                arena.untyped_storage().data_ptr()
-            assert w.shape[0] == reg.dense_page_rows + 128
+        for s, arenas in enumerate(plan.arenas):
+            assert arenas[0].data_ptr() == calls0.arenas[s].data_ptr()
+            assert arenas[0].shape[0] == reg.dense_page_rows + 128
         proc.push_batch(batch(reg, 2))
         assert len(k1) == 8
         assert proc.calls.state.values is calls0 and proc.dd.counts is dd0
-        assert (calls0.data_ptr(), dd0.data_ptr()) == ptrs
-        # each shard's K1 touched only its own rows: a shard's window
-        # table names no page outside it
+        assert [v.data_ptr() for v in calls0.views + dd0.views] == ptrs
+        # each shard's K1 touched only its own rows: a shard's table names
+        # no page outside its arena
         for t in plan.tables:
             assert int(t.max()) <= 128 // reg.dense_page_rows
 
@@ -208,7 +212,7 @@ def test_purge_then_push_keeps_working():
         clock[0] += 100.0
         assert reg.purge_stale() > 0
         proc.push_batch(batch(reg, 2))
-        assert proc.calls.state.values.sum() > 0
+        assert proc.calls.state.values.host().sum() > 0
     jclock = [1000.0]
     jreg, jproc = mk_proc(False, clock=jclock)
     jproc.push_batch(batch(jreg, 1, port=False))
@@ -218,22 +222,117 @@ def test_purge_then_push_keeps_working():
     assert_collect_close(collect(reg), collect(jreg))
 
 
+def _arena_spans(planes) -> list:
+    """(start, end) byte range of every shard arena of `planes`."""
+    return [(a.data_ptr(), a.data_ptr() + a.numel() * a.element_size())
+            for p in planes for a in p.arenas]
+
+
+def test_per_shard_planes_do_not_alias():
+    """On `[cpu] * 4` every plane of the placed state is four tensors, one
+    a series shard, each its own allocation behind its own trash page:
+    no two arenas of any plane overlap, and a write through one shard's
+    rows shows in no other."""
+    from tempo_tpu_torch.parallel.mesh import ShardedPlane
+
+    with serving.use(mesh(4)):
+        reg, proc = mk_proc(True, sketch="both")
+        proc.push_batch(batch(reg, 1, n=64))
+    planes = proc._dense_views()
+    assert len(planes) == 8 and all(isinstance(p, ShardedPlane)
+                                    and len(p.views) == 4 for p in planes)
+    spans = sorted(_arena_spans(planes))
+    assert len(spans) == 32
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    pr = reg.dense_page_rows
+    for p in planes:
+        for a, v in zip(p.arenas, p.views):
+            assert v.data_ptr() == a.data_ptr() + pr * a.stride(0) * \
+                a.element_size()
+            assert not a[:pr].any()                 # the trash page
+    calls = proc.calls.state.values
+    before = calls.host()
+    calls.views[1][0] += 7.0
+    after = calls.host()
+    diff = np.flatnonzero(after != before)
+    assert diff.tolist() == [calls.shard_rows]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_eviction_and_quantiles_on_shards_match_reference(shards):
+    """A push, an eviction sweep, a second push: collect() and the
+    DDSketch quantiles on 2 and 4 series shards equal the reference's
+    single-device processor (counts and quantiles exact, sums to the
+    contract), and the evicted slots' rows read zero in every shard."""
+    clock, jclock = [1000.0], [1000.0]
+    with serving.use(mesh(shards)):
+        reg, proc = mk_proc(True, clock=clock)
+        proc.push_batch(batch(reg, 1))
+        clock[0] += 100.0
+        evicted = reg.purge_stale()
+        assert evicted > 0 and proc.calls.table.active_count == 0
+        for plane in proc._dense_views():
+            assert not plane.host().any()
+        proc.push_batch(batch(reg, 2, n=300))
+    jreg, jproc = mk_proc(False, clock=jclock)
+    jproc.push_batch(batch(jreg, 1, port=False))
+    jclock[0] += 100.0
+    assert jreg.purge_stale() == evicted
+    jproc.push_batch(batch(jreg, 2, n=300, port=False))
+    assert_collect_close(collect(reg), collect(jreg))
+    got = proc.quantiles((0.5, 0.99))
+    assert got == [jproc.quantile(q) for q in (0.5, 0.99)] and got[0]
+
+
+def test_paged_pool_split_over_four_shards_evicts():
+    """A page pool made under a 4-shard mesh holds every arena as four
+    tensors, one a shard's range of physical pages; the page maps equal
+    an unsharded pool's, an eviction sweep returns the pages zeroed, and
+    collect() and the quantiles equal the reference's single-device
+    processor after the pages are reused."""
+    from tempo_tpu_torch.parallel.mesh import ShardedPlane
+
+    def world(sm, port=True):
+        clock = [1000.0]
+        with serving.use(sm):
+            pool = tpages.PagePool(tpages.PagePoolConfig(
+                enabled=True, page_rows=64, arena_slots=2048),
+                device="cpu") if port else None
+            with tpages.use(pool):
+                reg, proc = mk_proc(port, clock=clock,
+                                    sketch_max_series=256,
+                                    use_scheduler=False)
+            proc.push_batch(batch(reg, 1, port=port))
+            maps = [p.page_map.copy() for p in proc._paged_planes()] \
+                if port else None
+            clock[0] += 1000
+            reg.purge_stale()
+            freed = pool.free_pages() if port else None
+            proc.push_batch(batch(reg, 2, port=port))
+        return reg, proc, pool, maps, freed
+
+    reg, proc, pool, maps, freed = world(mesh(4))
+    _, _, pool1, maps1, freed1 = world(None)
+    assert pool.mesh is not None and pool1.mesh is None
+    arenas = list(pool.arenas.values())
+    assert arenas and all(isinstance(a.data, ShardedPlane)
+                          and len(a.data.views) == 4 for a in arenas)
+    spans = sorted(_arena_spans([a.data for a in arenas]))
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all((m == m1).all() for m, m1 in zip(maps, maps1))
+    assert freed == pool.total_pages() and freed1 == pool1.total_pages()
+    jreg, jproc, *_ = world(None, port=False)
+    assert_collect_close(collect(reg), collect(jreg))
+    assert proc.quantiles((0.5, 0.99)) == [jproc.quantile(q)
+                                           for q in (0.5, 0.99)]
+
+
 def test_unshardable_capacity_falls_back_single_device():
     with serving.use(mesh(4)):
         reg, proc = mk_proc(True, max_series=510)     # 510 % 4 != 0
         proc.push_batch(batch(reg, 1, n=100))
         assert proc._mesh is None
         assert proc.calls.state.values.sum() > 0
-
-
-def test_distinct_devices_raise_naming_item_13b():
-    """Resident state over a mesh of distinct devices is item 13b."""
-    sm = mesh(2)
-    sm.registry_mesh.devices[0, 1] = torch.device("meta")
-    with serving.use(sm):
-        reg, proc = mk_proc(True)
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            proc.push_batch(batch(reg, 1, n=16))
 
 
 def test_coalescer_aligns_bucket_and_emits_shard_obs():
