@@ -326,10 +326,13 @@ class Generator:
             wal = self._wal_for(tenant)
             if self.wal is not None:
                 need_span, need_res = inst.needs_attr_columns()
-                view = stage_otlp(data, inst.registry.interner,
-                                  trusted=trusted,
-                                  include_span_attrs=need_span,
-                                  include_res_attrs=need_res).view()
+                with tracing.span("generator.stage") as sp:
+                    view = stage_otlp(data, inst.registry.interner,
+                                      trusted=trusted,
+                                      include_span_attrs=need_span,
+                                      include_res_attrs=need_res).view()
+                    if sp is not None:
+                        sp.attrs["spans"] = view.n
                 got = pending if pending is not None \
                     else inst.push_staged_view(view)
                 if got is not None:
@@ -346,10 +349,13 @@ class Generator:
                 got = inst.push_otlp_staged(data, trusted=trusted)
                 if got is None:
                     need_span, need_res = inst.needs_attr_columns()
-                    sb, sizes = batch_from_otlp(
-                        data, inst.registry.interner, return_sizes=True,
-                        include_span_attrs=need_span,
-                        include_res_attrs=need_res, trusted=trusted)
+                    with tracing.span("generator.stage") as sp:
+                        sb, sizes = batch_from_otlp(
+                            data, inst.registry.interner, return_sizes=True,
+                            include_span_attrs=need_span,
+                            include_res_attrs=need_res, trusted=trusted)
+                        if sp is not None:
+                            sp.attrs["spans"] = sb.n
                     inst.push_batch(sb, span_sizes=sizes)
                     got = sb.n
             if push_id is not None:

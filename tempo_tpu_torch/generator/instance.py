@@ -77,6 +77,7 @@ from tempo_tpu_torch.generator.remote_write import RemoteWriteClient, RemoteWrit
 from tempo_tpu_torch.model.otlp_batch import stage_otlp
 from tempo_tpu_torch.model.span_batch import SpanBatch
 from tempo_tpu_torch.registry import ManagedRegistry, RegistryOverrides
+from tempo_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -301,8 +302,11 @@ class GeneratorInstance:
         row-table change, so a fallback leaves no pending entries."""
         if self._fast_spanmetrics() is None:
             return None
-        st = stage_otlp(data, self.registry.interner, trusted=trusted,
-                        include_span_attrs=False)
+        with tracing.span("generator.stage") as sp:
+            st = stage_otlp(data, self.registry.interner, trusted=trusted,
+                            include_span_attrs=False)
+            if sp is not None:
+                sp.attrs["spans"] = st.n
         # a non-string service.name needs the Python stringify fixup
         # (`_batch_from_staged`): such payloads take the full route
         if st.needs_service_fixup:

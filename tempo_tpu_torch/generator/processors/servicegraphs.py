@@ -45,6 +45,7 @@ from tempo_tpu_torch.model.span_batch import (
 )
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
                                                ManagedRegistry)
+from tempo_tpu_torch.utils import tracing
 
 _PEER_ATTRS = ("peer.service", "db.name", "db.system", "messaging.system",
                "net.peer.name")  # `servicegraphs.go:287-343` heuristics
@@ -106,62 +107,78 @@ class ServiceGraphsProcessor:
         if sb.interner is not self.registry.interner:
             raise ValueError(
                 "SpanBatch must be built with the tenant registry's interner")
-        now = self.registry.now()
+        with tracing.span("processor.service-graphs", spans=sb.n):
+            now = self.registry.now()
+            completed = self._match(sb, now)
+            if completed:
+                self._emit(completed)
+            self._expire(now)
+
+    def _match(self, sb: SpanBatch, now: float) -> list[tuple]:
+        """Pairs the batch's client and server spans through the edge
+        store; returns the completed edges."""
         kinds = sb.kind
         client_like = (kinds == KIND_CLIENT) | (kinds == KIND_PRODUCER)
         server_like = (kinds == KIND_SERVER) | (kinds == KIND_CONSUMER)
         interesting = np.flatnonzero(sb.valid & (client_like | server_like))
         if interesting.size == 0:
-            self._expire(now)
-            return
-        # the matching walks Python lists of the interesting rows, read
-        # out of the columns once per batch (per-span numpy scalar reads
-        # cost more than the dict work); `keys[i]` is the exact 24-byte
-        # trace+span id concatenation the reference keys on
-        rows = interesting
-        is_cli = client_like[rows].tolist()
-        is_msg = ((kinds[rows] == KIND_PRODUCER)
-                  | (kinds[rows] == KIND_CONSUMER)).tolist()
-        keys = np.where(client_like[rows], void_keys(sb.trace_id, sb.span_id)[rows],
-                        void_keys(sb.trace_id, sb.parent_span_id)[rows]).tolist()
-        svc = sb.service_id[rows].tolist()
-        dur = (sb.duration_ns[rows] / 1e9).tolist()
-        fail = (sb.status_code[rows] == STATUS_ERROR).tolist()
-        peer = self._peer_col(sb)[rows].tolist()
-        start = sb.start_unix_nano[rows].tolist()
-        expire_at = now + self.cfg.wait_s
-        store, ttl = self._store, self._ttl
-        completed: list[tuple[int, int, str, float, float, bool]] = []
-        for j, key in enumerate(keys):
-            is_client = is_cli[j]
-            other = store.pop(key, None)
-            if other is not None and other.is_client != is_client:
-                if is_client:
-                    cli = _HalfEdge(svc[j], dur[j], fail[j], True, is_msg[j],
-                                    peer[j], start[j], 0)
-                    srv = other
+            return []
+        with tracing.span("servicegraphs.match",
+                          spans=int(interesting.size)) as sp:
+            # the matching walks Python lists of the interesting rows,
+            # read out of the columns once per batch (per-span numpy
+            # scalar reads cost more than the dict work); `keys[i]` is the
+            # exact 24-byte trace+span id concatenation the reference
+            # keys on
+            rows = interesting
+            is_cli = client_like[rows].tolist()
+            is_msg = ((kinds[rows] == KIND_PRODUCER)
+                      | (kinds[rows] == KIND_CONSUMER)).tolist()
+            keys = np.where(client_like[rows],
+                            void_keys(sb.trace_id, sb.span_id)[rows],
+                            void_keys(sb.trace_id, sb.parent_span_id)[rows]
+                            ).tolist()
+            svc = sb.service_id[rows].tolist()
+            dur = (sb.duration_ns[rows] / 1e9).tolist()
+            fail = (sb.status_code[rows] == STATUS_ERROR).tolist()
+            peer = self._peer_col(sb)[rows].tolist()
+            start = sb.start_unix_nano[rows].tolist()
+            expire_at = now + self.cfg.wait_s
+            store, ttl = self._store, self._ttl
+            completed: list[tuple[int, int, str, float, float, bool]] = []
+            for j, key in enumerate(keys):
+                is_client = is_cli[j]
+                other = store.pop(key, None)
+                if other is not None and other.is_client != is_client:
+                    if is_client:
+                        cli = _HalfEdge(svc[j], dur[j], fail[j], True,
+                                        is_msg[j], peer[j], start[j], 0)
+                        srv = other
+                    else:
+                        cli = other
+                        srv = _HalfEdge(svc[j], dur[j], fail[j], False,
+                                        is_msg[j], INVALID_ID, start[j], 0)
+                    conn = ("messaging_system"
+                            if (cli.is_messaging or srv.is_messaging)
+                            else "")
+                    completed.append((cli.service_id, srv.service_id, conn,
+                                      cli.duration_s, srv.duration_s,
+                                      cli.failed or srv.failed,
+                                      max(0.0, (srv.start_ns - cli.start_ns)
+                                          / 1e9)))
                 else:
-                    cli = other
-                    srv = _HalfEdge(svc[j], dur[j], fail[j], False, is_msg[j],
-                                    INVALID_ID, start[j], 0)
-                conn = ("messaging_system" if (cli.is_messaging or srv.is_messaging)
-                        else "")
-                completed.append((cli.service_id, srv.service_id, conn,
-                                  cli.duration_s, srv.duration_s,
-                                  cli.failed or srv.failed,
-                                  max(0.0, (srv.start_ns - cli.start_ns) / 1e9)))
-            else:
-                if other is not None:
-                    store[key] = other  # same side dup; put back
-                if len(store) >= self.cfg.max_items:
-                    self.dropped += 1
-                    continue
-                store[key] = _HalfEdge(svc[j], dur[j], fail[j], is_client,
-                                       is_msg[j], peer[j], start[j], expire_at)
-                ttl.append((expire_at, key))
-        if completed:
-            self._emit(completed)
-        self._expire(now)
+                    if other is not None:
+                        store[key] = other  # same side dup; put back
+                    if len(store) >= self.cfg.max_items:
+                        self.dropped += 1
+                        continue
+                    store[key] = _HalfEdge(svc[j], dur[j], fail[j],
+                                           is_client, is_msg[j], peer[j],
+                                           start[j], expire_at)
+                    ttl.append((expire_at, key))
+            if sp is not None:
+                sp.attrs["edges"] = len(completed)
+        return completed
 
     def _peer_col(self, sb: SpanBatch) -> np.ndarray:
         col = np.full(sb.capacity, INVALID_ID, np.int32)
@@ -173,65 +190,69 @@ class ServiceGraphsProcessor:
     # -- emission ----------------------------------------------------------
 
     def _emit(self, edges: list[tuple]) -> None:
-        it = self.registry.interner
-        conn_ids = {c: it.intern(c) for c in ("", "messaging_system", "virtual_node")}
-        n = len(edges)
-        # pad the edge batch to a pow-2 shape bucket, as the reference
-        # does (padding rows ride slot -1 → dropped)
-        cap = bucket_rows(max(n, 1), lo=16)
-        rows = np.zeros((n, 3), np.int32)
-        # the whole batch in one host matrix and one copy to the device:
-        # slots and the messaging slots as int32 bits, failed, client and
-        # server seconds, messaging delay
-        mat = np.zeros((6, cap), np.float32)
-        bits = mat.view(np.int32)
-        cdur, sdur, fail, mdur = mat[2], mat[3], mat[1], mat[4]
-        for j, (cid, sid, conn, cd, sd, failed, msg_delay) in enumerate(edges):
-            rows[j] = (cid, sid, conn_ids[conn])
-            cdur[j], sdur[j], fail[j] = cd, sd, 1.0 if failed else 0.0
-            mdur[j] = msg_delay
-        bits[0] = -1
-        bits[0, :n] = self.total.resolve_slots(rows)
-        msg = np.zeros(cap, bool)
-        msg[:n] = [e[2] == "messaging_system" for e in edges]
-        bits[5] = np.where(msg, bits[0], -1)
-        dev = torch.from_numpy(mat).to(self.registry.device)
-        slots, mslots = dev[0].view(torch.int32), dev[5].view(torch.int32)
-        # family-level slot updates: the families own the device half,
-        # dense or paged
-        self.total.add_slots(slots)
-        self.failed.add_slots(slots, dev[1])
-        self.client_hist.observe_slots(slots, dev[2])
-        self.server_hist.observe_slots(slots, dev[3])
-        if self.messaging_hist is not None:
-            self.messaging_hist.observe_slots(mslots, dev[4])
+        with tracing.span("servicegraphs.emit", edges=len(edges)):
+            it = self.registry.interner
+            conn_ids = {c: it.intern(c) for c in ("", "messaging_system", "virtual_node")}
+            n = len(edges)
+            # pad the edge batch to a pow-2 shape bucket, as the reference
+            # does (padding rows ride slot -1 → dropped)
+            cap = bucket_rows(max(n, 1), lo=16)
+            rows = np.zeros((n, 3), np.int32)
+            # the whole batch in one host matrix and one copy to the device:
+            # slots and the messaging slots as int32 bits, failed, client and
+            # server seconds, messaging delay
+            mat = np.zeros((6, cap), np.float32)
+            bits = mat.view(np.int32)
+            cdur, sdur, fail, mdur = mat[2], mat[3], mat[1], mat[4]
+            for j, (cid, sid, conn, cd, sd, failed, msg_delay) in enumerate(edges):
+                rows[j] = (cid, sid, conn_ids[conn])
+                cdur[j], sdur[j], fail[j] = cd, sd, 1.0 if failed else 0.0
+                mdur[j] = msg_delay
+            bits[0] = -1
+            bits[0, :n] = self.total.resolve_slots(rows)
+            msg = np.zeros(cap, bool)
+            msg[:n] = [e[2] == "messaging_system" for e in edges]
+            bits[5] = np.where(msg, bits[0], -1)
+            dev = torch.from_numpy(mat).to(self.registry.device)
+            slots, mslots = dev[0].view(torch.int32), dev[5].view(torch.int32)
+            # family-level slot updates: the families own the device half,
+            # dense or paged
+            self.total.add_slots(slots)
+            self.failed.add_slots(slots, dev[1])
+            self.client_hist.observe_slots(slots, dev[2])
+            self.server_hist.observe_slots(slots, dev[3])
+            if self.messaging_hist is not None:
+                self.messaging_hist.observe_slots(mslots, dev[4])
 
     def _expire(self, now: float) -> None:
         """Expired half-edges become virtual-node edges (`servicegraphs.go:390-421`)."""
-        it = self.registry.interner
-        expired_edges = []
-        while self._ttl and self._ttl[0][0] <= now:
-            _, key = self._ttl.popleft()
-            he = self._store.get(key)
-            if he is None:   # already matched
-                continue
-            if he.expire_at > now:
-                # key was reused by a newer half-edge; re-queue, don't evict
-                self._ttl.append((he.expire_at, key))
-                continue
-            del self._store[key]
-            self.expired += 1
-            if he.is_client:
-                # client → peer-derived virtual server node (db, queue, ...)
-                peer = it.lookup(he.peer_id) if he.peer_id != INVALID_ID else None
-                if peer:
-                    expired_edges.append((he.service_id, it.intern(peer),
-                                          "virtual_node", he.duration_s, 0.0,
+        with tracing.span("servicegraphs.expire") as sp:
+            it = self.registry.interner
+            expired_edges = []
+            while self._ttl and self._ttl[0][0] <= now:
+                _, key = self._ttl.popleft()
+                he = self._store.get(key)
+                if he is None:   # already matched
+                    continue
+                if he.expire_at > now:
+                    # key was reused by a newer half-edge; re-queue, don't evict
+                    self._ttl.append((he.expire_at, key))
+                    continue
+                del self._store[key]
+                self.expired += 1
+                if he.is_client:
+                    # client → peer-derived virtual server node (db, queue, ...)
+                    peer = it.lookup(he.peer_id) if he.peer_id != INVALID_ID else None
+                    if peer:
+                        expired_edges.append((he.service_id, it.intern(peer),
+                                              "virtual_node", he.duration_s, 0.0,
+                                              he.failed, 0.0))
+                else:
+                    # unmatched server with remote parent → synthetic "user" client
+                    expired_edges.append((it.intern("user"), he.service_id,
+                                          "virtual_node", 0.0, he.duration_s,
                                           he.failed, 0.0))
-            else:
-                # unmatched server with remote parent → synthetic "user" client
-                expired_edges.append((it.intern("user"), he.service_id,
-                                      "virtual_node", 0.0, he.duration_s,
-                                      he.failed, 0.0))
-        if expired_edges:
-            self._emit(expired_edges)
+            if expired_edges:
+                self._emit(expired_edges)
+            if sp is not None:
+                sp.attrs["edges"] = len(expired_edges)

@@ -89,6 +89,7 @@ from tempo_tpu_torch.registry.pages import PagedPlane
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
                                                ManagedRegistry, _pad_len,
                                                _state_bytes)
+from tempo_tpu_torch.utils import tracing
 from tempo_tpu_torch.utils.spanfilter import FilterPolicy, compile_policies
 
 _LOG = logging.getLogger("tempo_tpu_torch.spanmetrics")
@@ -374,13 +375,15 @@ class SpanMetricsProcessor:
                   np.asarray(weights, np.float32))
         # on the serving mesh the coalescer aligns the window to the
         # 'data' shard count, so each data shard's K1 takes an equal chunk
-        return sc.submit_rows(
-            self._sched_kernel, self, arrays, len(slots),
-            self._dispatch_packed if packed else self._dispatch_vec,
-            pads=(-1.0, 0.0, 0.0, 0.0) if packed else (-1, 0.0, 0.0, 0.0),
-            tenant=self.registry.tenant, pack=packed,
-            align=sm.data_shards if sm is not None else 1,
-            shards=sm.data_shards if sm is not None else 0)
+        with tracing.span("sched.submit", rows=len(slots)):
+            return sc.submit_rows(
+                self._sched_kernel, self, arrays, len(slots),
+                self._dispatch_packed if packed else self._dispatch_vec,
+                pads=(-1.0, 0.0, 0.0, 0.0) if packed
+                else (-1, 0.0, 0.0, 0.0),
+                tenant=self.registry.tenant, pack=packed,
+                align=sm.data_shards if sm is not None else 1,
+                shards=sm.data_shards if sm is not None else 0)
 
     def _pipeline(self, sc):
         """The staging pipeline riding scheduler `sc`, or None when the
@@ -582,19 +585,22 @@ class SpanMetricsProcessor:
         stamp) → one device update. `weights` (len n) are sampling
         upscale factors. Returns (n_valid, n_filtered)."""
         n = len(spans)
-        cap = _pad_rows(max(n, 1))
-        dims, klut, slut = self._staged_dims()
-        now = self.registry.now()
-        sc = self._sched()
-        pipe = self._pipeline(sc)
-        bufs = pipe.acquire(cap, len(dims)) if pipe is not None else None
-        got = native.spanmetrics_resolve(
-            self.calls.table._nat, spans, dims, klut, slut,
-            slack_lo, slack_hi, now, self.calls.table.last_seen, cap,
-            out=bufs)
-        return self._push_resolved(got, spans["trace_id"], n, now,
-                                   sc=sc, pipe=pipe, bufs=bufs,
-                                   weights=weights)
+        with tracing.span("processor.span-metrics", spans=n):
+            cap = _pad_rows(max(n, 1))
+            dims, klut, slut = self._staged_dims()
+            now = self.registry.now()
+            sc = self._sched()
+            pipe = self._pipeline(sc)
+            bufs = self._ring_buffers(pipe, cap, len(dims))
+            with tracing.span("spanmetrics.resolve", spans=n) as sp:
+                got = native.spanmetrics_resolve(
+                    self.calls.table._nat, spans, dims, klut, slut,
+                    slack_lo, slack_hi, now, self.calls.table.last_seen,
+                    cap, out=bufs)
+                self._apply_misses(got, now, sp)
+            return self._push_resolved(got, spans["trace_id"], n, now,
+                                       sc=sc, pipe=pipe, bufs=bufs,
+                                       weights=weights)
 
     def push_from_recs(self, raw: bytes, recs: np.ndarray, slack_lo: int,
                        slack_hi: int) -> "tuple[int, int] | None":
@@ -603,22 +609,46 @@ class SpanMetricsProcessor:
         protobuf walk and no payload re-encode for sharded subsets. None
         when the payload needs the Python service.name fixup."""
         n = len(recs)
-        cap = _pad_rows(max(n, 1))
-        dims, klut, slut = self._staged_dims()
-        now = self.registry.now()
-        sc = self._sched()
-        pipe = self._pipeline(sc)
-        bufs = pipe.acquire(cap, len(dims)) if pipe is not None else None
-        got = native.spanmetrics_from_recs(
-            self.calls.table._nat, self.registry.interner.native_handle()._h,
-            raw, recs, dims, klut, slut, slack_lo, slack_hi, now,
-            self.calls.table.last_seen, cap, out=bufs)
-        if got is None:
-            if pipe is not None:
-                pipe.release(bufs)   # fixup bail: the full route re-stages
+        with tracing.span("processor.span-metrics", spans=n):
+            cap = _pad_rows(max(n, 1))
+            dims, klut, slut = self._staged_dims()
+            now = self.registry.now()
+            sc = self._sched()
+            pipe = self._pipeline(sc)
+            bufs = self._ring_buffers(pipe, cap, len(dims))
+            with tracing.span("spanmetrics.resolve", spans=n) as sp:
+                got = native.spanmetrics_from_recs(
+                    self.calls.table._nat,
+                    self.registry.interner.native_handle()._h, raw, recs,
+                    dims, klut, slut, slack_lo, slack_hi, now,
+                    self.calls.table.last_seen, cap, out=bufs)
+                if got is not None:
+                    self._apply_misses(got, now, sp)
+            if got is None:
+                if pipe is not None:
+                    pipe.release(bufs)   # fixup bail: the full route re-stages
+                return None
+            return self._push_resolved(got, recs["trace_id"], n, now,
+                                       sc=sc, pipe=pipe, bufs=bufs)
+
+    @staticmethod
+    def _ring_buffers(pipe, cap: int, n_labels: int):
+        """The staging ring's next resolve buffers (waiting, when every
+        one is in flight, for the oldest job to land), or None without a
+        ring."""
+        if pipe is None:
             return None
-        return self._push_resolved(got, recs["trace_id"], n, now,
-                                   sc=sc, pipe=pipe, bufs=bufs)
+        with tracing.span("pipeline.acquire"):
+            return pipe.acquire(cap, n_labels)
+
+    def _apply_misses(self, got, now: float, sp) -> None:
+        """Series for the resolve's misses: new rows in the calls table
+        (or dropped past the series budget)."""
+        slots, _packed, rows, valid, miss = got[:5]
+        if miss.size:
+            self.calls.table.apply_misses(rows, slots, miss, valid, now)
+        if sp is not None:
+            sp.attrs["misses"] = int(miss.size)
 
     def _push_resolved(self, got, trace_ids, n: int, now: float,
                        sc=None, pipe=None, bufs=None,
@@ -628,9 +658,7 @@ class SpanMetricsProcessor:
         overload sampling: they multiply calls and sizes and weight the
         histogram and sketches, so rates and quantiles describe the true
         stream; None means weight 1."""
-        slots, packed, rows, valid, miss, n_valid, n_filtered = got
-        if miss.size:
-            self.calls.table.apply_misses(rows, slots, miss, valid, now)
+        slots, packed, _rows, _valid, _miss, n_valid, n_filtered = got
         ts_ms = int(now * 1000)
         if sc is not None:
             # trimmed to the real rows (filtered rows carry slot -1 and
@@ -646,8 +674,7 @@ class SpanMetricsProcessor:
             # ring: track() makes them reclaimable once the job lands
             # (inline on the shed path), and a concurrent push's
             # acquire() could overwrite them mid-read
-            self.calls.note_exemplars(slots[:n], trace_ids, packed[1], ts_ms)
-            self.latency.exemplars = self.calls.exemplars
+            self._exemplars(slots[:n], trace_ids, packed[1], ts_ms)
             if pipe is not None:
                 if job is not None:
                     pipe.track(job, bufs)
@@ -660,9 +687,13 @@ class SpanMetricsProcessor:
         if weights is not None:
             wfull[:n] = weights[:n]
         self._direct_update(slots, packed[1], packed[2], wfull)
-        self.calls.note_exemplars(slots[:n], trace_ids, packed[1], ts_ms)
-        self.latency.exemplars = self.calls.exemplars
+        self._exemplars(slots[:n], trace_ids, packed[1], ts_ms)
         return n_valid, n_filtered
+
+    def _exemplars(self, slots, trace_ids, dur_s, ts_ms: int) -> None:
+        with tracing.span("spanmetrics.exemplars"):
+            self.calls.note_exemplars(slots, trace_ids, dur_s, ts_ms)
+            self.latency.exemplars = self.calls.exemplars
 
     # -- staging -----------------------------------------------------------
 
@@ -702,39 +733,41 @@ class SpanMetricsProcessor:
             raise ValueError(
                 "SpanBatch must be built with the tenant registry's interner "
                 "(id spaces are shared between batch staging and series labels)")
-        valid = sb.valid.copy()
-        if self._policies:
-            keep = self._policies(sb)
-            self.spans_discarded += int((valid & ~keep).sum())
-            valid &= keep
-        rows = self._label_rows(sb)
-        slots = self.calls.resolve_slots(rows, valid=valid)
-        # durations in f32 seconds, computed on the host as the reference
-        # does, before the copy to the device
-        dur_s = (sb.duration_ns / 1e9).astype(np.float32)
-        if span_sizes is None:
-            span_sizes = np.zeros(sb.capacity, np.float32)
-        weights = np.ones(sb.capacity, np.float32)
-        if self.cfg.span_multiplier_key:
-            mult = _attr_fval(sb, self.cfg.span_multiplier_key)
-            weights = np.where(mult > 0, mult, 1.0).astype(np.float32)
-        if sample_weights is not None:
-            sw = np.ones(sb.capacity, np.float32)
-            sw[:len(sample_weights)] = sample_weights
-            weights = weights * sw
-        sc = self._sched()
-        if sc is not None:
-            self._submit_rows(sc, slots, dur_s,
-                              span_sizes.astype(np.float32), weights)
-        else:
-            self._direct_update(slots, dur_s, span_sizes.astype(np.float32),
-                                weights)
-        ts_ms = int(self.registry.now() * 1000)
-        self.calls.note_exemplars(slots, sb.trace_id, dur_s, ts_ms)
-        self.latency.exemplars = self.calls.exemplars
-        if self.target_info is not None:
-            svc_rows = np.unique(sb.service_id[sb.valid])[:, None]
-            self.target_info.set_batch(svc_rows, np.ones(svc_rows.shape[0], np.float32))
+        with tracing.span("processor.span-metrics", spans=sb.n):
+            valid = sb.valid.copy()
+            if self._policies:
+                keep = self._policies(sb)
+                self.spans_discarded += int((valid & ~keep).sum())
+                valid &= keep
+            with tracing.span("spanmetrics.resolve", spans=sb.n):
+                rows = self._label_rows(sb)
+                slots = self.calls.resolve_slots(rows, valid=valid)
+            # durations in f32 seconds, computed on the host as the
+            # reference does, before the copy to the device
+            dur_s = (sb.duration_ns / 1e9).astype(np.float32)
+            if span_sizes is None:
+                span_sizes = np.zeros(sb.capacity, np.float32)
+            weights = np.ones(sb.capacity, np.float32)
+            if self.cfg.span_multiplier_key:
+                mult = _attr_fval(sb, self.cfg.span_multiplier_key)
+                weights = np.where(mult > 0, mult, 1.0).astype(np.float32)
+            if sample_weights is not None:
+                sw = np.ones(sb.capacity, np.float32)
+                sw[:len(sample_weights)] = sample_weights
+                weights = weights * sw
+            sc = self._sched()
+            if sc is not None:
+                self._submit_rows(sc, slots, dur_s,
+                                  span_sizes.astype(np.float32), weights)
+            else:
+                self._direct_update(slots, dur_s,
+                                    span_sizes.astype(np.float32), weights)
+            self._exemplars(slots, sb.trace_id, dur_s,
+                            int(self.registry.now() * 1000))
+            if self.target_info is not None:
+                svc_rows = np.unique(sb.service_id[sb.valid])[:, None]
+                self.target_info.set_batch(
+                    svc_rows, np.ones(svc_rows.shape[0], np.float32))
 
     # -- sketch quantiles ---------------------------------------------------
 

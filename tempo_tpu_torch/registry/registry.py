@@ -35,6 +35,7 @@ import torch
 
 from tempo_tpu_torch.device import bucket_rows, resolve_device
 from tempo_tpu_torch.model.interner import StringInterner
+from tempo_tpu_torch.obs.runtime import RUNTIME
 from tempo_tpu_torch.ops.pages import dense_page_rows
 from tempo_tpu_torch.registry import metrics as m
 from tempo_tpu_torch.registry.series import Exemplar, Sample, SeriesBudget, SeriesTable
@@ -45,6 +46,40 @@ _LOG = logging.getLogger("tempo_tpu_torch.registry")
 
 DEFAULT_HISTOGRAM_EDGES = (0.002, 0.004, 0.008, 0.016, 0.032, 0.064, 0.128,
                            0.256, 0.512, 1.024, 2.048, 4.096, 8.192, 16.384)
+
+
+_LOCK_WAIT_SECONDS = RUNTIME.counter(
+    "tempo_registry_state_lock_wait_seconds_total",
+    "Seconds threads waited to acquire a tenant registry's state lock "
+    "(ingest, the scheduler's dispatch and collection share it)")
+_LOCK_CONTENDED = RUNTIME.counter(
+    "tempo_registry_state_lock_contended_total",
+    "Acquisitions of a tenant registry's state lock that found it held "
+    "by another thread")
+
+
+class StateLock:
+    """A registry's state lock: the re-entrant lock it wraps (the
+    registry's own, or a page pool's, which every paged tenant shares),
+    timed where it waits. A non-blocking try comes first, so an
+    uncontended acquisition reads no clock; a contended one adds its wait
+    to `tempo_registry_state_lock_wait_seconds_total`."""
+
+    __slots__ = ("lock",)
+
+    def __init__(self, lock) -> None:
+        self.lock = lock
+
+    def __enter__(self) -> "StateLock":
+        if not self.lock.acquire(blocking=False):
+            t0 = time.perf_counter()
+            self.lock.acquire()
+            _LOCK_WAIT_SECONDS.inc(time.perf_counter() - t0)
+            _LOCK_CONTENDED.inc()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.lock.release()
 
 
 @dataclasses.dataclass
@@ -404,10 +439,10 @@ class ManagedRegistry:
                                  f"{self.device}")
             # arenas are cross-tenant state updated in place: every tenant
             # serializes its device reads and updates on the pool's lock
-            self.state_lock = self.pages.lock
+            self.state_lock = StateLock(self.pages.lock)
             self.dense_page_rows = None
         else:
-            self.state_lock = threading.RLock()
+            self.state_lock = StateLock(threading.RLock())
             self.dense_page_rows = dense_page_rows(cap)
 
     def shard_dense_pages(self, rows, shards: int) -> None:

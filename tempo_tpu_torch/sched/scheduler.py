@@ -864,97 +864,38 @@ class DeviceScheduler:
         t0 = time.perf_counter()
         bucket = h2d_bytes = 0
         err: "BaseException | None" = None
+        # slow dispatches are findable by trace: same span surface as
+        # distributor.push / frontend.Search, over the interval
+        # tempo_sched_dispatch_duration_seconds times, with the coalesce
+        # and the launch as its children. The span LINKS the coalesced
+        # batch back to each contributing request's tree (bounded: a
+        # batch is a fan-in, links are how OTel models it) and carries the
+        # devtime ledger identity (kernel, bucket) so a dispatch is
+        # attributable per trace. A single-tenant batch goes through the
+        # tenant-aware guard: an all-reserved-tenant batch (loopback
+        # self-ingest) must not re-trace itself.
+        tenants = {j.tenant for j in chunk}
+        only = next(iter(tenants)) if len(tenants) == 1 else ""
+        cm = tracing.span_for_tenant("sched.dispatch", only,
+                                     kernel=g.kernel) \
+            if only else tracing.span("sched.dispatch", kernel=g.kernel)
         try:
             # the WHOLE build+dispatch sits under the guard: a failure
             # anywhere (allocation, a bad job array, the kernel itself)
             # must land on the jobs, never escape to kill the worker
-            if faults.ARMED:
-                faults.fire("sched.dispatch")
-            bucket = bucket_rows(max(rows, 1), self.cfg.min_bucket_rows)
-            if g.align > 1 and bucket % g.align:
-                # serving mesh: the padded window must split evenly over
-                # the 'data' shards of the one merged dispatch
-                bucket = -(-bucket // g.align) * g.align
-            waste = 0
-            if g.pack:
-                # one row-major f32 matrix = ONE H2D for the whole batch
-                mat = np.empty((len(g.pads), bucket), np.float32)
-                for role, pad_val in enumerate(g.pads):
-                    off = 0
-                    for j in chunk:
-                        a = j.arrays[role]
-                        mat[role, off:off + len(a)] = a
-                        off += len(a)
-                    mat[role, off:] = pad_val
-                waste = (bucket - rows) * mat.dtype.itemsize * len(g.pads)
-                padded = [mat]
-            else:
-                padded = []
-                for role, pad_val in enumerate(g.pads):
-                    parts = [np.asarray(j.arrays[role]) for j in chunk]
-                    cat = parts[0] if len(parts) == 1 \
-                        else np.concatenate(parts)
-                    if len(cat) < bucket:
-                        out = np.full(bucket, pad_val, dtype=cat.dtype)
-                        out[: len(cat)] = cat
-                        cat = out
-                    waste += (bucket - rows) * cat.dtype.itemsize
-                    padded.append(cat)
-            sig = (g.kernel, bucket) + tuple(a.dtype.str for a in padded)
-            occ = rows / bucket
-            with self._stats_lock:
-                if sig not in self._warm_buckets:
-                    self._warm_buckets.add(sig)
-                    self.bucket_warmups[g.kernel] = \
-                        self.bucket_warmups.get(g.kernel, 0) + 1
-                self.occupancy_sum[g.kernel] = \
-                    self.occupancy_sum.get(g.kernel, 0.0) + occ
-                self.batches_total[g.kernel] = \
-                    self.batches_total.get(g.kernel, 0) + 1
-                self.coalesced_total[g.kernel] = \
-                    self.coalesced_total.get(g.kernel, 0) + len(chunk)
-                self.padding_waste_bytes[g.kernel] = \
-                    self.padding_waste_bytes.get(g.kernel, 0) + waste
-                if g.shards:
-                    self._note_shard_stats(g, bucket, rows, waste)
-            if g.shards:
-                # mesh mode: one occupancy sample PER 'data' shard — rows
-                # pack contiguously, so the tail shard carries the
-                # padding; a persistently cold last shard means the batch
-                # window is closing under-full for this mesh width
-                per = bucket // g.shards
-                for i in range(g.shards):
-                    real = min(max(rows - i * per, 0), per)
-                    _OCCUPANCY.observe(real / per, (g.kernel, str(i)))
-            else:
-                _OCCUPANCY.observe(occ, (g.kernel, ""))
-            h2d_bytes = sum(int(a.nbytes) for a in padded)
-            # slow dispatches are findable by trace: same span surface
-            # as distributor.push / frontend.Search (NoopTracer default
-            # costs one dict build per MERGED batch). The span LINKS the
-            # coalesced batch back to each contributing request's tree
-            # (bounded: a batch is a fan-in, links are how OTel models
-            # it) and carries the devtime ledger identity — kernel,
-            # bucket, device_ns — so device time is attributable per
-            # trace. A single-tenant batch goes through the tenant-aware
-            # guard: an all-reserved-tenant batch (loopback self-ingest)
-            # must not re-trace itself.
-            attrs = {"kernel": g.kernel, "bucket": bucket, "rows": rows,
-                     "shard": str(g.shards) if g.shards else ""}
-            links = sorted({j.traceparent for j in chunk
-                            if j.traceparent is not None})
-            if links:
-                attrs["link.traceparents"] = ",".join(links[:8])
-            tenants = {j.tenant for j in chunk}
-            only = next(iter(tenants)) if len(tenants) == 1 else ""
-            cm = tracing.span_for_tenant("sched.dispatch", only, **attrs) \
-                if only else tracing.span("sched.dispatch", **attrs)
             with cm as sp:
-                td0 = time.perf_counter()
-                g.dispatch(*padded)
+                with tracing.span("sched.coalesce", rows=rows):
+                    bucket, padded = self._coalesce(g, chunk, rows)
+                h2d_bytes = sum(int(a.nbytes) for a in padded)
                 if sp is not None:
-                    sp.attrs["device_ns"] = \
-                        int((time.perf_counter() - td0) * 1e9)
+                    sp.attrs.update(bucket=bucket, rows=rows,
+                                    shard=str(g.shards) if g.shards else "")
+                    links = sorted({j.traceparent for j in chunk
+                                    if j.traceparent is not None})
+                    if links:
+                        sp.attrs["link.traceparents"] = ",".join(links[:8])
+                with tracing.span("sched.launch", bucket=bucket):
+                    g.dispatch(*padded)
         except BaseException as e:           # noqa: BLE001 — propagated
             err = e
             self._note_dispatch_error(g.kernel, e)
@@ -984,6 +925,73 @@ class DeviceScheduler:
             j.error = err
             j.event.set()
 
+
+    def _coalesce(self, g: _MergeGroup, chunk: list, rows: int
+                  ) -> tuple[int, list]:
+        """The merged window's padded host arrays (one packed matrix, or
+        one array a role) and its bucket, with the group's batch and
+        occupancy statistics noted."""
+        if faults.ARMED:
+            faults.fire("sched.dispatch")
+        bucket = bucket_rows(max(rows, 1), self.cfg.min_bucket_rows)
+        if g.align > 1 and bucket % g.align:
+            # serving mesh: the padded window must split evenly over
+            # the 'data' shards of the one merged dispatch
+            bucket = -(-bucket // g.align) * g.align
+        waste = 0
+        if g.pack:
+            # one row-major f32 matrix = ONE H2D for the whole batch
+            mat = np.empty((len(g.pads), bucket), np.float32)
+            for role, pad_val in enumerate(g.pads):
+                off = 0
+                for j in chunk:
+                    a = j.arrays[role]
+                    mat[role, off:off + len(a)] = a
+                    off += len(a)
+                mat[role, off:] = pad_val
+            waste = (bucket - rows) * mat.dtype.itemsize * len(g.pads)
+            padded = [mat]
+        else:
+            padded = []
+            for role, pad_val in enumerate(g.pads):
+                parts = [np.asarray(j.arrays[role]) for j in chunk]
+                cat = parts[0] if len(parts) == 1 \
+                    else np.concatenate(parts)
+                if len(cat) < bucket:
+                    out = np.full(bucket, pad_val, dtype=cat.dtype)
+                    out[: len(cat)] = cat
+                    cat = out
+                waste += (bucket - rows) * cat.dtype.itemsize
+                padded.append(cat)
+        sig = (g.kernel, bucket) + tuple(a.dtype.str for a in padded)
+        occ = rows / bucket
+        with self._stats_lock:
+            if sig not in self._warm_buckets:
+                self._warm_buckets.add(sig)
+                self.bucket_warmups[g.kernel] = \
+                    self.bucket_warmups.get(g.kernel, 0) + 1
+            self.occupancy_sum[g.kernel] = \
+                self.occupancy_sum.get(g.kernel, 0.0) + occ
+            self.batches_total[g.kernel] = \
+                self.batches_total.get(g.kernel, 0) + 1
+            self.coalesced_total[g.kernel] = \
+                self.coalesced_total.get(g.kernel, 0) + len(chunk)
+            self.padding_waste_bytes[g.kernel] = \
+                self.padding_waste_bytes.get(g.kernel, 0) + waste
+            if g.shards:
+                self._note_shard_stats(g, bucket, rows, waste)
+        if g.shards:
+            # mesh mode: one occupancy sample PER 'data' shard — rows
+            # pack contiguously, so the tail shard carries the
+            # padding; a persistently cold last shard means the batch
+            # window is closing under-full for this mesh width
+            per = bucket // g.shards
+            for i in range(g.shards):
+                real = min(max(rows - i * per, 0), per)
+                _OCCUPANCY.observe(real / per, (g.kernel, str(i)))
+        else:
+            _OCCUPANCY.observe(occ, (g.kernel, ""))
+        return bucket, padded
 
     def _note_shard_stats(self, g: _MergeGroup, bucket: int, rows: int,
                           waste: int) -> None:
@@ -1025,7 +1033,7 @@ class DeviceScheduler:
             with tracing.adopted(job.traceparent), \
                     tracing.span_for_tenant("sched.dispatch", job.tenant,
                                             kernel=job.kernel, bucket=0,
-                                            rows=0, shard="") as sp:
+                                            rows=0, shard=""):
                 if job.stats is not None:
                     # adopt the caller's per-request QueryStats on this
                     # thread so the kernel's own recording (device_scan
@@ -1034,9 +1042,6 @@ class DeviceScheduler:
                         job.result = job.fn()
                 else:
                     job.result = job.fn()
-                if sp is not None:
-                    sp.attrs["device_ns"] = \
-                        int((time.perf_counter() - t0) * 1e9)
         except BaseException as e:           # noqa: BLE001 — propagated
             # fn jobs have a waiting caller who re-raises and owns the
             # error surface; dispatch_errors stays a dropped-ingest-batch

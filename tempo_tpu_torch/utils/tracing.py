@@ -23,6 +23,11 @@ SDK + collector pair:
 No global mutable state beyond one module-level tracer the app installs;
 disabled (zero overhead beyond a None check) until configured.
 
+A third tracer, `SpanRecorder`, keeps spans in memory for the process to
+read: every span of the recording tracers carries, besides the exported
+wall clock, its start and end on `time.perf_counter_ns()` (the clock a
+device trace is placed against), its thread and that thread's CPU time.
+
 Counterpart of `tempo_tpu/utils/tracing.py`, host code copied. One
 deliberate difference: a `SelfTracer` draws its trace and span ids and
 its export jitter from its own `random.Random(seed)` (`seed=None` seeds
@@ -37,6 +42,7 @@ import collections
 import contextlib
 import contextvars
 import dataclasses
+import itertools
 import random
 import threading
 import time
@@ -90,8 +96,15 @@ class SelfTraceConfig:
 
 
 class _Span:
+    """One span. `start_ns`/`end_ns` are the exported wall clock (Unix
+    epoch, 0 under a `SpanRecorder`); `t0_ns`/`t1_ns` are
+    `time.perf_counter_ns()`, the monotonic clock a device trace is
+    mapped onto; `thread` is the opening thread's ident and `cpu_ns` that
+    thread's CPU time over the span."""
+
     __slots__ = ("trace_id", "span_id", "parent_span_id", "name",
-                 "start_ns", "end_ns", "attrs", "status_code")
+                 "start_ns", "end_ns", "attrs", "status_code",
+                 "t0_ns", "t1_ns", "thread", "cpu_ns")
 
     def __init__(self, trace_id: bytes, span_id: bytes,
                  parent_span_id: bytes, name: str, start_ns: int):
@@ -103,9 +116,75 @@ class _Span:
         self.end_ns = 0
         self.attrs: dict = {}
         self.status_code = 0
+        self.t0_ns = self.t1_ns = self.cpu_ns = 0
+        self.thread = 0
 
 
-class SelfTracer:
+class _SpanStack:
+    """The span surface the recording tracers share: nested spans through
+    the `_current_span` contextvar, W3C traceparent propagation, and the
+    clocks every span reads. A subclass gives ids (`_ids`), the exported
+    wall clock (`_wall_ns`) and what happens to a span when it opens
+    (`_opened`) and closes (`_record`)."""
+
+    def _wall_ns(self) -> int:
+        return 0
+
+    def _opened(self, s: _Span) -> None:
+        pass
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs):
+        if _suppress.get():
+            yield None               # ingesting our own export: no spans
+            return
+        parent: _Span | None = _current_span.get()
+        tid, sid = self._ids(parent)
+        s = _Span(tid, sid, parent.span_id if parent is not None else b"",
+                  name, self._wall_ns())
+        s.attrs.update(attrs)
+        s.thread = threading.get_ident()
+        token = _current_span.set(s)
+        self._opened(s)
+        s.cpu_ns = time.thread_time_ns()
+        s.t0_ns = time.perf_counter_ns()
+        try:
+            yield s
+        except Exception as e:
+            s.status_code = 2
+            s.attrs["error.message"] = str(e)[:200]
+            raise
+        finally:
+            s.t1_ns = time.perf_counter_ns()
+            s.cpu_ns = time.thread_time_ns() - s.cpu_ns
+            _current_span.reset(token)
+            s.end_ns = self._wall_ns()
+            self._record(s)
+
+    def traceparent(self) -> str | None:
+        """W3C traceparent for outgoing RPCs (`main.go:252-258`)."""
+        s = _current_span.get()
+        if s is None:
+            return None
+        return f"00-{s.trace_id.hex()}-{s.span_id.hex()}-01"
+
+    def adopt(self, traceparent: str | None):
+        """Continue an incoming W3C trace context; returns a context
+        manager token holder or None when the header is absent/bad."""
+        if not traceparent:
+            return None
+        parts = traceparent.split("-")
+        if len(parts) < 4 or len(parts[1]) != 32 or len(parts[2]) != 16:
+            return None
+        try:
+            tid, sid = bytes.fromhex(parts[1]), bytes.fromhex(parts[2])
+        except ValueError:
+            return None      # W3C: invalid traceparent values are ignored
+        remote = _Span(tid, sid, b"", "remote-parent", 0)
+        return _current_span.set(remote)
+
+
+class SelfTracer(_SpanStack):
     """Minimal tracer: span stack via contextvars, per-trace tail buffer,
     bounded export buffer, batch export thread. Spans export as OTLP (the
     codec this framework already speaks) so any OTLP endpoint — including
@@ -157,31 +236,17 @@ class SelfTracer:
 
     # -- span API ----------------------------------------------------------
 
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs):
-        if _suppress.get():
-            yield None               # ingesting our own export: no spans
-            return
-        parent: _Span | None = _current_span.get()
+    def _ids(self, parent: "_Span | None") -> tuple[bytes, bytes]:
         tid = parent.trace_id if parent is not None \
             else self._rng.randbytes(16)
-        psid = parent.span_id if parent is not None else b""
-        s = _Span(tid, self._rng.randbytes(8), psid, name,
-                  int(self.now() * 1e9))
-        s.attrs.update(attrs)
-        token = _current_span.set(s)
+        return tid, self._rng.randbytes(8)
+
+    def _wall_ns(self) -> int:
+        return int(self.now() * 1e9)
+
+    def _opened(self, s: _Span) -> None:
         with self._lock:
-            self._open[tid] = self._open.get(tid, 0) + 1
-        try:
-            yield s
-        except Exception as e:
-            s.status_code = 2
-            s.attrs["error.message"] = str(e)[:200]
-            raise
-        finally:
-            _current_span.reset(token)
-            s.end_ns = int(self.now() * 1e9)
-            self._record(s)
+            self._open[s.trace_id] = self._open.get(s.trace_id, 0) + 1
 
     def mark_keep(self) -> None:
         """Force the current trace past head sampling (SLO miss, error):
@@ -291,28 +356,6 @@ class SelfTracer:
         sampled-out spans are NOT losses and count separately."""
         with self._lock:
             return self.stats["dropped_spans"]
-
-    def traceparent(self) -> str | None:
-        """W3C traceparent for outgoing RPCs (`main.go:252-258`)."""
-        s = _current_span.get()
-        if s is None:
-            return None
-        return f"00-{s.trace_id.hex()}-{s.span_id.hex()}-01"
-
-    def adopt(self, traceparent: str | None):
-        """Continue an incoming W3C trace context; returns a context
-        manager token holder or None when the header is absent/bad."""
-        if not traceparent:
-            return None
-        parts = traceparent.split("-")
-        if len(parts) < 4 or len(parts[1]) != 32 or len(parts[2]) != 16:
-            return None
-        try:
-            tid, sid = bytes.fromhex(parts[1]), bytes.fromhex(parts[2])
-        except ValueError:
-            return None      # W3C: invalid traceparent values are ignored
-        remote = _Span(tid, sid, b"", "remote-parent", 0)
-        return _current_span.set(remote)
 
     # -- export ------------------------------------------------------------
 
@@ -436,15 +479,64 @@ class NoopTracer:
         pass
 
 
-_tracer: "SelfTracer | NoopTracer" = NoopTracer()
+class SpanRecorder(_SpanStack):
+    """Keeps finished spans in memory for the process itself to read (a
+    benchmark, a profile of one stage): no export and no thread. At most
+    `max_spans` are kept; later ones are counted in `dropped`. Its
+    `tenant` is None, so `span_for_tenant` never suppresses under it.
+    Trace and span ids count up from 1."""
+
+    exported = 0
+    loopback = False
+    tenant = None
+
+    def __init__(self, max_spans: int = 131_072) -> None:
+        self.max_spans = max_spans
+        self.spans: list[_Span] = []
+        self.dropped = 0
+        self._next_id = itertools.count(1)
+        self._lock = threading.Lock()
+
+    def _ids(self, parent: "_Span | None") -> tuple[bytes, bytes]:
+        sid = next(self._next_id).to_bytes(8, "big")
+        return (parent.trace_id if parent is not None else bytes(8) + sid,
+                sid)
+
+    def _record(self, s: _Span) -> None:
+        with self._lock:
+            if len(self.spans) < self.max_spans:
+                self.spans.append(s)
+            else:
+                self.dropped += 1
+
+    def mark_keep(self) -> None:
+        pass
+
+    def trace_kept(self) -> None:
+        return None
+
+    def tail_buffered(self) -> int:
+        return 0
+
+    def status(self) -> None:
+        return None
+
+    def flush(self) -> int:
+        return 0
+
+    def shutdown(self) -> None:
+        pass
 
 
-def install(tracer: "SelfTracer | NoopTracer") -> None:
+_tracer: "SelfTracer | NoopTracer | SpanRecorder" = NoopTracer()
+
+
+def install(tracer: "SelfTracer | NoopTracer | SpanRecorder") -> None:
     global _tracer
     _tracer = tracer
 
 
-def tracer() -> "SelfTracer | NoopTracer":
+def tracer() -> "SelfTracer | NoopTracer | SpanRecorder":
     return _tracer
 
 
@@ -524,7 +616,7 @@ def adopted(traceparent: str | None):
             _current_span.reset(token)
 
 
-__all__ = ["SelfTracer", "NoopTracer", "SelfTraceConfig", "install",
-           "tracer", "span", "span_for_tenant", "adopted", "mark_keep",
-           "kept_trace_id_hex", "current_trace_id_hex", "reserved_tenant",
-           "is_reserved", "suppress", "suppressed"]
+__all__ = ["SelfTracer", "NoopTracer", "SpanRecorder", "SelfTraceConfig",
+           "install", "tracer", "span", "span_for_tenant", "adopted",
+           "mark_keep", "kept_trace_id_hex", "current_trace_id_hex",
+           "reserved_tenant", "is_reserved", "suppress", "suppressed"]

@@ -667,7 +667,9 @@ REF_ONLY = {
     "tempo_pages_gather_overhead_seconds_total",
 }
 PORT_ONLY = {"tempo_torch_k1_launch_plans_total",
-             "tempo_torch_kernel_launches_total"}
+             "tempo_torch_kernel_launches_total",
+             "tempo_registry_state_lock_wait_seconds_total",
+             "tempo_registry_state_lock_contended_total"}
 
 
 def test_ops_files_reference_only_emitted_metrics(server):
