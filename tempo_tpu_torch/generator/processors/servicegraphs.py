@@ -15,23 +15,28 @@ the reference semantics (`modules/generator/processor/servicegraphs/`):
   span pointing at a known peer (db/messaging attrs, `servicegraphs.go:
   287-343` heuristics) gets a server node named from peer attributes.
 
-Split: edge *matching* is pointer-chasing and stays on the host (a dict
-keyed by 24-byte trace+span ids, vectorized staging in/out, the TTL
-ring); the metric updates of matched edges are one padded batch of
+Split: edge *matching* is pointer-chasing and stays on the host, in the
+C++ host layer (`native.EdgeStore`: a table keyed by the 24-byte trace +
+span ids and the TTL ring, one call a push to pair and store, one to
+expire); the metric updates of matched edges are one padded batch of
 device writes per push through the families' `add_slots` /
 `observe_slots`: on dense state one `index_add_` per plane, on paged
 state the same through the page tables, with no boolean selection and
-no host sync (`registry/metrics.py`, `ops/pages.py`).
+no host sync (`registry/metrics.py`, `ops/pages.py`). Edges travel as
+columns from the store to the device copy; no Python loop walks spans
+or edges.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tempo_tpu_torch import native
 from tempo_tpu_torch.device import bucket_rows
 from tempo_tpu_torch.model.interner import INVALID_ID
 from tempo_tpu_torch.model.span_batch import (
@@ -39,10 +44,9 @@ from tempo_tpu_torch.model.span_batch import (
     KIND_CONSUMER,
     KIND_PRODUCER,
     KIND_SERVER,
-    STATUS_ERROR,
     SpanBatch,
-    void_keys,
 )
+from tempo_tpu_torch.obs.runtime import RUNTIME
 from tempo_tpu_torch.registry.registry import (DEFAULT_HISTOGRAM_EDGES,
                                                ManagedRegistry)
 from tempo_tpu_torch.utils import tracing
@@ -61,16 +65,37 @@ class ServiceGraphsConfig:
     enable_virtual_node_label: bool = False
 
 
-@dataclasses.dataclass
-class _HalfEdge:
-    service_id: int
-    duration_s: float
-    failed: bool
-    is_client: bool
-    is_messaging: bool
-    peer_id: int          # interned peer-attr value (client side), or INVALID_ID
-    start_ns: int
-    expire_at: float
+# the reference's self-metrics (`servicegraphs.go`), by tenant
+_EDGES = RUNTIME.counter(
+    "tempo_metrics_generator_processor_service_graphs_edges",
+    "Edges completed by a client and a server span that met in the store",
+    labels=("tenant",))
+_EXPIRED = RUNTIME.counter(
+    "tempo_metrics_generator_processor_service_graphs_expired_edges",
+    "Half-edges that expired before their other side arrived",
+    labels=("tenant",))
+_DROPPED = RUNTIME.counter(
+    "tempo_metrics_generator_processor_service_graphs_dropped_spans",
+    "Spans dropped because the edge store held max_items half-edges",
+    labels=("tenant",))
+
+# connection_type label values, by the code an edge carries: the store's
+# 0 (plain) and 1 (messaging), and the expiry's virtual nodes
+_CONNECTIONS = ("", "messaging_system", "virtual_node")
+_CONN_MESSAGING, _CONN_VIRTUAL = 1, 2
+
+
+class _Edges(NamedTuple):
+    """Edges as columns: client and server service ids, connection code
+    (an index into `_CONNECTIONS`), client and server seconds, failed,
+    messaging delay in seconds."""
+    client: np.ndarray
+    server: np.ndarray
+    conn: np.ndarray
+    client_s: np.ndarray
+    server_s: np.ndarray
+    failed: np.ndarray
+    delay: np.ndarray
 
 
 class ServiceGraphsProcessor:
@@ -93,10 +118,15 @@ class ServiceGraphsProcessor:
             self.messaging_hist.share_table(self.total)
         else:
             self.messaging_hist = None
-        self._store: dict[bytes, _HalfEdge] = {}
-        self._ttl: collections.deque[tuple[float, bytes]] = collections.deque()
+        self._store = native.EdgeStore()
+        # pushes into one tenant may run at once; the store and the counts
+        # beside it change together
+        self._lock = threading.Lock()
         self.dropped = 0  # store-full drops (`store.go` max_items)
         self.expired = 0
+        self._labels = (registry.tenant,)
+        for fam in (_EDGES, _EXPIRED, _DROPPED):
+            fam.inc(0.0, self._labels)
 
     def name(self) -> str:
         return "service-graphs"
@@ -110,75 +140,35 @@ class ServiceGraphsProcessor:
         with tracing.span("processor.service-graphs", spans=sb.n):
             now = self.registry.now()
             completed = self._match(sb, now)
-            if completed:
+            if completed is not None and len(completed.client):
                 self._emit(completed)
             self._expire(now)
 
-    def _match(self, sb: SpanBatch, now: float) -> list[tuple]:
+    def _match(self, sb: SpanBatch, now: float) -> "_Edges | None":
         """Pairs the batch's client and server spans through the edge
         store; returns the completed edges."""
         kinds = sb.kind
-        client_like = (kinds == KIND_CLIENT) | (kinds == KIND_PRODUCER)
-        server_like = (kinds == KIND_SERVER) | (kinds == KIND_CONSUMER)
-        interesting = np.flatnonzero(sb.valid & (client_like | server_like))
-        if interesting.size == 0:
-            return []
-        with tracing.span("servicegraphs.match",
-                          spans=int(interesting.size)) as sp:
-            # the matching walks Python lists of the interesting rows,
-            # read out of the columns once per batch (per-span numpy
-            # scalar reads cost more than the dict work); `keys[i]` is the
-            # exact 24-byte trace+span id concatenation the reference
-            # keys on
-            rows = interesting
-            is_cli = client_like[rows].tolist()
-            is_msg = ((kinds[rows] == KIND_PRODUCER)
-                      | (kinds[rows] == KIND_CONSUMER)).tolist()
-            keys = np.where(client_like[rows],
-                            void_keys(sb.trace_id, sb.span_id)[rows],
-                            void_keys(sb.trace_id, sb.parent_span_id)[rows]
-                            ).tolist()
-            svc = sb.service_id[rows].tolist()
-            dur = (sb.duration_ns[rows] / 1e9).tolist()
-            fail = (sb.status_code[rows] == STATUS_ERROR).tolist()
-            peer = self._peer_col(sb)[rows].tolist()
-            start = sb.start_unix_nano[rows].tolist()
-            expire_at = now + self.cfg.wait_s
-            store, ttl = self._store, self._ttl
-            completed: list[tuple[int, int, str, float, float, bool]] = []
-            for j, key in enumerate(keys):
-                is_client = is_cli[j]
-                other = store.pop(key, None)
-                if other is not None and other.is_client != is_client:
-                    if is_client:
-                        cli = _HalfEdge(svc[j], dur[j], fail[j], True,
-                                        is_msg[j], peer[j], start[j], 0)
-                        srv = other
-                    else:
-                        cli = other
-                        srv = _HalfEdge(svc[j], dur[j], fail[j], False,
-                                        is_msg[j], INVALID_ID, start[j], 0)
-                    conn = ("messaging_system"
-                            if (cli.is_messaging or srv.is_messaging)
-                            else "")
-                    completed.append((cli.service_id, srv.service_id, conn,
-                                      cli.duration_s, srv.duration_s,
-                                      cli.failed or srv.failed,
-                                      max(0.0, (srv.start_ns - cli.start_ns)
-                                          / 1e9)))
-                else:
-                    if other is not None:
-                        store[key] = other  # same side dup; put back
-                    if len(store) >= self.cfg.max_items:
-                        self.dropped += 1
-                        continue
-                    store[key] = _HalfEdge(svc[j], dur[j], fail[j],
-                                           is_client, is_msg[j], peer[j],
-                                           start[j], expire_at)
-                    ttl.append((expire_at, key))
+        n = int(np.count_nonzero(sb.valid & (
+            (kinds == KIND_CLIENT) | (kinds == KIND_PRODUCER)
+            | (kinds == KIND_SERVER) | (kinds == KIND_CONSUMER))))
+        if n == 0:
+            return None
+        with tracing.span("servicegraphs.match", spans=n) as sp:
+            peer = self._peer_col(sb)
+            with self._lock:
+                cols, dropped = self._store.match(
+                    sb.trace_id, sb.span_id, sb.parent_span_id, kinds,
+                    sb.valid, sb.service_id, sb.start_unix_nano,
+                    sb.end_unix_nano, sb.status_code, peer,
+                    now + self.cfg.wait_s, self.cfg.max_items)
+                self.dropped += dropped
+            edges = _Edges(*cols)
+            _EDGES.inc(len(edges.client), self._labels)
+            if dropped:
+                _DROPPED.inc(dropped, self._labels)
             if sp is not None:
-                sp.attrs["edges"] = len(completed)
-        return completed
+                sp.attrs["edges"] = len(edges.client)
+        return edges
 
     def _peer_col(self, sb: SpanBatch) -> np.ndarray:
         col = np.full(sb.capacity, INVALID_ID, np.int32)
@@ -189,30 +179,31 @@ class ServiceGraphsProcessor:
 
     # -- emission ----------------------------------------------------------
 
-    def _emit(self, edges: list[tuple]) -> None:
-        with tracing.span("servicegraphs.emit", edges=len(edges)):
+    def _emit(self, edges: _Edges) -> None:
+        n = len(edges.client)
+        with tracing.span("servicegraphs.emit", edges=n):
             it = self.registry.interner
-            conn_ids = {c: it.intern(c) for c in ("", "messaging_system", "virtual_node")}
-            n = len(edges)
+            conn_ids = np.array([it.intern(c) for c in _CONNECTIONS],
+                                np.int32)
             # pad the edge batch to a pow-2 shape bucket, as the reference
             # does (padding rows ride slot -1 → dropped)
             cap = bucket_rows(max(n, 1), lo=16)
-            rows = np.zeros((n, 3), np.int32)
+            rows = np.stack([edges.client, edges.server,
+                             conn_ids[edges.conn]], axis=1)
             # the whole batch in one host matrix and one copy to the device:
             # slots and the messaging slots as int32 bits, failed, client and
             # server seconds, messaging delay
             mat = np.zeros((6, cap), np.float32)
             bits = mat.view(np.int32)
-            cdur, sdur, fail, mdur = mat[2], mat[3], mat[1], mat[4]
-            for j, (cid, sid, conn, cd, sd, failed, msg_delay) in enumerate(edges):
-                rows[j] = (cid, sid, conn_ids[conn])
-                cdur[j], sdur[j], fail[j] = cd, sd, 1.0 if failed else 0.0
-                mdur[j] = msg_delay
+            mat[1, :n] = edges.failed
+            mat[2, :n] = edges.client_s
+            mat[3, :n] = edges.server_s
+            mat[4, :n] = edges.delay
             bits[0] = -1
             bits[0, :n] = self.total.resolve_slots(rows)
-            msg = np.zeros(cap, bool)
-            msg[:n] = [e[2] == "messaging_system" for e in edges]
-            bits[5] = np.where(msg, bits[0], -1)
+            bits[5] = -1
+            bits[5, :n] = np.where(edges.conn == _CONN_MESSAGING,
+                                   bits[0, :n], -1)
             dev = torch.from_numpy(mat).to(self.registry.device)
             slots, mslots = dev[0].view(torch.int32), dev[5].view(torch.int32)
             # family-level slot updates: the families own the device half,
@@ -227,32 +218,45 @@ class ServiceGraphsProcessor:
     def _expire(self, now: float) -> None:
         """Expired half-edges become virtual-node edges (`servicegraphs.go:390-421`)."""
         with tracing.span("servicegraphs.expire") as sp:
-            it = self.registry.interner
-            expired_edges = []
-            while self._ttl and self._ttl[0][0] <= now:
-                _, key = self._ttl.popleft()
-                he = self._store.get(key)
-                if he is None:   # already matched
-                    continue
-                if he.expire_at > now:
-                    # key was reused by a newer half-edge; re-queue, don't evict
-                    self._ttl.append((he.expire_at, key))
-                    continue
-                del self._store[key]
-                self.expired += 1
-                if he.is_client:
-                    # client → peer-derived virtual server node (db, queue, ...)
-                    peer = it.lookup(he.peer_id) if he.peer_id != INVALID_ID else None
-                    if peer:
-                        expired_edges.append((he.service_id, it.intern(peer),
-                                              "virtual_node", he.duration_s, 0.0,
-                                              he.failed, 0.0))
-                else:
-                    # unmatched server with remote parent → synthetic "user" client
-                    expired_edges.append((it.intern("user"), he.service_id,
-                                          "virtual_node", 0.0, he.duration_s,
-                                          he.failed, 0.0))
-            if expired_edges:
-                self._emit(expired_edges)
+            with self._lock:
+                is_client, service, peer, dur_s, failed = \
+                    self._store.expire(now)
+                self.expired += len(service)
+            n_edges = 0
+            if len(service):
+                _EXPIRED.inc(len(service), self._labels)
+                edges = self._virtual_edges(is_client, service, peer, dur_s,
+                                            failed)
+                n_edges = len(edges.client)
+                if n_edges:
+                    self._emit(edges)
             if sp is not None:
-                sp.attrs["edges"] = len(expired_edges)
+                sp.attrs["edges"] = n_edges
+
+    def _virtual_edges(self, is_client, service, peer, dur_s,
+                       failed) -> _Edges:
+        """An expired client side → (service, its peer, a virtual server
+        node: a db, a queue, ...) where the peer attribute names one; an
+        expired server side → ("user", service), its caller outside the
+        traces."""
+        it = self.registry.interner
+        # the peer's interned name as the reference interns it again:
+        # `intern(lookup(id))`, one call per distinct peer id. It is the id
+        # itself unless the peer's wire bytes are not UTF-8 and decode like
+        # an earlier string's, whose id it then is; "" names no node.
+        named = is_client & (peer != INVALID_ID)
+        ids, inverse = np.unique(peer[named], return_inverse=True)
+        again = np.array([it.intern(s) if s else INVALID_ID
+                          for s in it.lookup_many(ids)], np.int32)
+        server = np.full(len(service), INVALID_ID, np.int32)
+        server[named] = again[inverse]
+        keep = ~is_client | (server != INVALID_ID)
+        user = it.intern("user") if (~is_client).any() else INVALID_ID
+        m = int(np.count_nonzero(keep))
+        return _Edges(
+            client=np.where(is_client, service, user)[keep],
+            server=np.where(is_client, server, service)[keep],
+            conn=np.full(m, _CONN_VIRTUAL, np.uint8),
+            client_s=np.where(is_client, dur_s, 0)[keep],
+            server_s=np.where(is_client, 0, dur_s)[keep],
+            failed=failed[keep], delay=np.zeros(m, np.float32))

@@ -66,8 +66,8 @@ def void_keys(*cols: np.ndarray) -> np.ndarray:
 
     Concatenates the columns and reinterprets each row as a single
     `np.void` scalar — the vectorized replacement for per-row
-    `tobytes()` concatenation loops (servicegraphs edge keys, the
-    trace-analytics live-trace index). Void rows sort / unique /
+    `tobytes()` concatenation loops (the trace-analytics live-trace
+    index). Void rows sort / unique /
     searchsorted byte-lexicographically; `keys[i].item()` yields the
     exact bytes the old per-row concatenation produced, for dict keys
     (numpy 2 void SCALARS are unhashable, their `.item()` bytes are)."""

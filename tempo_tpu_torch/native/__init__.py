@@ -301,6 +301,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         c.c_void_p, c.c_int64, c.c_int64, c.c_int64, c.c_int64,
         u8p, i32p, i32p]
     lib.group_keys_strided.restype = c.c_int64
+    # service-graph edge store
+    lib.sg_store_new.restype = c.c_void_p
+    lib.sg_store_free.argtypes = [c.c_void_p]
+    lib.sg_store_size.argtypes = [c.c_void_p]
+    lib.sg_store_size.restype = c.c_int64
+    lib.sg_store_pending.argtypes = [c.c_void_p]
+    lib.sg_store_pending.restype = c.c_int64
+    lib.sg_match.argtypes = [
+        c.c_void_p, c.c_int64, u8p, u8p, u8p,   # store, n, ids
+        i32p, u8p, i32p, i64p, i64p, i32p,      # kind .. status
+        i32p, c.c_double, c.c_int64,            # peer, expire_at, max
+        i32p, i32p, u8p, c.c_void_p, c.c_void_p,  # edge columns
+        u8p, c.c_void_p, i64p]                  # failed, delay, dropped
+    lib.sg_match.restype = c.c_int64
+    lib.sg_expire.argtypes = [
+        c.c_void_p, c.c_double, c.c_int64,
+        u8p, i32p, i32p, c.c_void_p, u8p]
+    lib.sg_expire.restype = c.c_int64
     return lib
 
 
@@ -509,6 +527,95 @@ class NativeRowTable:
 
     def size(self) -> int:
         return int(self._lib.rowtable_size(self._h))
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _column(a: np.ndarray, dtype, n: int, width: int = 0) -> np.ndarray:
+    """`a` as a C-contiguous `dtype` array of at least n rows (of `width`
+    bytes when given), or ValueError."""
+    a = np.ascontiguousarray(a, dtype)
+    if a.shape[0] < n or (width and a.shape[1:] != (width,)):
+        raise ValueError(f"column of shape {a.shape} for {n} rows"
+                         + (f" of width {width}" if width else ""))
+    return a
+
+
+class EdgeStore:
+    """Handle on the C++ service-graph half-edge store (`sg_match`,
+    `sg_expire` in native.cpp): 24-byte span keys -> the half-edge waiting
+    for its other side, and the FIFO of their expiry times. `len()` is the
+    number of half-edges held, and may be read from any thread; the caller
+    serialises `match` and `expire`."""
+
+    __slots__ = ("_h", "_lib")
+
+    def __init__(self) -> None:
+        self._lib = _LIB
+        self._h = ctypes.c_void_p(_LIB.sg_store_new())
+
+    def __del__(self) -> None:
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.sg_store_free(h)
+
+    def __len__(self) -> int:
+        return int(self._lib.sg_store_size(self._h))
+
+    def pending(self) -> int:
+        """Expiry entries queued, those of keys matched since included."""
+        return int(self._lib.sg_store_pending(self._h))
+
+    def match(self, trace_id, span_id, parent_span_id, kind, valid, service,
+              start_ns, end_ns, status, peer, expire_at: float,
+              max_items: int):
+        """Pairs the spans of one batch (columns of its rows) through the
+        store. Returns (client, server, conn, client_s, server_s, failed,
+        delay) over the completed edges, conn 1 for a messaging pair and
+        0 otherwise, and the count of spans dropped."""
+        n = int(np.shape(kind)[0])
+        cols = (_column(trace_id, np.uint8, n, 16),
+                _column(span_id, np.uint8, n, 8),
+                _column(parent_span_id, np.uint8, n, 8))
+        kind, service, status, peer = (_column(a, np.int32, n) for a in (
+            kind, service, status, peer))
+        valid = _column(valid, np.bool_, n)
+        start_ns, end_ns = (_column(a, np.int64, n) for a in (start_ns,
+                                                              end_ns))
+        client, server = np.empty(n, np.int32), np.empty(n, np.int32)
+        conn, failed = np.empty(n, np.uint8), np.empty(n, np.bool_)
+        client_s, server_s, delay = (np.empty(n, np.float32)
+                                     for _ in range(3))
+        dropped = np.zeros(1, np.int64)
+        u8, i32, i64 = ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64
+        m = self._lib.sg_match(
+            self._h, n, *(_ptr(a, u8) for a in cols), _ptr(kind, i32),
+            _ptr(valid, u8), _ptr(service, i32), _ptr(start_ns, i64),
+            _ptr(end_ns, i64), _ptr(status, i32), _ptr(peer, i32),
+            float(expire_at), int(max_items), _ptr(client, i32),
+            _ptr(server, i32), _ptr(conn, u8), client_s.ctypes.data,
+            server_s.ctypes.data, _ptr(failed, u8), delay.ctypes.data,
+            _ptr(dropped, i64))
+        edges = tuple(a[:m] for a in (client, server, conn, client_s,
+                                       server_s, failed, delay))
+        return edges, int(dropped[0])
+
+    def expire(self, now: float):
+        """Evicts the half-edges whose expiry is due at `now`. Returns
+        (is_client, service, peer, seconds, failed) over them, in the
+        order their expiry entries were queued."""
+        cap = len(self)
+        is_client, failed = np.empty(cap, np.bool_), np.empty(cap, np.bool_)
+        service, peer = np.empty(cap, np.int32), np.empty(cap, np.int32)
+        dur_s = np.empty(cap, np.float32)
+        u8, i32 = ctypes.c_uint8, ctypes.c_int32
+        m = self._lib.sg_expire(
+            self._h, float(now), cap, _ptr(is_client, u8),
+            _ptr(service, i32), _ptr(peer, i32), dur_s.ctypes.data,
+            _ptr(failed, u8))
+        return is_client[:m], service[:m], peer[:m], dur_s[:m], failed[:m]
 
 
 def otlp_stage(interner: "NativeInterner", data: bytes,

@@ -22,6 +22,7 @@
 #include <cstring>
 #include <cstddef>
 #include <cstdlib>
+#include <deque>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -1667,6 +1668,274 @@ int64_t group_keys_strided(const void* recs_p, int64_t n, int64_t rec_size,
         vi++;
     }
     return n_groups;
+}
+
+}  // extern "C"
+
+// --- service-graph edge store -------------------------------------------------
+//
+// The half-edge store of `generator/processors/servicegraphs.py`
+// (`store/store.go:29,78,119` in the reference): a 24-byte key (trace id ‖
+// span id for a CLIENT or PRODUCER span, trace id ‖ parent span id for a
+// SERVER or CONSUMER span) -> the half-edge waiting for its other side, and
+// a FIFO of (expire_at, key) for the TTL sweep. sg_match pairs one batch's
+// spans in row order and writes the completed edges as columns; sg_expire
+// evicts the half-edges whose time is up. Seconds leave as the int64
+// nanoseconds over 1e9 in double, cast to float once, the values the
+// processor's former Python loop emitted bit for bit.
+//
+// The hash mixes all 24 bytes: clients may stamp every trace id of a
+// payload with one shared prefix. Deletion shifts later cells of the probe
+// run back (no tombstones), so a store that churns keeps short probes.
+
+namespace {
+
+// trace.proto SpanKind and Status.StatusCode
+constexpr int32_t kSgServer = 2, kSgClient = 3, kSgProducer = 4,
+                  kSgConsumer = 5, kSgStatusError = 2;
+
+static inline uint64_t fmix64(uint64_t h) {
+    h ^= h >> 33;
+    h *= 0xFF51AFD7ED558CCDull;
+    h ^= h >> 33;
+    h *= 0xC4CEB9FE1A85EC53ull;
+    return h ^ (h >> 33);
+}
+
+static inline uint64_t sg_hash(const uint8_t* k) {
+    uint64_t a, b, c;
+    memcpy(&a, k, 8);
+    memcpy(&b, k + 8, 8);
+    memcpy(&c, k + 16, 8);
+    return fmix64(a ^ fmix64(b ^ fmix64(c ^ 0x9E3779B97F4A7C15ull)));
+}
+
+struct SgHalf {
+    uint8_t key[24];
+    uint64_t hash;
+    int64_t dur_ns;
+    int64_t start_ns;
+    double expire_at;
+    int32_t service;
+    int32_t peer;
+    uint8_t failed;
+    uint8_t is_client;
+    uint8_t is_msg;
+};
+
+struct SgTtl {
+    double expire_at;
+    uint8_t key[24];
+};
+
+static inline float sg_seconds(int64_t ns) {
+    return (float)((double)ns / 1e9);
+}
+
+// Not thread-safe: the caller serialises sg_match and sg_expire. `size`
+// publishes `live` at the end of each call, so sg_store_size may read it
+// from any thread.
+struct EdgeStore {
+    std::vector<SgHalf> slab;        // entry id -> half-edge
+    std::vector<int32_t> free_ids;   // slab entries to reuse
+    std::vector<int32_t> table = std::vector<int32_t>(1 << 10, -1);
+                                     // open addressing over entry ids, -1 empty
+    uint64_t mask = (1 << 10) - 1;
+    int64_t live = 0;
+    std::atomic<int64_t> size{0};
+    std::deque<SgTtl> fifo;
+
+    // table position of `key`, or -1
+    int64_t find(const uint8_t* key, uint64_t h) const {
+        uint64_t i = h & mask;
+        while (true) {
+            int32_t e = table[i];
+            if (e == -1) return -1;
+            if (slab[e].hash == h && memcmp(slab[e].key, key, 24) == 0)
+                return (int64_t)i;
+            i = (i + 1) & mask;
+        }
+    }
+
+    void place(int32_t e) {
+        uint64_t i = slab[e].hash & mask;
+        while (table[i] != -1) i = (i + 1) & mask;
+        table[i] = e;
+    }
+
+    SgHalf& insert(const uint8_t* key, uint64_t h) {
+        int32_t e;
+        if (!free_ids.empty()) {
+            e = free_ids.back();
+            free_ids.pop_back();
+        } else {
+            e = (int32_t)slab.size();
+            slab.emplace_back();
+        }
+        memcpy(slab[e].key, key, 24);
+        slab[e].hash = h;
+        place(e);
+        live++;
+        if (live * 10 > (int64_t)table.size() * 7) {
+            std::vector<int32_t> old(table.size() * 2, -1);
+            old.swap(table);
+            mask = table.size() - 1;
+            for (int32_t f : old)
+                if (f != -1) place(f);
+        }
+        return slab[e];
+    }
+
+    // remove the entry at table position i, shifting its run back
+    void erase_at(uint64_t i) {
+        free_ids.push_back(table[i]);
+        live--;
+        uint64_t j = i;
+        while (true) {
+            j = (j + 1) & mask;
+            int32_t f = table[j];
+            if (f == -1) break;
+            uint64_t home = slab[f].hash & mask;
+            bool stays = i <= j ? (i < home && home <= j)
+                                : (i < home || home <= j);
+            if (!stays) {
+                table[i] = f;
+                i = j;
+            }
+        }
+        table[i] = -1;
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* sg_store_new() { return new EdgeStore(); }
+void sg_store_free(void* h) { delete (EdgeStore*)h; }
+
+int64_t sg_store_size(void* h) {
+    return ((EdgeStore*)h)->size.load(std::memory_order_relaxed);
+}
+
+// FIFO entries queued, matched keys' included (they leave when due)
+int64_t sg_store_pending(void* h) { return (int64_t)((EdgeStore*)h)->fifo.size(); }
+
+// Pair the CLIENT/PRODUCER and SERVER/CONSUMER spans of rows [0, n) in row
+// order (rows with valid 0 or another kind are skipped). A span whose key
+// holds the other side completes an edge, and that half-edge leaves the
+// store. Otherwise the span is stored under its key, replacing a same-side
+// half-edge there, with a FIFO entry at `expire_at`, unless the store holds
+// `max_items` or more half-edges: then it is dropped and the old one stays.
+// Completed edges go to the out columns (capacity n) in completion order:
+// client and server service, connection (0 plain, 1 messaging: either side
+// a PRODUCER or CONSUMER), client and server seconds, failed (either side
+// STATUS_ERROR), messaging delay max(0, server start - client start) in
+// seconds. `dropped` gets the spans dropped. Returns the number of edges.
+int64_t sg_match(void* h, int64_t n, const uint8_t* trace_id,
+                 const uint8_t* span_id, const uint8_t* parent_id,
+                 const int32_t* kind, const uint8_t* valid,
+                 const int32_t* service, const int64_t* start_ns,
+                 const int64_t* end_ns, const int32_t* status,
+                 const int32_t* peer, double expire_at, int64_t max_items,
+                 int32_t* out_client, int32_t* out_server, uint8_t* out_conn,
+                 float* out_client_s, float* out_server_s,
+                 uint8_t* out_failed, float* out_delay, int64_t* dropped) {
+    EdgeStore* s = (EdgeStore*)h;
+    int64_t n_edges = 0, n_dropped = 0;
+    uint8_t key[24];
+    for (int64_t r = 0; r < n; r++) {
+        if (!valid[r]) continue;
+        int32_t k = kind[r];
+        bool is_client = k == kSgClient || k == kSgProducer;
+        if (!is_client && k != kSgServer && k != kSgConsumer) continue;
+        bool is_msg = k == kSgProducer || k == kSgConsumer;
+        memcpy(key, trace_id + r * 16, 16);
+        memcpy(key + 16, (is_client ? span_id : parent_id) + r * 8, 8);
+        uint64_t hh = sg_hash(key);
+        // the duration as numpy's int64 column holds it (wrapping)
+        int64_t dur = (int64_t)((uint64_t)end_ns[r] - (uint64_t)start_ns[r]);
+        bool failed = status[r] == kSgStatusError;
+        int64_t at = s->find(key, hh);
+        if (at >= 0 && (bool)s->slab[s->table[at]].is_client != is_client) {
+            SgHalf o = s->slab[s->table[at]];
+            s->erase_at((uint64_t)at);
+            int64_t cli_dur = is_client ? dur : o.dur_ns;
+            int64_t srv_dur = is_client ? o.dur_ns : dur;
+            int64_t cli_start = is_client ? start_ns[r] : o.start_ns;
+            int64_t srv_start = is_client ? o.start_ns : start_ns[r];
+            out_client[n_edges] = is_client ? service[r] : o.service;
+            out_server[n_edges] = is_client ? o.service : service[r];
+            out_conn[n_edges] = (is_msg || o.is_msg) ? 1 : 0;
+            out_client_s[n_edges] = sg_seconds(cli_dur);
+            out_server_s[n_edges] = sg_seconds(srv_dur);
+            out_failed[n_edges] = (failed || o.failed) ? 1 : 0;
+            // the exact difference, rounded once to double
+            double delay = (double)((__int128)srv_start - cli_start) / 1e9;
+            out_delay[n_edges] = (float)(delay > 0.0 ? delay : 0.0);
+            n_edges++;
+            continue;
+        }
+        if (s->live >= max_items) {
+            n_dropped++;
+            continue;
+        }
+        SgHalf& e = at >= 0 ? s->slab[s->table[at]] : s->insert(key, hh);
+        e.dur_ns = dur;
+        e.start_ns = start_ns[r];
+        e.expire_at = expire_at;
+        e.service = service[r];
+        e.peer = peer[r];
+        e.failed = failed;
+        e.is_client = is_client;
+        e.is_msg = is_msg;
+        SgTtl t;
+        t.expire_at = expire_at;
+        memcpy(t.key, key, 24);
+        s->fifo.push_back(t);
+    }
+    s->size.store(s->live, std::memory_order_relaxed);
+    *dropped = n_dropped;
+    return n_edges;
+}
+
+// Sweep the FIFO from its head while its expire_at <= now: a key no longer
+// stored (matched) is skipped, a key whose stored half-edge expires later
+// (stored again since) is queued again at that time, and the rest leave
+// the store and are written, in FIFO order, to the out columns: is_client,
+// service, peer, seconds, failed. Each one written leaves the store, so the
+// store's size on entry is capacity enough; `cap` only guards the columns.
+// Returns the number expired.
+int64_t sg_expire(void* h, double now, int64_t cap, uint8_t* out_is_client,
+                  int32_t* out_service, int32_t* out_peer, float* out_dur_s,
+                  uint8_t* out_failed) {
+    EdgeStore* s = (EdgeStore*)h;
+    int64_t n_out = 0;
+    while (!s->fifo.empty() && s->fifo.front().expire_at <= now) {
+        SgTtl t = s->fifo.front();
+        s->fifo.pop_front();
+        int64_t at = s->find(t.key, sg_hash(t.key));
+        if (at < 0) continue;
+        const SgHalf& e = s->slab[s->table[at]];
+        if (e.expire_at > now) {
+            t.expire_at = e.expire_at;
+            s->fifo.push_back(t);
+            continue;
+        }
+        if (n_out == cap) {
+            s->fifo.push_front(t);
+            break;
+        }
+        out_is_client[n_out] = e.is_client;
+        out_service[n_out] = e.service;
+        out_peer[n_out] = e.peer;
+        out_dur_s[n_out] = sg_seconds(e.dur_ns);
+        out_failed[n_out] = e.failed;
+        n_out++;
+        s->erase_at((uint64_t)at);
+    }
+    s->size.store(s->live, std::memory_order_relaxed);
+    return n_out;
 }
 
 }  // extern "C"

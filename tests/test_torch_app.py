@@ -669,7 +669,10 @@ REF_ONLY = {
 PORT_ONLY = {"tempo_torch_k1_launch_plans_total",
              "tempo_torch_kernel_launches_total",
              "tempo_registry_state_lock_wait_seconds_total",
-             "tempo_registry_state_lock_contended_total"}
+             "tempo_registry_state_lock_contended_total",
+             "tempo_metrics_generator_processor_service_graphs_edges",
+             "tempo_metrics_generator_processor_service_graphs_expired_edges",
+             "tempo_metrics_generator_processor_service_graphs_dropped_spans"}
 
 
 def test_ops_files_reference_only_emitted_metrics(server):
